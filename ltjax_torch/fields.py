@@ -1,0 +1,53 @@
+"""Hydrodynamic record windows (counterpart of ``ltjax.fields``).
+
+Level-resolved fields are stored K-last, (R, eta, xi, K), so a
+particle's water-column gather reads one contiguous K-vector per corner
+node.  ``times`` stays on the host in float64: record times only feed
+host-side interpolation weights.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+
+@dataclass
+class FieldSet:
+    zeta: torch.Tensor   # (R, Ny, Nx)
+    u: torch.Tensor      # (R, Ny, Nx-1, us)
+    v: torch.Tensor      # (R, Ny-1, Nx, us)
+    w: torch.Tensor      # (R, Ny, Nx, ws)
+    aks: torch.Tensor    # (R, Ny, Nx, ws) vertical diffusivity
+    times: torch.Tensor  # (R,) float64 on the CPU [s since run start]
+
+
+def _klast(a, dtype, device):
+    """(R, K, eta, xi) -> (R, eta, xi, K), materialized contiguous."""
+    a = np.ascontiguousarray(np.moveaxis(np.asarray(a), 1, -1))
+    return torch.as_tensor(a, dtype=dtype, device=device)
+
+
+def make_fieldset(zeta, u, v, w, aks, times, dtype=torch.float32,
+                  device="cpu") -> FieldSet:
+    """Inputs in ROMS record layout (R, K, eta, xi); stored K-last."""
+    return FieldSet(
+        zeta=torch.as_tensor(np.asarray(zeta), dtype=dtype, device=device),
+        u=_klast(u, dtype, device), v=_klast(v, dtype, device),
+        w=_klast(w, dtype, device), aks=_klast(aks, dtype, device),
+        times=torch.as_tensor(np.array(times, np.float64)))
+
+
+def stack_records(recs, t_base, dtype=torch.float32,
+                  device="cpu") -> FieldSet:
+    """R-record FieldSet window from record dicts as produced by
+    ``ltjax.io.roms.RomsSeries.next_record`` (ROMS ([K,] eta, xi)
+    layout, host numpy).  Record e's time is ``rec['time'] - t_base``."""
+    def pile(key):
+        return np.stack([np.asarray(r[key]) for r in recs])
+
+    times = np.asarray([float(r["time"]) - float(t_base) for r in recs])
+    return make_fieldset(pile("zeta"), pile("u"), pile("v"), pile("w"),
+                         pile("aks"), times, dtype=dtype, device=device)

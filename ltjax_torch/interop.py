@@ -1,0 +1,75 @@
+"""State carried across from the JAX package, as dicts of numpy arrays.
+
+The functions take e.g. ``{k: np.asarray(v) for k, v in
+jax_grid._asdict().items()}`` and build the port's containers with the
+same values, so both packages can be fed identical inputs without this
+package importing jax.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from . import state as st
+from .fields import FieldSet
+from .grid import Grid
+from .physics.boundary import Boundaries
+
+
+def _is_none(v) -> bool:
+    return v is None or (isinstance(v, np.ndarray) and v.dtype == object
+                         and v.ndim == 0 and v.item() is None)
+
+
+def _t(v, device, dtype=None):
+    return torch.as_tensor(np.array(v), dtype=dtype,
+                           device=device)
+
+
+def grid_from_numpy(d: dict, device="cpu") -> Grid:
+    """Rectilinear Grid from the fields of an ``ltjax.grid.Grid``."""
+    if not _is_none(d.get("curv")):
+        raise NotImplementedError("curvilinear grids are not ported yet")
+    names = ("x_rho", "y_rho", "x_u", "y_v", "h", "mask_rho", "mask_u",
+             "mask_v", "s_rho", "Cs_r", "s_w", "Cs_w")
+    return Grid(**{k: _t(d[k], device) for k in names},
+                hc=float(np.asarray(d["hc"])),
+                vtransform=int(np.asarray(d["vtransform"])),
+                uniform=bool(np.asarray(d.get("uniform", False))))
+
+
+def boundaries_from_numpy(d: dict, device="cpu") -> Boundaries:
+    """Boundaries from the fields of an ``ltjax.physics.boundary
+    .Boundaries`` (rectilinear)."""
+    if not _is_none(d.get("curv")):
+        raise NotImplementedError("curvilinear boundaries are not ported")
+    xe = np.asarray(d["x_edges"], np.float64)
+    ye = np.asarray(d["y_edges"], np.float64)
+    return Boundaries(
+        seg_a=_t(d["seg_a"], device), seg_b=_t(d["seg_b"], device),
+        seg_kind=_t(d["seg_kind"], device), bucket=_t(d["bucket"], device),
+        x_edges=_t(xe, device), y_edges=_t(ye, device),
+        water=_t(d["water"], device, torch.int32),
+        cell_rows=_t(d["cell_rows"], device),
+        uniform=bool(np.asarray(d["uniform"])),
+        edges=(float(xe[0]), float(xe[1] - xe[0]), float(ye[0]),
+               float(ye[1] - ye[0]), float(xe[-1]), float(ye[-1])))
+
+
+def fieldset_from_numpy(d: dict, device="cpu") -> FieldSet:
+    """FieldSet from the fields of an ``ltjax.fields.FieldSet`` (K-last
+    layout already); record times go to a host float64 tensor."""
+    names = ("zeta", "u", "v", "w", "aks")
+    return FieldSet(**{k: _t(d[k], device) for k in names},
+                    times=torch.as_tensor(np.array(d["times"],
+                                                     np.float64)))
+
+
+def particles_from_numpy(d: dict, device="cpu") -> st.Particles:
+    """Particles from the 12 columns of an ``ltjax.state.Particles``."""
+    return st.Particles(**{k: _t(d[k], device) for k in st.FIELDS})
+
+
+def particles_to_numpy(p: st.Particles) -> dict:
+    return {k: getattr(p, k).cpu().numpy() for k in st.FIELDS}

@@ -1,0 +1,425 @@
+// Whole-external-step advection kernel for Hopper (sm_90a).
+//
+// Replaces ltjax/kernels/ext_step.py::ext_step_fused (the Pallas TPU
+// megakernel), advection lanes only: DOB release, four RK4
+// find_currents stages per internal step (quadratic time collapse of
+// the three raw records, bilinear blend, natural tension-spline fit and
+// clamped evaluation of u/v on the rho ladder and w on the w ladder,
+// log-layer decay of u/v), horizontal specular reflection with open
+// boundary exits and the tunnel/displacement guards of
+// ltjax.physics.boundary.reflect, vertical reflection about zeta/h at
+// t+idt, and the status lattice.  Turbulence, behaviors, settlement,
+// salt sampling and curvilinear grids are not here yet.
+//
+// Design.  One thread per particle, 128 threads a block, one launch per
+// external step; the n_int internal steps run inside the thread with
+// x, y, z and status in registers.  Every stage gathers the 4 corner
+// rows x 3 records x nv lanes straight from device memory (the TPU
+// kernel's VMEM windows, one-hot MXU blends and out-of-window patch
+// have no purpose here: no particle can miss a window).  The vertical
+// fit streams the levels: knots and blended values are computed level
+// by level inside the Thomas forward sweep, so only the sweep's cp/dp
+// columns live in local memory (MAX_LEVELS floats each); the evaluation
+// interval is captured on the fly and the backward sweep stops there.
+//
+// What bounds it.  Gathers: 4 x 3 x nv floats per stage (nv = 2us+ws+2;
+// ~3 KB per stage at us = 20).  The record table is 3*Ny*Nx*nv*4 bytes:
+// 30 MB for the 200x200x20 bench grid, which fits the 50 MB L2; a
+// production 800x600x25 grid (~420 MB) does not, and then every stage
+// reads device memory.  The Hilbert sort of the caller (once per
+// ext_sort_every external steps) is kept for L1/L2 locality:
+// neighbouring threads read neighbouring cell rows.
+//
+// Arithmetic mirrors the plain PyTorch version (ltjax_torch.packed and
+// ltjax_torch.physics.boundary) operation for operation: IEEE divides
+// (not reciprocals), the same collapse-then-blend order and the same
+// small-tension series; differences are f32 round-off and FMA
+// contraction.
+
+#include <cuda_runtime.h>
+#include <math.h>
+
+#define MAX_LEVELS 64
+
+// params head (f32); must match ltjax_torch/kernels/ext_step.py
+enum {
+  P_X0 = 0, P_DX, P_Y0, P_DY,          // rho axes: origin, spacing
+  P_BX0, P_BDX, P_BY0, P_BDY,          // boundary cell-edge axes
+  P_BX1, P_BY1,                        // last cell edges (domain box)
+  P_HC, P_Z0M, P_T0, P_IDT, P_SIGMA,
+  P_HEAD = 16                          // then s_rho, Cs_r, s_w, Cs_w,
+                                       // then 9 polintd weights per step
+};
+
+enum { NOT_RELEASED = 0, ACTIVE = 1, OUT_OF_DOMAIN = 4, ERROR = 5 };
+enum { LAND = 0, OPEN = 1 };
+
+struct Args {
+  const float* __restrict__ rtab;   // (3, C, nv) raw record value lanes
+  const float* __restrict__ brows;  // (C, bl) boundary cell rows
+  const float* __restrict__ par;    // head + ladders + weights
+  int nx, ny, us, ws, nv, vt, n_int, n_iter, open_exits, s_max, bl;
+  long long C;
+};
+
+struct Tension {            // static-sigma spline constants of one thread
+  float sigma, small;       // small: series/exact crossover (f32: 0.5)
+  bool cubic;
+};
+
+__device__ __forceinline__ float gs_fn(const Tension& T, float B) {
+  if (T.cubic) return (B * B * B - B) / 6.0f;
+  float u = T.sigma;
+  if (u < T.small) {
+    float u2 = u * u, B2 = B * B;
+    float c = u2 / 6.0f + u2 * u2 / 120.0f + u2 * u2 * u2 / 5040.0f;
+    return B * ((B2 - 1.0f) / 6.0f + u2 * (B2 * B2 - 1.0f) / 120.0f
+                + u2 * u2 * (B2 * B2 * B2 - 1.0f) / 5040.0f) / (1.0f + c);
+  }
+  float ratio = expf(u * (B - 1.0f)) * (-expm1f(-2.0f * u * B))
+                / (-expm1f(-2.0f * u));
+  return (ratio - B) / (u * u);
+}
+
+// tridiagonal coefficients (off, diag) of one interval of width h
+__device__ __forceinline__ void coefs(const Tension& T, float h,
+                                      float& off, float& dia) {
+  float u = T.sigma;
+  if (u < T.small) {
+    float u2 = u * u;
+    off = h * (1.0f / 6.0f - 7.0f * u2 / 360.0f + 31.0f * u2 * u2 / 15120.0f);
+    dia = h * (1.0f / 3.0f - u2 / 45.0f + 2.0f * u2 * u2 / 945.0f);
+    return;
+  }
+  float em = -expm1f(-2.0f * u);
+  float u_over_sinh = 2.0f * u * expf(-u) / em;
+  float u_coth = u * (1.0f + expf(-2.0f * u)) / em;
+  off = (h / (u * u)) * (1.0f - u_over_sinh);
+  dia = (h / (u * u)) * (u_coth - 1.0f);
+}
+
+// bilinear corner rows + weights of one position on the rho lattice
+struct Stencil {
+  long long r00, r01, r10, r11;
+  float fx, fy;
+};
+
+__device__ __forceinline__ Stencil locate(const Args& a, float x, float y) {
+  const float* par = a.par;
+  float tx = (x - par[P_X0]) / par[P_DX];
+  float ty = (y - par[P_Y0]) / par[P_DY];
+  int i = min(max((int)floorf(tx), 0), a.nx - 2);
+  int j = min(max((int)floorf(ty), 0), a.ny - 2);
+  Stencil s;
+  s.fx = fminf(fmaxf(tx - (float)i, 0.0f), 1.0f);
+  s.fy = fminf(fmaxf(ty - (float)j, 0.0f), 1.0f);
+  s.r00 = ((long long)j * a.nx + i) * a.nv;
+  s.r01 = s.r00 + a.nv;
+  s.r10 = s.r00 + (long long)a.nx * a.nv;
+  s.r11 = s.r10 + a.nv;
+  return s;
+}
+
+// lane k of the time-collapsed, bilinearly blended table at stencil s
+__device__ __forceinline__ float lane(const Args& a, const Stencil& s,
+                                      const float* l, int k) {
+  const long long R = a.C * a.nv;
+  const float* t0 = a.rtab + k;
+  const float* t1 = t0 + R;
+  const float* t2 = t1 + R;
+  float c00 = t0[s.r00] * l[0] + t1[s.r00] * l[1] + t2[s.r00] * l[2];
+  float c01 = t0[s.r01] * l[0] + t1[s.r01] * l[1] + t2[s.r01] * l[2];
+  float c10 = t0[s.r10] * l[0] + t1[s.r10] * l[1] + t2[s.r10] * l[2];
+  float c11 = t0[s.r11] * l[0] + t1[s.r11] * l[1] + t2[s.r11] * l[2];
+  return (c00 * (1.0f - s.fx) + c01 * s.fx) * (1.0f - s.fy)
+         + (c10 * (1.0f - s.fx) + c11 * s.fx) * s.fy;
+}
+
+// s-level depth of knot (s, cs) in a column with surface zeta, depth h
+__device__ __forceinline__ float knot(const Args& a, float s, float cs,
+                                      float zeta, float h) {
+  float hc = a.par[P_HC];
+  if (a.vt == 1) {
+    float z0 = hc * s + (h - hc) * cs;
+    return z0 + zeta * (1.0f + z0 / h);
+  }
+  float s_ = (hc * s + h * cs) / (hc + h);
+  return zeta + (zeta + h) * s_;
+}
+
+// Natural tension-spline fit of up to two profiles sharing one knot
+// ladder (lanes lane0 [, lane1]) and clamped evaluation at zq.
+// Returns the first knot depth through z_first (log layer).
+__device__ void fit_eval(const Args& a, const Tension& T, const Stencil& st,
+                         const float* l, const float* s_lad,
+                         const float* cs_lad, int K, int lane0, int lane1,
+                         float zeta, float h, float zq,
+                         float* cp, float* dp0, float* dp1,
+                         float& out0, float& out1, float& z_first) {
+  const bool two = lane1 >= 0;
+  float zprev = knot(a, s_lad[0], cs_lad[0], zeta, h);
+  float y0prev = lane(a, st, l, lane0);
+  float y1prev = two ? lane(a, st, l, lane1) : 0.0f;
+  z_first = zprev;
+  cp[0] = 0.0f; dp0[0] = 0.0f; dp1[0] = 0.0f;
+  // evaluation interval j (left/right knots and values), captured on
+  // the fly: the last k <= K-2 with zq >= z_k, or 0
+  int j = 0;
+  float zl = zprev, y0l = y0prev, y1l = y1prev;
+  float zr = zprev, y0r = y0prev, y1r = y1prev;
+  float offp = 0.0f, diap = 0.0f, dy0p = 0.0f, dy1p = 0.0f;
+  float zlast = zprev;
+  for (int k = 1; k < K; ++k) {
+    float zk = knot(a, s_lad[k], cs_lad[k], zeta, h);
+    float y0k = lane(a, st, l, lane0 + k);
+    float y1k = two ? lane(a, st, l, lane1 + k) : 0.0f;
+    float hk = zk - zprev;                       // interval k-1
+    float dy0 = (y0k - y0prev) / hk;
+    float dy1 = two ? (y1k - y1prev) / hk : 0.0f;
+    float offc, diac;
+    coefs(T, hk, offc, diac);
+    if (k >= 2) {                                // Thomas row i = k-1
+      int i = k - 1;
+      float denom = (diap + diac) - offp * cp[i - 1];
+      cp[i] = offc / denom;
+      dp0[i] = ((dy0 - dy0p) - offp * dp0[i - 1]) / denom;
+      if (two) dp1[i] = ((dy1 - dy1p) - offp * dp1[i - 1]) / denom;
+    }
+    if (k == j + 1) { zr = zk; y0r = y0k; y1r = y1k; }
+    if (k <= K - 2 && zq >= zk) { j = k; zl = zk; y0l = y0k; y1l = y1k; }
+    zprev = zk; y0prev = y0k; y1prev = y1k;
+    offp = offc; diap = diac; dy0p = dy0; dy1p = dy1;
+    zlast = zk;
+  }
+  // backward sweep from the natural end (z2[K-1] = 0) down to j
+  float x0 = 0.0f, x1 = 0.0f;
+  float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
+  for (int i = K - 2; i >= j; --i) {
+    x0 = dp0[i] - cp[i] * x0;
+    if (two) x1 = dp1[i] - cp[i] * x1;
+    if (i == j + 1) { s01 = x0; s11 = x1; }
+    if (i == j) { s00 = x0; s10 = x1; }
+  }
+  float zc = fminf(fmaxf(zq, z_first), zlast);
+  float hh = zr - zl;
+  float B2 = (zc - zl) / hh;
+  float B1 = 1.0f - B2;
+  float g1 = gs_fn(T, B1), g2 = gs_fn(T, B2);
+  out0 = y0l * B1 + y0r * B2 + hh * hh * (s00 * g1 + s01 * g2);
+  out1 = y1l * B1 + y1r * B2 + hh * hh * (s10 * g1 + s11 * g2);
+}
+
+// find_currents at (x, y, z) from the records collapsed with weights l
+__device__ void find_currents(const Args& a, const Tension& T, const float* l,
+                              float x, float y, float z,
+                              float* cp, float* dp0, float* dp1,
+                              float& u, float& v, float& w) {
+  const float* par = a.par;
+  Stencil st = locate(a, x, y);
+  float zeta = lane(a, st, l, a.nv - 2);
+  float h = lane(a, st, l, a.nv - 1);
+  const float* s_r = par + P_HEAD;
+  const float* cs_r = s_r + a.us;
+  const float* s_w = cs_r + a.us;
+  const float* cs_w = s_w + a.ws;
+  float zr0, zw0, dummy;
+  fit_eval(a, T, st, l, s_r, cs_r, a.us, 0, a.us, zeta, h, z,
+           cp, dp0, dp1, u, v, zr0);
+  fit_eval(a, T, st, l, s_w, cs_w, a.ws, 2 * a.us, -1, zeta, h, z,
+           cp, dp0, dp1, w, dummy, zw0);
+  // near-bottom log layer on u and v
+  float z0m = par[P_Z0M];
+  float zab = z + h;
+  float ztb = fmaxf(zr0 + h, 2.0f * z0m);
+  float decay = logf(fmaxf(zab, z0m) / z0m) / logf(ztb / z0m);
+  float factor = zab < ztb ? fminf(fmaxf(decay, 0.0f), 1.0f) : 1.0f;
+  u *= factor;
+  v *= factor;
+}
+
+__device__ __forceinline__ const float* cell_row(const Args& a, float x,
+                                                 float y) {
+  const float* par = a.par;
+  int i = (int)floorf((x - par[P_BX0]) / par[P_BDX]);
+  int j = (int)floorf((y - par[P_BY0]) / par[P_BDY]);
+  i = min(max(i, 0), a.nx - 1);
+  j = min(max(j, 0), a.ny - 1);
+  return a.brows + ((long long)j * a.nx + i) * a.bl;
+}
+
+__device__ __forceinline__ bool in_water(const Args& a, float x, float y) {
+  const float* par = a.par;
+  bool inside = (x >= par[P_BX0]) && (x <= par[P_BX1])
+                && (y >= par[P_BY0]) && (y <= par[P_BY1]);
+  return inside && cell_row(a, x, y)[0] > 0.5f;
+}
+
+// boundary.reflect for one particle: (x0, y0) -> (x1, y1) becomes the
+// reflected endpoint; returns exited/stuck and the land-hit count
+__device__ void reflect(const Args& a, float x0, float y0, float& x1,
+                        float& y1, bool& exited, bool& stuck, int& hits) {
+  const float eps = 1e-6f;
+  float px0 = x0, py0 = y0, px1 = x1, py1 = y1;
+  float ms2x = 0.0f, ms2y = 0.0f;
+  exited = false;
+  hits = 0;
+  for (int it = 0; it < a.n_iter; ++it) {
+    const float* row = cell_row(a, px0, py0);
+    if (it == 0) { ms2x = row[3]; ms2y = row[4]; }
+    float dx = px1 - px0, dy = py1 - py0;
+    float tpm = INFINITY, exf = 0.0f, eyf = 0.0f, kindf = 0.0f;
+    bool any = false;
+    for (int s = 0; s < a.s_max; ++s) {
+      const float* sl = row + 8 + 8 * s;
+      if (!(sl[5] > 0.5f)) continue;
+      float ax = sl[0], ay = sl[1];
+      float ex = sl[2] - ax, ey = sl[3] - ay;
+      float apx = ax - px0, apy = ay - py0;
+      float denom = dx * ey - dy * ex;
+      float dsafe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
+      float tp = (apx * ey - apy * ex) / dsafe;
+      float ts = (apx * dy - apy * dx) / dsafe;
+      bool cross = fabsf(denom) > 1e-30f && tp > 0.0f && tp <= 1.0f
+                   && ts >= 0.0f && ts <= 1.0f;
+      if (cross && tp < tpm) {          // first minimum wins (argmin)
+        tpm = tp; exf = ex; eyf = ey; kindf = sl[4]; any = true;
+      }
+    }
+    bool act = any && !exited;
+    if (!act) continue;
+    float ix = px0 + tpm * (px1 - px0);
+    float iy = py0 + tpm * (py1 - py0);
+    float rx = px1 - ix, ry = py1 - iy;
+    float elen2 = fmaxf(exf * exf + eyf * eyf, 1e-30f);
+    float proj = (rx * exf + ry * eyf) / elen2;
+    float rrx = 2.0f * proj * exf - rx;
+    float rry = 2.0f * proj * eyf - ry;
+    int kind = (int)kindf;
+    bool newly_exited = a.open_exits && kind == OPEN;
+    bool do_reflect = a.open_exits ? kind == LAND : true;
+    if (do_reflect) {
+      float nrm = sqrtf(fmaxf(rrx * rrx + rry * rry, 1e-30f));
+      px0 = ix + eps * rrx / nrm;
+      py0 = iy + eps * rry / nrm;
+      px1 = ix + rrx;
+      py1 = iy + rry;
+      if (kind == LAND) hits += 1;
+    }
+    if (newly_exited) { px1 = ix; py1 = iy; exited = true; }
+  }
+  stuck = !exited && !in_water(a, px1, py1);
+  // tunnel guard on the straight path of non-interacting particles
+  if (hits == 0 && !exited && !stuck
+      && !in_water(a, 0.5f * (x0 + px1), 0.5f * (y0 + py1)))
+    stuck = true;
+  // displacement guard: per-axis reach of the pre-move cell's bucket
+  float ddx = x1 - x0, ddy = y1 - y0;
+  if (!exited && (ddx * ddx > ms2x || ddy * ddy > ms2y)) stuck = true;
+  x1 = px1;
+  y1 = py1;
+}
+
+__global__ void __launch_bounds__(128)
+ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
+                const float* __restrict__ y_in,
+                const float* __restrict__ z_in,
+                const float* __restrict__ dob_in,
+                const int* __restrict__ st_in,
+                float* __restrict__ x_out, float* __restrict__ y_out,
+                float* __restrict__ z_out, int* __restrict__ st_out,
+                int* __restrict__ hitl_out, int* __restrict__ hitb_out) {
+  int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= n) return;
+  const float* par = a.par;
+  Tension T;
+  T.sigma = par[P_SIGMA];
+  T.small = 0.5f;
+  T.cubic = T.sigma == 0.0f;
+  float cp[MAX_LEVELS], dp0[MAX_LEVELS], dp1[MAX_LEVELS];
+
+  float x = x_in[p], y = y_in[p], z = z_in[p], dob = dob_in[p];
+  int st = st_in[p];
+  int hitl = 0, hitb = 0;
+  const float idt = par[P_IDT];
+  const float half = 0.5f * idt;
+  const float sixth = idt / 6.0f;
+  const float* coef = par + P_HEAD + 2 * (a.us + a.ws);
+
+  for (int i = 0; i < a.n_int; ++i) {
+    float t_i = par[P_T0] + (float)i * idt;
+    if (st == NOT_RELEASED && t_i >= dob) st = ACTIVE;
+    if (st != ACTIVE) continue;
+    const float* l = coef + 9 * i;        // stage weights: t, t+idt/2, t+idt
+    float u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
+    find_currents(a, T, l, x, y, z, cp, dp0, dp1, u1, v1, w1);
+    find_currents(a, T, l + 3, x + u1 * half, y + v1 * half, z + w1 * half,
+                  cp, dp0, dp1, u2, v2, w2);
+    find_currents(a, T, l + 3, x + u2 * half, y + v2 * half, z + w2 * half,
+                  cp, dp0, dp1, u3, v3, w3);
+    find_currents(a, T, l + 6, x + u3 * idt, y + v3 * idt, z + w3 * idt,
+                  cp, dp0, dp1, u4, v4, w4);
+    float x1 = x + sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
+    float y1 = y + sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
+    float z1 = z + sixth * (w1 + 2.0f * w2 + 2.0f * w3 + w4);
+
+    bool exited, stuck;
+    int hits;
+    reflect(a, x, y, x1, y1, exited, stuck, hits);
+
+    // vertical reflection about zeta/h of the new column at t + idt
+    Stencil s4 = locate(a, x1, y1);
+    float zeta = lane(a, s4, l + 6, a.nv - 2);
+    float h = lane(a, s4, l + 6, a.nv - 1);
+    bool above = z1 > zeta;
+    float za = above ? 2.0f * zeta - z1 : z1;
+    bool below = za < -h;
+    float zb = below ? -2.0f * h - za : za;
+
+    x = x1;
+    y = y1;
+    z = fminf(fmaxf(zb, -h), zeta);
+    hitl += hits;
+    hitb += below ? 1 : 0;
+    if (exited) st = OUT_OF_DOMAIN;
+    if (stuck) st = ERROR;
+  }
+  x_out[p] = x;
+  y_out[p] = y;
+  z_out[p] = z;
+  st_out[p] = st;
+  hitl_out[p] = hitl;
+  hitb_out[p] = hitb;
+}
+
+extern "C" int ltx_ext_step(
+    const float* rtab, const float* brows, const float* params,
+    const float* x, const float* y, const float* z, const float* dob,
+    const int* status, float* x_out, float* y_out, float* z_out,
+    int* st_out, int* hitl_out, int* hitb_out, int n, int nx, int ny,
+    int us, int ws, int vtransform, int n_int, int n_iter, int open_exits,
+    int s_max, void* stream) {
+  if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  if (n <= 0) return 0;
+  Args a;
+  a.rtab = rtab;
+  a.brows = brows;
+  a.par = params;
+  a.nx = nx;
+  a.ny = ny;
+  a.us = us;
+  a.ws = ws;
+  a.nv = 2 * us + ws + 2;
+  a.vt = vtransform;
+  a.n_int = n_int;
+  a.n_iter = n_iter;
+  a.open_exits = open_exits;
+  a.s_max = s_max;
+  a.bl = 8 + 8 * s_max;
+  a.C = (long long)nx * ny;
+  int threads = 128;
+  int blocks = (n + threads - 1) / threads;
+  ext_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      a, n, x, y, z, dob, status, x_out, y_out, z_out, st_out, hitl_out,
+      hitb_out);
+  return (int)cudaGetLastError();
+}

@@ -1,0 +1,232 @@
+"""Run driver: init -> external-step loop -> output (single device).
+
+Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
+
+    python -m ltjax_torch.run path/to/LTRANS.data
+
+The namelist is the reference's own ``LTRANS.data`` (read by
+``ltjax.config``).  The run takes the CUDA kernel path on a GPU
+(``dtype_pos = "float32"`` required there) and the plain PyTorch path on
+the CPU; the first stdout line is a JSON object naming the path taken,
+then one JSON line per chunk of external steps with status counts and
+particle-steps/s.  History files must be NetCDF3 unless ``h5py`` is
+installed (``ltjax.io.nc``).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import sys
+import time
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from ltjax.config import Config, config_from_namelist
+from ltjax.io.nc import NCFile
+from ltjax.io.roms import (RomsGridData, RomsSeries, _coord_2d, _find,
+                           _GRID_NAMES, is_rectilinear, read_grid)
+
+from . import convert
+from . import state as st
+from .fields import stack_records
+from .grid import Grid, make_grid
+from .out.writer import TrajectoryWriter
+from .physics import boundary as bd
+from .step import (StepContext, check_supported, make_fused_external_steps,
+                   summary_counts)
+
+
+def build_context(cfg: Config, grid: Grid) -> StepContext:
+    """Boundaries from the land mask; the grid rim is OPEN (whether it
+    exits or reflects is cfg.OpenOceanBoundary's call at reflect time)."""
+    bounds = bd.build_boundaries(grid.mask_rho.cpu().numpy(),
+                                 grid.x_rho.cpu().numpy(),
+                                 grid.y_rho.cpu().numpy(),
+                                 closed_edges=False, device=grid.device)
+    return StepContext(grid=grid, bounds=bounds)
+
+
+def rho_axes_from_grid(gd: RomsGridData, cfg: Config):
+    """1-D metre axes of a rectilinear grid (geographic axes projected
+    about (lonmin, latmin) at the domain's mid latitude)."""
+    lon2, lat2 = _coord_2d(gd)
+    lon_axis = lon2[0, :]
+    lat_axis = lat2[:, 0]
+    if gd.geographic:
+        x = convert.lon2x(lon_axis, np.full_like(lon_axis, lat_axis.mean()),
+                          cfg.lonmin, cfg.latmin, cfg.Earth_Radius,
+                          cfg.SphericalProjection)
+        y = convert.lat2y(lat_axis, cfg.latmin, cfg.Earth_Radius,
+                          cfg.SphericalProjection)
+    else:
+        x, y = lon_axis, lat_axis
+    return np.asarray(x, np.float64), np.asarray(y, np.float64)
+
+
+def grid_from_roms(gd: RomsGridData, cfg: Config, dtype, device) -> Grid:
+    if not is_rectilinear(gd):
+        raise NotImplementedError("curvilinear ROMS grids are not ported "
+                                  "to ltjax_torch yet")
+    x_axis, y_axis = rho_axes_from_grid(gd, cfg)
+    return make_grid(x_axis, y_axis, gd.h, gd.mask_rho, gd.s_rho, gd.Cs_r,
+                     gd.s_w, gd.Cs_w, gd.hc, gd.vtransform, dtype=dtype,
+                     device=device)
+
+
+def load_grid(cfg: Config, device) -> Grid:
+    hist = RomsSeries(cfg).path_for(0) if cfg.dirin else None
+    has_levels = False
+    for path in (cfg.NCgridfile, hist):
+        if path and os.path.exists(path):
+            nc = NCFile(path)
+            has_levels |= _find(nc, _GRID_NAMES["s_rho"]) is not None
+            nc.close()
+    if not has_levels:
+        # ltjax.io.roms would synthesize uniform levels through ltjax.grid
+        raise NotImplementedError("grid/history files without s_rho: "
+                                  "uniform-level synthesis is not ported")
+    gd = read_grid(cfg.NCgridfile, cfg, hist_path=hist)
+    return grid_from_roms(gd, cfg, getattr(torch, cfg.dtype_pos), device)
+
+
+def init_particles_from_parfile(cfg: Config, device) -> st.Particles:
+    arr = st.read_parfile(cfg.parfile)
+    lon, lat, depth, dob = arr[:, 0], arr[:, 1], arr[:, 2], arr[:, 3]
+    x = convert.lon2x(lon, lat, cfg.lonmin, cfg.latmin, cfg.Earth_Radius,
+                      cfg.SphericalProjection)
+    y = convert.lat2y(lat, cfg.latmin, cfg.Earth_Radius,
+                      cfg.SphericalProjection)
+    return st.init_particles(x, y, -np.abs(depth), dob,
+                             dtype=getattr(torch, cfg.dtype_pos),
+                             device=device)
+
+
+class Timing:
+    """WriteModelTiming analog: cumulative per-phase wall clock."""
+
+    def __init__(self):
+        self.acc = {}
+
+    def add(self, phase: str, dt: float):
+        self.acc[phase] = self.acc.get(phase, 0.0) + dt
+
+    def summary(self):
+        return dict(sorted(self.acc.items()))
+
+
+def run(cfg: Config, resume: bool = False, device=None,
+        series_paths: Optional[List[str]] = None) -> st.Particles:
+    """Run the configured simulation; returns the final particles."""
+    cfg.validate()
+    device = torch.device(device if device is not None else
+                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    timing = Timing()
+    t0 = time.perf_counter()
+    grid = load_grid(cfg, device)
+    ctx = build_context(cfg, grid)
+    check_supported(cfg, ctx, resume=resume)
+    if cfg.BoundaryBLNs:
+        raise NotImplementedError("BoundaryBLNs: not ported yet")
+    series = RomsSeries(cfg, paths=series_paths)
+    if cfg.WriteParfile and cfg.parfile:
+        os.makedirs(cfg.outpath, exist_ok=True)
+        shutil.copyfile(cfg.parfile,
+                        os.path.join(cfg.outpath, "parfile_echo.csv"))
+    particles = init_particles_from_parfile(cfg, device)
+
+    # --- prime the record window (initHydro) -----------------------------
+    window: List[dict] = [series.next_record() for _ in range(3)]
+    global_rec = 3
+    win_start = 0
+    t_base = window[0]["time"]
+    timing.add("hydro_init", time.perf_counter() - t0)
+
+    n_fuse = max(1, cfg.ext_fuse)
+    print(json.dumps({
+        "path": "cuda_ext_step" if device.type == "cuda" else "plain",
+        "device": (torch.cuda.get_device_name(device)
+                   if device.type == "cuda" else "cpu"),
+        "uniform": bool(grid.uniform), "numpar": particles.n,
+        "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse}), flush=True)
+
+    writer = TrajectoryWriter(cfg)
+    fused_cache = {}
+    field_dtype = getattr(torch, cfg.dtype_field)
+    n_ext = cfg.external_steps
+    out_every = cfg.output_every_ext
+    writer.snapshot(0.0, particles)
+    exhausted = False
+    try:
+        ext = 0
+        while ext < n_ext:
+            # --- chunk size: never straddle an output point ---------------
+            E = min(n_fuse, n_ext - ext, out_every - (ext % out_every))
+
+            # --- updateHydro: extend the window to record ext+E+1 --------
+            tw = time.perf_counter()
+            while global_rec - 1 < ext + E + 1 and not exhausted:
+                rec = series.next_record()
+                if rec is None:
+                    exhausted = True
+                    break
+                window.append(rec)
+                global_rec += 1
+            if exhausted:
+                E = min(E, global_rec - 2 - ext)
+                if E < 1:
+                    print(json.dumps({"event": "series_exhausted",
+                                      "ext": ext}))
+                    break
+            while win_start < ext:                  # drop stale records
+                window.pop(0)
+                win_start += 1
+            fsW = stack_records(window[:E + 2], t_base, field_dtype, device)
+            timing.add("hydro_read", time.perf_counter() - tw)
+
+            # --- compute E external steps --------------------------------
+            tc = time.perf_counter()
+            t_ext = float(ext * cfg.dt)
+            if E not in fused_cache:
+                fused_cache[E] = make_fused_external_steps(ctx, cfg, E)
+            particles = fused_cache[E](particles, fsW, t_ext, ext)
+            counts = summary_counts(particles)      # waits for the device
+            step_s = time.perf_counter() - tc
+            timing.add("compute", step_s)
+            ext += E
+            if cfg.ErrorFlag == 0 and counts["error"] > 0:
+                raise RuntimeError(
+                    f"{counts['error']} particles hit location/"
+                    f"interpolation errors at ext step {ext - 1} "
+                    f"(ErrorFlag=0 halts; set ErrorFlag>0 to continue)")
+            if ext % out_every == 0:
+                to = time.perf_counter()
+                writer.snapshot(t_ext + E * cfg.dt, particles)
+                timing.add("output", time.perf_counter() - to)
+            log = {"ext": ext - E, "n_fused": E, "sim_t": t_ext + E * cfg.dt,
+                   "steps_per_s": particles.n * cfg.internal_steps * E
+                   / step_s}
+            log.update(counts)
+            print(json.dumps(log), flush=True)
+    finally:
+        writer.close()
+        series.close()
+    if cfg.WriteModelTiming:
+        print(json.dumps({"timing": timing.summary()}))
+    return particles
+
+
+def main(argv=None):
+    argv = argv if argv is not None else sys.argv[1:]
+    if not argv:
+        print("usage: python -m ltjax_torch.run LTRANS.data")
+        return 2
+    run(config_from_namelist(argv[0]), resume="--resume" in argv)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,268 @@
+"""Synthetic analytic ROMS-like test cases (counterpart of
+``ltjax.synth``, rectilinear cases).
+
+Solid-body rotation with linear vertical shear and a linear time ramp,
+
+    u = -Omega (y - yc) (1 + a z) (1 + b t),  v = Omega (x - xc) (1 + a z)
+    (1 + b t),  w = 0,  zeta = 0,
+
+is exactly representable by the interpolation stack (bilinear, spline
+of linear data, quadratic in time), so the only discrepancy from the
+closed-form trajectory
+
+    theta(t) = theta0 + Omega (1 + a zp) (t + b t^2 / 2)
+
+is RK4 truncation (and float32 round-off in float32 runs).
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass, replace
+
+import numpy as np
+import torch
+
+from . import convert
+from .fields import FieldSet, make_fieldset
+from .grid import (Grid, make_grid, song_haidvogel_cs,
+                   uniform_sigma_levels)
+from .scoord import s_depths
+
+
+@dataclass
+class SolidBodyCase:
+    grid: Grid
+    omega: float
+    xc: float
+    yc: float
+    shear_a: float
+    ramp_b: float
+    h0: float
+
+    def velocity(self, x, y, z, t):
+        f = (1.0 + self.shear_a * z) * (1.0 + self.ramp_b * t)
+        u = -self.omega * (y - self.yc) * f
+        v = self.omega * (x - self.xc) * f
+        return u, v, np.zeros_like(u)
+
+    def analytic(self, x0, y0, z0, t):
+        """Exact particle position at time t (started at t=0)."""
+        r = np.hypot(x0 - self.xc, y0 - self.yc)
+        th0 = np.arctan2(y0 - self.yc, x0 - self.xc)
+        th = th0 + self.omega * (1.0 + self.shear_a * z0) * (
+            t + self.ramp_b * t * t / 2.0)
+        return (self.xc + r * np.cos(th), self.yc + r * np.sin(th),
+                np.full_like(np.asarray(th, np.float64), z0,
+                             dtype=np.float64))
+
+    def slabs(self, t):
+        """Field arrays at record time t, in (level, eta, xi) layout."""
+        g = self.grid
+        nx, ny, us, ws = g.nx, g.ny, g.us, g.ws
+
+        def host(a):
+            return a.cpu().numpy()
+
+        x_rho, y_rho, h = host(g.x_rho), host(g.y_rho), host(g.h)
+        z_r = s_depths(np.zeros_like(h), h, host(g.s_rho), host(g.Cs_r),
+                       g.hc, g.vtransform)
+        z_r = np.moveaxis(z_r, -1, 0)                 # (us, ny, nx)
+        ramp = 1.0 + self.ramp_b * t
+        u = (-self.omega * (y_rho[:, None] - self.yc) * ramp)[None]
+        u = np.broadcast_to(u, (us, ny, 1)) * (
+            1.0 + self.shear_a * 0.5 * (z_r[:, :, 1:] + z_r[:, :, :-1]))
+        v = (self.omega * (x_rho[None, :] - self.xc) * ramp)[None]
+        v = np.broadcast_to(v, (us, 1, nx)) * (
+            1.0 + self.shear_a * 0.5 * (z_r[:, 1:, :] + z_r[:, :-1, :]))
+        w = np.zeros((ws, ny, nx))
+        return dict(zeta=np.zeros((ny, nx)), u=np.ascontiguousarray(u),
+                    v=np.ascontiguousarray(v), w=w, aks=np.zeros_like(w))
+
+
+def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
+                         h0=50.0, omega=1e-4, shear_a=0.0, ramp_b=0.0,
+                         vtransform=1, theta_s=0.0, dtype=torch.float64,
+                         device="cpu", mask=None) -> SolidBodyCase:
+    """Solid-body rotation about the domain centre on a uniform grid.
+
+    hc = h0 and Cs = s (theta_s = 0) make the Vtransform-1 levels
+    z = h*s exactly; theta_s > 0 stretches the ladder.  ``mask`` (Ny, Nx)
+    marks land cells (0)."""
+    x_rho = np.linspace(0.0, lx, nx)
+    y_rho = np.linspace(0.0, ly, ny)
+    h = np.full((ny, nx), h0)
+    if mask is None:
+        mask = np.ones((ny, nx), np.int32)
+    s_rho, s_w = uniform_sigma_levels(us)
+    grid = make_grid(x_rho, y_rho, h, mask, s_rho,
+                     song_haidvogel_cs(s_rho, theta_s), s_w,
+                     song_haidvogel_cs(s_w, theta_s), hc=h0,
+                     vtransform=vtransform, dtype=dtype, device=device)
+    return SolidBodyCase(grid=grid, omega=omega, xc=lx / 2, yc=ly / 2,
+                         shear_a=shear_a, ramp_b=ramp_b, h0=h0)
+
+
+def fieldset_window(case: SolidBodyCase, t_first: float, dt: float,
+                    n_records: int, dtype=torch.float32, device=None):
+    """FieldSet with ``n_records`` records at t_first + k*dt — the
+    (n_fuse + 2)-record window of step.make_fused_external_steps."""
+    if device is None:
+        device = case.grid.device
+    times = [t_first + k * dt for k in range(n_records)]
+    slabs = [case.slabs(t) for t in times]
+
+    def stack(k):
+        return np.stack([s[k] for s in slabs])
+
+    return make_fieldset(stack("zeta"), stack("u"), stack("v"),
+                         stack("w"), stack("aks"), np.asarray(times),
+                         dtype=dtype, device=device)
+
+
+def fieldset_for(case: SolidBodyCase, t_center: float, dt: float,
+                 dtype=torch.float32, device=None):
+    """Triple buffer with records at t_center - dt, t_center,
+    t_center + dt."""
+    return fieldset_window(case, t_center - dt, dt, 3, dtype=dtype,
+                           device=device)
+
+
+def with_vertical_motion(fs: FieldSet, seed: int, w_amp: float = 5e-3,
+                         zeta_std: float = 0.3) -> FieldSet:
+    """``fs`` with a seeded random free surface (normal, std ``zeta_std``
+    m) and vertical velocity (uniform in +-``w_amp`` m/s) at every record,
+    node and w level.  Solid-body rotation has w = 0 and zeta = 0; these
+    fields drive the w-ladder fit, the zeta-moved knots and the surface
+    and bottom reflections.  Not an analytic case."""
+    rng = np.random.default_rng(seed)
+    zeta = zeta_std * rng.standard_normal(tuple(fs.zeta.shape))
+    w = rng.uniform(-w_amp, w_amp, tuple(fs.w.shape))
+    return replace(fs, zeta=torch.as_tensor(zeta, dtype=fs.zeta.dtype,
+                                            device=fs.zeta.device),
+                   w=torch.as_tensor(w, dtype=fs.w.dtype,
+                                     device=fs.w.device))
+
+
+def write_roms_files(case: SolidBodyCase, out_dir: str, n_records: int,
+                     dt: float, records_per_file: int = 4,
+                     prefix: str = "ocean_his_", numdigits: int = 4,
+                     t0: float = 0.0, geographic: bool = False,
+                     lonmin: float = 0.0, latmin: float = 0.0):
+    """Write the case as a numbered multi-file ROMS history series + grid
+    file (NetCDF3).  Returns (grid_path, [history_paths]).  With
+    geographic=True the coordinates are written as lon/lat about
+    (lonmin, latmin) with this package's projection inverse."""
+    from ltjax.io.nc import write_netcdf
+
+    os.makedirs(out_dir, exist_ok=True)
+    g = case.grid
+    nx, ny, us, ws = g.nx, g.ny, g.us, g.ws
+    x2d = np.broadcast_to(g.x_rho.cpu().numpy().astype(np.float64),
+                          (ny, nx))
+    y2d = np.broadcast_to(g.y_rho.cpu().numpy().astype(np.float64)[:, None],
+                          (ny, nx))
+    if geographic:
+        # rectilinear in metres stays rectilinear in degrees: project the
+        # x axis at the mid latitude (as ltjax.io.roms.rho_axes_from_grid)
+        lat2d = convert.y2lat(y2d, latmin)
+        lon2d = convert.x2lon(x2d, np.full_like(x2d, float(y2d.mean())),
+                              lonmin, latmin)
+        coord_vars = {"lon_rho": (("eta_rho", "xi_rho"), lon2d),
+                      "lat_rho": (("eta_rho", "xi_rho"), lat2d)}
+    else:
+        coord_vars = {"x_rho": (("eta_rho", "xi_rho"), x2d),
+                      "y_rho": (("eta_rho", "xi_rho"), y2d)}
+
+    def host(a, dt_=np.float64):
+        return a.cpu().numpy().astype(dt_)
+
+    grid_path = os.path.join(out_dir, "grid.nc")
+    write_netcdf(
+        grid_path,
+        dims={"eta_rho": ny, "xi_rho": nx, "s_rho": us, "s_w": ws},
+        variables={
+            **coord_vars,
+            "mask_rho": (("eta_rho", "xi_rho"), host(g.mask_rho, np.int32)),
+            "h": (("eta_rho", "xi_rho"), host(g.h)),
+            "s_rho": (("s_rho",), host(g.s_rho)),
+            "s_w": (("s_w",), host(g.s_w)),
+            "Cs_r": (("s_rho",), host(g.Cs_r)),
+            "Cs_w": (("s_w",), host(g.Cs_w)),
+            "hc": ((), np.asarray(float(g.hc))),
+            "Vtransform": ((), np.asarray(g.vtransform, np.int32)),
+        })
+
+    hist_paths = []
+    rec = 0
+    fileno = 1
+    while rec < n_records:
+        n_this = min(records_per_file, n_records - rec)
+        times = t0 + dt * np.arange(rec, rec + n_this)
+        slabs = [case.slabs(t) for t in times]
+
+        def stack(k):
+            return np.stack([s[k] for s in slabs]).astype(np.float32)
+
+        path = os.path.join(out_dir, f"{prefix}{fileno:0{numdigits}d}.nc")
+        write_netcdf(
+            path,
+            dims={"ocean_time": n_this, "eta_rho": ny, "xi_rho": nx,
+                  "eta_u": ny, "xi_u": nx - 1, "eta_v": ny - 1,
+                  "xi_v": nx, "s_rho": us, "s_w": ws},
+            variables={
+                "ocean_time": (("ocean_time",), np.asarray(times)),
+                "zeta": (("ocean_time", "eta_rho", "xi_rho"),
+                         stack("zeta")),
+                "u": (("ocean_time", "s_rho", "eta_u", "xi_u"), stack("u")),
+                "v": (("ocean_time", "s_rho", "eta_v", "xi_v"), stack("v")),
+                "w": (("ocean_time", "s_w", "eta_rho", "xi_rho"),
+                      stack("w")),
+                "AKs": (("ocean_time", "s_w", "eta_rho", "xi_rho"),
+                        stack("aks")),
+            })
+        hist_paths.append(path)
+        rec += n_this
+        fileno += 1
+    return grid_path, hist_paths
+
+
+def _nml_value(v) -> str:
+    if isinstance(v, bool):
+        return ".TRUE." if v else ".FALSE."
+    if isinstance(v, str):
+        return f"'{v}'"
+    return repr(v)
+
+
+def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
+                    n_ext: int, dt: int, idt: int, **params) -> str:
+    """Write a complete planar run of ``case``: the ROMS grid + history
+    series (n_ext + 2 records at t = 0, dt, ...), a parfile of the
+    particles (x, y, z) released at t = 0, and an ``LTRANS.data``
+    namelist; extra namelist ``params`` override the defaults.  Returns
+    the namelist path (``python -m ltjax.run`` and ``ltjax_torch.run``
+    both read it)."""
+    write_roms_files(case, out_dir, n_records=n_ext + 2, dt=float(dt))
+    parfile = os.path.join(out_dir, "parfile.csv")
+    rows = np.stack([np.asarray(x, np.float64), np.asarray(y, np.float64),
+                     -np.asarray(z, np.float64), np.zeros(len(x))], axis=1)
+    np.savetxt(parfile, rows, fmt="%.9f", delimiter=",")
+    g = case.grid
+    values = dict(
+        numpar=len(x), days=n_ext * dt / 86400.0, dt=int(dt), idt=int(idt),
+        iprint=int(dt), us=g.us, ws=g.ws, hc=float(g.hc),
+        Vtransform=g.vtransform, SphericalProjection=False, lonmin=0.0,
+        latmin=0.0, NCgridfile=os.path.join(out_dir, "grid.nc"),
+        dirin=out_dir, prefix="ocean_his_", suffix=".nc", filenum=1,
+        numdigits=4, tdim=4, parfile=parfile,
+        outpath=os.path.join(out_dir, "out"), NCOutFile="run1",
+        writeCSV=True, writeNC=False)
+    values.update(params)
+    path = os.path.join(out_dir, "LTRANS.data")
+    with open(path, "w") as f:
+        f.write("&run\n")
+        for k, v in values.items():
+            f.write(f"  {k} = {_nml_value(v)}\n")
+        f.write("/\n")
+    return path

@@ -1,0 +1,185 @@
+"""The CUDA external-step kernel against its plain version (jax-free, so
+it runs on a machine with a GPU and no JAX):
+
+    python -m pytest tests/test_torch_gpu.py -q
+
+Tests marked ``gpu`` need a CUDA device and skip elsewhere (a CUDA
+kernel has no CPU mode); the wrapper's input checks run anywhere.
+Tolerances (float32): horizontal 0.5 m, vertical 1e-3 m; statuses and
+collision counts equal except for at most 0.01% of particles, whose
+reflection decisions may flip on f32 round-off (FMA contraction).  A
+third of the particles start within a metre of the surface and a third
+0.1-1 m above the bottom (the log layer).  The vertical test adds a
+seeded random w and zeta to a ten times slower rotation and compares
+every internal step on its own, from the same state: over many steps
+its trajectories are too sensitive to round-off for any f32 comparison
+(see chip_smoke.py phase 1).
+"""
+from dataclasses import replace
+
+
+import numpy as np
+import pytest
+import torch
+
+from ltjax.config import Config
+from ltjax_torch import packed as pk
+from ltjax_torch import state as st
+from ltjax_torch import synth
+from ltjax_torch.kernels import ext_step as kx
+from ltjax_torch.physics import boundary as bd
+from ltjax_torch.step import StepContext, _sort, make_fused_external_steps
+
+torch.set_num_threads(1)
+
+TOL_H = 0.5
+TOL_V = 1e-3
+
+
+@pytest.fixture
+def gpu():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+def _case(device, vtransform=1, theta_s=0.0, sigma=0.0, n=4096,
+          omega=1e-4):
+    mask = np.ones((41, 41), np.int32)
+    mask[19:22, 30:33] = 0        # x 75-80 km, y 47.5-52.5 km
+    c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                   h0=50.0, omega=omega, shear_a=0.004,
+                                   vtransform=vtransform, theta_s=theta_s,
+                                   dtype=torch.float32, device=device,
+                                   mask=mask)
+    g = c.grid
+    ctx = StepContext(grid=g, bounds=bd.build_boundaries(
+        mask, g.x_rho.cpu().numpy(), g.y_rho.cpu().numpy(), device=device))
+    cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float32",
+                 reflect_iters=2, TrackCollisions=True,
+                 tension_sigma=sigma)
+    rng = np.random.default_rng(9)
+    # half over the whole domain (open-rim exits), half in the flow just
+    # upstream (south) of the land block (reflections)
+    h = n // 2
+    x = np.concatenate([rng.uniform(2e3, 98e3, h),
+                        rng.uniform(72e3, 83e3, n - h)])
+    y = np.concatenate([rng.uniform(2e3, 98e3, h),
+                        rng.uniform(38e3, 45e3, n - h)])
+    # a third within 1 m of the surface, a third 0.1-1 m above the bottom
+    k = n // 3
+    z = np.concatenate([rng.uniform(-1.0, 0.0, k),
+                        rng.uniform(-49.9, -49.0, k),
+                        rng.uniform(-49.0, -1.0, n - 2 * k)])
+    p = st.init_particles(x, y, rng.permutation(z),
+                          dob=rng.choice([0.0, 900.0], n),
+                          dtype=torch.float32, device=device)
+    p, _ = _sort(g, p)
+    return c, ctx, cfg, p
+
+
+VARIANTS = pytest.mark.parametrize(
+    "vtransform,theta_s,sigma",
+    [(1, 0.0, 0.0), (2, 4.0, 0.0), (1, 4.0, 4.0)],
+    ids=["affine", "stretched-vt2", "tension"])
+
+
+def _compare(out, ref, n):
+    same = (out.status == ref.status).cpu().numpy()
+    assert (~same).sum() <= 1e-4 * n
+    for k, tol in (("x", TOL_H), ("y", TOL_H), ("z", TOL_V)):
+        np.testing.assert_allclose(getattr(out, k).cpu().numpy()[same],
+                                   getattr(ref, k).cpu().numpy()[same],
+                                   rtol=0, atol=tol)
+    for k in ("hit_land", "hit_bottom"):
+        agree = (getattr(out, k) == getattr(ref, k)).cpu().numpy()
+        assert (~agree).sum() <= 1e-4 * n
+
+
+@pytest.mark.gpu
+@VARIANTS
+def test_kernel_matches_plain(gpu, vtransform, theta_s, sigma):
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma)
+    rec = pk.build_packed_records(
+        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    n0 = kx.ext_step_fused.launches
+    out = kx.ext_step_fused(ctx, cfg, p, rec, 0.0)
+    ref = kx.ext_step_reference(ctx, cfg, p, rec, 0.0)
+    torch.cuda.synchronize()
+    assert kx.ext_step_fused.launches == n0 + 1
+    _compare(out, ref, p.n)
+    assert ref.hit_land.sum() > 0
+    assert (ref.status == st.OUT_OF_DOMAIN).sum() > 0
+
+
+@pytest.mark.gpu
+@VARIANTS
+def test_kernel_matches_plain_vertical(gpu, vtransform, theta_s, sigma):
+    """Random w and zeta, every internal step launched on its own from
+    the plain trajectory's state."""
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5)
+    rec = pk.build_packed_records(c.grid, synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=900.0, dt=1800.0), seed=11))
+    cfg1 = replace(cfg, dt=cfg.idt)
+    q, surf = p, 0
+    for i in range(cfg.internal_steps):
+        t = i * float(cfg.idt)
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t)
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t)
+        _compare(out, ref, p.n)
+        surf += _surface_crossings(ctx, cfg1, q, rec, t)
+        q = ref
+    # the vertical path really ran: particles moved vertically, hit the
+    # bottom and were carried above the surface (reflected)
+    assert (q.z - p.z).abs().max() > 1.0
+    assert q.hit_bottom.sum() > 0
+    assert surf > 0
+
+
+def _surface_crossings(ctx, cfg, p, rec, t):
+    """Particles that the plain version's internal step from t carries
+    above the surface, before reflection."""
+    g, idt = ctx.grid, float(cfg.idt)
+    tabs = pk.stage_value_tables(g, rec, t, idt)
+    dx, dy, dz = pk.rk4_displacement_collapsed(
+        g, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
+    xr, yr, *_ = bd.reflect(ctx.bounds, p.x, p.y, p.x + dx, p.y + dy,
+                            open_exits=cfg.OpenOceanBoundary,
+                            n_iter=cfg.reflect_iters)
+    zeta1, h1 = pk.zeta_h_packed(g, tabs[2], xr, yr)
+    _, above, _ = bd.reflect_vertical(p.z + dz, zeta1, h1)
+    live = (p.status == st.ACTIVE) | ((p.status == st.NOT_RELEASED)
+                                      & (p.dob <= t))
+    return int((above & live).sum())
+
+
+@pytest.mark.gpu
+def test_fused_steps_launch_once_per_external_step(gpu):
+    c, ctx, cfg, p = _case(gpu)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 5)
+    n0 = kx.ext_step_fused.launches
+    out = make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 0)
+    assert kx.ext_step_fused.launches == n0 + 3
+    assert torch.isfinite(out.x).all() and torch.isfinite(out.z).all()
+
+
+@pytest.mark.gpu
+def test_empty_batch_launches_nothing(gpu):
+    c, ctx, cfg, p = _case(gpu, n=256)
+    rec = pk.build_packed_records(
+        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    n0 = kx.ext_step_fused.launches
+    out = kx.ext_step_fused(ctx, cfg, p.take(p.x[:0].long()), rec, 0.0)
+    assert out.n == 0 and kx.ext_step_fused.launches == n0
+
+
+def test_wrapper_rejects_other_devices():
+    """A tensor that is neither on the CPU nor on a CUDA device is refused
+    (no fallback to the plain version)."""
+    c, ctx, cfg, p = _case("cpu", n=256)
+    rec = pk.build_packed_records(
+        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    meta = p.to("meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        kx.ext_step_fused(ctx, cfg, meta, rec, 0.0)
