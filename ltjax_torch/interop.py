@@ -71,5 +71,13 @@ def particles_from_numpy(d: dict, device="cpu") -> st.Particles:
     return st.Particles(**{k: _t(d[k], device) for k in st.FIELDS})
 
 
+def seed_from_key_data(key_data) -> tuple:
+    """The port's seed words of a JAX PRNG key, from its ``key_data`` (a
+    numpy uint32 pair): pass the result as ``seed`` to draw the streams
+    ltjax draws from that key."""
+    k0, k1 = np.asarray(key_data).reshape(-1).astype(np.uint64)
+    return int(k0), int(k1)
+
+
 def particles_to_numpy(p: st.Particles) -> dict:
     return {k: getattr(p, k).cpu().numpy() for k in st.FIELDS}

@@ -2,10 +2,14 @@
 
 Each source is compiled with ``nvcc`` into a shared library with a plain
 C interface and loaded with ``ctypes`` (no PyTorch headers: a build
-takes seconds).  Libraries go to ``build/ltjax_torch/`` at the root of
-the checkout, keyed by a hash of the source and the flags, so a changed
-source rebuilds and an unchanged one loads at once.  The first build in
-a process prints nvcc's ``-Xptxas -v`` report (registers, spills).
+takes seconds).  A source may be compiled in several variants, each a
+set of ``-D`` macro values that specialise it at compile time.
+Libraries go to ``build/ltjax_torch/`` at the root of the checkout,
+keyed by a hash of the source, the flags and the variant, so a changed
+source rebuilds and an unchanged one loads at once.  ``prebuild`` starts
+the builds of several variants together, one ``nvcc`` each.  Every build
+records nvcc's ``-Xptxas -v`` report (registers, stack, spills) in
+``report``.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _loaded = {}
-report = {}   # source name -> {"seconds": build time, "ptxas": [lines]}
+report = {}   # library tag -> {"seconds": build time, "ptxas": [lines]}
 
 
 def _nvcc() -> str:
@@ -39,30 +43,87 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    if name in _loaded:
-        return _loaded[name]
+def tag(name: str, variant=None) -> str:
+    """``name`` plus the variant's macro values, each under the first
+    letter of its name after ``LTX_``: ext_step-b3h1m0v2."""
+    if not variant:
+        return name
+    return name + "-" + "".join(f"{k[4].lower()}{v}"
+                                for k, v in sorted(variant.items()))
+
+
+def _target(name: str, variant):
     src = os.path.join(_CSRC, name + ".cu")
+    defs = [f"-D{k}={v}" for k, v in sorted((variant or {}).items())]
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS).encode())
-    so = os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
-    if not os.path.exists(so):
-        os.makedirs(BUILD_DIR, exist_ok=True)
-        tmp = f"{so}.{os.getpid()}.tmp"
-        t0 = time.perf_counter()
-        r = subprocess.run([_nvcc(), *FLAGS, "-o", tmp, src],
-                           capture_output=True, text=True, timeout=600)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {src}:\n{r.stderr}")
-        os.replace(tmp, so)
-        lines = [ln.strip() for ln in r.stderr.splitlines()
-                 if "registers" in ln or "spill" in ln]
-        report[name] = {"seconds": time.perf_counter() - t0, "ptxas": lines}
-        print(f"[build] {name}.cu in {report[name]['seconds']:.1f} s",
-              file=sys.stderr)
-        for ln in lines:
-            print(f"[build] ptxas: {ln}", file=sys.stderr)
-    lib = ctypes.CDLL(so)
-    _loaded[name] = lib
+        digest = hashlib.sha256(f.read() + " ".join(FLAGS + defs).encode())
+    so = os.path.join(BUILD_DIR,
+                      f"{tag(name, variant)}-{digest.hexdigest()[:16]}.so")
+    return src, defs, so
+
+
+def _start(name: str, variant):
+    """Start nvcc for a library that is not built yet; returns
+    (process, tmp path, so path, start time) or None."""
+    src, defs, so = _target(name, variant)
+    if os.path.exists(so):
+        return None
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    proc = subprocess.Popen([_nvcc(), *FLAGS, *defs, "-o", tmp, src],
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+    return proc, tmp, so, time.perf_counter()
+
+
+def _finish(key: str, job) -> None:
+    proc, tmp, so, t0 = job
+    try:
+        _, err = proc.communicate(timeout=600)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.communicate()
+        raise RuntimeError(f"nvcc timed out building {key}")
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {key}:\n{err}")
+    os.replace(tmp, so)
+    lines = [ln.strip() for ln in err.splitlines()
+             if "registers" in ln or "spill" in ln]
+    report[key] = {"seconds": time.perf_counter() - t0, "ptxas": lines}
+    print(f"[build] {key} in {report[key]['seconds']:.1f} s",
+          file=sys.stderr)
+    for ln in lines:
+        print(f"[build] ptxas: {ln}", file=sys.stderr)
+
+
+def prebuild(name: str, variants) -> None:
+    """Build the given variants of ``csrc/<name>.cu`` concurrently."""
+    jobs = {}
+    for v in variants:
+        key = tag(name, v)
+        if key not in jobs:
+            job = _start(name, v)
+            if job is not None:
+                jobs[key] = job
+    errors = []
+    for key, job in jobs.items():
+        try:
+            _finish(key, job)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load(name: str, variant=None) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu`` in the given variant
+    (a dict of macro values), built on first use."""
+    key = tag(name, variant)
+    if key in _loaded:
+        return _loaded[key]
+    job = _start(name, variant)
+    if job is not None:
+        _finish(key, job)
+    lib = ctypes.CDLL(_target(name, variant)[2])
+    _loaded[key] = lib
     return lib

@@ -1,45 +1,80 @@
-// Whole-external-step advection kernel for Hopper (sm_90a).
+// Whole-external-step kernel for Hopper (sm_90a).
 //
 // Replaces ltjax/kernels/ext_step.py::ext_step_fused (the Pallas TPU
-// megakernel), advection lanes only: DOB release, four RK4
-// find_currents stages per internal step (quadratic time collapse of
-// the three raw records, bilinear blend, natural tension-spline fit and
-// clamped evaluation of u/v on the rho ladder and w on the w ladder,
-// log-layer decay of u/v), horizontal specular reflection with open
-// boundary exits and the tunnel/displacement guards of
-// ltjax.physics.boundary.reflect, vertical reflection about zeta/h at
-// t+idt, and the status lattice.  Turbulence, behaviors, settlement,
-// salt sampling and curvilinear grids are not here yet.
+// megakernel) in its advection, turbulence, behavior and mortality
+// lanes: DOB release, four RK4 find_currents stages per internal step
+// (quadratic time collapse of the three raw records, bilinear blend,
+// natural tension-spline fit and clamped evaluation of u/v on the rho
+// ladder and w on the w ladder, log-layer decay of u/v), horizontal
+// random walk and Visser vertical random displacement on in-kernel
+// Threefry-2x32 streams, behaviors 1/2/3/6/7, horizontal specular
+// reflection with open boundary exits and the tunnel/displacement
+// guards of ltjax.physics.boundary.reflect, vertical reflection about
+// zeta/h at t+idt, deterministic death, and the status lattice.
+// Behaviors 4/5, settlement, salt sampling and curvilinear grids are not
+// here yet.
+//
+// Variants.  The options are compile-time macros (LTX_HTURB, LTX_VTURB
+// 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY; the wrapper
+// builds one library per combination), so each configuration carries
+// only its own lanes; with all of them 0 the kernel is the advection
+// kernel alone.
 //
 // Design.  One thread per particle, 128 threads a block, one launch per
 // external step; the n_int internal steps run inside the thread with
-// x, y, z and status in registers.  Every stage gathers the 4 corner
-// rows x 3 records x nv lanes straight from device memory (the TPU
-// kernel's VMEM windows, one-hot MXU blends and out-of-window patch
-// have no purpose here: no particle can miss a window).  The vertical
-// fit streams the levels: knots and blended values are computed level
-// by level inside the Thomas forward sweep, so only the sweep's cp/dp
-// columns live in local memory (MAX_LEVELS floats each); the evaluation
-// interval is captured on the fly and the backward sweep stops there.
+// x, y, z, status (and the age, where behavior or mortality read it) in
+// registers.  Every stage gathers the 4 corner rows x 3 records x nv
+// lanes straight from device memory (the TPU kernel's VMEM windows,
+// one-hot MXU blends and out-of-window patch have no purpose here: no
+// particle can miss a window).  The vertical fit streams the levels:
+// knots and blended values are computed level by level inside the
+// Thomas forward sweep, so only the sweep's cp/dp columns live in local
+// memory (MAX_LEVELS floats each); the evaluation interval is captured
+// on the fly and the backward sweep stops there.  The Visser term needs
+// the Aks spline's derivative at z and its value at z_mid, an interval
+// known only after the derivative: its fit keeps the whole z2 column
+// and the knots in those same local arrays and evaluates twice.
+//
+// Random streams.  The host passes the derived key pair of every
+// (internal step, substream) (ext_step.py rng_keys_array, the words of
+// ltjax.rng.stream_key); each thread runs Threefry-2x32 on (pid, 0), so
+// the draws equal ltjax's and the plain version's bit for bit.  The
+// Box-Muller and uniform maps use logf/cosf/sinf/sqrtf (no fast-math
+// intrinsics).
 //
 // What bounds it.  Gathers: 4 x 3 x nv floats per stage (nv = 2us+ws+2;
-// ~3 KB per stage at us = 20).  The record table is 3*Ny*Nx*nv*4 bytes:
-// 30 MB for the 200x200x20 bench grid, which fits the 50 MB L2; a
-// production 800x600x25 grid (~420 MB) does not, and then every stage
-// reads device memory.  The Hilbert sort of the caller (once per
+// ~3 KB per stage at us = 20), plus ws Aks lanes twice per internal step
+// with the Visser lanes.  The record table is 3*Ny*Nx*nl*4 bytes: 30 MB
+// for the 200x200x20 bench grid (40 MB with Aks), which fits the 50 MB
+// L2; a production 800x600x25 grid (~420 MB) does not, and then every
+// stage reads device memory.  The Hilbert sort of the caller (once per
 // ext_sort_every external steps) is kept for L1/L2 locality:
 // neighbouring threads read neighbouring cell rows.
 //
-// Arithmetic mirrors the plain PyTorch version (ltjax_torch.packed and
-// ltjax_torch.physics.boundary) operation for operation: IEEE divides
-// (not reciprocals), the same collapse-then-blend order and the same
-// small-tension series; differences are f32 round-off and FMA
-// contraction.
+// Arithmetic mirrors the plain PyTorch version (ltjax_torch.packed,
+// .physics.turb, .physics.behavior and .physics.boundary) operation for
+// operation: IEEE divides (not reciprocals), the same collapse-then-blend
+// order and the same small-tension series; differences are f32
+// round-off and FMA contraction.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #define MAX_LEVELS 64
+
+#ifndef LTX_HTURB
+#define LTX_HTURB 0
+#endif
+#ifndef LTX_VTURB
+#define LTX_VTURB 0
+#endif
+#ifndef LTX_BEHAVIOR
+#define LTX_BEHAVIOR 0
+#endif
+#ifndef LTX_MORTALITY
+#define LTX_MORTALITY 0
+#endif
 
 // params head (f32); must match ltjax_torch/kernels/ext_step.py
 enum {
@@ -47,18 +82,26 @@ enum {
   P_BX0, P_BDX, P_BY0, P_BDY,          // boundary cell-edge axes
   P_BX1, P_BY1,                        // last cell edges (domain box)
   P_HC, P_Z0M, P_T0, P_IDT, P_SIGMA,
-  P_HEAD = 16                          // then s_rho, Cs_r, s_w, Cs_w,
-                                       // then 9 polintd weights per step
+  P_HSCALE, P_VCONST,                  // turbulence scales
+  P_SINK, P_DEADAGE,                   // type-6 sinking, death age
+  P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF,   // swim ramp
+  P_KP, P_THRESH, P_HSWIM, P_SWIMDEPTH,             // DVM, TST
+  P_HEAD = 32                          // then s_rho, Cs_r, s_w, Cs_w,
+                                       // then 9 polintd weights per step,
+                                       // then (type 3) E0 per step
 };
 
-enum { NOT_RELEASED = 0, ACTIVE = 1, OUT_OF_DOMAIN = 4, ERROR = 5 };
+enum { NOT_RELEASED = 0, ACTIVE = 1, DEAD = 3, OUT_OF_DOMAIN = 4,
+       ERROR = 5 };
+enum { HTURB = 0, VTURB = 1, BEHAVE = 2, MORTALITY = 3 };  // substreams
 enum { LAND = 0, OPEN = 1 };
 
 struct Args {
-  const float* __restrict__ rtab;   // (3, C, nv) raw record value lanes
+  const float* __restrict__ rtab;   // (3, C, nl) raw record lanes
   const float* __restrict__ brows;  // (C, bl) boundary cell rows
   const float* __restrict__ par;    // head + ladders + weights
-  int nx, ny, us, ws, nv, vt, n_int, n_iter, open_exits, s_max, bl;
+  const uint32_t* __restrict__ rngk;  // per-step derived key pairs
+  int nx, ny, us, ws, nv, nl, vt, n_int, n_iter, open_exits, s_max, bl;
   long long C;
 };
 
@@ -79,6 +122,21 @@ __device__ __forceinline__ float gs_fn(const Tension& T, float B) {
   float ratio = expf(u * (B - 1.0f)) * (-expm1f(-2.0f * u * B))
                 / (-expm1f(-2.0f * u));
   return (ratio - B) / (u * u);
+}
+
+// (1 - u cosh(uB)/sinh(u))/u^2 (the spline derivative's basis; series
+// below T.small, as tension._ds)
+__device__ __forceinline__ float ds_fn(const Tension& T, float B) {
+  float u = T.sigma;
+  if (u < T.small) {
+    float u2 = u * u, B2 = B * B;
+    float c = u2 / 6.0f + u2 * u2 / 120.0f + u2 * u2 * u2 / 5040.0f;
+    return ((1.0f / 6.0f - B2 / 2.0f) + u2 * (1.0f / 120.0f - B2 * B2 / 24.0f)
+            + u2 * u2 * (1.0f / 5040.0f - B2 * B2 * B2 / 720.0f)) / (1.0f + c);
+  }
+  float ratio = u * expf(u * (B - 1.0f)) * (1.0f + expf(-2.0f * u * B))
+                / (-expm1f(-2.0f * u));
+  return (1.0f - ratio) / (u * u);
 }
 
 // tridiagonal coefficients (off, diag) of one interval of width h
@@ -113,17 +171,17 @@ __device__ __forceinline__ Stencil locate(const Args& a, float x, float y) {
   Stencil s;
   s.fx = fminf(fmaxf(tx - (float)i, 0.0f), 1.0f);
   s.fy = fminf(fmaxf(ty - (float)j, 0.0f), 1.0f);
-  s.r00 = ((long long)j * a.nx + i) * a.nv;
-  s.r01 = s.r00 + a.nv;
-  s.r10 = s.r00 + (long long)a.nx * a.nv;
-  s.r11 = s.r10 + a.nv;
+  s.r00 = ((long long)j * a.nx + i) * a.nl;
+  s.r01 = s.r00 + a.nl;
+  s.r10 = s.r00 + (long long)a.nx * a.nl;
+  s.r11 = s.r10 + a.nl;
   return s;
 }
 
 // lane k of the time-collapsed, bilinearly blended table at stencil s
 __device__ __forceinline__ float lane(const Args& a, const Stencil& s,
                                       const float* l, int k) {
-  const long long R = a.C * a.nv;
+  const long long R = a.C * a.nl;
   const float* t0 = a.rtab + k;
   const float* t1 = t0 + R;
   const float* t2 = t1 + R;
@@ -319,15 +377,140 @@ __device__ void reflect(const Args& a, float x0, float y0, float& x1,
   y1 = py1;
 }
 
+// ---- counter-based random streams (ltjax.rng, bit for bit) -----------
+
+__device__ __forceinline__ uint32_t rotl32(uint32_t v, int r) {
+  return (v << r) | (v >> (32 - r));
+}
+
+// Threefry-2x32, 20 rounds: (x0, x1) <- block of key (k0, k1)
+__device__ __forceinline__ void threefry2x32(uint32_t k0, uint32_t k1,
+                                             uint32_t& x0, uint32_t& x1) {
+  const int ROT[8] = {13, 15, 26, 6, 17, 29, 16, 24};
+  const uint32_t ks[3] = {k0, k1, k0 ^ k1 ^ 0x1BD11BDAu};
+  x0 += ks[0];
+  x1 += ks[1];
+#pragma unroll
+  for (int block = 0; block < 5; ++block) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      x0 += x1;
+      x1 = rotl32(x1, ROT[(block % 2) * 4 + r]);
+      x1 ^= x0;
+    }
+    x0 += ks[(block + 1) % 3];
+    x1 += ks[(block + 2) % 3] + (uint32_t)(block + 1);
+  }
+}
+
+// the two words of particle pid under substream sub of internal step i
+__device__ __forceinline__ void particle_bits(const Args& a, int stride,
+                                              int i, int sub, uint32_t pid,
+                                              uint32_t& b0, uint32_t& b1) {
+  const uint32_t* k = a.rngk + stride * i + 2 * sub;
+  b0 = pid;
+  b1 = 0u;
+  threefry2x32(k[0], k[1], b0, b1);
+}
+
+// word -> (0, 1): the top 24 bits, offset half an ulp from 0
+__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
+  return (float)(int)(b >> 8) * 5.9604644775390625e-08f
+         + 2.98023223876953125e-08f;
+}
+
+// ---- Visser random displacement on the Aks profile ---------------------
+
+// spline value (deriv = false) or derivative at zq of the fitted Aks
+// column: knots zk, second derivatives z2, values re-read from the lanes
+__device__ float aks_eval(const Args& a, const Tension& T, const Stencil& st,
+                          const float* l, const float* zk, const float* z2,
+                          int K, float zq, bool deriv) {
+  zq = fminf(fmaxf(zq, zk[0]), zk[K - 1]);
+  int j = 0;
+  for (int k = 1; k < K; ++k) j += zq >= zk[k] ? 1 : 0;
+  j = min(j, K - 2);
+  float x0 = zk[j], x1 = zk[j + 1];
+  float y0 = fmaxf(lane(a, st, l, a.nv + j), 0.0f);
+  float y1 = fmaxf(lane(a, st, l, a.nv + j + 1), 0.0f);
+  float h = x1 - x0;
+  float B2 = (zq - x0) / h;
+  float B1 = 1.0f - B2;
+  if (deriv)
+    return (y1 - y0) / h + h * (z2[j] * ds_fn(T, B1) - z2[j + 1] * ds_fn(T, B2));
+  return y0 * B1 + y1 * B2 + h * h * (z2[j] * gs_fn(T, B1)
+                                      + z2[j + 1] * gs_fn(T, B2));
+}
+
+// dz = K'(z) idt + R sqrt(2 K(z_mid) idt / (1/3)) on the Aks lanes (after
+// the nv value lanes) blended at stencil st with the stage-1 weights l;
+// physics.turb.vturb: Aks clipped at >= 0 before a natural tension fit
+// on the w ladder, z_mid = clip(z + K' idt / 2) to the knot range.
+__device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
+                           const float* l, float zeta, float h, float z,
+                           float R, float idt, float* cp, float* z2,
+                           float* zk) {
+  Tension T;                 // tension.evaluate: series at sigma = 0
+  T.sigma = sigma;
+  T.small = 0.5f;
+  T.cubic = false;
+  const float* par = a.par;
+  const float* s_w = par + P_HEAD + 2 * a.us;
+  const float* cs_w = s_w + a.ws;
+  const int K = a.ws;
+  float zprev = knot(a, s_w[0], cs_w[0], zeta, h);
+  float yprev = fmaxf(lane(a, st, l, a.nv), 0.0f);
+  zk[0] = zprev;
+  cp[0] = 0.0f;
+  z2[0] = 0.0f;
+  float offp = 0.0f, diap = 0.0f, dyp = 0.0f;
+  for (int k = 1; k < K; ++k) {           // Thomas forward sweep
+    float zc = knot(a, s_w[k], cs_w[k], zeta, h);
+    float yk = fmaxf(lane(a, st, l, a.nv + k), 0.0f);
+    float hk = zc - zprev;
+    float dy = (yk - yprev) / hk;
+    float offc, diac;
+    coefs(T, hk, offc, diac);
+    if (k >= 2) {
+      int i = k - 1;
+      float denom = (diap + diac) - offp * cp[i - 1];
+      cp[i] = offc / denom;
+      z2[i] = ((dy - dyp) - offp * z2[i - 1]) / denom;
+    }
+    zk[k] = zc;
+    zprev = zc; yprev = yk;
+    offp = offc; diap = diac; dyp = dy;
+  }
+  float x = 0.0f;                         // natural end: z2[K-1] = 0
+  z2[K - 1] = 0.0f;
+  for (int i = K - 2; i >= 0; --i) {
+    x = z2[i] - cp[i] * x;
+    z2[i] = x;
+  }
+  float kprime = aks_eval(a, T, st, l, zk, z2, K, z, true);
+  float zmid = fminf(fmaxf(z + 0.5f * kprime * idt, zk[0]), zk[K - 1]);
+  float kmid = fmaxf(aks_eval(a, T, st, l, zk, z2, K, zmid, false), 0.0f);
+  return kprime * idt + R * sqrtf(2.0f * kmid * idt / (1.0f / 3.0f));
+}
+
+template <int HT, int VT, int BEH, int MORT>
 __global__ void __launch_bounds__(128)
 ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
                 const float* __restrict__ y_in,
                 const float* __restrict__ z_in,
                 const float* __restrict__ dob_in,
+                const float* __restrict__ age_in,
+                const int* __restrict__ pid_in,
                 const int* __restrict__ st_in,
                 float* __restrict__ x_out, float* __restrict__ y_out,
-                float* __restrict__ z_out, int* __restrict__ st_out,
+                float* __restrict__ z_out, float* __restrict__ age_out,
+                int* __restrict__ st_out,
                 int* __restrict__ hitl_out, int* __restrict__ hitb_out) {
+  // behaviors that swim read the age and draw BEHAVE/MORTALITY words
+  constexpr bool SWIM = BEH == 1 || BEH == 2 || BEH == 3;
+  constexpr bool AGE = MORT || SWIM || BEH == 7;
+  constexpr bool RNG = HT || VT != 0 || SWIM;
+  constexpr int STRIDE = SWIM ? 8 : 4;    // key words per internal step
   int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= n) return;
   const float* par = a.par;
@@ -338,6 +521,10 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
   float cp[MAX_LEVELS], dp0[MAX_LEVELS], dp1[MAX_LEVELS];
 
   float x = x_in[p], y = y_in[p], z = z_in[p], dob = dob_in[p];
+  float age = 0.0f;
+  if constexpr (AGE) age = age_in[p];
+  uint32_t pid = 0u;
+  if constexpr (RNG) pid = (uint32_t)pid_in[p];
   int st = st_in[p];
   int hitl = 0, hitb = 0;
   const float idt = par[P_IDT];
@@ -348,6 +535,10 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
   for (int i = 0; i < a.n_int; ++i) {
     float t_i = par[P_T0] + (float)i * idt;
     if (st == NOT_RELEASED && t_i >= dob) st = ACTIVE;
+    const float age_pre = age;            // behavior/mortality read it
+    if constexpr (AGE) {
+      if (st >= ACTIVE) age = (t_i + idt) - dob;
+    }
     if (st != ACTIVE) continue;
     const float* l = coef + 9 * i;        // stage weights: t, t+idt/2, t+idt
     float u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
@@ -358,9 +549,84 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
                   cp, dp0, dp1, u3, v3, w3);
     find_currents(a, T, l + 6, x + u3 * idt, y + v3 * idt, z + w3 * idt,
                   cp, dp0, dp1, u4, v4, w4);
-    float x1 = x + sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
-    float y1 = y + sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
-    float z1 = z + sixth * (w1 + 2.0f * w2 + 2.0f * w3 + w4);
+    float dx = sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
+    float dy = sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
+    float dz = sixth * (w1 + 2.0f * w2 + 2.0f * w3 + w4);
+
+    // --- turbulence ------------------------------------------------------
+    if constexpr (HT) {
+      uint32_t b0, b1;
+      particle_bits(a, STRIDE, i, HTURB, pid, b0, b1);
+      float r = sqrtf(-2.0f * logf(bits_to_uniform(b0)));
+      float th = (float)(2.0 * 3.14159265358979) * bits_to_uniform(b1);
+      dx = dx + r * cosf(th) * par[P_HSCALE];
+      dy = dy + r * sinf(th) * par[P_HSCALE];
+    }
+    if constexpr (VT != 0) {
+      uint32_t b0, b1;
+      particle_bits(a, STRIDE, i, VTURB, pid, b0, b1);
+      float R = -1.0f + 2.0f * bits_to_uniform(b0);
+      if constexpr (VT == 1) {
+        dz = dz + R * par[P_VCONST];
+      } else {
+        // Aks blended at the stage-1 position and time
+        Stencil s1 = locate(a, x, y);
+        float zeta1 = lane(a, s1, l, a.nv - 2);
+        float h1 = lane(a, s1, l, a.nv - 1);
+        dz = dz + visser_dz(a, T.sigma, s1, l, zeta1, h1, z, R, idt, cp, dp0,
+                            dp1);
+      }
+    }
+
+    // --- behavior (free surface and depth at stage 1) -----------------------
+    if constexpr (BEH != 0) {
+      float bx = 0.0f, by = 0.0f, bz = 0.0f;
+      Stencil s1 = locate(a, x, y);
+      float zeta_b = lane(a, s1, l, a.nv - 2);
+      float h_b = lane(a, s1, l, a.nv - 1);
+      // ontogenetic swim speed at the pre-step age
+      float frac = fminf(fmaxf((age_pre - par[P_SWIMSTART]) / par[P_SWIMDEN],
+                               0.0f), 1.0f);
+      float wsw = par[P_SWIMSLOW] + par[P_SWIMDIFF] * frac;
+      wsw = age_pre >= par[P_SWIMSTART] ? wsw : 0.0f;
+      if constexpr (SWIM) {
+        uint32_t b0, b1;
+        particle_bits(a, STRIDE, i, BEHAVE, pid, b0, b1);
+        float r_dir = bits_to_uniform(b0);
+        particle_bits(a, STRIDE, i, MORTALITY, pid, b0, b1);
+        float r_mix = -1.0f + 2.0f * bits_to_uniform(b0);
+        float rnd = r_mix * wsw * idt;
+        float toward = BEH == 2 ? -1.0f : 1.0f;       // biased walk
+        float biased = (r_dir < 0.8f ? toward : -toward) * wsw * idt;
+        if constexpr (BEH == 1) {
+          bz = z < (zeta_b - 2.0f) ? biased : rnd;     // SURFACE_ZONE
+        } else if constexpr (BEH == 2) {
+          bz = z > (-h_b + 2.0f) ? biased : rnd;       // BOTTOM_ZONE
+        } else {
+          float e0 = coef[9 * a.n_int + i];
+          float light = e0 * expf(-par[P_KP] * fmaxf(zeta_b - z, 0.0f));
+          bz = light > par[P_THRESH] ? -wsw * idt
+               : (e0 > 0.0f ? wsw * idt : rnd);
+        }
+      } else if constexpr (BEH == 6) {
+        bz = -par[P_SINK] * idt * 1.0f;
+      } else if constexpr (BEH == 7) {
+        // tidal-stream transport on the stage-1 currents
+        float speed = sqrtf(u1 * u1 + v1 * v1);
+        bool riding = speed > 0.05f;                   // TST_MIN_SPEED
+        float target = riding ? zeta_b - par[P_SWIMDEPTH] : -h_b + 0.5f;
+        bz = fminf(fmaxf(target - z, -wsw * idt - 1.0f), wsw * idt + 1.0f);
+        float spd = fmaxf(speed, 1e-12f);
+        bx = riding ? par[P_HSWIM] * u1 / spd * idt : 0.0f;
+        by = riding ? par[P_HSWIM] * v1 / spd * idt : 0.0f;
+      }
+      dx = dx + bx;
+      dy = dy + by;
+      dz = dz + bz;
+    }
+    float x1 = x + dx;
+    float y1 = y + dy;
+    float z1 = z + dz;
 
     bool exited, stuck;
     int hits;
@@ -382,33 +648,49 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
     hitb += below ? 1 : 0;
     if (exited) st = OUT_OF_DOMAIN;
     if (stuck) st = ERROR;
+    // deterministic death at the pre-step age: overrides a same-step
+    // ERROR, not an exit (step.internal_step's order)
+    if constexpr (MORT) {
+      if (age_pre >= par[P_DEADAGE] && !exited) st = DEAD;
+    }
   }
   x_out[p] = x;
   y_out[p] = y;
   z_out[p] = z;
+  if constexpr (AGE) age_out[p] = age;
   st_out[p] = st;
   hitl_out[p] = hitl;
   hitb_out[p] = hitb;
 }
 
+// One external step of n particles, in the variant this library was
+// compiled for (LTX_* macros).  rngk may be null when the variant draws
+// nothing; age/age_out are read/written only where the variant carries
+// the age.  Returns the launch's cudaError_t.
 extern "C" int ltx_ext_step(
     const float* rtab, const float* brows, const float* params,
-    const float* x, const float* y, const float* z, const float* dob,
-    const int* status, float* x_out, float* y_out, float* z_out,
-    int* st_out, int* hitl_out, int* hitb_out, int n, int nx, int ny,
-    int us, int ws, int vtransform, int n_int, int n_iter, int open_exits,
+    const uint32_t* rngk, const float* x, const float* y, const float* z,
+    const float* dob, const float* age, const int* pid, const int* status,
+    float* x_out, float* y_out, float* z_out, float* age_out, int* st_out,
+    int* hitl_out, int* hitb_out, int n, int nx, int ny, int us, int ws,
+    int nl, int vtransform, int n_int, int n_iter, int open_exits,
     int s_max, void* stream) {
   if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
+  const int nv = 2 * us + ws + 2;
+  if (nl != nv + ws && (nl != nv || LTX_VTURB == 2))
+    return (int)cudaErrorInvalidValue;      // value lanes [+ Aks lanes]
   if (n <= 0) return 0;
   Args a;
   a.rtab = rtab;
   a.brows = brows;
   a.par = params;
+  a.rngk = rngk;
   a.nx = nx;
   a.ny = ny;
   a.us = us;
   a.ws = ws;
-  a.nv = 2 * us + ws + 2;
+  a.nv = nv;
+  a.nl = nl;
   a.vt = vtransform;
   a.n_int = n_int;
   a.n_iter = n_iter;
@@ -418,8 +700,9 @@ extern "C" int ltx_ext_step(
   a.C = (long long)nx * ny;
   int threads = 128;
   int blocks = (n + threads - 1) / threads;
-  ext_step_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      a, n, x, y, z, dob, status, x_out, y_out, z_out, st_out, hitl_out,
-      hitb_out);
+  ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY>
+      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
+          a, n, x, y, z, dob, age, pid, status, x_out, y_out, z_out, age_out,
+          st_out, hitl_out, hitb_out);
   return (int)cudaGetLastError();
 }

@@ -1,8 +1,8 @@
-"""Whole-external-step advection: CUDA kernel wrapper + plain version.
+"""Whole-external-step kernel: CUDA kernel wrapper + plain version.
 
-Counterpart of ``ltjax.kernels.ext_step.ext_step_fused`` (advection
-lanes).  ``ext_step_fused`` runs ``cfg.internal_steps`` internal steps of
-the whole batch:
+Counterpart of ``ltjax.kernels.ext_step.ext_step_fused`` (advection,
+turbulence, behavior and mortality lanes).  ``ext_step_fused`` runs
+``cfg.internal_steps`` internal steps of the whole batch:
 
 * on CUDA tensors it launches ``csrc/ext_step.cu`` (one thread per
   particle, the internal-step loop inside the thread) and counts the
@@ -10,12 +10,20 @@ the whole batch:
 * on CPU tensors it runs ``ext_step_reference``, the plain PyTorch
   version: a loop of ``step.internal_step`` (collapsed scheme).
 
-The kernel reads the raw record table ``PackedRecords.tab`` (3, Ny*Nx,
-nv) f32, the boundary cell rows (Ny*Nx, 8 + 8*s_max) f32 and a small
-f32 params vector: the head scalars below, the s/Cs ladders, and the
-quadratic time weights of every (internal step, RK4 stage), computed on
-the host in float64 (as ``ltjax.kernels.ext_step.finish_params`` does
-under x64) and rounded to f32.
+The kernel is compiled once per combination of the options it covers
+(``kernel_variant``: horizontal turbulence, vertical turbulence constant
+or on the Aks profile, behavior type, mortality), so each configuration
+runs only its own lanes.  It reads the raw record table
+``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (nl = nv, or nv + ws with the
+Aks lanes), the boundary cell rows (Ny*Nx, 8 + 8*s_max) f32, the
+per-step Threefry keys (``rng_keys_array``) and a small f32 params
+vector: the head scalars below, the s/Cs ladders, the quadratic time
+weights of every (internal step, RK4 stage), computed on the host in
+float64 (as ``ltjax.kernels.ext_step.finish_params`` does under x64) and
+rounded to f32, and for behavior type 3 the surface irradiance of every
+internal step.  Head scalars that the plain version computes in the
+particles' dtype (turbulence scales, sinking, swim ramp) are computed
+here the same way, in float32.
 """
 
 from __future__ import annotations
@@ -25,23 +33,55 @@ import ctypes
 import numpy as np
 import torch
 
+from .. import rng
 from .. import state as st
 from ..interp import polintd_coefs
 from ..packed import PackedRecords, n_value_lanes
+from ..physics import behavior as bh
 from . import build
 
 MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
 
 # params head layout (csrc/ext_step.cu enum P_*)
 (P_X0, P_DX, P_Y0, P_DY, P_BX0, P_BDX, P_BY0, P_BDY, P_BX1, P_BY1, P_HC,
- P_Z0M, P_T0, P_IDT, P_SIGMA) = range(15)
-P_HEAD = 16
+ P_Z0M, P_T0, P_IDT, P_SIGMA, P_HSCALE, P_VCONST, P_SINK, P_DEADAGE,
+ P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF, P_KP, P_THRESH, P_HSWIM,
+ P_SWIMDEPTH) = range(27)
+P_HEAD = 32
+
+VTURB_OFF, VTURB_CONST, VTURB_AKS = 0, 1, 2
+SWIM_TYPES = (1, 2, 3)      # behaviors drawing BEHAVE/MORTALITY words
+
+
+def kernel_variant(cfg) -> dict:
+    """The compile-time options of the kernel for a configuration (the
+    -D flags of csrc/ext_step.cu)."""
+    vt = (VTURB_OFF if not cfg.VTurbOn
+          else VTURB_AKS if cfg.readAks else VTURB_CONST)
+    return {"LTX_HTURB": int(bool(cfg.HTurbOn)), "LTX_VTURB": vt,
+            "LTX_BEHAVIOR": int(cfg.Behavior),
+            "LTX_MORTALITY": int(bool(cfg.mortality))}
+
+
+def uses_rng(cfg) -> bool:
+    return bool(cfg.HTurbOn or cfg.VTurbOn or cfg.Behavior in SWIM_TYPES)
+
+
+def uses_age(cfg) -> bool:
+    """The kernel carries the age itself (behavior and mortality read the
+    pre-step age, as step.internal_step does)."""
+    return bool(cfg.mortality or cfg.Behavior in (1, 2, 3, 7))
 
 
 def params_static(ctx, cfg) -> np.ndarray:
-    """Head scalars + s/Cs ladders (f32), once per context."""
+    """Head scalars + s/Cs ladders (f32), once per context and options."""
     key = ("ext_step_params", float(cfg.z0), float(cfg.idt),
-           float(cfg.tension_sigma))
+           float(cfg.tension_sigma), tuple(kernel_variant(cfg).items()),
+           float(cfg.ConstantHTurb), float(cfg.ConstantVTurb),
+           float(cfg.sink), float(cfg.deadage), float(cfg.swimstart),
+           float(cfg.pediage), float(cfg.swimslow), float(cfg.swimfast),
+           float(cfg.Kp), float(cfg.thresh), float(cfg.Hswimspeed),
+           float(cfg.Swimdepth))
     if key in ctx.cache:
         return ctx.cache[key]
     g, b = ctx.grid, ctx.bounds
@@ -60,6 +100,22 @@ def params_static(ctx, cfg) -> np.ndarray:
     head[P_Z0M] = cfg.z0
     head[P_IDT] = cfg.idt
     head[P_SIGMA] = cfg.tension_sigma
+    # as physics.turb computes them in float32
+    idt_t = torch.tensor(float(cfg.idt), dtype=torch.float32)
+    head[P_HSCALE] = torch.sqrt(2.0 * float(cfg.ConstantHTurb) * idt_t)
+    head[P_VCONST] = torch.sqrt(
+        2.0 * torch.tensor(float(cfg.ConstantVTurb), dtype=torch.float32)
+        * idt_t / (1.0 / 3.0))
+    head[P_SINK] = cfg.sink
+    head[P_DEADAGE] = cfg.deadage
+    head[P_SWIMSTART] = cfg.swimstart
+    head[P_SWIMDEN] = max(cfg.pediage - cfg.swimstart, 1e-30)
+    head[P_SWIMSLOW] = cfg.swimslow
+    head[P_SWIMDIFF] = cfg.swimfast - cfg.swimslow
+    head[P_KP] = cfg.Kp
+    head[P_THRESH] = cfg.thresh
+    head[P_HSWIM] = cfg.Hswimspeed
+    head[P_SWIMDEPTH] = cfg.Swimdepth
     lad = [t.cpu().numpy().astype(f32) for t in (g.s_rho, g.Cs_r, g.s_w,
                                                   g.Cs_w)]
     out = np.concatenate([head] + lad)
@@ -68,15 +124,42 @@ def params_static(ctx, cfg) -> np.ndarray:
 
 
 def finish_params(static: np.ndarray, t0: float, times, idt: float,
-                  n_int: int) -> np.ndarray:
+                  n_int: int, dvm=None) -> np.ndarray:
     """Append the start time and the polintd weights of every internal
-    step's 3 stage times (t, t + idt/2, t + idt): 9 per step."""
+    step's 3 stage times (t, t + idt/2, t + idt): 9 per step.  ``dvm``
+    (BehaveParams) appends the surface irradiance of every internal step
+    (behavior type 3), computed as the plain version computes it."""
     head = static.copy()
     head[P_T0] = t0
     coef = [polintd_coefs(times, t0 + i * idt + off)
             for i in range(n_int) for off in (0.0, 0.5 * idt, idt)]
-    return np.concatenate([head, np.asarray(coef, np.float64).reshape(-1)
-                           .astype(np.float32)])
+    parts = [head, np.asarray(coef, np.float64).reshape(-1)
+             .astype(np.float32)]
+    if dvm is not None:
+        t_i = torch.tensor([t0 + i * idt for i in range(n_int)],
+                           dtype=torch.float32)
+        parts.append(bh.surface_irradiance(t_i, dvm, torch.float32)
+                     .numpy().astype(np.float32))
+    return np.concatenate(parts)
+
+
+def rng_keys_array(seed, ext_idx: int, n_int: int,
+                   behave: bool = False) -> np.ndarray:
+    """(n_int * 4 [or 8],) uint32: the derived Threefry key pairs of the
+    HTURB and VTURB substreams for every internal step of external step
+    ``ext_idx`` (``rng.stream_key(seed, ext_idx*n_int + i, sub)``; the
+    layout of ltjax.kernels.ext_step.rng_keys_array).  ``behave`` appends
+    the BEHAVE and MORTALITY pairs (behavior types 1-3)."""
+    k0, k1 = rng.seed_words(seed)
+    steps = int(ext_idx) * int(n_int) + torch.arange(n_int)
+    subs = [rng.HTURB, rng.VTURB]
+    if behave:
+        subs += [rng.BEHAVE, rng.MORTALITY]
+    # every (step, substream) pair in one Threefry call: (n_int, S) words
+    step, sub = torch.broadcast_tensors(steps[:, None],
+                                        torch.tensor(subs)[None, :])
+    s0, s1 = rng.threefry2x32(k0, k1, step, sub)
+    return torch.stack([s0, s1], dim=-1).reshape(-1).numpy().astype(np.uint32)
 
 
 def boundary_rows_table(ctx) -> torch.Tensor:
@@ -88,22 +171,30 @@ def boundary_rows_table(ctx) -> torch.Tensor:
 
 
 def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
-                       t0: float) -> st.Particles:
+                       t0: float, fields=None, seed=None,
+                       ext_idx: int = 0) -> st.Particles:
     """Plain PyTorch version: cfg.internal_steps internal steps of the
-    collapsed scheme (any device, any float dtype)."""
+    collapsed scheme (any device, any float dtype).  ``fields`` is the
+    3-record window (needed for vertical turbulence on Aks)."""
     from ..step import internal_step
+    if cfg.VTurbOn and cfg.readAks and fields is None:
+        raise ValueError("ext_step_reference: VTurbOn with readAks needs "
+                         "the 3-record FieldSet")
+    seed = cfg.seed if seed is None else seed
     idt = float(cfg.idt)
-    for i in range(cfg.internal_steps):
-        p = internal_step(ctx, cfg, p, prec, t0 + i * idt)
+    n_int = cfg.internal_steps
+    for i in range(n_int):
+        p = internal_step(ctx, cfg, seed, p, fields, t0 + i * idt,
+                          int(ext_idx) * n_int + i, prec)
     return p
 
 
-_C_ARGTYPES = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 10
+_C_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
                + [ctypes.c_void_p])
 
 
-def _lib():
-    lib = build.load("ext_step")
+def _lib(variant: dict):
+    lib = build.load("ext_step", variant)
     fn = lib.ltx_ext_step
     if fn.argtypes is None:
         fn.argtypes = _C_ARGTYPES
@@ -111,21 +202,44 @@ def _lib():
     return fn
 
 
+def _check_col(name, v, n, dtype, dev):
+    if v.dtype != dtype or v.device != dev or v.shape != (n,) \
+            or not v.is_contiguous():
+        raise ValueError(f"ext_step_fused: {name} must be a contiguous "
+                         f"({n},) {dtype} tensor on {dev}")
+
+
 def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
-                   t0: float) -> st.Particles:
+                   t0: float, fields=None, seed=None,
+                   ext_idx: int = 0) -> st.Particles:
     """One external step (cfg.internal_steps internal steps) of RK4
-    advection, reflection and status bookkeeping for the whole batch.
+    advection, turbulence, behavior, reflection and status bookkeeping
+    for the whole batch; ``ext_idx`` and ``seed`` (default cfg.seed) key
+    the random draws.
 
     CPU tensors take ``ext_step_reference``; CUDA tensors launch the
     kernel (f32 positions, uniform grid) or raise."""
     dev = p.x.device
     if dev.type == "cpu":
-        return ext_step_reference(ctx, cfg, p, prec, t0)
+        return ext_step_reference(ctx, cfg, p, prec, t0, fields, seed,
+                                  ext_idx)
     if dev.type != "cuda":
         raise ValueError(f"ext_step_fused: unsupported device {dev}")
     g, b = ctx.grid, ctx.bounds
     n, us, ws = p.n, g.us, g.ws
+    bh.check_ported(bh.BehaveParams(behavior=cfg.Behavior,
+                                    mortality=cfg.mortality,
+                                    stochastic=cfg.stochastic_mortality))
+    variant = kernel_variant(cfg)
     nv = n_value_lanes(us, ws)
+    # the Aks lanes follow the value lanes; the Visser lanes need them
+    nl = prec.tab.shape[-1]
+    if nl not in (nv, nv + ws) or (variant["LTX_VTURB"] == VTURB_AKS
+                                   and nl != nv + ws):
+        raise ValueError(f"ext_step_fused: the record table has {nl} lanes; "
+                         f"this configuration needs {nv} value lanes"
+                         + (f" + {ws} Aks lanes"
+                            if variant["LTX_VTURB"] == VTURB_AKS else ""))
     if not (g.uniform and b.uniform):
         raise NotImplementedError("ext_step_fused: the CUDA kernel locates "
                                   "cells arithmetically; grid not uniform")
@@ -134,21 +248,16 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                          f"MAX_LEVELS={MAX_LEVELS}")
     if float(cfg.tension_sigma) < 0:
         raise NotImplementedError("ext_step_fused: adaptive tension")
-    cols = {"x": p.x, "y": p.y, "z": p.z, "dob": p.dob}
-    for k, v in cols.items():
-        if v.dtype != torch.float32 or v.device != dev or v.shape != (n,) \
-                or not v.is_contiguous():
-            raise ValueError(f"ext_step_fused: {k} must be a contiguous "
-                             f"({n},) float32 tensor on {dev}")
-    if p.status.dtype != torch.int32 or p.status.device != dev \
-            or not p.status.is_contiguous():
-        raise ValueError("ext_step_fused: status must be contiguous int32")
+    for k in ("x", "y", "z", "dob", "age"):
+        _check_col(k, getattr(p, k), n, torch.float32, dev)
+    for k in ("status", "pid"):
+        _check_col(k, getattr(p, k), n, torch.int32, dev)
     tab = prec.tab
     if (tab.dtype != torch.float32 or tab.device != dev
-            or tuple(tab.shape) != (3, g.ny * g.nx, nv)
+            or tuple(tab.shape) != (3, g.ny * g.nx, nl)
             or not tab.is_contiguous()):
         raise ValueError(f"ext_step_fused: record table must be a "
-                         f"contiguous (3, {g.ny * g.nx}, {nv}) float32 "
+                         f"contiguous (3, {g.ny * g.nx}, {nl}) float32 "
                          f"tensor on {dev}, got {tuple(tab.shape)} "
                          f"{tab.dtype} on {tab.device}")
     brows = boundary_rows_table(ctx)
@@ -158,32 +267,58 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     idt = float(cfg.idt)
     if n == 0:
         return p
+    seed = cfg.seed if seed is None else seed
+    dvm = None
+    if cfg.Behavior == 3:
+        from ..step import make_params
+        dvm = make_params(cfg)[1]
     par = torch.from_numpy(finish_params(params_static(ctx, cfg), t0,
-                                         prec.times, idt, n_int)).to(dev)
+                                         prec.times, idt, n_int, dvm)
+                           ).to(dev)
+    rngk = None
+    if uses_rng(cfg):
+        keys = rng_keys_array(seed, ext_idx, n_int,
+                              behave=cfg.Behavior in SWIM_TYPES)
+        rngk = torch.from_numpy(keys.view(np.int32)).to(dev)
     x_o = torch.empty_like(p.x)
     y_o = torch.empty_like(p.y)
     z_o = torch.empty_like(p.z)
+    age_o = torch.empty_like(p.age)
     st_o = torch.empty_like(p.status)
     hitl = torch.empty_like(p.status)
     hitb = torch.empty_like(p.status)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(tab.data_ptr(), brows.data_ptr(), par.data_ptr(),
-                p.x.data_ptr(), p.y.data_ptr(), p.z.data_ptr(),
-                p.dob.data_ptr(), p.status.data_ptr(), x_o.data_ptr(),
-                y_o.data_ptr(), z_o.data_ptr(), st_o.data_ptr(),
-                hitl.data_ptr(), hitb.data_ptr(), n, g.nx, g.ny, us, ws,
-                g.vtransform, n_int, int(cfg.reflect_iters),
-                int(bool(cfg.OpenOceanBoundary)), b.s_max, stream)
+    rc = _lib(variant)(
+        tab.data_ptr(), brows.data_ptr(), par.data_ptr(),
+        rngk.data_ptr() if rngk is not None else None,
+        p.x.data_ptr(), p.y.data_ptr(), p.z.data_ptr(), p.dob.data_ptr(),
+        p.age.data_ptr(), p.pid.data_ptr(), p.status.data_ptr(),
+        x_o.data_ptr(), y_o.data_ptr(), z_o.data_ptr(), age_o.data_ptr(),
+        st_o.data_ptr(), hitl.data_ptr(), hitb.data_ptr(), n, g.nx, g.ny,
+        us, ws, nl, g.vtransform, n_int, int(cfg.reflect_iters),
+        int(bool(cfg.OpenOceanBoundary)), b.s_max, stream)
     if rc != 0:
         raise RuntimeError(f"ext_step kernel launch failed: CUDA error {rc}")
     ext_step_fused.launches += 1
-    t_end = t0 + n_int * idt
-    age = torch.where(st_o >= st.ACTIVE, t_end - p.dob, p.age)
-    out = p.replace(x=x_o, y=y_o, z=z_o, status=st_o, age=age)
+    key = build.tag("ext_step", variant)
+    ext_step_fused.variant_launches[key] = (
+        ext_step_fused.variant_launches.get(key, 0) + 1)
+    if not uses_age(cfg):
+        # the advection-only lanes do not carry the age: every particle
+        # released by the end of the step is t_end - dob old
+        t_end = t0 + n_int * idt
+        age_o = torch.where(st_o >= st.ACTIVE, t_end - p.dob, p.age)
+    out = p.replace(x=x_o, y=y_o, z=z_o, status=st_o, age=age_o)
     if cfg.TrackCollisions:
         out = out.replace(hit_land=p.hit_land + hitl,
                           hit_bottom=p.hit_bottom + hitb)
     return out
 
 
-ext_step_fused.launches = 0
+ext_step_fused.launches = 0             # every launch
+ext_step_fused.variant_launches = {}    # launches per compiled variant
+
+
+def reset_launches() -> None:
+    ext_step_fused.launches = 0
+    ext_step_fused.variant_launches = {}

@@ -10,6 +10,9 @@ lanes
 
     [u (us) | v (us) | w (ws) | zeta | h]     (nv = 2*us + ws + 2)
 
+(the record tables may carry ws Aks lanes after h, see
+``build_packed_records``).
+
 u and v collocated to rho points; the blended profile is then fitted
 and evaluated per particle (blend-then-fit, the reference ordering).
 It is the plain version of the CUDA kernel in
@@ -64,15 +67,22 @@ def n_value_lanes(us: int, ws: int) -> int:
     return us + us + ws + 2
 
 
-def build_packed_records(grid: Grid, fields: FieldSet) -> PackedRecords:
+def build_packed_records(grid: Grid, fields: FieldSet,
+                         with_aks: bool = False) -> PackedRecords:
     """Dense per-record packing: collocate u, v onto rho points and
-    concatenate the value lanes of every record."""
+    concatenate the value lanes of every record.  ``with_aks`` appends
+    the ws Aks lanes after h (the layout of ltjax.packed), which the CUDA
+    kernel's Visser lanes read; the plain version reads Aks from the
+    FieldSet and ignores them."""
     u = _collocate_u(fields.u)                       # (R, Ny, Nx, us)
     v = _collocate_v(fields.v, grid.ny)
     w = fields.w
     z = fields.zeta[..., None]
     h = torch.broadcast_to(grid.h.to(u.dtype)[None, ..., None], z.shape)
-    tab = torch.cat([u, v, w, z, h], dim=-1)
+    lanes = [u, v, w, z, h]
+    if with_aks:
+        lanes.append(fields.aks.to(u.dtype))
+    tab = torch.cat(lanes, dim=-1)
     R, ny, nx, nv = tab.shape
     return PackedRecords(tab=tab.reshape(R, ny * nx, nv).contiguous(),
                          times=fields.times)
@@ -91,8 +101,9 @@ def _knots(zeta, h, s, cs, hc, vtransform):
 
 
 def collapse_stage_values(grid: Grid, rec: PackedRecords, t) -> ValueTable:
-    """Time-collapse the 3 records to stage time t (values only)."""
-    vals = polintd(rec.tab, rec.times, t)            # (C, nv)
+    """Time-collapse the 3 records to stage time t (the nv value lanes)."""
+    nv = n_value_lanes(grid.us, grid.ws)
+    vals = polintd(rec.tab[..., :nv], rec.times, t)  # (C, nv)
     return ValueTable(full=vals.reshape(grid.ny, grid.nx, -1), t=float(t))
 
 

@@ -1,0 +1,152 @@
+"""Larval behavior and mortality (counterpart of
+``ltjax.physics.behavior``), types 0, 1, 2, 3, 6 and 7.
+
+  0 passive
+  1 near-surface orientation: biased walk toward SURFACE_ZONE below zeta
+  2 near-bottom orientation: biased walk toward BOTTOM_ZONE above -h
+  3 diel vertical migration driven by modeled surface irradiance
+  6 constant sinking
+  7 tidal-stream transport (rides the current at Swimdepth when it runs
+    faster than TST_MIN_SPEED, else holds near the bottom)
+
+Swimming types use the ontogenetic swim-speed ramp swimslow -> swimfast
+over [swimstart, pediage] and the biased-random-walk idiom: toward the
+preferred zone with probability P_BIAS (BEHAVE substream), a mixing walk
+r_mix * w_swim * idt otherwise (MORTALITY substream).  Mortality is
+deterministic death at age >= deadage.
+
+Not ported yet, raising NotImplementedError: types 4/5 (salinity-gradient
+cue, they need the salt fields) and stochastic mortality.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple
+
+import torch
+
+from .. import rng
+
+P_BIAS = 0.8          # probability of swimming toward the preferred zone
+SURFACE_ZONE = 2.0    # [m] preferred band below surface for type 1
+BOTTOM_ZONE = 2.0     # [m] preferred band above bottom for type 2
+TST_MIN_SPEED = 0.05  # [m/s] current speed that triggers tide-riding
+
+PORTED_TYPES = (0, 1, 2, 3, 6, 7)
+
+
+class BehaveParams(NamedTuple):
+    behavior: int = 0
+    mortality: bool = False
+    deadage: float = 1e30
+    pediage: float = 0.0
+    swimstart: float = 0.0
+    swimslow: float = 0.0
+    swimfast: float = 0.0
+    Sgradient: float = 1.0
+    sink: float = 0.0
+    Hswimspeed: float = 0.0
+    Swimdepth: float = 2.0
+    # dvmparam group
+    twistart: float = 4.801821
+    twiend: float = 19.19956
+    Em: float = 1935.077
+    Kp: float = 0.4
+    thresh: float = 0.0166
+    idt: float = 120.0
+    sigma: float = 0.0
+    stochastic: bool = False
+
+
+def check_ported(p: BehaveParams) -> None:
+    """Raise NotImplementedError for the options not ported yet."""
+    if p.behavior not in PORTED_TYPES:
+        raise NotImplementedError(
+            f"Behavior={p.behavior}: types 4/5 need the salt fields, not "
+            f"ported to ltjax_torch yet")
+    if p.mortality and p.stochastic:
+        raise NotImplementedError("stochastic_mortality: not ported to "
+                                  "ltjax_torch yet")
+
+
+def swim_speed(age, p: BehaveParams, dtype):
+    """Ontogenetic ramp swimslow -> swimfast over [swimstart, pediage]."""
+    denom = max(p.pediage - p.swimstart, 1e-30)
+    frac = torch.clamp((age - p.swimstart) / denom, 0.0, 1.0).to(dtype)
+    w = p.swimslow + (p.swimfast - p.swimslow) * frac
+    return torch.where(age >= p.swimstart, w, torch.zeros_like(w)).to(dtype)
+
+
+def surface_irradiance(t, p: BehaveParams, dtype):
+    """Modeled surface light: sine arc between twistart and twiend hours
+    of the day, peak Em."""
+    hours = (torch.as_tensor(t, dtype=dtype) / 3600.0) % 24.0
+    span = p.twiend - p.twistart
+    tau = (hours - p.twistart) / span
+    day = (tau > 0.0) & (tau < 1.0)
+    return torch.where(day, p.Em * torch.sin(math.pi * tau),
+                       torch.zeros_like(tau))
+
+
+def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
+           currents, p: BehaveParams):
+    """Behavioral displacement (dx, dy, dz) and death mask for this step.
+
+    zeta_p/h_p: free surface and depth at each particle; currents: (u, v)
+    at the particle (used by type 7).  ``grid`` and ``fields`` are kept
+    for the signature of ltjax (types 4/5 read the salt fields)."""
+    check_ported(p)
+    dtype = x.dtype
+    dev = x.device
+    n = x.shape[0]
+    idt = torch.as_tensor(p.idt, dtype=dtype, device=dev)
+    zero = torch.zeros(n, dtype=dtype, device=dev)
+    dx = dy = dz = zero
+
+    w_swim = swim_speed(age, p, dtype)
+    r_dir = rng.uniform(seed, step, rng.BEHAVE, pids, (), 0.0, 1.0, dtype)
+    r_mix = rng.uniform(seed, step, rng.MORTALITY, pids, (), -1.0, 1.0,
+                        dtype)
+
+    def biased_dz(target_above: bool):
+        """Swim toward the preferred zone with probability P_BIAS."""
+        toward = 1.0 if target_above else -1.0
+        sgn = torch.where(r_dir < P_BIAS, toward, -toward).to(dtype)
+        return sgn * w_swim * idt
+
+    b = p.behavior
+    if b == 1:
+        below_zone = z < (zeta_p - SURFACE_ZONE)
+        dz = torch.where(below_zone, biased_dz(True), r_mix * w_swim * idt)
+    elif b == 2:
+        above_zone = z > (-h_p + BOTTOM_ZONE)
+        dz = torch.where(above_zone, biased_dz(False), r_mix * w_swim * idt)
+    elif b == 3:
+        e0 = surface_irradiance(t, p, dtype)
+        light = e0 * torch.exp(-p.Kp * torch.clamp(zeta_p - z, min=0.0))
+        # swim down out of light above threshold; otherwise swim up
+        dz = torch.where(light > p.thresh, -w_swim * idt,
+                         torch.where(e0 > 0.0, w_swim * idt,
+                                     r_mix * w_swim * idt))
+    elif b == 6:
+        dz = -torch.as_tensor(p.sink, dtype=dtype, device=dev) * idt \
+            * torch.ones(n, dtype=dtype, device=dev)
+    elif b == 7:
+        u_c, v_c = currents
+        speed = torch.sqrt(u_c * u_c + v_c * v_c)
+        riding = speed > TST_MIN_SPEED
+        # ride: hold at Swimdepth below the surface with Hswimspeed along
+        # the current; else sit near the bottom
+        target_z = torch.where(riding, zeta_p - p.Swimdepth, -h_p + 0.5)
+        bound = w_swim * idt + 1.0
+        dz = torch.minimum(torch.maximum(target_z - z, -w_swim * idt - 1.0),
+                           bound)
+        spd_safe = torch.clamp(speed, min=1e-12)
+        dx = torch.where(riding, p.Hswimspeed * u_c / spd_safe * idt, zero)
+        dy = torch.where(riding, p.Hswimspeed * v_c / spd_safe * idt, zero)
+
+    dies = torch.zeros(n, dtype=torch.bool, device=dev)
+    if p.mortality:
+        dies = age >= p.deadage
+    return dx, dy, dz, dies

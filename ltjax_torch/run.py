@@ -7,9 +7,12 @@ Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
 The namelist is the reference's own ``LTRANS.data`` (read by
 ``ltjax.config``).  The run takes the CUDA kernel path on a GPU
 (``dtype_pos = "float32"`` required there) and the plain PyTorch path on
-the CPU; the first stdout line is a JSON object naming the path taken,
-then one JSON line per chunk of external steps with status counts and
-particle-steps/s.  History files must be NetCDF3 unless ``h5py`` is
+the CPU; the first stdout line is a JSON object naming the path taken
+and the enabled physics lanes, then one JSON line per chunk of external
+steps with status counts and particle-steps/s.  Random streams are keyed
+by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
+see ``ltjax_torch.rng``), and vertical turbulence with ``readAks`` reads
+the series' AKs.  History files must be NetCDF3 unless ``h5py`` is
 installed (``ltjax.io.nc``).
 """
 
@@ -105,6 +108,22 @@ def init_particles_from_parfile(cfg: Config, device) -> st.Particles:
                              device=device)
 
 
+def enabled_lanes(cfg: Config) -> List[str]:
+    """The physics a run takes besides advection, as named in the
+    startup line: hturb, vturb_aks / vturb_const, behavior<type>,
+    mortality."""
+    lanes = ["advection"]
+    if cfg.HTurbOn:
+        lanes.append("hturb")
+    if cfg.VTurbOn:
+        lanes.append("vturb_aks" if cfg.readAks else "vturb_const")
+    if cfg.Behavior:
+        lanes.append(f"behavior{cfg.Behavior}")
+    if cfg.mortality:
+        lanes.append("mortality")
+    return lanes
+
+
 class Timing:
     """WriteModelTiming analog: cumulative per-phase wall clock."""
 
@@ -151,7 +170,8 @@ def run(cfg: Config, resume: bool = False, device=None,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "uniform": bool(grid.uniform), "numpar": particles.n,
-        "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse}), flush=True)
+        "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse,
+        "lanes": enabled_lanes(cfg), "seed": cfg.seed}), flush=True)
 
     writer = TrajectoryWriter(cfg)
     fused_cache = {}

@@ -1,18 +1,23 @@
-"""The time-stepping core (counterpart of ``ltjax.step``), advection only.
+"""The time-stepping core (counterpart of ``ltjax.step``).
 
 Per internal step each particle is released at its date of birth,
-advected by RK4 through ``find_currents`` (collapsed scheme), reflected
-at coastlines / exited through open boundaries, reflected at the
-surface and bottom, and its status updated (reference
+advected by RK4 through ``find_currents`` (collapsed scheme), kicked by
+horizontal and vertical turbulence and by its behavior, reflected at
+coastlines / exited through open boundaries, reflected at the surface
+and bottom, and its status updated, mortality included (reference
 ``run_Internal_Timestep``/``update_particles``).  An external step runs
 ``cfg.internal_steps`` of them through the CUDA kernel on CUDA tensors
 (``kernels.ext_step.ext_step_fused``) or its plain version on CPU
 tensors.
 
+Random draws are keyed by (seed, step index, substream, particle id)
+(``ltjax_torch.rng``); the step index of internal step i of external
+step e is ``e * internal_steps + i``, as in ltjax.
+
 ``check_supported`` raises ``NotImplementedError`` for every option
-outside this slice (turbulence, behaviors, mortality, settlement, salt,
-curvilinear grids, sharding, checkpoints): they are not silently
-dropped.
+outside the ported slice (behaviors 4/5, stochastic mortality,
+settlement, salt, curvilinear grids, sharding, checkpoints): they are
+not silently dropped.
 """
 
 from __future__ import annotations
@@ -27,7 +32,9 @@ from . import state as st
 from .fields import FieldSet
 from .grid import Grid, locate
 from .kernels import ext_step as kx
+from .physics import behavior as bh
 from .physics import boundary as bd
+from .physics import turb as tb
 
 
 @dataclass
@@ -51,8 +58,8 @@ def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
     """Raise NotImplementedError naming the first option outside the
     ported slice (stands in for ltjax.step.mode_flags)."""
     unsupported = [
-        ("HTurbOn", cfg.HTurbOn), ("VTurbOn", cfg.VTurbOn),
-        ("Behavior", cfg.Behavior != 0), ("mortality", cfg.mortality),
+        ("Behavior", cfg.Behavior not in bh.PORTED_TYPES),
+        ("stochastic_mortality", cfg.mortality and cfg.stochastic_mortality),
         ("settlementon", cfg.settlementon),
         ("SaltTempOn", cfg.SaltTempOn),
         ("tension_sigma", cfg.tension_sigma < 0),
@@ -74,13 +81,35 @@ def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
             raise NotImplementedError(f"{name}: not ported to ltjax_torch yet")
 
 
-def internal_step(ctx: StepContext, cfg, p: st.Particles,
-                  prec: pk.PackedRecords, t: float) -> st.Particles:
+def make_params(cfg):
+    """The turbulence and behavior parameters of a configuration."""
+    turb = tb.TurbParams(ConstantHTurb=cfg.ConstantHTurb,
+                         ConstantVTurb=cfg.ConstantVTurb,
+                         use_aks=cfg.readAks, sigma=cfg.tension_sigma,
+                         idt=float(cfg.idt))
+    beh = bh.BehaveParams(
+        behavior=cfg.Behavior, mortality=cfg.mortality, deadage=cfg.deadage,
+        pediage=cfg.pediage, swimstart=cfg.swimstart, swimslow=cfg.swimslow,
+        swimfast=cfg.swimfast, Sgradient=cfg.Sgradient, sink=cfg.sink,
+        Hswimspeed=cfg.Hswimspeed, Swimdepth=cfg.Swimdepth,
+        twistart=cfg.twistart, twiend=cfg.twiend, Em=cfg.Em, Kp=cfg.Kp,
+        thresh=cfg.thresh, idt=float(cfg.idt), sigma=cfg.tension_sigma,
+        stochastic=cfg.stochastic_mortality)
+    return turb, beh
+
+
+def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
+                  fields: FieldSet, t: float, step_idx: int,
+                  prec: pk.PackedRecords) -> st.Particles:
     """One internal timestep for the whole batch, collapsed scheme (the
-    plain version of the CUDA kernel's per-thread step)."""
+    plain version of the CUDA kernel's per-thread step).  ``fields`` is
+    the 3-record window (vertical turbulence reads its Aks), ``prec`` its
+    packed records; ``step_idx`` keys the random draws."""
     grid, bounds = ctx.grid, ctx.bounds
+    turb, beh = make_params(cfg)
     dtype = p.x.dtype
     idt = float(cfg.idt)
+    idt_t = torch.tensor(idt, dtype=dtype, device=p.x.device)
     tt = torch.tensor(t, dtype=dtype, device=p.x.device)
     tabs = pk.stage_value_tables(grid, prec, t, idt)
 
@@ -94,6 +123,32 @@ def internal_step(ctx: StepContext, cfg, p: st.Particles,
     dx, dy, dz = pk.rk4_displacement_collapsed(
         grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
 
+    # --- turbulence -----------------------------------------------------
+    if cfg.HTurbOn:
+        hx, hy = tb.hturb(seed, step_idx, p.pid, idt_t, cfg.ConstantHTurb,
+                          dtype)
+        dx = dx + hx
+        dy = dy + hy
+    if cfg.VTurbOn:
+        dz = dz + tb.vturb(grid, fields, seed, step_idx, p.pid, p.x, p.y,
+                           p.z, t, turb)
+
+    # --- behavior (free surface, depth and currents at stage 1) ----------
+    dies = torch.zeros_like(active)
+    if cfg.Behavior != 0 or cfg.mortality:
+        zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
+        if cfg.Behavior == 7:
+            cur = pk.find_currents_collapsed(grid, tabs[0], p.x, p.y, p.z,
+                                             cfg.tension_sigma, cfg.z0)[:2]
+        else:
+            cur = (torch.zeros_like(p.x), torch.zeros_like(p.x))
+        bx, by, bz, dies = bh.behave(grid, fields, seed, step_idx, p.pid,
+                                     p.x, p.y, p.z, tt, p.age, zeta_p, h_p,
+                                     cur, beh)
+        dx = dx + bx
+        dy = dy + by
+        dz = dz + bz
+
     # --- horizontal boundary reflection ---------------------------------
     xr, yr, hits, exited, stuck = bd.reflect(
         bounds, p.x, p.y, p.x + dx, p.y + dy,
@@ -104,11 +159,16 @@ def internal_step(ctx: StepContext, cfg, p: st.Particles,
     zr, _, hit_bot = bd.reflect_vertical(p.z + dz, zeta1, h1)
 
     # --- apply updates under the active mask -----------------------------
+    # DEAD overrides a same-step ERROR but not an exit
     new_status = torch.where(active & exited,
                              torch.full_like(status, st.OUT_OF_DOMAIN),
                              status)
     new_status = torch.where(active & stuck,
                              torch.full_like(status, st.ERROR), new_status)
+    if cfg.mortality:
+        new_status = torch.where(active & dies & ~exited,
+                                 torch.full_like(status, st.DEAD),
+                                 new_status)
     out = p.replace(
         x=torch.where(active, xr, p.x), y=torch.where(active, yr, p.y),
         z=torch.where(active, zr, p.z),
@@ -128,25 +188,34 @@ def _sort(grid: Grid, p: st.Particles):
     return sp.sort_by_cell(p, ci, cj)
 
 
+def fieldset_slice(fs: FieldSet, e: int, r: int = 3) -> FieldSet:
+    """Records [e, e + r) of a record window."""
+    return FieldSet(*(getattr(fs, k)[e:e + r] for k in
+                      ("zeta", "u", "v", "w", "aks", "times")))
+
+
 def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     """``n_fuse`` consecutive external steps over an (n_fuse + 2)-record
     field window: external step e uses records [e, e+1, e+2], the same
     values as n_fuse calls on the rotating triple buffer (reference
     ``updateHydro``).  The batch is Hilbert-sorted every
     ``cfg.ext_sort_every`` external steps and returned in storage order.
+    ``cfg.seed`` keys the random streams.
 
-    Returns ``fused(p, fsR, t0, ext_idx0) -> p'``."""
+    Returns ``fused(p, fsR, t0, ext_idx0) -> p'``; external step e of the
+    call has index ext_idx0 + e."""
     check_supported(cfg, ctx)
     grid = ctx.grid
     dt = float(cfg.dt)
     se = max(1, cfg.ext_sort_every)
+    with_aks = bool(cfg.VTurbOn and cfg.readAks)
 
     def fused(p: st.Particles, fsR: FieldSet, t0: float,
               ext_idx0: int = 0) -> st.Particles:
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"fused step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = pk.build_packed_records(grid, fsR)
+        prec_all = pk.build_packed_records(grid, fsR, with_aks=with_aks)
         cum = torch.arange(p.n, device=p.x.device)
         for e in range(n_fuse):
             if e % se == 0:
@@ -154,7 +223,9 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
                 cum = cum[perm]
             prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
                                      times=prec_all.times[e:e + 3])
-            p = kx.ext_step_fused(ctx, cfg, p, prec3, float(t0) + e * dt)
+            p = kx.ext_step_fused(ctx, cfg, p, prec3, float(t0) + e * dt,
+                                  fields=fieldset_slice(fsR, e),
+                                  ext_idx=int(ext_idx0) + e)
         return sp.unsort(p, cum)
 
     return fused

@@ -39,6 +39,7 @@ class SolidBodyCase:
     shear_a: float
     ramp_b: float
     h0: float
+    parabolic_aks: bool = False   # Aks = bench.py's turb profile, else 0
 
     def velocity(self, x, y, z, t):
         f = (1.0 + self.shear_a * z) * (1.0 + self.ramp_b * t)
@@ -76,19 +77,36 @@ class SolidBodyCase:
         v = np.broadcast_to(v, (us, 1, nx)) * (
             1.0 + self.shear_a * 0.5 * (z_r[:, 1:, :] + z_r[:, :-1, :]))
         w = np.zeros((ws, ny, nx))
+        aks = np.zeros_like(w)
+        if self.parabolic_aks:
+            aks = parabolic_aks(g)
         return dict(zeta=np.zeros((ny, nx)), u=np.ascontiguousarray(u),
-                    v=np.ascontiguousarray(v), w=w, aks=np.zeros_like(w))
+                    v=np.ascontiguousarray(v), w=w, aks=aks)
+
+
+def parabolic_aks(grid: Grid) -> np.ndarray:
+    """(ws, Ny, Nx) vertical diffusivity of bench.py's turb variant,
+    K = 1e-4 + 4e-3 (1 - (2 z_w / h + 1)^2) [m^2/s] at the w levels of the
+    resting column: 1e-4 at the surface and the bottom, 4.1e-3 mid-depth,
+    so the Visser drift term K' is real."""
+    h = grid.h.cpu().numpy().astype(np.float64)
+    z_w = s_depths(np.zeros_like(h), h, grid.s_w.cpu().numpy(),
+                   grid.Cs_w.cpu().numpy(), grid.hc, grid.vtransform)
+    k = 1e-4 + 4e-3 * (1.0 - (2.0 * z_w / h[..., None] + 1.0) ** 2)
+    return np.ascontiguousarray(np.moveaxis(k, -1, 0))
 
 
 def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                          h0=50.0, omega=1e-4, shear_a=0.0, ramp_b=0.0,
                          vtransform=1, theta_s=0.0, dtype=torch.float64,
-                         device="cpu", mask=None) -> SolidBodyCase:
+                         device="cpu", mask=None,
+                         parabolic_aks=False) -> SolidBodyCase:
     """Solid-body rotation about the domain centre on a uniform grid.
 
     hc = h0 and Cs = s (theta_s = 0) make the Vtransform-1 levels
     z = h*s exactly; theta_s > 0 stretches the ladder.  ``mask`` (Ny, Nx)
-    marks land cells (0)."""
+    marks land cells (0).  ``parabolic_aks`` gives the records bench.py's
+    turb-variant Aks profile (``parabolic_aks``) instead of zeros."""
     x_rho = np.linspace(0.0, lx, nx)
     y_rho = np.linspace(0.0, ly, ny)
     h = np.full((ny, nx), h0)
@@ -100,7 +118,8 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                      song_haidvogel_cs(s_w, theta_s), hc=h0,
                      vtransform=vtransform, dtype=dtype, device=device)
     return SolidBodyCase(grid=grid, omega=omega, xc=lx / 2, yc=ly / 2,
-                         shear_a=shear_a, ramp_b=ramp_b, h0=h0)
+                         shear_a=shear_a, ramp_b=ramp_b, h0=h0,
+                         parabolic_aks=parabolic_aks)
 
 
 def fieldset_window(case: SolidBodyCase, t_first: float, dt: float,
@@ -240,9 +259,10 @@ def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
     """Write a complete planar run of ``case``: the ROMS grid + history
     series (n_ext + 2 records at t = 0, dt, ...), a parfile of the
     particles (x, y, z) released at t = 0, and an ``LTRANS.data``
-    namelist; extra namelist ``params`` override the defaults.  Returns
-    the namelist path (``python -m ltjax.run`` and ``ltjax_torch.run``
-    both read it)."""
+    namelist; extra namelist ``params`` override the defaults.  The
+    series' AKs is the case's (``make_solid_body_case(parabolic_aks=)``).
+    Returns the namelist path (``python -m ltjax.run`` and
+    ``ltjax_torch.run`` both read it)."""
     write_roms_files(case, out_dir, n_records=n_ext + 2, dt=float(dt))
     parfile = os.path.join(out_dir, "parfile.csv")
     rows = np.stack([np.asarray(x, np.float64), np.asarray(y, np.float64),

@@ -5,8 +5,10 @@ the dimensionless per-interval tension u = T*h (u -> 0 is the natural
 cubic spline).  Knots may differ per batch element.  Interval form
 (h = x_{j+1}-x_j, B2 = (x-x_j)/h, B1 = 1-B2):
 
-  H(x) = y_j*B1 + y_{j+1}*B2 + h^2 * (z_j*gs(u,B1) + z_{j+1}*gs(u,B2))
+  H(x)  = y_j*B1 + y_{j+1}*B2 + h^2 * (z_j*gs(u,B1) + z_{j+1}*gs(u,B2))
+  H'(x) = (y_{j+1}-y_j)/h + h * (z_j*ds(u,B1) - z_{j+1}*ds(u,B2))
   gs(u,B) = (sinh(u*B)/sinh(u) - B) / u^2     -> (B^3-B)/6   as u->0
+  ds(u,B) = (1 - u*cosh(u*B)/sinh(u)) / u^2   -> 1/6 - B^2/2 as u->0
 
 Small-u branches use series accurate to O(u^6).  Static sigma >= 0 only:
 adaptive tension (``ltjax.tension.adaptive_sigma``) is not ported yet.
@@ -123,8 +125,9 @@ def _interval_index(xk, x):
     return j.clamp(0, n - 2)
 
 
-def evaluate(xk, yk, z2, sigma, x):
-    """Evaluate the tension spline at x, clamped to the knot range."""
+def _interval(xk, yk, z2, sigma, x):
+    """x clamped to the knot range, and the endpoints (x0, x1, y0, y1,
+    z2_0, z2_1) and tension u of its interval."""
     x = torch.minimum(torch.maximum(x, xk[..., 0]), xk[..., -1])
     j = _interval_index(xk, x)[..., None]
     x0 = xk.gather(-1, j)[..., 0]
@@ -135,7 +138,22 @@ def evaluate(xk, yk, z2, sigma, x):
     s1 = z2.gather(-1, j + 1)[..., 0]
     sig = torch.broadcast_to(_as(sigma, xk), xk[..., :-1].shape)
     u = sig.gather(-1, j)[..., 0]
+    return x, x0, x1, y0, y1, s0, s1, u
+
+
+def evaluate(xk, yk, z2, sigma, x):
+    """Evaluate the tension spline at x, clamped to the knot range."""
+    x, x0, x1, y0, y1, s0, s1, u = _interval(xk, yk, z2, sigma, x)
     h = x1 - x0
     B2 = (x - x0) / h
     B1 = 1.0 - B2
     return y0 * B1 + y1 * B2 + h * h * (s0 * _gs(u, B1) + s1 * _gs(u, B2))
+
+
+def evaluate_deriv(xk, yk, z2, sigma, x):
+    """dH/dx at x, clamped to the knot range."""
+    x, x0, x1, y0, y1, s0, s1, u = _interval(xk, yk, z2, sigma, x)
+    h = x1 - x0
+    B2 = (x - x0) / h
+    B1 = 1.0 - B2
+    return (y1 - y0) / h + h * (s0 * _ds(u, B1) - s1 * _ds(u, B2))

@@ -171,3 +171,79 @@ def test_launch_counter_stays_zero_on_cpu(setup):
     # the fixture ran ext_step_fused on CPU tensors: the plain version,
     # never the kernel
     assert kx.ext_step_fused.launches == 0
+
+
+def test_turbulent_swimming_step_matches_jax_megakernel_interpret():
+    """Horizontal turbulence, Visser on a parabolic Aks profile, behavior
+    1 and mortality: the plain version against the JAX megakernel
+    (interpret, HIGHEST) on the same Threefry streams (seed 3 here,
+    jax.random.key(3) there).  The megakernel derives the behavior and
+    mortality age as t - dob where internal_step carries p.age; the two
+    agree when every particle is released at the step's start with age 0
+    (the divergence is listed in ROADMAP.md Queue 3)."""
+    dtype = jnp.float32
+    c = jsynth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                    h0=50.0, omega=1e-4, dtype=dtype)
+    grid = c.grid._replace(mask_rho=jnp.asarray(_mask()))
+    fs = jsynth.fieldset_for(c, t_center=900.0, dt=1800.0, dtype=dtype)
+    z_w = 50.0 * np.asarray(grid.s_w)
+    K = 1e-4 + 4e-3 * (1.0 - (2.0 * z_w / 50.0 + 1.0) ** 2)
+    fs = fs._replace(aks=jnp.broadcast_to(jnp.asarray(K, dtype),
+                                          fs.aks.shape))
+    bounds = jbd.build_boundaries(_mask(), np.asarray(grid.x_rho),
+                                  np.asarray(grid.y_rho))
+    cfg = Config(numpar=256, dt=1800, idt=450, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float32",
+                 reflect_iters=2, TrackCollisions=True, HTurbOn=True,
+                 ConstantHTurb=5.0, VTurbOn=True, readAks=True, Behavior=1,
+                 swimslow=1e-3, swimfast=4e-3, pediage=3600.0,
+                 mortality=True, deadage=900.0)
+    rng = np.random.default_rng(7)
+    n = 256
+    p = jst.init_particles(rng.uniform(38e3, 52e3, n),
+                           rng.uniform(38e3, 52e3, n),
+                           rng.uniform(-45.0, -2.0, n), dtype=dtype)
+    i, _ = jlocate(grid.x_rho, p.x, grid.uniform)
+    j, _ = jlocate(grid.y_rho, p.y, grid.uniform)
+    p, _ = jsp.sort_by_cell(p, i, j)
+    prec = jpk.build_packed_records(grid, fs, with_aks=True)
+    rtab = jpk.build_record_tables(grid, prec)
+    brows = jnp.asarray(jes.boundary_rows_table(bounds, grid.ny, grid.nx))
+    s_max = (int(bounds.cell_rows.shape[1]) - 8) // 8
+    params = jes.params_array_ext(grid, bounds, cfg.z0, 0.0, fs.times,
+                                  float(cfg.idt), cfg.internal_steps,
+                                  const_hturb=cfg.ConstantHTurb,
+                                  deadage=cfg.deadage)
+    beh = dict(pediage=cfg.pediage, swimstart=cfg.swimstart,
+               swimslow=cfg.swimslow, swimfast=cfg.swimfast, Kp=cfg.Kp,
+               thresh=cfg.thresh)
+    rngk = jes.rng_keys_array(jr.key(3), 0, cfg.internal_steps,
+                              behave=True)
+    (xo, yo, zo, sto, _, _, _, hitl, hitb, oob) = jes.ext_step_fused(
+        grid, rtab, brows, params, p.x, p.y, p.z, p.dob, p.status,
+        cfg.tension_sigma, cfg.internal_steps, float(cfg.idt),
+        n_iter=cfg.reflect_iters, p_block=256, s_max=s_max,
+        precision=jax.lax.Precision.HIGHEST, open_exits=True, pids=p.pid,
+        rngk=rngk, hturb_on=True, vturb_on=True, with_aks=True,
+        mortality=True, behavior=1, beh=beh, interpret=True)
+
+    ctx = tstep.StepContext(grid=interop.grid_from_numpy(_np(grid)),
+                            bounds=interop.boundaries_from_numpy(
+                                _np(bounds)))
+    tfs = interop.fieldset_from_numpy(_np(fs))
+    out = interop.particles_to_numpy(kx.ext_step_fused(
+        ctx, cfg, interop.particles_from_numpy(_np(p)),
+        pk.build_packed_records(ctx.grid, tfs, with_aks=True), 0.0,
+        fields=tfs, seed=interop.seed_from_key_data(jr.key_data(jr.key(3))),
+        ext_idx=0))
+    ok = ~np.asarray(oob)
+    assert ok.sum() > 0.9 * n
+    np.testing.assert_array_equal(out["status"][ok], np.asarray(sto)[ok])
+    for k, v, tol in (("x", xo, TOL_H), ("y", yo, TOL_H), ("z", zo, TOL_V)):
+        np.testing.assert_allclose(out[k][ok], np.asarray(v)[ok], rtol=0,
+                                   atol=tol)
+    np.testing.assert_array_equal(out["hit_bottom"][ok],
+                                  np.asarray(hitb)[ok])
+    # turbulence moved them, some died (900 s death age), the walk swam
+    assert np.abs(out["z"] - np.asarray(p.z)).max() > 1.0
+    assert (out["status"] == jst.DEAD).sum() > 0

@@ -14,6 +14,16 @@ seeded random w and zeta to a ten times slower rotation and compares
 every internal step on its own, from the same state: over many steps
 its trajectories are too sensitive to round-off for any f32 comparison
 (see chip_smoke.py phase 1).
+
+The turbulence, behavior and mortality variants of the kernel are held
+the same way, step by step from the plain trajectory's state (one
+compiled variant per case): horizontal 0.05 m, vertical 1e-3 m, equal
+statuses.  Their draws are bit-equal (same Threefry words); what is
+left is f32 round-off, FMA contraction and the order of the Aks blend
+(collapse-then-blend in the kernel, blend-then-collapse in the plain
+version).  Ages straddle the swim ramp and the death age, and strong
+horizontal turbulence drives particles onto land in the same step as
+they die, so DEAD must override ERROR.
 """
 from dataclasses import replace
 
@@ -155,8 +165,13 @@ def _surface_crossings(ctx, cfg, p, rec, t):
 
 
 @pytest.mark.gpu
-def test_fused_steps_launch_once_per_external_step(gpu):
+@pytest.mark.parametrize("lanes", [{}, dict(HTurbOn=True, VTurbOn=True,
+                                            readAks=True, Behavior=3)],
+                         ids=["advection", "turb-dvm"])
+def test_fused_steps_launch_once_per_external_step(gpu, lanes):
     c, ctx, cfg, p = _case(gpu)
+    c.parabolic_aks = True
+    cfg = replace(cfg, swimslow=1e-3, swimfast=1e-3, **lanes)
     fsR = synth.fieldset_window(c, -900.0, 1800.0, 5)
     n0 = kx.ext_step_fused.launches
     out = make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 0)
@@ -172,6 +187,101 @@ def test_empty_batch_launches_nothing(gpu):
     n0 = kx.ext_step_fused.launches
     out = kx.ext_step_fused(ctx, cfg, p.take(p.x[:0].long()), rec, 0.0)
     assert out.n == 0 and kx.ext_step_fused.launches == n0
+
+
+LANES = {
+    "turb-aks": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                     readAks=True),
+    "turb-const": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                       readAks=False, ConstantVTurb=2e-3),
+    "dead-over-error": dict(HTurbOn=True, ConstantHTurb=2e4, mortality=True),
+    **{f"behavior{b}": dict(Behavior=b, mortality=True) for b in
+       (1, 2, 3, 6, 7)},
+}
+BEH = dict(deadage=2 * 86400.0, pediage=86400.0, swimstart=3600.0,
+           swimslow=2e-3, swimfast=5e-3, sink=5e-4, Hswimspeed=0.1,
+           Swimdepth=3.0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(LANES))
+def test_kernel_lanes_match_plain_stepwise(gpu, name):
+    """Four internal steps, each launched on its own from the plain
+    trajectory's state, at 9 h of the day (DVM in daylight)."""
+    c, ctx, cfg, p = _case(gpu, omega=1e-5)
+    c.parabolic_aks = True
+    cfg1 = replace(cfg, dt=cfg.idt, **BEH, **LANES[name])
+    rng = np.random.default_rng(10)
+    age = rng.uniform(0.0, 3 * 86400.0, p.n)
+    p = p.replace(age=torch.tensor(age, dtype=torch.float32, device=gpu),
+                  dob=torch.tensor(-age, dtype=torch.float32, device=gpu),
+                  pid=torch.tensor(rng.permutation(p.n), dtype=torch.int32,
+                                   device=gpu))
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=t0 + 900.0, dt=1800.0), seed=12)
+    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg1.VTurbOn)
+    q = p
+    moved = 0.0
+    for i in range(4):
+        t = t0 + i * float(cfg1.idt)
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                ext_idx=i)
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                    ext_idx=i)
+        torch.cuda.synchronize()
+        assert (out.status != ref.status).sum() == 0
+        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3), ("age", 1e-3)):
+            np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
+                                       getattr(ref, k).cpu().numpy(),
+                                       rtol=0, atol=tol)
+        assert (out.hit_bottom != ref.hit_bottom).sum() <= 1e-4 * p.n
+        moved = max(moved, float((ref.z - q.z).abs().max()))
+        q = ref
+    assert moved > 0.1
+    if cfg1.mortality:
+        assert (q.status == st.DEAD).sum() > 0
+    if name == "dead-over-error":
+        # some of the dead were stuck on land in the step they died
+        alive = kx.ext_step_reference(ctx, replace(cfg1, mortality=False), p,
+                                      rec, t0, fields=fs, seed=5, ext_idx=0)
+        dead = kx.ext_step_reference(ctx, cfg1, p, rec, t0, fields=fs,
+                                     seed=5, ext_idx=0)
+        assert ((alive.status == st.ERROR) & (dead.status == st.DEAD)
+                ).sum() > 0
+
+
+@pytest.mark.gpu
+def test_hturb_deviates_match_plain_exactly(gpu):
+    """Zero flow on a grid centred on the origin, particles within a
+    metre of it: positions carry the horizontal random walk alone with
+    ~1e-6 m of f32 resolution, so the kernel's Box-Muller deviates are
+    held to the plain version's at 1e-5 m (a fast-math logf moves them
+    by more)."""
+    c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                   h0=50.0, omega=0.0, dtype=torch.float32,
+                                   device=gpu)
+    g = replace(c.grid, x_rho=c.grid.x_rho - 50e3, y_rho=c.grid.y_rho - 50e3,
+                x_u=c.grid.x_u - 50e3, y_v=c.grid.y_v - 50e3)
+    c = replace(c, grid=g)
+    ctx = StepContext(grid=g, bounds=bd.build_boundaries(
+        g.mask_rho.cpu().numpy(), g.x_rho.cpu().numpy(),
+        g.y_rho.cpu().numpy(), device=gpu))
+    cfg = Config(numpar=65536, dt=120, idt=120, us=6, ws=7,
+                 dtype_pos="float32", HTurbOn=True, ConstantHTurb=1.0)
+    rng = np.random.default_rng(3)
+    n = 65536
+    p = st.init_particles(rng.uniform(-1, 1, n), rng.uniform(-1, 1, n),
+                          rng.uniform(-40, -10, n), dtype=torch.float32,
+                          device=gpu)
+    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+    rec = pk.build_packed_records(g, synth.fieldset_for(c, 60.0, 3600.0))
+    out = kx.ext_step_fused(ctx, cfg, p, rec, 0.0, seed=2, ext_idx=7)
+    ref = kx.ext_step_reference(ctx, cfg, p, rec, 0.0, seed=2, ext_idx=7)
+    for k in ("x", "y"):
+        d = (getattr(out, k) - getattr(ref, k)).abs().max().item()
+        assert d <= 1e-5, (k, d)
+    assert (ref.x - p.x).std().item() > 10.0
 
 
 def test_wrapper_rejects_other_devices():

@@ -8,6 +8,14 @@ closed-form solid-body trajectory.  The fields are float32 on disk, and
 ltjax's CPU path interpolates with another scheme (fit-then-blend
 column splines), so both comparisons use the float32 horizontal
 tolerance 0.5 m; statuses equal.
+
+A turbulent run (HTurbOn, VTurbOn on the series' parabolic AKs profile)
+and a diel-vertical-migration run (Behavior 3) go through the same
+entry point: the startup line names their lanes, the turbulent
+trajectories do not depend on how the external steps are chunked
+(``ext_fuse`` 2 and 4 give the same particles, bit for bit: the random
+draws are keyed by the global step index), and they follow ltjax.run's
+draws (same seed, same streams) to the same 0.5 m / 1e-3 m tolerance.
 """
 
 import json
@@ -55,6 +63,95 @@ def run_case(tmp_path_factory):
              if ln.startswith("{")]
     rows = np.loadtxt(os.path.join(d, "out", "run1.csv"), delimiter=",")
     return case, nml, d, (x0, y0, z0), lines, rows
+
+
+def _run_cli(nml):
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", NO_JAX, nml], cwd=ROOT,
+                       env=env, capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stderr[-4000:]
+    return [json.loads(ln) for ln in r.stdout.splitlines()
+            if ln.startswith("{")]
+
+
+TURB = dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True, readAks=True,
+            seed=11)
+
+
+@pytest.fixture(scope="module")
+def turb_runs(tmp_path_factory):
+    """The same turbulent series in chunks of 2 and of 4 external steps."""
+    case = synth.make_solid_body_case(nx=31, ny=31, us=6, lx=30e3, ly=30e3,
+                                      h0=40.0, omega=1e-4,
+                                      dtype=torch.float64, parabolic_aks=True)
+    rng = np.random.default_rng(13)
+    n = 150
+    x0 = rng.uniform(8e3, 22e3, n)
+    y0 = rng.uniform(8e3, 22e3, n)
+    z0 = rng.uniform(-35.0, -3.0, n)
+    out = {}
+    for fuse in (2, 4):
+        d = str(tmp_path_factory.mktemp(f"torch_turb{fuse}"))
+        nml = synth.write_run_files(case, d, x0, y0, z0, n_ext=4, dt=DT,
+                                    idt=450, iprint=4 * DT, ext_fuse=fuse,
+                                    **TURB)
+        out[fuse] = (nml, d, _run_cli(nml),
+                     np.loadtxt(os.path.join(d, "out", "run1.csv"),
+                                delimiter=","))
+    return case, (x0, y0, z0), out
+
+
+def test_cli_turbulent_run_independent_of_chunking(turb_runs):
+    case, (x0, y0, z0), out = turb_runs
+    lines2, rows2 = out[2][2], out[2][3]
+    lines4, rows4 = out[4][2], out[4][3]
+    assert lines2[0]["lanes"] == ["advection", "hturb", "vturb_aks"]
+    assert lines2[0]["seed"] == 11
+    assert [ln["n_fused"] for ln in lines2[1:]] == [2, 2]
+    assert [ln["n_fused"] for ln in lines4[1:]] == [4]
+    np.testing.assert_array_equal(_final(rows2), _final(rows4))
+    # turbulence moved the particles off the closed-form trajectory
+    final = _final(rows4)
+    xa, ya, _ = case.analytic(x0, y0, z0, 4 * DT)
+    assert np.hypot(final[:, 2] - xa, final[:, 3] - ya).min() > 1.0
+    assert np.abs(final[:, 4] - z0).max() > 1.0
+
+
+def test_cli_turbulent_run_matches_ltjax_run(turb_runs):
+    _, _, out = turb_runs
+    nml, d, _, rows = out[4]
+    cfg = config_from_namelist(nml, outpath=os.path.join(d, "jax_out"))
+    pj = jrun.run(cfg)
+    final = _final(rows)
+    np.testing.assert_array_equal(final[:, 5], np.asarray(pj.status))
+    np.testing.assert_allclose(final[:, 2], np.asarray(pj.x), rtol=0,
+                               atol=0.5)
+    np.testing.assert_allclose(final[:, 3], np.asarray(pj.y), rtol=0,
+                               atol=0.5)
+    np.testing.assert_allclose(final[:, 4], np.asarray(pj.z), rtol=0,
+                               atol=1e-3)
+
+
+def test_cli_dvm_run(tmp_path):
+    case = synth.make_solid_body_case(nx=21, ny=21, us=6, lx=20e3, ly=20e3,
+                                      h0=40.0, omega=1e-4,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(14)
+    n = 100
+    z0 = rng.uniform(-35.0, -3.0, n)
+    nml = synth.write_run_files(
+        case, str(tmp_path), rng.uniform(6e3, 14e3, n),
+        rng.uniform(6e3, 14e3, n), z0, n_ext=2, dt=DT, idt=450,
+        iprint=2 * DT, Behavior=3, swimslow=1e-3, swimfast=3e-3,
+        pediage=5e6, mortality=True, deadage=1800.0)
+    lines = _run_cli(nml)
+    assert lines[0]["lanes"] == ["advection", "behavior3", "mortality"]
+    final = _final(np.loadtxt(os.path.join(tmp_path, "out", "run1.csv"),
+                              delimiter=","))
+    # the night-time random walk moved them; all died at the 30 min death
+    # age (the pre-step age reaches it in the second external step)
+    assert np.abs(final[:, 4] - z0).max() > 0.1
+    assert (final[:, 5] == 3).all() and lines[-1]["dead"] == n
 
 
 def _final(rows):

@@ -1,13 +1,24 @@
 """The slice as a whole: ltjax_torch.step.make_fused_external_steps vs
-ltjax.step.make_fused_external_steps, and the options outside the slice.
+ltjax.step.make_fused_external_steps, ``internal_step`` with turbulence,
+behaviors and mortality vs ltjax's collapsed-mode ``internal_step``, and
+the options outside the slice.
 
-Setup: tests/test_kernel.py's fused multi-step case (41x41 grid, us = 6,
-256 particles, a 4-record window, n_fuse = 2) plus a land block.  The
-JAX side runs its Pallas megakernel in interpret mode at f32-exact
-precision (kernel_precision="highest"), with its exact out-of-window
-patch, so every particle is comparable.  Tolerances (float32, as
-tests/test_kernel.py): horizontal 0.5 m, vertical 1e-3 m; statuses
-equal.
+Setup of the fused comparison: tests/test_kernel.py's fused multi-step
+case (41x41 grid, us = 6, 256 particles, a 4-record window, n_fuse = 2)
+plus a land block.  The JAX side runs its Pallas megakernel in interpret
+mode at f32-exact precision (kernel_precision="highest"), with its exact
+out-of-window patch, so every particle is comparable.  Tolerances
+(float32, as tests/test_kernel.py): horizontal 0.5 m, vertical 1e-3 m;
+statuses equal.
+
+Setup of the internal-step comparison: a 21x21 float64 grid with a land
+block, a seeded random free surface and w, a parabolic Aks profile
+perturbed per node; 256 particles with staggered releases and ages
+across the swim ramp and the death age; strong horizontal turbulence
+drives some into land (reflections, stuck particles that die in the same
+step).  Both packages draw from the same streams (seed 9 here,
+``jax.random.key(9)`` there).  Tolerance 1e-6 m per step in float64 over
+three chained steps; statuses and collision counts equal.
 """
 
 import dataclasses
@@ -18,13 +29,17 @@ import numpy as np
 import pytest
 import torch
 
+from ltjax import packed as jpk
 from ltjax import state as jst
 from ltjax import synth as jsynth
 from ltjax.config import Config
 from ltjax.physics import boundary as jbd
 from ltjax.step import StepContext as JContext
+from ltjax.step import internal_step as j_internal_step
 from ltjax.step import make_fused_external_steps as j_fused
 from ltjax_torch import interop
+from ltjax_torch import packed as tpk
+from ltjax_torch import state as tst
 from ltjax_torch import step as tstep
 from ltjax_torch import synth
 from ltjax_torch.physics import boundary as bd
@@ -96,10 +111,10 @@ def test_fused_steps_match_ltjax():
 
 
 UNSUPPORTED = [
-    ("HTurbOn", dict(HTurbOn=True)),
-    ("VTurbOn", dict(VTurbOn=True)),
-    ("Behavior", dict(Behavior=6)),
-    ("mortality", dict(mortality=True)),
+    ("Behavior", dict(Behavior=4, readSalt=True)),
+    ("Behavior", dict(Behavior=5, readSalt=True)),
+    ("stochastic_mortality", dict(mortality=True,
+                                  stochastic_mortality=True)),
     ("settlementon", dict(settlementon=True)),
     ("SaltTempOn", dict(SaltTempOn=True)),
     ("tension_sigma", dict(tension_sigma=-1.0)),
@@ -117,7 +132,8 @@ def _ctx():
 
 
 @pytest.mark.parametrize("name,kw", UNSUPPORTED,
-                         ids=[u[0] for u in UNSUPPORTED])
+                         ids=["Behavior", "Behavior5", "mortality"]
+                         + [u[0] for u in UNSUPPORTED[3:]])
 def test_unsupported_option_raises(name, kw):
     with pytest.raises(NotImplementedError, match=name):
         tstep.make_fused_external_steps(_ctx(), _cfg(us=4, ws=5, **kw), 1)
@@ -141,3 +157,132 @@ def test_cuda_only_restrictions(monkeypatch):
     with pytest.raises(NotImplementedError, match="uniform grid"):
         tstep.check_supported(_cfg(us=4, ws=5), curved)
     tstep.check_supported(_cfg(us=4, ws=5), ctx)       # the slice itself
+
+
+SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
+         dict(VTurbOn=True, readAks=False, ConstantVTurb=1e-3)] + [
+    dict(Behavior=b, mortality=True) for b in (0, 1, 2, 3, 6, 7)]
+
+
+@pytest.mark.parametrize("kw", SLICE, ids=lambda kw: "-".join(
+    f"{k}{v}" for k, v in kw.items()))
+def test_slice_options_accepted(kw):
+    tstep.check_supported(_cfg(us=4, ws=5, **kw), _ctx())
+
+
+def _f64_case():
+    c = jsynth.make_solid_body_case(nx=21, ny=21, us=6, lx=50e3, ly=50e3,
+                                    h0=40.0, omega=1e-4,
+                                    dtype=jnp.float64)
+    mask = np.ones((21, 21), np.int32)
+    mask[9:12, 12:15] = 0
+    grid = c.grid._replace(mask_rho=jnp.asarray(mask))
+    fs = jsynth.fieldset_for(c, t_center=1800.0, dt=3600.0,
+                             dtype=jnp.float64)
+    rng = np.random.default_rng(6)
+    z_w = 40.0 * np.asarray(grid.s_w)
+    K = 1e-4 + 4e-3 * (1.0 - (2.0 * z_w / 40.0 + 1.0) ** 2)
+    fs = fs._replace(
+        aks=jnp.asarray(K * (1.0 + 0.3 * rng.uniform(-1, 1, fs.aks.shape))),
+        zeta=jnp.asarray(0.3 * rng.standard_normal(fs.zeta.shape)),
+        w=jnp.asarray(rng.uniform(-2e-3, 2e-3, fs.w.shape)))
+    bounds = jbd.build_boundaries(mask, np.asarray(grid.x_rho),
+                                  np.asarray(grid.y_rho))
+    n = 256
+    x = np.concatenate([rng.uniform(2e3, 48e3, n // 2),
+                        rng.uniform(28e3, 37e3, n - n // 2)])
+    y = np.concatenate([rng.uniform(2e3, 48e3, n // 2),
+                        rng.uniform(21e3, 29e3, n - n // 2)])
+    k = n // 3
+    z = rng.permutation(np.concatenate([
+        rng.uniform(-1.0, 0.0, k), rng.uniform(-39.9, -39.0, k),
+        rng.uniform(-39.0, -1.0, n - 2 * k)]))
+    p = jst.init_particles(x, y, z, dtype=jnp.float64)
+    p = p._replace(dob=jnp.asarray(rng.choice([0.0, 300.0], n)),
+                   age=jnp.asarray(rng.uniform(0.0, 3 * 86400.0, n)),
+                   pid=jnp.asarray(rng.permutation(n).astype(np.int32)))
+    return grid, fs, bounds, p
+
+
+SLICE_STEP = {
+    "turb": dict(HTurbOn=True, ConstantHTurb=2e4, VTurbOn=True,
+                 readAks=True),
+    "turb-const": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                       readAks=False, ConstantVTurb=2e-3),
+    **{f"behavior{b}": dict(Behavior=b, mortality=True, HTurbOn=True,
+                            ConstantHTurb=2e4, VTurbOn=True, readAks=True)
+       for b in (1, 2, 3, 6, 7)},
+}
+BEH = dict(deadage=2 * 86400.0, pediage=86400.0, swimstart=3600.0,
+           swimslow=2e-3, swimfast=5e-3, sink=5e-4, Hswimspeed=0.1,
+           Swimdepth=3.0)
+
+
+@pytest.mark.parametrize("name", list(SLICE_STEP))
+def test_internal_step_matches_ltjax_collapsed(name):
+    grid, fs, bounds, p = _f64_case()
+    cfg = Config(numpar=p.n, dt=1800, idt=300, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float64",
+                 reflect_iters=2, TrackCollisions=True,
+                 **{**BEH, **SLICE_STEP[name]})
+    jctx = JContext(grid=grid, bounds=bounds, polys=None, holes=None)
+    jprec = jpk.build_packed_records(grid, fs)
+    ctx = tstep.StepContext(grid=interop.grid_from_numpy(_np(grid)),
+                            bounds=interop.boundaries_from_numpy(
+                                _np(bounds)))
+    tfs = interop.fieldset_from_numpy(_np(fs))
+    prec = tpk.build_packed_records(ctx.grid, tfs)
+    pj = p
+    pt = interop.particles_from_numpy(_np(p))
+    for i in range(3):
+        t = i * 300.0
+        pj = j_internal_step(jctx, cfg, jr.key(9), pj, fs, t, 40 + i,
+                             jprec, mode="collapsed")
+        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec)
+        out = interop.particles_to_numpy(pt)
+        np.testing.assert_array_equal(out["status"], np.asarray(pj.status))
+        for k in ("x", "y", "z", "age"):
+            np.testing.assert_allclose(out[k], np.asarray(getattr(pj, k)),
+                                       rtol=0, atol=1e-6)
+        for k in ("hit_land", "hit_bottom"):
+            np.testing.assert_array_equal(out[k],
+                                          np.asarray(getattr(pj, k)))
+    st_ = out["status"]
+    if cfg.Behavior != 7:       # TST holds 0.5 m above the bottom
+        assert out["hit_bottom"].sum() > 0
+    if cfg.ConstantHTurb > 100:
+        # strong turbulence: land hits and stuck particles; with
+        # mortality some of the stuck died in the same step (DEAD wins)
+        assert out["hit_land"].sum() > 0
+        assert (st_ == jst.ERROR).sum() + (st_ == jst.DEAD).sum() > 0
+    if cfg.mortality:
+        assert (st_ == jst.DEAD).sum() > 0
+
+
+def test_fused_turbulent_run_invariant_to_sort():
+    """The plain fused run gives the same particles whatever the Hilbert
+    sort cadence: draws are keyed by particle id, not storage slot."""
+    c = synth.make_solid_body_case(nx=21, ny=21, us=6, lx=50e3, ly=50e3,
+                                   h0=40.0, omega=1e-4, dtype=torch.float64)
+    g = c.grid
+    ctx = tstep.StepContext(grid=g, bounds=bd.build_boundaries(
+        g.mask_rho.numpy(), g.x_rho.numpy(), g.y_rho.numpy()))
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 5, dtype=torch.float64)
+    fsR.aks[:] = 2e-3
+    rng = np.random.default_rng(2)
+    n = 200
+    p = tst.init_particles(rng.uniform(10e3, 40e3, n),
+                           rng.uniform(10e3, 40e3, n),
+                           rng.uniform(-35.0, -5.0, n))
+    outs = []
+    for every in (1, 1000):
+        cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
+                     OpenOceanBoundary=True, dtype_pos="float64",
+                     HTurbOn=True, VTurbOn=True, readAks=True,
+                     Behavior=1, swimslow=1e-3, swimfast=1e-3,
+                     ext_sort_every=every)
+        outs.append(interop.particles_to_numpy(
+            tstep.make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 2)))
+    for k in tst.FIELDS:
+        np.testing.assert_array_equal(outs[0][k], outs[1][k])
+    assert np.abs(outs[0]["z"] - p.z.numpy()).max() > 0.5
