@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py            # every phase
     python3 chip_smoke.py --only 4,5 # some phases (no summary lines)
+    python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
 Builds the variants of the external-step CUDA kernel from
 ltjax_torch/kernels/csrc (one nvcc each, all started together), then
-runs five phases and fails (non-zero exit, no final line) if any of them
+runs six phases and fails (non-zero exit, no final line) if any of them
 fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -23,8 +24,10 @@ fails:
 3. the normal entry point: ltjax_torch.run.main on written planar ROMS
    series + parfile + namelist, CSV output: advection (against the
    closed form), a turbulent series on a parabolic Aks profile in
-   chunks of 2 and of 4 external steps (identical particles), and a
-   diel-vertical-migration run;
+   chunks of 2 and of 4 external steps (identical particles), a
+   diel-vertical-migration run, and an oyster run (behavior 4 on a
+   halocline, SaltTempOn, settlement on habitat and hole CSVs,
+   turbulence, mortality) in chunks of 2 and of 4 (identical particles);
 4. the stochastic larval path at real size: bench.py's turb (horizontal
    and Visser vertical turbulence on the parabolic Aks profile),
    behavior (type-6 sinking + mortality) and dvm (type 3) variants, 1M
@@ -38,11 +41,22 @@ fails:
    scheme (1M particles uniform in depth stay uniform over 180 steps);
    and a per-step check of each behavior type, mortality (DEAD over a
    same-step ERROR) and constant vertical diffusivity at 65,536
-   particles.
+   particles;
+6. settlement and salt at real size: bench.py's settle (type-6 sinking,
+   settlement on its habitat square, here with a hole, and a slanted
+   hexagon) and salt (behavior 4 on a heaving halocline, SaltTempOn)
+   variants, 1M particles, 16 x 30 steps, timed; the settled counts by
+   polygon (none in the hole) and the share of particles the cue moves;
+   each kernel held against its plain version step by step and timed per
+   external step at 65,536 and 1M; then per-step checks at 65,536 of
+   behavior 5, sampling alone, behavior 4 without sampling, and
+   settlement, death and exits in the same step.
 
 Earlier stdout lines carry the card's name and power limit, the build
 report and each phase's numbers; the line before the last is the
-per-kernel JSON summary; the last line is
+per-kernel JSON summary (each variant's time, its plain version's, and
+its bound: the least time the card could take for the same work, from
+the bytes and operations counted in kernel_bound); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 There is no CPU path: without CUDA the script exits non-zero.
 """
@@ -77,6 +91,7 @@ TOL_H_STEP = 0.05
 TOL_HTURB_EXACT = 1e-5   # m, random-walk deviates near the origin
 TOL_VARIANCE = 0.02      # relative, random-walk variance vs 2 K t
 TOL_WELL_MIXED = 0.03    # relative, each of 10 depth bins vs N / 10
+TOL_SALT = 1e-3          # psu / degC, kernel vs plain salt and temp
 
 # bench.py's variants of the stochastic larval path (bench.py:53-71)
 LARVAL = {
@@ -104,10 +119,11 @@ def log(obj):
 
 
 def bench_case(torch, device, nx=200, ny=200, us=20, land=True,
-               omega=5e-5, parabolic_aks=False):
+               omega=5e-5, parabolic_aks=False, halocline=False):
     """The bench.py advect case (200 km square, solid-body rotation,
-    omega 5e-5, h0 50 m), optionally with a land block in its path and
-    bench.py's turb-variant Aks profile."""
+    omega 5e-5, h0 50 m), optionally with a land block in its path,
+    bench.py's turb-variant Aks profile and the synthetic halocline
+    (salt and temperature, synth.halocline_fields)."""
     from ltjax_torch import synth
     mask = np.ones((ny, nx), np.int32)
     if land:
@@ -116,7 +132,8 @@ def bench_case(torch, device, nx=200, ny=200, us=20, land=True,
     return synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=200e3,
                                       ly=200e3, h0=50.0, omega=omega,
                                       dtype=torch.float32, device=device,
-                                      mask=mask, parabolic_aks=parabolic_aks)
+                                      mask=mask, parabolic_aks=parabolic_aks,
+                                      halocline=halocline)
 
 
 def make_cfg(n, **kw):
@@ -182,17 +199,18 @@ def cuda_time(torch, fn, reps):
 
 def compare(phase, p, out, ref):
     """Kernel output ``out`` against plain output ``ref`` from the same
-    input ``p``: max |dx|, |dy|, |dz| over particles of equal status,
-    and the status / collision-count mismatches (each logged)."""
+    input ``p``: max |dx|, |dy|, |dz|, |dsalt|, |dtemp| over particles of
+    equal status, and the status / settle_poly / collision-count
+    mismatches (each status mismatch logged)."""
     s_ref = ref.status.cpu().numpy()
     s_out = out.status.cpu().numpy()
     same = s_ref == s_out
     res = {"max_abs_d" + k: float(np.abs(
         getattr(out, k).cpu().numpy()[same]
         - getattr(ref, k).cpu().numpy()[same]).max(initial=0.0))
-        for k in ("x", "y", "z")}
+        for k in ("x", "y", "z", "salt", "temp")}
     res["status_mismatch"] = int((~same).sum())
-    for k in ("hit_land", "hit_bottom"):
+    for k in ("settle_poly", "hit_land", "hit_bottom"):
         res[k + "_mismatch"] = int((getattr(out, k) != getattr(ref, k))
                                    .sum())
     for q in np.nonzero(~same)[0][:10]:
@@ -205,9 +223,12 @@ def compare(phase, p, out, ref):
 def check(res, n, tol_h=TOL_H, strict_status=False):
     assert res["max_abs_dx"] <= tol_h and res["max_abs_dy"] <= tol_h, res
     assert res["max_abs_dz"] <= TOL_V, res
-    for k in ("status_mismatch", "hit_land_mismatch", "hit_bottom_mismatch"):
+    assert max(res["max_abs_dsalt"], res["max_abs_dtemp"]) <= TOL_SALT, res
+    for k in ("status_mismatch", "settle_poly_mismatch", "hit_land_mismatch",
+              "hit_bottom_mismatch"):
         assert res[k] <= MAX_MISMATCH * n, res
-    assert not strict_status or res["status_mismatch"] == 0, res
+    assert not strict_status or (res["status_mismatch"] == 0
+                                 and res["settle_poly_mismatch"] == 0), res
 
 
 def kernel_vs_plain(torch, phase, ctx, cfg, p, prec, reps, plain_reps):
@@ -262,7 +283,8 @@ def kernel_vs_plain_stepwise(torch, phase, ctx, cfg, p, prec):
         r = compare(phase, q, out, ref)
         check(r, p.n)                  # per-step bounds
         for k, v in r.items():
-            res[k] = max(res[k], v) if k.startswith("max") else res[k] + v
+            res[k] = (max(res.get(k, 0.0), v) if k.startswith("max")
+                      else res.get(k, 0) + v)
         res["hit_bottom_plain"] += int((ref.hit_bottom - q.hit_bottom).sum())
         res["surface_crossings_plain"] += surface_crossings(ctx, cfg1, q,
                                                            prec, t)
@@ -276,27 +298,32 @@ def kernel_vs_plain_stepwise(torch, phase, ctx, cfg, p, prec):
 
 def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
                    seed=5):
-    """The stochastic lanes, internal step by internal step from the plain
-    trajectory's state (cfg.dt = cfg.idt; step i draws with step index
-    i): horizontal TOL_H_STEP, vertical TOL_V, age 1e-3 s, equal
-    statuses, hit_land / hit_bottom mismatches <= 0.01%.
+    """The stochastic, settlement and salt lanes, internal step by
+    internal step from the plain trajectory's state (cfg.dt = cfg.idt;
+    step i draws with step index i): horizontal TOL_H_STEP, vertical
+    TOL_V, age 1e-3 s, salt and temp TOL_SALT, equal statuses and
+    settle_poly, hit_land / hit_bottom mismatches <= 0.01%.
 
-    Behaviors 1, 2, 3 and 7 decide by a threshold on a continuous value
-    (zone edge, light threshold, riding speed); a particle within
-    round-off of it may take the other branch, one swim step (or TST
-    ride) away.  Those "decision flips" are counted and allowed for at
-    most 0.01% of the particles (as hit-count mismatches are); the other
-    particles keep the tolerances.  Turbulence and the other lanes allow
-    none."""
+    Behaviors 1-5 and 7 decide by a threshold on a continuous value (zone
+    edge, light threshold, |dS/dz| at Sgradient, riding speed), and
+    settlement by a polygon edge; a particle within round-off of it may
+    take the other branch, one swim step (or TST ride) away, or settle
+    in one version only.  Those "decision flips" are counted and allowed
+    for at most 0.01% of the particles (as hit-count mismatches are); the
+    other particles keep the tolerances.  Turbulence and the other lanes
+    allow none."""
     from dataclasses import replace
+    from ltjax_torch import state as st
     from ltjax_torch.kernels import ext_step as kx
     cfg1 = replace(cfg, dt=cfg.idt)
     idt = float(cfg.idt)
-    thresholds = cfg.Behavior in (1, 2, 3, 7)
+    thresholds = cfg.Behavior in (1, 2, 3, 4, 5, 7) or cfg.settlementon
     res = {"phase": phase, "n": p.n, "steps": steps, "max_abs_dx": 0.0,
            "max_abs_dy": 0.0, "max_abs_dz": 0.0, "max_abs_dage": 0.0,
-           "status_mismatch": 0, "hit_land_mismatch": 0,
-           "hit_bottom_mismatch": 0, "decision_flips": 0}
+           "max_abs_dsalt": 0.0, "max_abs_dtemp": 0.0,
+           "status_mismatch": 0, "settle_poly_mismatch": 0,
+           "hit_land_mismatch": 0, "hit_bottom_mismatch": 0,
+           "decision_flips": 0}
     q = p
     for i in range(steps):
         t = t0 + i * idt
@@ -305,17 +332,24 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
         ref = kx.ext_step_reference(ctx, cfg1, q, prec, t, fields=fields,
                                     seed=seed, ext_idx=i)
         torch.cuda.synchronize()
-        flip = (((out.x - ref.x).abs() > TOL_H_STEP)
-                | ((out.y - ref.y).abs() > TOL_H_STEP)
-                | ((out.z - ref.z).abs() > TOL_V)) & (out.status == ref.status)
+        flip = ((((out.x - ref.x).abs() > TOL_H_STEP)
+                 | ((out.y - ref.y).abs() > TOL_H_STEP)
+                 | ((out.z - ref.z).abs() > TOL_V))
+                & (out.status == ref.status))
+        if cfg.settlementon:
+            flip |= (out.status != ref.status) & (
+                (out.status == st.SETTLED) | (ref.status == st.SETTLED))
         n_flip = int(flip.sum())
         q_cmp, ref_cmp = q, ref
         if thresholds and 0 < n_flip <= MAX_MISMATCH * p.n:
             for qi in torch.nonzero(flip)[:10, 0].tolist():
                 log({"phase": phase, "decision_flip": qi,
+                     "x0": float(q.x[qi]), "y0": float(q.y[qi]),
                      "z0": float(q.z[qi]), "dz_kernel": float(out.z[qi]
                                                               - q.z[qi]),
-                     "dz_plain": float(ref.z[qi] - q.z[qi])})
+                     "dz_plain": float(ref.z[qi] - q.z[qi]),
+                     "status_kernel": int(out.status[qi]),
+                     "status_plain": int(ref.status[qi])})
             keep = torch.nonzero(~flip)[:, 0]
             q_cmp, out, ref_cmp = q.take(keep), out.take(keep), ref.take(keep)
         r = compare(phase, q_cmp, out, ref_cmp)
@@ -481,6 +515,9 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     ps, _ = _sort(case.grid, p0)
     prec3 = pk.PackedRecords(tab=prec_all.tab[:3], times=prec_all.times[:3])
     res["kernel"] = kernel_vs_plain(torch, 2, ctx, cfg, ps, prec3, 3, 1)
+    res["bound"] = kernel_bound(cfg, ctx, prec3, ps,
+                                kx.ext_step_fused(ctx, cfg, ps, prec3, 0.0))
+    log({"phase": 2, "bound": res["bound"]})
     return res
 
 
@@ -653,6 +690,8 @@ def phase4(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
             res["plain_ms_" + size] = cuda_time(
                 torch, lambda: kx.ext_step_reference(ctx, cfg, q, prec3,
                                                      0.0, fields=f3), 1)
+        res["bound"] = kernel_bound(cfg, ctx, prec3, ps, kx.ext_step_fused(
+            ctx, cfg, ps, prec3, 0.0, fields=f3))
         # per internal step, from the plain trajectory's state; DVM from
         # 9 h (daylight: the light branches), on records 9..11
         e0 = min(9, n_fuse - 1) if name == "dvm" else 0
@@ -664,7 +703,7 @@ def phase4(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
         res["stepwise"] = {k: v for k, v in rs.items() if k.startswith("max")
                            or k.endswith("mismatch")}
         log({k: res[k] for k in res if k.startswith(("phase", "kernel_ms",
-                                                        "plain_ms"))})
+                                                        "plain_ms", "bound"))})
         out[name] = res
     return out
 
@@ -784,14 +823,436 @@ def phase5(torch, device, n=1_000_000, n_small=65536):
     return out
 
 
+# bench.py's settle and salt variants (bench.py:72-91), phase 6
+SETTLE_SALT = {
+    "settle": dict(Behavior=6, sink=5e-5, settlementon=True, holesExist=True,
+                   pediage=0.0),
+    "salt": dict(Behavior=4, readSalt=True, readTemp=True, SaltTempOn=True,
+                 swimslow=1e-3, swimfast=3e-3, pediage=5e6, Sgradient=0.5),
+}
+# per-step checks of the settlement and salt lanes at 65,536 particles
+LANE_CHECKS6 = {
+    "behavior5": dict(Behavior=5, readSalt=True, Sgradient=0.5),
+    "salt_only": dict(SaltTempOn=True, readSalt=True, readTemp=True),
+    "behavior4_no_sampling": dict(Behavior=4, readSalt=True, Sgradient=0.5,
+                                  mortality=True),
+    # a random walk of ~270 m per step: inside the displacement guard
+    "settle_dead_exit": dict(settlementon=True, holesExist=True,
+                             HTurbOn=True, ConstantHTurb=300.0,
+                             mortality=True),
+}
+HOLE_BOX = (124e3, 128e3, 124e3, 128e3)      # x0, x1, y0, y1 of the hole
+# the oyster CLI run of phase 3 (pediage and the death age inside its 4 h)
+OYSTER_CLI = dict(Behavior=4, readSalt=True, readTemp=True, SaltTempOn=True,
+                  Sgradient=0.5, swimslow=1e-3, swimfast=3e-3,
+                  pediage=7200.0, HTurbOn=True, ConstantHTurb=1.0,
+                  VTurbOn=True, readAks=True, mortality=True,
+                  deadage=12600.0, settlementon=True, holesExist=True,
+                  seed=3)
+
+
+def bench_polygons(rim=False):
+    """bench.py's 12 x 12 km habitat square (id 101) with a 4 x 4 km hole,
+    and a slanted hexagon 10 km across (id 102) in the rotation path;
+    ``rim`` adds a rectangle (id 103) across the open east edge."""
+    th = np.linspace(0.0, 2.0 * np.pi, 7)[:-1] + 0.3
+    hexagon = np.stack([80e3 + 5e3 * np.cos(th), 120e3 + 5e3 * np.sin(th)],
+                       -1)
+    habitat = [(101, np.array([[120e3, 120e3], [132e3, 120e3],
+                               [132e3, 132e3], [120e3, 132e3]])),
+               (102, hexagon)]
+    if rim:
+        habitat.append((103, np.array([[185e3, 60e3], [210e3, 60e3],
+                                       [210e3, 90e3], [185e3, 90e3]])))
+    x0, x1, y0, y1 = HOLE_BOX
+    holes = [(1, np.array([[x0, y0], [x1, y0], [x1, y1], [x0, y1]]))]
+    return habitat, holes
+
+
+def with_polygons(ctx, rim=False):
+    from dataclasses import replace
+    from ltjax_torch.physics import settlement as stl
+    habitat, holes = bench_polygons(rim)
+    xe = ctx.bounds.x_edges.cpu().numpy()
+    ye = ctx.bounds.y_edges.cpu().numpy()
+    dev = ctx.grid.device
+    return replace(ctx, polys=stl.build_polygons(habitat, xe, ye, device=dev),
+                   holes=stl.build_polygons(holes, xe, ye, device=dev),
+                   cache={})
+
+
+def in_hole(x, y):
+    x0, x1, y0, y1 = HOLE_BOX
+    return (x > x0) & (x < x1) & (y > y0) & (y < y1)
+
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at 700 W): HBM, and
+# float32 / float64 outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+FP32_PER_S = 67e12
+FP64_PER_S = 34e12
+
+
+def fit_ops(K, P):
+    """f32 operations of fit_eval on K knots and P profiles (csrc
+    ext_step.cu, counted from its source: a lane gather-collapse-blend 31,
+    a knot 8, the small-tension coefficients 18, a Thomas row 4 + 4P, the
+    backward sweep to the interval ~K/2 x 2P, the evaluation 14 + 9P)."""
+    return 31 + 31 * P + (K - 1) * (31 + 37 * P) + K * P + 14 + 9 * P
+
+
+def ops_per_step(cfg, us, ws):
+    """f32 operations of one active particle's internal step in the
+    variant of cfg (integer Threefry words counted at the f32 rate)."""
+    stage = 10 + 2 * 31 + fit_ops(us, 2) + fit_ops(ws, 1) + 12
+    ops = 4 * stage + 40 + 60 + 82 + 5          # RK4, reflect, vertical
+    threefry = 120
+    if cfg.HTurbOn:
+        ops += threefry + 12
+    if cfg.VTurbOn:
+        ops += threefry + 4
+        if cfg.readAks:
+            ops += 72 + fit_ops(ws, 1) + 2 * ws + 2 * (ws + 62 + 20)
+    if cfg.Behavior:
+        ops += 80
+        if cfg.Behavior in (1, 2, 3, 4, 5):
+            ops += 2 * threefry + 10
+        if cfg.Behavior in (4, 5):
+            ops += fit_ops(us, 1)
+    if cfg.SaltTempOn:
+        ops += fit_ops(us, 2)
+    return ops
+
+
+def kernel_bound(cfg, ctx, prec, p_in, p_out):
+    """The least time the card could take for one external step of the
+    kernel on these inputs: the larger of the bytes it must move (each
+    input read once, each output written once) over the HBM rate, and
+    its operations over the peak rate of their type.  The work of a
+    particle-step is counted only while the particle is active (mean of
+    the active counts before and after, as the kernel skips the rest);
+    settlement adds the f64 ray cast of each candidate edge of the
+    particle's cell, counted at these particles' positions."""
+    import torch
+    from ltjax_torch import state as st
+    from ltjax_torch.kernels import ext_step as kx
+    n, n_int = p_in.n, cfg.internal_steps
+    act = 0.5 * (int((p_in.status == st.ACTIVE).sum())
+                 + int((p_out.status == st.ACTIVE).sum())) * n_int
+    cols_in = 7 + (1 if cfg.settlementon else 0) + (2 if cfg.SaltTempOn
+                                                     else 0)
+    cols_out = cols_in
+    nbytes = (prec.tab.numel() * 4 + kx.boundary_rows_table(ctx).numel() * 4
+              + n * 4 * (cols_in + cols_out))
+    f32 = act * ops_per_step(cfg, ctx.grid.us, ctx.grid.ws)
+    f64 = 0.0
+    if cfg.settlementon and ctx.polys is not None:
+        tabs = kx.settle_tables(ctx)
+        nbytes += tabs[0].numel() * 8 + tabs[1].numel() * 4
+        edges = 0.0
+        for ps in (ctx.polys, ctx.holes):
+            if ps is None:
+                continue
+            x0, dx, y0, dy, _, _ = ctx.bounds.edges
+            ny, nx = ctx.bounds.water.shape
+            i = torch.floor((p_in.x.double() - x0) / dx).clamp(0, nx - 1)
+            j = torch.floor((p_in.y.double() - y0) / dy).clamp(0, ny - 1)
+            c = ps.cell_cands[j.long(), i.long()].long()
+            nv = torch.where(c >= 0, ps.nverts.long()[c.clamp(min=0)], 0)
+            edges += float(nv.sum(dim=1).double().mean())
+        f64 = act * (8 + 9 * edges)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32 / FP32_PER_S + f64 / FP64_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "f32_ops": f32, "f64_ops": f64}
+
+
+def phase6(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
+           n_small=65536):
+    """bench.py's settle and salt variants at 1M particles through
+    make_fused_external_steps (16 x 30 steps, timed, launches counted),
+    the kernel against its plain version per internal step and timed per
+    external step; then the settlement and salt lanes per step at 65,536
+    particles."""
+    from dataclasses import replace
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import build, ext_step as kx
+    from ltjax_torch.physics import behavior as bh
+    from ltjax_torch.step import (_sort, fieldset_slice,
+                                  make_fused_external_steps, summary_counts)
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      halocline=True)
+    ctx = with_polygons(context(case))
+    dt = 3600.0
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    out = {}
+    for name, kw in SETTLE_SALT.items():
+        cfg = make_cfg(n, us=us, ws=us + 1, **kw)
+        z0 = np.random.default_rng(1).uniform(
+            -25.0 if name == "settle" else -40.0, -5.0, n)
+        p0 = st.init_particles(x0, y0, z0, dtype=torch.float32,
+                               device=device)
+        p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+        fused = make_fused_external_steps(ctx, cfg, n_fuse)
+        fused(p0.take(torch.arange(128, device=device)), fsR, 0.0, 0)
+        torch.cuda.synchronize()
+        kx.reset_launches()
+        t0 = time.perf_counter()
+        p = fused(p0, fsR, 0.0, 0)
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
+        launches = dict(kx.ext_step_fused.variant_launches)
+        tag = build.tag("ext_step", kx.kernel_variant(cfg))
+        counts = summary_counts(p)
+        res = {"phase": f"6-{name}", "n": n, "ext_steps": n_fuse,
+               "internal_steps": cfg.internal_steps, "variant": tag,
+               "launches": launches, "seconds": sec,
+               "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
+               "max_vertical_move_m": float((p.z - p0.z).abs().max()),
+               "counts": counts}
+        assert launches == {tag: n_fuse}, res
+        assert all(bool(torch.isfinite(getattr(p, k)).all())
+                   for k in ("x", "y", "z", "salt", "temp")), res
+        assert counts["error"] == 0, res
+        if cfg.settlementon:
+            settled = p.status == st.SETTLED
+            ids, k = torch.unique(p.settle_poly[settled], return_counts=True)
+            res["settled_by_poly"] = dict(zip(map(str, ids.tolist()),
+                                              k.tolist()))
+            res["settled_in_hole"] = int((settled & in_hole(p.x, p.y)).sum())
+            assert set(res["settled_by_poly"]) == {"101", "102"}, res
+            assert res["settled_in_hole"] == 0, res
+            assert int((p.settle_poly[~settled] >= 0).sum()) == 0, res
+        if cfg.SaltTempOn:
+            # the Behavior-4 cue at the release positions: fires for some
+            dsdz, _ = bh._salt_gradient(
+                case.grid, fieldset_slice(fsR, 0), p0.x, p0.y, p0.z,
+                torch.tensor(0.0, dtype=torch.float32), cfg.tension_sigma)
+            res["cue_fraction"] = float((dsdz.abs() >= cfg.Sgradient
+                                         ).double().mean())
+            res["salt_range"] = [float(p.salt.min()), float(p.salt.max())]
+            res["temp_range"] = [float(p.temp.min()), float(p.temp.max())]
+            assert 0.01 < res["cue_fraction"] < 0.99, res
+            # 20-33 psu in the halocline, 8-20 degC
+            assert 19.0 < res["salt_range"][0] < res["salt_range"][1] < 34.0, \
+                res
+            assert 8.0 < res["temp_range"][0] < res["temp_range"][1] < 20.0, \
+                res
+        log(res)
+
+        # the kernel against its plain version, timed per external step
+        prec_all = pk.build_packed_records(
+            case.grid, fsR, with_scalars=cfg.needs_salt_fields())
+        ps, _ = _sort(case.grid, p0)
+        small, _ = _sort(case.grid, p0.take(torch.arange(n_small,
+                                                         device=device)))
+        prec3 = pk.PackedRecords(tab=prec_all.tab[:3],
+                                 times=prec_all.times[:3])
+        f3 = fieldset_slice(fsR, 0)
+        for size, q in (("1M", ps), (str(n_small), small)):
+            res["kernel_ms_" + size] = cuda_time(
+                torch, lambda: kx.ext_step_fused(ctx, cfg, q, prec3, 0.0,
+                                                 fields=f3), 3)
+            res["plain_ms_" + size] = cuda_time(
+                torch, lambda: kx.ext_step_reference(ctx, cfg, q, prec3,
+                                                     0.0, fields=f3), 1)
+        res["bound"] = kernel_bound(cfg, ctx, prec3, ps, kx.ext_step_fused(
+            ctx, cfg, ps, prec3, 0.0, fields=f3))
+        rs, _ = lanes_stepwise(torch, f"6-{name}", ctx, cfg, ps, prec3, f3,
+                               0.0, steps=10)
+        res["stepwise"] = {k: v for k, v in rs.items() if k.startswith("max")
+                           or k.endswith("mismatch") or k == "decision_flips"}
+        log({k: res[k] for k in res if k.startswith(("phase", "kernel_ms",
+                                                        "plain_ms", "bound"))})
+        out[name] = res
+
+    # every settlement and salt lane, step by step, from the plain
+    # trajectory's state: land block, open rim, slow rotation with a random
+    # w and zeta, the heaving halocline, particles near the surface and
+    # the bottom, ages across the swim ramp, pediage and the death age
+    case = bench_case(torch, device, omega=5e-6, halocline=True)
+    ctx = with_polygons(context(case), rim=True)
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(synth.fieldset_for(
+        case, t_center=t0 + 1800.0, dt=3600.0, device=device), seed=3)
+    x, y, _ = water_particles(case, n_small, 2e3, 198e3, seed=1)
+    # a tenth inside the rim polygon, within 1 km of the open east edge
+    k = n_small // 10
+    x[-k:] = rng.uniform(199.5e3, 200.4e3, k)
+    y[-k:] = rng.uniform(60e3, 90e3, k)
+    z = near_surface_and_bottom(n_small, case.h0, seed=4)
+    age = rng.uniform(0.0, 3 * 86400.0, n_small)
+    p0 = st.init_particles(x, y, z, dob=-age, dtype=torch.float32,
+                           device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE),
+                    age=torch.tensor(age, dtype=torch.float32,
+                                     device=device),
+                    pid=torch.tensor(rng.permutation(n_small),
+                                     dtype=torch.int32, device=device))
+    for name, kw in LANE_CHECKS6.items():
+        cfg = make_cfg(n_small, TrackCollisions=True, **{**SWIM, **kw})
+        prec = pk.build_packed_records(case.grid, fs, with_scalars=True)
+        r, q = lanes_stepwise(torch, f"6-{name}", ctx, cfg, p0, prec, fs,
+                              t0, steps=5)
+        counts = np.bincount(q.status.cpu().numpy(), minlength=6)
+        if cfg.SaltTempOn:
+            assert float(q.salt.max() - q.salt.min()) > 1.0, r
+        else:
+            # sampling off: salt and temp stay as they came in (0)
+            assert bool((q.salt == 0).all() and (q.temp == 0).all()), r
+        if cfg.Behavior in (4, 5):
+            assert r["max_vertical_move_plain_m"] > 0.1, r
+        if name == "settle_dead_exit":
+            assert counts[st.SETTLED] > 0 and counts[st.DEAD] > 0, r
+            assert counts[st.OUT_OF_DOMAIN] > 0, r
+            # particles in a habitat that die in the step they would
+            # settle end DEAD; those that exit never settle
+            cfg1 = replace(cfg, dt=cfg.idt)
+            alive = kx.ext_step_reference(ctx, replace(cfg1, mortality=False),
+                                          p0, prec, t0, fields=fs, seed=5)
+            dead = kx.ext_step_reference(ctx, cfg1, p0, prec, t0,
+                                         fields=fs, seed=5)
+            both = int(((alive.status == st.SETTLED)
+                        & (dead.status == st.DEAD)).sum())
+            rim_exit = int(((p0.x > 185e3) & (p0.y > 60e3) & (p0.y < 90e3)
+                            & (dead.status == st.OUT_OF_DOMAIN)).sum())
+            log({"phase": "6-settle_dead_exit", "settle_or_dead": both,
+                 "exits_from_rim_polygon": rim_exit,
+                 "status_counts": counts.tolist()})
+            assert both > 0 and rim_exit > 0
+        out[name] = r
+    return out
+
+
+def phase3_oyster(torch, device, n=10_000, nx=60, us=10):
+    """The oyster CLI run: behavior 4 on the halocline, SaltTempOn,
+    settlement on a habitat square with a hole and a slanted triangle
+    (polygon CSVs), HTurb, Visser on the written AKs, mortality, pediage
+    inside the run; chunks of 2 and of 4 external steps must give the
+    same particles."""
+    from ltjax_torch import run, synth
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5,
+                                      dtype=torch.float64, parabolic_aks=True,
+                                      halocline=True)
+    rng = np.random.default_rng(7)
+    x0 = rng.uniform(15e3, 45e3, n)
+    y0 = rng.uniform(15e3, 45e3, n)
+    z0 = rng.uniform(-16.0, -4.0, n)
+    habitat = [(21, np.array([[22e3, 22e3], [34e3, 22e3], [34e3, 34e3],
+                              [22e3, 34e3]])),
+               (22, np.array([[36e3, 24e3], [44e3, 28e3], [38e3, 36e3]]))]
+    holes = [(1, np.array([[26e3, 26e3], [30e3, 26e3], [30e3, 30e3],
+                           [26e3, 30e3]]))]
+    finals, lines = {}, {}
+    for fuse in (2, 4):
+        work = os.path.join(ROOT, "build", f"chip_smoke_oyster{fuse}")
+        nml = synth.write_run_files(
+            case, work, x0, y0, z0, n_ext=4, dt=3600, idt=120,
+            iprint=4 * 3600, ext_fuse=fuse, dtype_pos="float32",
+            habitat=habitat, holes=holes, **OYSTER_CLI)
+        lines[fuse] = run_cli(run, nml)
+        rows = np.loadtxt(os.path.join(work, "out", "run1.csv"),
+                          delimiter=",")
+        last = rows[rows[:, 0] == rows[:, 0].max()]
+        finals[fuse] = last[np.argsort(last[:, 1])]
+    f = finals[4]       # time id lon lat depth status salt temp age poly
+    status, poly = f[:, 5], f[:, 9]
+    res = {"phase": "3-oyster", "n": n,
+           "chunks_identical": bool(np.array_equal(finals[2], finals[4])),
+           "lanes": lines[4][0]["lanes"], "path": lines[4][0]["path"],
+           "counts": lines[4][-1],
+           "settled_by_poly": {str(int(k)): int((poly[status == 2] == k).sum())
+                               for k in np.unique(poly[status == 2])},
+           "salt_range": [float(f[:, 6].min()), float(f[:, 6].max())]}
+    log(res)
+    assert res["chunks_identical"] and np.isfinite(f).all(), res
+    assert res["path"] == ("cuda_ext_step" if device.type == "cuda"
+                           else "plain"), res
+    assert res["lanes"] == ["advection", "hturb", "vturb_aks", "behavior4",
+                            "mortality", "settlement", "salt_temp"], res
+    assert set(res["settled_by_poly"]) == {"21", "22"}, res
+    assert res["counts"]["dead"] > 0, res
+    assert res["salt_range"][1] - res["salt_range"][0] > 1.0, res
+
+
+def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
+    """Where the time goes (``--profile``): each bench.py variant at 1M
+    particles, 16 x 30 steps through make_fused_external_steps on phase
+    2's grid and window (settle with phase 6's polygons, salt on its
+    halocline): a cold call, three timed warm calls, then torch.profiler
+    over one more warm call: the kernel's device time, all device time,
+    the wall time, the kernel's share of device time and the idle share
+    of the call (1 - device time / wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ltjax_torch import state as st, synth
+    from ltjax_torch.step import make_fused_external_steps
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      parabolic_aks=True, halocline=True)
+    dt = 3600.0
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    out = {}
+    for name, kw in {"advect": {}, **LARVAL, **SETTLE_SALT}.items():
+        ctx = context(case)
+        if kw.get("settlementon"):
+            ctx = with_polygons(ctx)
+        cfg = make_cfg(n, us=us, ws=us + 1, **kw)
+        z0 = np.random.default_rng(1).uniform(
+            -25.0 if name in ("behavior", "settle") else -40.0, -5.0, n)
+        p0 = st.init_particles(x0, y0, z0, dtype=torch.float32,
+                               device=device)
+        p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+        fused = make_fused_external_steps(ctx, cfg, n_fuse)
+        fused(p0, fsR, 0.0, 0)
+        torch.cuda.synchronize()
+        rates = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fused(p0, fsR, 0.0, 0)
+            torch.cuda.synchronize()
+            rates.append(n * cfg.internal_steps * n_fuse
+                         / (time.perf_counter() - t0))
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fused(p0, fsR, 0.0, 0)
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        all_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
+        kern = [e for e in dev_ev if "ext_step_kernel" in e.name]
+        kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        res = {"profile": name, "n": n, "ext_steps": n_fuse,
+               "kernel_launches": len(kern), "kernel_device_ms": kern_ms,
+               "all_device_ms": all_ms, "wall_ms": wall,
+               "kernel_share_of_device": kern_ms / all_ms,
+               "idle_share": 1.0 - all_ms / wall,
+               "warm_rates": rates}
+        log(res)
+        assert len(kern) == n_fuse, res
+        out[name] = res
+    return out
+
+
 def main(argv=None):
     import torch
     argv = sys.argv[1:] if argv is None else argv
     only = None
     if argv[:1] == ["--only"] and len(argv) == 2:
         only = {int(v) for v in argv[1].split(",")}
+    elif argv == ["--profile"]:
+        only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5]")
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6 | "
+                         "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
                          "the GPU path only")
@@ -808,8 +1269,9 @@ def main(argv=None):
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
     # every variant the phases run, built together (one nvcc each)
-    cfgs = [make_cfg(1)] + [make_cfg(1, **kw) for kw in LARVAL.values()] + [
-        make_cfg(1, **kw) for kw in LANE_CHECKS.values()]
+    cfgs = [make_cfg(1, **kw) for kw in [
+        {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
+        *({**SWIM, **kw} for kw in LANE_CHECKS6.values()), OYSTER_CLI]]
     variants = [kx.kernel_variant(c) for c in cfgs]
     t0 = time.perf_counter()
     build.prebuild("ext_step", variants)
@@ -818,7 +1280,7 @@ def main(argv=None):
          "ptxas": {k: v["ptxas"] for k, v in build.report.items()}})
 
     run = (lambda k: only is None or k in only)
-    r1 = r1v = r2 = r4 = None
+    r1 = r1v = r2 = r4 = r6 = None
     if run(1):
         r1, r1v = phase1(torch, device)
     if run(2):
@@ -826,30 +1288,39 @@ def main(argv=None):
     if run(3):
         phase3(torch, device)
         phase3_larval(torch, device)
+        phase3_oyster(torch, device)
     if run(4):
         r4 = phase4(torch, device)
     if run(5):
         phase5(torch, device)
+    if run(6):
+        r6 = phase6(torch, device)
+    if argv == ["--profile"]:
+        profile_cells(torch, device)
     if only is not None:
         log({"only": sorted(only), "passed": True})
         return
     rk = r2["kernel"]          # timed at the main path's shape (1M)
-    kernels = [{
-        "name": "ext_step_fused[advect]", "route": "cuda",
-        "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
-        "launches": r2["launches"],
-        "max_abs_err": max(r[k] for r in (r1, r1v, rk)
-                           for k in ("max_abs_dx", "max_abs_dy",
-                                     "max_abs_dz")),
-        "ms": rk["kernel_ms"], "plain_ms": rk["plain_ms"]}]
-    for name, r in r4.items():
-        kernels.append({
-            "name": f"ext_step_fused[{name}]", "route": "cuda",
-            "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
-            "launches": sum(r["launches"].values()),
-            "max_abs_err": max(r["stepwise"][k] for k in
-                               ("max_abs_dx", "max_abs_dy", "max_abs_dz")),
-            "ms": r["kernel_ms_1M"], "plain_ms": r["plain_ms_1M"]})
+    errs = ("max_abs_dx", "max_abs_dy", "max_abs_dz", "max_abs_dsalt",
+            "max_abs_dtemp")
+
+    def entry(name, launches, err, ms, plain_ms, bound):
+        # one launch per external step computes the whole step: no single
+        # PyTorch call computes the same function (library_ms null)
+        return {"name": f"ext_step_fused[{name}]", "route": "cuda",
+                "source": KERNEL_SRC, "replaces": KERNEL_REPLACES,
+                "launches": launches, "max_abs_err": err, "ms": ms,
+                "plain_ms": plain_ms, "bound_ms": bound["bound_ms"],
+                "bound_by": bound["bound_by"], "library_ms": None}
+
+    kernels = [entry("advect", r2["launches"],
+                     max(r.get(k, 0.0) for r in (r1, r1v, rk) for k in errs),
+                     rk["kernel_ms"], rk["plain_ms"], r2["bound"])]
+    for name, r in {**r4, **{k: r6[k] for k in SETTLE_SALT}}.items():
+        kernels.append(entry(
+            name, sum(r["launches"].values()),
+            max(r["stepwise"].get(k, 0.0) for k in errs),
+            r["kernel_ms_1M"], r["plain_ms_1M"], r["bound"]))
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

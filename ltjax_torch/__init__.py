@@ -1,4 +1,4 @@
-"""ltjax_torch — the PyTorch + CUDA port of ltjax's advection main path.
+"""ltjax_torch — the PyTorch + CUDA port of ltjax.
 
 The JAX package ``ltjax`` stays the reference; this package mirrors its
 module names so each counterpart is easy to find.  Plain functions act
@@ -8,9 +8,8 @@ external step of RK4 advection + boundary reflection) is a CUDA kernel
 written for Hopper (``ltjax_torch.kernels.ext_step``); on CPU tensors
 the same functions run their plain PyTorch versions.
 
-Nothing here imports ``jax``.  The jax-free host modules of ``ltjax``
-(config, namelist, io.nc, io.roms, native, oracle.tension_np) are
-imported as they are.
+Nothing here imports ``jax`` or anything of ``ltjax``: the host modules
+it needs (config, namelist, io.nc, io.roms) are the port's own copies.
 """
 
 __version__ = "0.1.0"

@@ -15,6 +15,7 @@ from . import state as st
 from .fields import FieldSet
 from .grid import Grid
 from .physics.boundary import Boundaries
+from .physics.settlement import Polygons
 
 
 def _is_none(v) -> bool:
@@ -59,11 +60,21 @@ def boundaries_from_numpy(d: dict, device="cpu") -> Boundaries:
 
 def fieldset_from_numpy(d: dict, device="cpu") -> FieldSet:
     """FieldSet from the fields of an ``ltjax.fields.FieldSet`` (K-last
-    layout already); record times go to a host float64 tensor."""
-    names = ("zeta", "u", "v", "w", "aks")
+    layout already, salt and temp included); record times go to a host
+    float64 tensor."""
+    names = ("zeta", "u", "v", "w", "aks", "salt", "temp")
     return FieldSet(**{k: _t(d[k], device) for k in names},
                     times=torch.as_tensor(np.array(d["times"],
                                                      np.float64)))
+
+
+def polygons_from_numpy(d: dict, device="cpu") -> Polygons:
+    """Polygons from the fields of an ``ltjax.physics.settlement
+    .Polygons`` (f64 vertices, int32 counts, ids and candidate rows)."""
+    return Polygons(verts_x=_t(d["verts_x"], device, torch.float64),
+                    verts_y=_t(d["verts_y"], device, torch.float64),
+                    **{k: _t(d[k], device, torch.int32) for k in
+                       ("nverts", "poly_id", "cell_cands")})
 
 
 def particles_from_numpy(d: dict, device="cpu") -> st.Particles:

@@ -15,6 +15,7 @@ records nvcc's ``-Xptxas -v`` report (registers, stack, spills) in
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -43,12 +44,31 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
+@functools.lru_cache(maxsize=None)
+def _macros(name: str):
+    """The LTX_ macros that csrc/<name>.cu declares (its #ifndef lines),
+    read once: every launch computes its variant's tag."""
+    with open(os.path.join(_CSRC, name + ".cu")) as f:
+        return tuple(ln.split()[1][4:] for ln in f
+                     if ln.startswith("#ifndef LTX_"))
+
+
 def tag(name: str, variant=None) -> str:
-    """``name`` plus the variant's macro values, each under the first
-    letter of its name after ``LTX_``: ext_step-b3h1m0v2."""
+    """``name`` plus the variant's macro values, each under the shortest
+    prefix of its name after ``LTX_`` that no other macro of the source
+    shares (lower case): ext_step-b3h1m0v2, ext_step-b4h0m0sa1se1v0."""
     if not variant:
         return name
-    return name + "-" + "".join(f"{k[4].lower()}{v}"
+    others = _macros(name)
+
+    def abbrev(k):
+        k = k[4:]
+        for i in range(1, len(k) + 1):
+            if not any(o != k and o.startswith(k[:i]) for o in others):
+                return k[:i].lower()
+        return k.lower()
+
+    return name + "-" + "".join(f"{abbrev(k)}{v}"
                                 for k, v in sorted(variant.items()))
 
 

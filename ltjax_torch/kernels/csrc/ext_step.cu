@@ -1,24 +1,26 @@
 // Whole-external-step kernel for Hopper (sm_90a).
 //
 // Replaces ltjax/kernels/ext_step.py::ext_step_fused (the Pallas TPU
-// megakernel) in its advection, turbulence, behavior and mortality
-// lanes: DOB release, four RK4 find_currents stages per internal step
-// (quadratic time collapse of the three raw records, bilinear blend,
-// natural tension-spline fit and clamped evaluation of u/v on the rho
-// ladder and w on the w ladder, log-layer decay of u/v), horizontal
-// random walk and Visser vertical random displacement on in-kernel
-// Threefry-2x32 streams, behaviors 1/2/3/6/7, horizontal specular
-// reflection with open boundary exits and the tunnel/displacement
-// guards of ltjax.physics.boundary.reflect, vertical reflection about
-// zeta/h at t+idt, deterministic death, and the status lattice.
-// Behaviors 4/5, settlement, salt sampling and curvilinear grids are not
-// here yet.
+// megakernel) in its advection, turbulence, behavior, mortality,
+// settlement and salt lanes: DOB release, four RK4 find_currents stages
+// per internal step (quadratic time collapse of the three raw records,
+// bilinear blend, natural tension-spline fit and clamped evaluation of
+// u/v on the rho ladder and w on the w ladder, log-layer decay of u/v),
+// horizontal random walk and Visser vertical random displacement on
+// in-kernel Threefry-2x32 streams, behaviors 1-7 (4/5 cue on the spline
+// derivative of the salt profile), horizontal specular reflection with
+// open boundary exits and the tunnel/displacement guards of
+// ltjax.physics.boundary.reflect, vertical reflection about zeta/h at
+// t+idt, deterministic death, settlement on habitat polygons with holes
+// (the exact ray-casting test of ltjax.physics.settlement, in double),
+// salt and temperature sampled at the new position (SaltTempOn), and the
+// status lattice.  Curvilinear grids are not here yet.
 //
 // Variants.  The options are compile-time macros (LTX_HTURB, LTX_VTURB
-// 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY; the wrapper
-// builds one library per combination), so each configuration carries
-// only its own lanes; with all of them 0 the kernel is the advection
-// kernel alone.
+// 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY, LTX_SETTLE,
+// LTX_SALT; the wrapper builds one library per combination), so each
+// configuration carries only its own lanes; with all of them 0 the
+// kernel is the advection kernel alone.
 //
 // Design.  One thread per particle, 128 threads a block, one launch per
 // external step; the n_int internal steps run inside the thread with
@@ -42,14 +44,26 @@
 // Box-Muller and uniform maps use logf/cosf/sinf/sqrtf (no fast-math
 // intrinsics).
 //
+// Settlement.  The TPU kernel settles in-kernel only in cells that lie
+// fully inside one polygon and defers rim and hole cells to its exact
+// out-of-window patch.  This kernel has no patch and no window: every
+// eligible particle walks its cell's candidate list and ray-casts each
+// candidate's edges in double on its f32 position promoted, as
+// test_settlement does on the f64 vertices, so both versions decide
+// alike on equal positions.
+//
 // What bounds it.  Gathers: 4 x 3 x nv floats per stage (nv = 2us+ws+2;
 // ~3 KB per stage at us = 20), plus ws Aks lanes twice per internal step
-// with the Visser lanes.  The record table is 3*Ny*Nx*nl*4 bytes: 30 MB
-// for the 200x200x20 bench grid (40 MB with Aks), which fits the 50 MB
-// L2; a production 800x600x25 grid (~420 MB) does not, and then every
-// stage reads device memory.  The Hilbert sort of the caller (once per
-// ext_sort_every external steps) is kept for L1/L2 locality:
-// neighbouring threads read neighbouring cell rows.
+// with the Visser lanes, us salt lanes once with behaviors 4/5 and 2us
+// salt + temp lanes once with SaltTempOn.  The record table is
+// 3*Ny*Nx*nl*4 bytes: 30 MB for the 200x200x20 bench grid (40 MB with
+// Aks, 49 MB with salt and temp), which fits the 50 MB L2; a production
+// 800x600x25 grid (~420 MB) does not, and then every stage reads device
+// memory.  Settlement adds, per eligible particle and internal step, its
+// cell's candidate polygons: a few KB of f64 vertices in all.  The
+// Hilbert sort of the caller (once per ext_sort_every external steps) is
+// kept for L1/L2 locality: neighbouring threads read neighbouring cell
+// rows.
 //
 // Arithmetic mirrors the plain PyTorch version (ltjax_torch.packed,
 // .physics.turb, .physics.behavior and .physics.boundary) operation for
@@ -75,6 +89,12 @@
 #ifndef LTX_MORTALITY
 #define LTX_MORTALITY 0
 #endif
+#ifndef LTX_SETTLE
+#define LTX_SETTLE 0
+#endif
+#ifndef LTX_SALT
+#define LTX_SALT 0
+#endif
 
 // params head (f32); must match ltjax_torch/kernels/ext_step.py
 enum {
@@ -86,15 +106,34 @@ enum {
   P_SINK, P_DEADAGE,                   // type-6 sinking, death age
   P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF,   // swim ramp
   P_KP, P_THRESH, P_HSWIM, P_SWIMDEPTH,             // DVM, TST
+  P_PEDIAGE, P_SGRAD,                  // settlement age, 4/5 cue
   P_HEAD = 32                          // then s_rho, Cs_r, s_w, Cs_w,
                                        // then 9 polintd weights per step,
                                        // then (type 3) E0 per step
 };
 
-enum { NOT_RELEASED = 0, ACTIVE = 1, DEAD = 3, OUT_OF_DOMAIN = 4,
-       ERROR = 5 };
+enum { NOT_RELEASED = 0, ACTIVE = 1, SETTLED = 2, DEAD = 3,
+       OUT_OF_DOMAIN = 4, ERROR = 5 };
 enum { HTURB = 0, VTURB = 1, BEHAVE = 2, MORTALITY = 3 };  // substreams
 enum { LAND = 0, OPEN = 1 };
+
+// one set of padded polygons (ltjax_torch.physics.settlement.Polygons)
+struct PolySet {
+  const double* vx;       // (n, vmax) vertices, padded with the last one
+  const double* vy;
+  const int* nverts;      // (n,)
+  const int* id;          // (n,) external polygon ids
+  const int* cands;       // (C, cmax) candidate rows of each cell, -1 pad
+  int n, vmax, cmax;
+};
+
+// the settlement tables, a kernel argument of their own: kept out of
+// Args, whose size changes the register allocation of every variant
+// (120 -> 96 registers for advection when they were in it)
+struct Settle {
+  const double* edge;               // cell-edge lattice x0, dx, y0, dy
+  PolySet poly, hole;               // habitat polygons and holes
+};
 
 struct Args {
   const float* __restrict__ rtab;   // (3, C, nl) raw record lanes
@@ -102,6 +141,7 @@ struct Args {
   const float* __restrict__ par;    // head + ladders + weights
   const uint32_t* __restrict__ rngk;  // per-step derived key pairs
   int nx, ny, us, ws, nv, nl, vt, n_int, n_iter, open_exits, s_max, bl;
+  int salt0;                        // first salt lane (temp follows)
   long long C;
 };
 
@@ -206,8 +246,10 @@ __device__ __forceinline__ float knot(const Args& a, float s, float cs,
 }
 
 // Natural tension-spline fit of up to two profiles sharing one knot
-// ladder (lanes lane0 [, lane1]) and clamped evaluation at zq.
-// Returns the first knot depth through z_first (log layer).
+// ladder (lanes lane0 [, lane1]) and clamped evaluation at zq: the
+// value, or (DERIV) the derivative.  Returns the first knot depth
+// through z_first (log layer).
+template <bool DERIV = false>
 __device__ void fit_eval(const Args& a, const Tension& T, const Stencil& st,
                          const float* l, const float* s_lad,
                          const float* cs_lad, int K, int lane0, int lane1,
@@ -262,9 +304,15 @@ __device__ void fit_eval(const Args& a, const Tension& T, const Stencil& st,
   float hh = zr - zl;
   float B2 = (zc - zl) / hh;
   float B1 = 1.0f - B2;
-  float g1 = gs_fn(T, B1), g2 = gs_fn(T, B2);
-  out0 = y0l * B1 + y0r * B2 + hh * hh * (s00 * g1 + s01 * g2);
-  out1 = y1l * B1 + y1r * B2 + hh * hh * (s10 * g1 + s11 * g2);
+  if constexpr (DERIV) {
+    float d1 = ds_fn(T, B1), d2 = ds_fn(T, B2);
+    out0 = (y0r - y0l) / hh + hh * (s00 * d1 - s01 * d2);
+    out1 = (y1r - y1l) / hh + hh * (s10 * d1 - s11 * d2);
+  } else {
+    float g1 = gs_fn(T, B1), g2 = gs_fn(T, B2);
+    out0 = y0l * B1 + y0r * B2 + hh * hh * (s00 * g1 + s01 * g2);
+    out1 = y1l * B1 + y1r * B2 + hh * hh * (s10 * g1 + s11 * g2);
+  }
 }
 
 // find_currents at (x, y, z) from the records collapsed with weights l
@@ -375,6 +423,49 @@ __device__ void reflect(const Args& a, float x0, float y0, float& x1,
   if (!exited && (ddx * ddx > ms2x || ddy * ddy > ms2y)) stuck = true;
   x1 = px1;
   y1 = py1;
+}
+
+// ---- settlement (ltjax.physics.settlement.test_settlement) ------------
+
+// ray casting of polygon k of set s at (px, py): edges i -> i+1 and the
+// closing edge nverts-1 -> 0 (the padded roll of point_in_polygon; its
+// padding edges are degenerate and cross nothing)
+__device__ bool in_polygon(const PolySet& s, int k, double px, double py) {
+  const double* vx = s.vx + (long long)k * s.vmax;
+  const double* vy = s.vy + (long long)k * s.vmax;
+  const int n = s.nverts[k];
+  bool odd = false;
+  for (int i = 0; i < n; ++i) {
+    const int j = i + 1 == n ? 0 : i + 1;
+    const double x1 = vx[i], y1 = vy[i], x2 = vx[j], y2 = vy[j];
+    if ((y1 > py) != (y2 > py)) {
+      const double xc = x1 + (py - y1) * (x2 - x1) / (y2 - y1);
+      if (px < xc) odd = !odd;
+    }
+  }
+  return odd;
+}
+
+// id of the first candidate habitat polygon of the point's cell that
+// contains it, unless a candidate hole does; -1 otherwise
+__device__ int settle_id(const Settle& sg, int nx, int ny, float x,
+                         float y) {
+  const double px = (double)x, py = (double)y;
+  const int i = (int)fmin(fmax(floor((px - sg.edge[0]) / sg.edge[1]), 0.0),
+                          (double)(nx - 1));
+  const int j = (int)fmin(fmax(floor((py - sg.edge[2]) / sg.edge[3]), 0.0),
+                          (double)(ny - 1));
+  const long long cell = (long long)j * nx + i;
+  int id = -1;
+  const int* c = sg.poly.cands + cell * sg.poly.cmax;
+  for (int m = 0; m < sg.poly.cmax && id < 0; ++m)
+    if (c[m] >= 0 && in_polygon(sg.poly, c[m], px, py))
+      id = sg.poly.id[c[m]];
+  if (id < 0 || sg.hole.n == 0) return id;
+  const int* h = sg.hole.cands + cell * sg.hole.cmax;
+  for (int m = 0; m < sg.hole.cmax; ++m)
+    if (h[m] >= 0 && in_polygon(sg.hole, h[m], px, py)) return -1;
+  return id;
 }
 
 // ---- counter-based random streams (ltjax.rng, bit for bit) -----------
@@ -493,22 +584,28 @@ __device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
   return kprime * idt + R * sqrtf(2.0f * kmid * idt / (1.0f / 3.0f));
 }
 
-template <int HT, int VT, int BEH, int MORT>
+template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT>
 __global__ void __launch_bounds__(128)
-ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
+ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
                 const float* __restrict__ y_in,
                 const float* __restrict__ z_in,
                 const float* __restrict__ dob_in,
                 const float* __restrict__ age_in,
                 const int* __restrict__ pid_in,
                 const int* __restrict__ st_in,
+                const int* __restrict__ spoly_in,
+                const float* __restrict__ salt_in,
+                const float* __restrict__ temp_in,
                 float* __restrict__ x_out, float* __restrict__ y_out,
                 float* __restrict__ z_out, float* __restrict__ age_out,
                 int* __restrict__ st_out,
-                int* __restrict__ hitl_out, int* __restrict__ hitb_out) {
-  // behaviors that swim read the age and draw BEHAVE/MORTALITY words
-  constexpr bool SWIM = BEH == 1 || BEH == 2 || BEH == 3;
-  constexpr bool AGE = MORT || SWIM || BEH == 7;
+                int* __restrict__ hitl_out, int* __restrict__ hitb_out,
+                int* __restrict__ spoly_out, float* __restrict__ salt_out,
+                float* __restrict__ temp_out) {
+  // behaviors that swim read the age and draw BEHAVE/MORTALITY words;
+  // settlement reads the age too (eligible from pediage on)
+  constexpr bool SWIM = BEH >= 1 && BEH <= 5;
+  constexpr bool AGE = MORT || SWIM || BEH == 7 || SETTLE;
   constexpr bool RNG = HT || VT != 0 || SWIM;
   constexpr int STRIDE = SWIM ? 8 : 4;    // key words per internal step
   int p = blockIdx.x * blockDim.x + threadIdx.x;
@@ -518,6 +615,8 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
   T.sigma = par[P_SIGMA];
   T.small = 0.5f;
   T.cubic = T.sigma == 0.0f;
+  Tension Ts = T;            // salt/temp splines: tension.evaluate's
+  Ts.cubic = false;          // series at sigma = 0, as the plain version
   float cp[MAX_LEVELS], dp0[MAX_LEVELS], dp1[MAX_LEVELS];
 
   float x = x_in[p], y = y_in[p], z = z_in[p], dob = dob_in[p];
@@ -526,6 +625,10 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
   uint32_t pid = 0u;
   if constexpr (RNG) pid = (uint32_t)pid_in[p];
   int st = st_in[p];
+  int spoly = 0;
+  if constexpr (SETTLE) spoly = spoly_in[p];
+  float salt = 0.0f, temp = 0.0f;
+  if constexpr (SALT) { salt = salt_in[p]; temp = temp_in[p]; }
   int hitl = 0, hitb = 0;
   const float idt = par[P_IDT];
   const float half = 0.5f * idt;
@@ -535,7 +638,7 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
   for (int i = 0; i < a.n_int; ++i) {
     float t_i = par[P_T0] + (float)i * idt;
     if (st == NOT_RELEASED && t_i >= dob) st = ACTIVE;
-    const float age_pre = age;            // behavior/mortality read it
+    const float age_pre = age;  // behavior, mortality, settlement read it
     if constexpr (AGE) {
       if (st >= ACTIVE) age = (t_i + idt) - dob;
     }
@@ -602,11 +705,25 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
           bz = z < (zeta_b - 2.0f) ? biased : rnd;     // SURFACE_ZONE
         } else if constexpr (BEH == 2) {
           bz = z > (-h_b + 2.0f) ? biased : rnd;       // BOTTOM_ZONE
-        } else {
+        } else if constexpr (BEH == 3) {
           float e0 = coef[9 * a.n_int + i];
           float light = e0 * expf(-par[P_KP] * fmaxf(zeta_b - z, 0.0f));
           bz = light > par[P_THRESH] ? -wsw * idt
                : (e0 > 0.0f ? wsw * idt : rnd);
+        } else {
+          // halocline cue: dS/dz of the salt spline at the pre-step
+          // position and time (stage-1 stencil, weights and knots)
+          float dsdz, unused, zf;
+          fit_eval<true>(a, Ts, s1, l, par + P_HEAD, par + P_HEAD + a.us,
+                         a.us, a.salt0, -1, zeta_b, h_b, z, cp, dp0, dp1,
+                         dsdz, unused, zf);
+          bool cue = fabsf(dsdz) >= par[P_SGRAD];
+          bool young = age_pre < par[P_PEDIAGE];
+          float down = -biased;                          // toward the bottom
+          if constexpr (BEH == 4)
+            bz = young ? (cue ? biased : rnd) : down;
+          else
+            bz = young ? (cue ? biased : biased * 0.5f + rnd * 0.5f) : down;
         }
       } else if constexpr (BEH == 6) {
         bz = -par[P_SINK] * idt * 1.0f;
@@ -653,11 +770,36 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
     if constexpr (MORT) {
       if (age_pre >= par[P_DEADAGE] && !exited) st = DEAD;
     }
+    // settlement at the reflected position: a particle still ACTIVE
+    // after the exit, error and death updates, old enough at the
+    // pre-step age + idt; the polygon id is kept from the first time
+    if constexpr (SETTLE) {
+      if (st == ACTIVE && sg.poly.n > 0
+          && age_pre + idt >= par[P_PEDIAGE]) {
+        int id = settle_id(sg, a.nx, a.ny, x, y);
+        if (id >= 0) {
+          st = SETTLED;
+          if (spoly < 0) spoly = id;
+        }
+      }
+    }
+    // SaltTempOn: salt and temp at the new position at t + idt, for every
+    // particle active at the step's start (those that exited, died or
+    // settled in it included): stage-4 weights, the stencil and knots of
+    // the vertical reflection
+    if constexpr (SALT) {
+      float zf;
+      fit_eval(a, Ts, s4, l + 6, par + P_HEAD, par + P_HEAD + a.us, a.us,
+               a.salt0, a.salt0 + a.us, zeta, h, z, cp, dp0, dp1, salt, temp,
+               zf);
+    }
   }
   x_out[p] = x;
   y_out[p] = y;
   z_out[p] = z;
   if constexpr (AGE) age_out[p] = age;
+  if constexpr (SETTLE) spoly_out[p] = spoly;
+  if constexpr (SALT) { salt_out[p] = salt; temp_out[p] = temp; }
   st_out[p] = st;
   hitl_out[p] = hitl;
   hitb_out[p] = hitb;
@@ -666,19 +808,35 @@ ext_step_kernel(Args a, int n, const float* __restrict__ x_in,
 // One external step of n particles, in the variant this library was
 // compiled for (LTX_* macros).  rngk may be null when the variant draws
 // nothing; age/age_out are read/written only where the variant carries
-// the age.  Returns the launch's cudaError_t.
+// the age, spoly/spoly_out with settlement, salt/temp and their outputs
+// with SaltTempOn.  The record table's lanes are the nv value lanes, the
+// ws Aks lanes from aks0 (nv, or -1 without them) and the us salt + us
+// temp lanes from salt0 (after the Aks lanes, or -1 without them).
+// settle_d holds the cell-edge lattice (x0, dx, y0, dy) and the f64
+// vertices (x then y) of the polygons and then of the holes; settle_i
+// their vertex counts, ids and per-cell candidate rows, polygons first.
+// Returns the launch's cudaError_t.
 extern "C" int ltx_ext_step(
     const float* rtab, const float* brows, const float* params,
     const uint32_t* rngk, const float* x, const float* y, const float* z,
     const float* dob, const float* age, const int* pid, const int* status,
+    const int* spoly, const float* salt, const float* temp,
     float* x_out, float* y_out, float* z_out, float* age_out, int* st_out,
-    int* hitl_out, int* hitb_out, int n, int nx, int ny, int us, int ws,
-    int nl, int vtransform, int n_int, int n_iter, int open_exits,
-    int s_max, void* stream) {
+    int* hitl_out, int* hitb_out, int* spoly_out, float* salt_out,
+    float* temp_out, const double* settle_d, const int* settle_i, int n,
+    int nx, int ny, int us, int ws, int nl, int aks0, int salt0,
+    int vtransform, int n_int, int n_iter, int open_exits, int s_max,
+    int n_poly, int vmax_poly, int cmax_poly, int n_hole, int vmax_hole,
+    int cmax_hole, void* stream) {
   if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const int nv = 2 * us + ws + 2;
-  if (nl != nv + ws && (nl != nv || LTX_VTURB == 2))
-    return (int)cudaErrorInvalidValue;      // value lanes [+ Aks lanes]
+  const int after_aks = aks0 >= 0 ? nv + ws : nv;
+  if ((aks0 != -1 && aks0 != nv) || (salt0 != -1 && salt0 != after_aks)
+      || nl != (salt0 >= 0 ? salt0 + 2 * us : after_aks)
+      || (LTX_VTURB == 2 && aks0 < 0)
+      || ((LTX_SALT || LTX_BEHAVIOR == 4 || LTX_BEHAVIOR == 5) && salt0 < 0)
+      || (LTX_SETTLE && n_poly > 0 && (!settle_d || !settle_i)))
+    return (int)cudaErrorInvalidValue;      // lane offsets, tables
   if (n <= 0) return 0;
   Args a;
   a.rtab = rtab;
@@ -691,6 +849,7 @@ extern "C" int ltx_ext_step(
   a.ws = ws;
   a.nv = nv;
   a.nl = nl;
+  a.salt0 = salt0;
   a.vt = vtransform;
   a.n_int = n_int;
   a.n_iter = n_iter;
@@ -698,11 +857,29 @@ extern "C" int ltx_ext_step(
   a.s_max = s_max;
   a.bl = 8 + 8 * s_max;
   a.C = (long long)nx * ny;
+  // polygon tables: sub-arrays of settle_d / settle_i
+  Settle sg;
+  sg.edge = settle_d;
+  const long long pv = (long long)n_poly * vmax_poly;
+  const long long hv = (long long)n_hole * vmax_hole;
+  sg.poly = {settle_d ? settle_d + 4 : nullptr,
+            settle_d ? settle_d + 4 + pv : nullptr,
+            settle_i, settle_i ? settle_i + n_poly : nullptr,
+            settle_i ? settle_i + 2 * n_poly : nullptr,
+            n_poly, vmax_poly, cmax_poly};
+  const int* hi = settle_i ? settle_i + 2 * n_poly + a.C * cmax_poly
+                           : nullptr;
+  sg.hole = {settle_d ? settle_d + 4 + 2 * pv : nullptr,
+            settle_d ? settle_d + 4 + 2 * pv + hv : nullptr,
+            hi, hi ? hi + n_hole : nullptr, hi ? hi + 2 * n_hole : nullptr,
+            n_hole, vmax_hole, cmax_hole};
   int threads = 128;
   int blocks = (n + threads - 1) / threads;
-  ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY>
+  ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY,
+                  LTX_SETTLE, LTX_SALT>
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          a, n, x, y, z, dob, age, pid, status, x_out, y_out, z_out, age_out,
-          st_out, hitl_out, hitb_out);
+          a, sg, n, x, y, z, dob, age, pid, status, spoly, salt, temp, x_out,
+          y_out, z_out, age_out, st_out, hitl_out, hitb_out, spoly_out,
+          salt_out, temp_out);
   return (int)cudaGetLastError();
 }

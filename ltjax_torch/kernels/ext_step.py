@@ -1,8 +1,9 @@
 """Whole-external-step kernel: CUDA kernel wrapper + plain version.
 
 Counterpart of ``ltjax.kernels.ext_step.ext_step_fused`` (advection,
-turbulence, behavior and mortality lanes).  ``ext_step_fused`` runs
-``cfg.internal_steps`` internal steps of the whole batch:
+turbulence, behavior, mortality, settlement and salt lanes).
+``ext_step_fused`` runs ``cfg.internal_steps`` internal steps of the
+whole batch:
 
 * on CUDA tensors it launches ``csrc/ext_step.cu`` (one thread per
   particle, the internal-step loop inside the thread) and counts the
@@ -12,10 +13,13 @@ turbulence, behavior and mortality lanes).  ``ext_step_fused`` runs
 
 The kernel is compiled once per combination of the options it covers
 (``kernel_variant``: horizontal turbulence, vertical turbulence constant
-or on the Aks profile, behavior type, mortality), so each configuration
-runs only its own lanes.  It reads the raw record table
-``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (nl = nv, or nv + ws with the
-Aks lanes), the boundary cell rows (Ny*Nx, 8 + 8*s_max) f32, the
+or on the Aks profile, behavior type, mortality, settlement, salt
+sampling), so each configuration runs only its own lanes.  It reads the
+raw record table ``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (the nv value
+lanes, then the ws Aks lanes and the us salt + us temp lanes where the
+table has them, at the offsets ``lane_offsets`` finds), the boundary
+cell rows (Ny*Nx, 8 + 8*s_max) f32, the habitat and hole polygons
+(``settle_tables``: f64 vertices, candidate rows per cell), the
 per-step Threefry keys (``rng_keys_array``) and a small f32 params
 vector: the head scalars below, the s/Cs ladders, the quadratic time
 weights of every (internal step, RK4 stage), computed on the host in
@@ -46,21 +50,28 @@ MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
 (P_X0, P_DX, P_Y0, P_DY, P_BX0, P_BDX, P_BY0, P_BDY, P_BX1, P_BY1, P_HC,
  P_Z0M, P_T0, P_IDT, P_SIGMA, P_HSCALE, P_VCONST, P_SINK, P_DEADAGE,
  P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF, P_KP, P_THRESH, P_HSWIM,
- P_SWIMDEPTH) = range(27)
+ P_SWIMDEPTH, P_PEDIAGE, P_SGRAD) = range(29)
 P_HEAD = 32
 
 VTURB_OFF, VTURB_CONST, VTURB_AKS = 0, 1, 2
-SWIM_TYPES = (1, 2, 3)      # behaviors drawing BEHAVE/MORTALITY words
+SWIM_TYPES = (1, 2, 3, 4, 5)   # behaviors drawing BEHAVE/MORTALITY words
 
 
 def kernel_variant(cfg) -> dict:
     """The compile-time options of the kernel for a configuration (the
-    -D flags of csrc/ext_step.cu)."""
+    -D flags of csrc/ext_step.cu).  Settlement and salt sampling appear
+    only when on, so the variants without them build from the same flags
+    as before they existed."""
     vt = (VTURB_OFF if not cfg.VTurbOn
           else VTURB_AKS if cfg.readAks else VTURB_CONST)
-    return {"LTX_HTURB": int(bool(cfg.HTurbOn)), "LTX_VTURB": vt,
-            "LTX_BEHAVIOR": int(cfg.Behavior),
-            "LTX_MORTALITY": int(bool(cfg.mortality))}
+    out = {"LTX_HTURB": int(bool(cfg.HTurbOn)), "LTX_VTURB": vt,
+           "LTX_BEHAVIOR": int(cfg.Behavior),
+           "LTX_MORTALITY": int(bool(cfg.mortality))}
+    if cfg.settlementon:
+        out["LTX_SETTLE"] = 1
+    if cfg.SaltTempOn:
+        out["LTX_SALT"] = 1
+    return out
 
 
 def uses_rng(cfg) -> bool:
@@ -68,9 +79,24 @@ def uses_rng(cfg) -> bool:
 
 
 def uses_age(cfg) -> bool:
-    """The kernel carries the age itself (behavior and mortality read the
-    pre-step age, as step.internal_step does)."""
-    return bool(cfg.mortality or cfg.Behavior in (1, 2, 3, 7))
+    """The kernel carries the age itself (behavior, mortality and
+    settlement read the pre-step age, as step.internal_step does)."""
+    return bool(cfg.mortality or cfg.settlementon
+                or cfg.Behavior in (1, 2, 3, 4, 5, 7))
+
+
+def lane_offsets(nl: int, us: int, ws: int):
+    """(aks0, salt0) of a record table with nl lanes: the first Aks lane
+    (nv, or -1 without them) and the first salt lane (after the Aks
+    lanes, or -1 without them; the us temp lanes follow the salt)."""
+    nv = n_value_lanes(us, ws)
+    layouts = {nv: (-1, -1), nv + ws: (nv, -1), nv + 2 * us: (-1, nv),
+               nv + ws + 2 * us: (nv, nv + ws)}
+    if nl not in layouts:
+        raise ValueError(f"ext_step_fused: the record table has {nl} lanes; "
+                         f"expected {nv} value lanes [+ {ws} Aks] "
+                         f"[+ {2 * us} salt/temp]")
+    return layouts[nl]
 
 
 def params_static(ctx, cfg) -> np.ndarray:
@@ -81,7 +107,7 @@ def params_static(ctx, cfg) -> np.ndarray:
            float(cfg.sink), float(cfg.deadage), float(cfg.swimstart),
            float(cfg.pediage), float(cfg.swimslow), float(cfg.swimfast),
            float(cfg.Kp), float(cfg.thresh), float(cfg.Hswimspeed),
-           float(cfg.Swimdepth))
+           float(cfg.Swimdepth), float(cfg.Sgradient))
     if key in ctx.cache:
         return ctx.cache[key]
     g, b = ctx.grid, ctx.bounds
@@ -116,6 +142,8 @@ def params_static(ctx, cfg) -> np.ndarray:
     head[P_THRESH] = cfg.thresh
     head[P_HSWIM] = cfg.Hswimspeed
     head[P_SWIMDEPTH] = cfg.Swimdepth
+    head[P_PEDIAGE] = cfg.pediage
+    head[P_SGRAD] = cfg.Sgradient
     lad = [t.cpu().numpy().astype(f32) for t in (g.s_rho, g.Cs_r, g.s_w,
                                                   g.Cs_w)]
     out = np.concatenate([head] + lad)
@@ -149,7 +177,7 @@ def rng_keys_array(seed, ext_idx: int, n_int: int,
     HTURB and VTURB substreams for every internal step of external step
     ``ext_idx`` (``rng.stream_key(seed, ext_idx*n_int + i, sub)``; the
     layout of ltjax.kernels.ext_step.rng_keys_array).  ``behave`` appends
-    the BEHAVE and MORTALITY pairs (behavior types 1-3)."""
+    the BEHAVE and MORTALITY pairs (behavior types 1-5)."""
     k0, k1 = rng.seed_words(seed)
     steps = int(ext_idx) * int(n_int) + torch.arange(n_int)
     subs = [rng.HTURB, rng.VTURB]
@@ -170,16 +198,54 @@ def boundary_rows_table(ctx) -> torch.Tensor:
     return ctx.cache["brows"]
 
 
+def settle_tables(ctx):
+    """The habitat polygons and holes as the kernel reads them, once per
+    context: (f64 table, int32 table, (n, vmax, cmax) of the polygons,
+    the same of the holes), or None without polygons.  The f64 table is
+    the cell-edge lattice (x0, dx, y0, dy), then each set's vertices (x,
+    then y); the int32 table each set's vertex counts, ids and candidate
+    rows, polygons first (csrc/ext_step.cu ltx_ext_step)."""
+    if ctx.polys is None:
+        return None
+    if "settle" in ctx.cache:
+        return ctx.cache["settle"]
+    ny, nx = ctx.bounds.water.shape
+    dev = ctx.grid.device
+    x0, dx, y0, dy, _, _ = ctx.bounds.edges
+    dbl = [torch.tensor([x0, dx, y0, dy], dtype=torch.float64)]
+    ints, dims = [], []
+    for ps in (ctx.polys, ctx.holes):
+        if ps is None:
+            dims.append((0, 1, 1))
+            continue
+        if tuple(ps.cell_cands.shape[:2]) != (ny, nx):
+            raise ValueError("settle_tables: candidate rows must cover the "
+                             f"({ny}, {nx}) cell lattice")
+        dbl += [ps.verts_x.cpu().reshape(-1), ps.verts_y.cpu().reshape(-1)]
+        ints += [ps.nverts.cpu(), ps.poly_id.cpu(),
+                 ps.cell_cands.cpu().reshape(-1)]
+        dims.append((ps.n_polys, ps.verts_x.shape[1],
+                     ps.cell_cands.shape[2]))
+    out = (torch.cat([d.to(torch.float64) for d in dbl]).to(dev),
+           torch.cat([i.to(torch.int32) for i in ints]).to(dev), *dims)
+    ctx.cache["settle"] = out
+    return out
+
+
 def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
                        t0: float, fields=None, seed=None,
                        ext_idx: int = 0) -> st.Particles:
     """Plain PyTorch version: cfg.internal_steps internal steps of the
     collapsed scheme (any device, any float dtype).  ``fields`` is the
-    3-record window (needed for vertical turbulence on Aks)."""
+    3-record window (needed for vertical turbulence on Aks, salt
+    sampling and behaviors 4/5); ``ctx.polys``/``ctx.holes`` are the
+    habitat polygons."""
     from ..step import internal_step
-    if cfg.VTurbOn and cfg.readAks and fields is None:
-        raise ValueError("ext_step_reference: VTurbOn with readAks needs "
-                         "the 3-record FieldSet")
+    if fields is None and ((cfg.VTurbOn and cfg.readAks)
+                           or cfg.needs_salt_fields()):
+        raise ValueError("ext_step_reference: VTurbOn with readAks, "
+                         "SaltTempOn and behaviors 4/5 need the 3-record "
+                         "FieldSet")
     seed = cfg.seed if seed is None else seed
     idt = float(cfg.idt)
     n_int = cfg.internal_steps
@@ -189,7 +255,7 @@ def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
     return p
 
 
-_C_ARGTYPES = ([ctypes.c_void_p] * 18 + [ctypes.c_int] * 11
+_C_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 19
                + [ctypes.c_void_p])
 
 
@@ -213,9 +279,9 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                    t0: float, fields=None, seed=None,
                    ext_idx: int = 0) -> st.Particles:
     """One external step (cfg.internal_steps internal steps) of RK4
-    advection, turbulence, behavior, reflection and status bookkeeping
-    for the whole batch; ``ext_idx`` and ``seed`` (default cfg.seed) key
-    the random draws.
+    advection, turbulence, behavior, reflection, settlement, salt
+    sampling and status bookkeeping for the whole batch; ``ext_idx`` and
+    ``seed`` (default cfg.seed) key the random draws.
 
     CPU tensors take ``ext_step_reference``; CUDA tensors launch the
     kernel (f32 positions, uniform grid) or raise."""
@@ -231,15 +297,17 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                                     mortality=cfg.mortality,
                                     stochastic=cfg.stochastic_mortality))
     variant = kernel_variant(cfg)
-    nv = n_value_lanes(us, ws)
-    # the Aks lanes follow the value lanes; the Visser lanes need them
+    # the Visser lanes read the Aks lanes; sampling and behaviors 4/5
+    # the salt (and temp) lanes
     nl = prec.tab.shape[-1]
-    if nl not in (nv, nv + ws) or (variant["LTX_VTURB"] == VTURB_AKS
-                                   and nl != nv + ws):
-        raise ValueError(f"ext_step_fused: the record table has {nl} lanes; "
-                         f"this configuration needs {nv} value lanes"
-                         + (f" + {ws} Aks lanes"
-                            if variant["LTX_VTURB"] == VTURB_AKS else ""))
+    aks0, salt0 = lane_offsets(nl, us, ws)
+    if variant["LTX_VTURB"] == VTURB_AKS and aks0 < 0:
+        raise ValueError(f"ext_step_fused: Visser on Aks needs the {ws} "
+                         f"Aks lanes (build_packed_records(with_aks=True))")
+    if cfg.needs_salt_fields() and salt0 < 0:
+        raise ValueError(f"ext_step_fused: SaltTempOn and behaviors 4/5 "
+                         f"need the {2 * us} salt/temp lanes "
+                         f"(build_packed_records(with_scalars=True))")
     if not (g.uniform and b.uniform):
         raise NotImplementedError("ext_step_fused: the CUDA kernel locates "
                                   "cells arithmetically; grid not uniform")
@@ -248,9 +316,9 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                          f"MAX_LEVELS={MAX_LEVELS}")
     if float(cfg.tension_sigma) < 0:
         raise NotImplementedError("ext_step_fused: adaptive tension")
-    for k in ("x", "y", "z", "dob", "age"):
+    for k in ("x", "y", "z", "dob", "age", "salt", "temp"):
         _check_col(k, getattr(p, k), n, torch.float32, dev)
-    for k in ("status", "pid"):
+    for k in ("status", "pid", "settle_poly"):
         _check_col(k, getattr(p, k), n, torch.int32, dev)
     tab = prec.tab
     if (tab.dtype != torch.float32 or tab.device != dev
@@ -263,6 +331,9 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     brows = boundary_rows_table(ctx)
     if brows.device != dev:
         raise ValueError("ext_step_fused: boundaries on another device")
+    settle = settle_tables(ctx) if cfg.settlementon else None
+    if settle is not None and settle[0].device != dev:
+        raise ValueError("ext_step_fused: polygons on another device")
     n_int = cfg.internal_steps
     idt = float(cfg.idt)
     if n == 0:
@@ -287,16 +358,27 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     st_o = torch.empty_like(p.status)
     hitl = torch.empty_like(p.status)
     hitb = torch.empty_like(p.status)
+    spoly_o = torch.empty_like(p.settle_poly) if cfg.settlementon else None
+    salt_o = torch.empty_like(p.salt) if cfg.SaltTempOn else None
+    temp_o = torch.empty_like(p.temp) if cfg.SaltTempOn else None
+    sd, si, (n_p, v_p, c_p), (n_h, v_h, c_h) = (
+        settle if settle is not None else (None, None, (0, 1, 1), (0, 1, 1)))
+
+    def ptr(t):
+        return t.data_ptr() if t is not None else None
+
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = _lib(variant)(
-        tab.data_ptr(), brows.data_ptr(), par.data_ptr(),
-        rngk.data_ptr() if rngk is not None else None,
+        tab.data_ptr(), brows.data_ptr(), par.data_ptr(), ptr(rngk),
         p.x.data_ptr(), p.y.data_ptr(), p.z.data_ptr(), p.dob.data_ptr(),
         p.age.data_ptr(), p.pid.data_ptr(), p.status.data_ptr(),
+        p.settle_poly.data_ptr(), p.salt.data_ptr(), p.temp.data_ptr(),
         x_o.data_ptr(), y_o.data_ptr(), z_o.data_ptr(), age_o.data_ptr(),
-        st_o.data_ptr(), hitl.data_ptr(), hitb.data_ptr(), n, g.nx, g.ny,
-        us, ws, nl, g.vtransform, n_int, int(cfg.reflect_iters),
-        int(bool(cfg.OpenOceanBoundary)), b.s_max, stream)
+        st_o.data_ptr(), hitl.data_ptr(), hitb.data_ptr(), ptr(spoly_o),
+        ptr(salt_o), ptr(temp_o), ptr(sd), ptr(si), n, g.nx, g.ny, us, ws,
+        nl, aks0, salt0, g.vtransform, n_int, int(cfg.reflect_iters),
+        int(bool(cfg.OpenOceanBoundary)), b.s_max, n_p, v_p, c_p, n_h, v_h,
+        c_h, stream)
     if rc != 0:
         raise RuntimeError(f"ext_step kernel launch failed: CUDA error {rc}")
     ext_step_fused.launches += 1
@@ -309,6 +391,10 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         t_end = t0 + n_int * idt
         age_o = torch.where(st_o >= st.ACTIVE, t_end - p.dob, p.age)
     out = p.replace(x=x_o, y=y_o, z=z_o, status=st_o, age=age_o)
+    if cfg.settlementon:
+        out = out.replace(settle_poly=spoly_o)
+    if cfg.SaltTempOn:
+        out = out.replace(salt=salt_o, temp=temp_o)
     if cfg.TrackCollisions:
         out = out.replace(hit_land=p.hit_land + hitl,
                           hit_bottom=p.hit_bottom + hitb)

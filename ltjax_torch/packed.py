@@ -10,8 +10,8 @@ lanes
 
     [u (us) | v (us) | w (ws) | zeta | h]     (nv = 2*us + ws + 2)
 
-(the record tables may carry ws Aks lanes after h, see
-``build_packed_records``).
+(the record tables may carry ws Aks lanes and then us salt + us temp
+lanes after h, see ``build_packed_records``).
 
 u and v collocated to rho points; the blended profile is then fitted
 and evaluated per particle (blend-then-fit, the reference ordering).
@@ -68,12 +68,14 @@ def n_value_lanes(us: int, ws: int) -> int:
 
 
 def build_packed_records(grid: Grid, fields: FieldSet,
-                         with_aks: bool = False) -> PackedRecords:
+                         with_aks: bool = False,
+                         with_scalars: bool = False) -> PackedRecords:
     """Dense per-record packing: collocate u, v onto rho points and
     concatenate the value lanes of every record.  ``with_aks`` appends
-    the ws Aks lanes after h (the layout of ltjax.packed), which the CUDA
-    kernel's Visser lanes read; the plain version reads Aks from the
-    FieldSet and ignores them."""
+    the ws Aks lanes after h, ``with_scalars`` the us salt + us temp
+    lanes after those (the layout of ltjax.packed); the CUDA kernel's
+    Visser, SaltTempOn and behavior-4/5 lanes read them, the plain
+    version reads the FieldSet and ignores them."""
     u = _collocate_u(fields.u)                       # (R, Ny, Nx, us)
     v = _collocate_v(fields.v, grid.ny)
     w = fields.w
@@ -82,6 +84,8 @@ def build_packed_records(grid: Grid, fields: FieldSet,
     lanes = [u, v, w, z, h]
     if with_aks:
         lanes.append(fields.aks.to(u.dtype))
+    if with_scalars:
+        lanes += [fields.salt.to(u.dtype), fields.temp.to(u.dtype)]
     tab = torch.cat(lanes, dim=-1)
     R, ny, nx, nv = tab.shape
     return PackedRecords(tab=tab.reshape(R, ny * nx, nv).contiguous(),

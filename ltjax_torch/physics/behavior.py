@@ -1,10 +1,15 @@
 """Larval behavior and mortality (counterpart of
-``ltjax.physics.behavior``), types 0, 1, 2, 3, 6 and 7.
+``ltjax.physics.behavior``), types 0-7.
 
   0 passive
   1 near-surface orientation: biased walk toward SURFACE_ZONE below zeta
   2 near-bottom orientation: biased walk toward BOTTOM_ZONE above -h
   3 diel vertical migration driven by modeled surface irradiance
+  4 Crassostrea virginica oyster larva: a veliger swims up on the
+    halocline cue |dS/dz| >= Sgradient and walks randomly without it; a
+    pediveliger (age >= pediage) swims down
+  5 C. ariakensis: as 4, but a young larva without the cue still swims
+    half up, half at random
   6 constant sinking
   7 tidal-stream transport (rides the current at Swimdepth when it runs
     faster than TST_MIN_SPEED, else holds near the bottom)
@@ -15,8 +20,9 @@ preferred zone with probability P_BIAS (BEHAVE substream), a mixing walk
 r_mix * w_swim * idt otherwise (MORTALITY substream).  Mortality is
 deterministic death at age >= deadage.
 
-Not ported yet, raising NotImplementedError: types 4/5 (salinity-gradient
-cue, they need the salt fields) and stochastic mortality.
+The cue of types 4/5 is the derivative of the tension spline fitted to
+the salt profile at the particle (``_salt_gradient``).  Not ported yet,
+raising NotImplementedError: stochastic mortality.
 """
 
 from __future__ import annotations
@@ -26,14 +32,15 @@ from typing import NamedTuple
 
 import torch
 
-from .. import rng
+from .. import rng, tension
+from .advect import scalar_profile
 
 P_BIAS = 0.8          # probability of swimming toward the preferred zone
 SURFACE_ZONE = 2.0    # [m] preferred band below surface for type 1
 BOTTOM_ZONE = 2.0     # [m] preferred band above bottom for type 2
 TST_MIN_SPEED = 0.05  # [m/s] current speed that triggers tide-riding
 
-PORTED_TYPES = (0, 1, 2, 3, 6, 7)
+PORTED_TYPES = (0, 1, 2, 3, 4, 5, 6, 7)
 
 
 class BehaveParams(NamedTuple):
@@ -62,9 +69,7 @@ class BehaveParams(NamedTuple):
 def check_ported(p: BehaveParams) -> None:
     """Raise NotImplementedError for the options not ported yet."""
     if p.behavior not in PORTED_TYPES:
-        raise NotImplementedError(
-            f"Behavior={p.behavior}: types 4/5 need the salt fields, not "
-            f"ported to ltjax_torch yet")
+        raise ValueError(f"Behavior={p.behavior}: types are 0..7")
     if p.mortality and p.stochastic:
         raise NotImplementedError("stochastic_mortality: not ported to "
                                   "ltjax_torch yet")
@@ -89,13 +94,22 @@ def surface_irradiance(t, p: BehaveParams, dtype):
                        torch.zeros_like(tau))
 
 
+def _salt_gradient(grid, fields, x, y, z, t, sigma):
+    """(dS/dz, S) at particles: the derivative and value of the tension
+    spline fitted to the salt profile of the particle's column at t."""
+    z_r, prof_t = scalar_profile(grid, fields, fields.salt, x, y, t)
+    z2 = tension.fit(z_r, prof_t, sigma)
+    return (tension.evaluate_deriv(z_r, prof_t, z2, sigma, z),
+            tension.evaluate(z_r, prof_t, z2, sigma, z))
+
+
 def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
            currents, p: BehaveParams):
     """Behavioral displacement (dx, dy, dz) and death mask for this step.
 
     zeta_p/h_p: free surface and depth at each particle; currents: (u, v)
-    at the particle (used by type 7).  ``grid`` and ``fields`` are kept
-    for the signature of ltjax (types 4/5 read the salt fields)."""
+    at the particle (used by type 7); ``fields`` carries the salt that
+    types 4/5 cue on."""
     check_ported(p)
     dtype = x.dtype
     dev = x.device
@@ -129,6 +143,16 @@ def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
         dz = torch.where(light > p.thresh, -w_swim * idt,
                          torch.where(e0 > 0.0, w_swim * idt,
                                      r_mix * w_swim * idt))
+    elif b in (4, 5):
+        dsdz, _ = _salt_gradient(grid, fields, x, y, z, t, p.sigma)
+        cue = dsdz.abs() >= p.Sgradient
+        up = biased_dz(True)
+        rnd = r_mix * w_swim * idt
+        veliger = torch.where(cue, up, rnd)
+        dz = torch.where(age >= p.pediage, biased_dz(False), veliger)
+        if b == 5:
+            dz = torch.where(age < p.pediage,
+                             torch.where(cue, up, up * 0.5 + rnd * 0.5), dz)
     elif b == 6:
         dz = -torch.as_tensor(p.sink, dtype=dtype, device=dev) * idt \
             * torch.ones(n, dtype=dtype, device=dev)

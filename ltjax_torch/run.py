@@ -5,15 +5,18 @@ Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
     python -m ltjax_torch.run path/to/LTRANS.data
 
 The namelist is the reference's own ``LTRANS.data`` (read by
-``ltjax.config``).  The run takes the CUDA kernel path on a GPU
-(``dtype_pos = "float32"`` required there) and the plain PyTorch path on
-the CPU; the first stdout line is a JSON object naming the path taken
-and the enabled physics lanes, then one JSON line per chunk of external
-steps with status counts and particle-steps/s.  Random streams are keyed
+``ltjax_torch.config``, the port's copy of ``ltjax.config``).  The run
+takes the CUDA kernel path on a GPU (``dtype_pos = "float32"`` required
+there) and the plain PyTorch path on the CPU; the first stdout line is
+a JSON object naming the path taken and the enabled physics lanes, then
+one JSON line per chunk of external steps with status counts and
+particle-steps/s.  Random streams are keyed
 by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
 see ``ltjax_torch.rng``), and vertical turbulence with ``readAks`` reads
-the series' AKs.  History files must be NetCDF3 unless ``h5py`` is
-installed (``ltjax.io.nc``).
+the series' AKs.  Settlement reads the habitat (and hole) polygon CSVs;
+SaltTempOn and behaviors 4/5 read the series' salt and temp.  History
+files must be NetCDF3 unless ``h5py`` is installed
+(``ltjax_torch.io.nc``).
 """
 
 from __future__ import annotations
@@ -28,29 +31,54 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ltjax.config import Config, config_from_namelist
-from ltjax.io.nc import NCFile
-from ltjax.io.roms import (RomsGridData, RomsSeries, _coord_2d, _find,
-                           _GRID_NAMES, is_rectilinear, read_grid)
-
 from . import convert
 from . import state as st
+from .config import Config, config_from_namelist
 from .fields import stack_records
 from .grid import Grid, make_grid
+from .io.roms import (RomsGridData, RomsSeries, _coord_2d, is_rectilinear,
+                      read_grid)
 from .out.writer import TrajectoryWriter
 from .physics import boundary as bd
+from .physics import settlement as stl
 from .step import (StepContext, check_supported, make_fused_external_steps,
                    summary_counts)
 
 
+def _project_polys(polys, cfg: Config):
+    """Polygon vertices from lon/lat to internal metres."""
+    out = []
+    for pid, v in polys:
+        x = convert.lon2x(v[:, 0], v[:, 1], cfg.lonmin, cfg.latmin,
+                          cfg.Earth_Radius, cfg.SphericalProjection)
+        y = convert.lat2y(v[:, 1], cfg.latmin, cfg.Earth_Radius,
+                          cfg.SphericalProjection)
+        out.append((pid, np.stack([np.asarray(x), np.asarray(y)], -1)))
+    return out
+
+
 def build_context(cfg: Config, grid: Grid) -> StepContext:
     """Boundaries from the land mask; the grid rim is OPEN (whether it
-    exits or reflects is cfg.OpenOceanBoundary's call at reflect time)."""
+    exits or reflects is cfg.OpenOceanBoundary's call at reflect time).
+    With settlement, the habitat polygons (and holes) from their CSVs,
+    projected and rasterized onto the boundary cell lattice."""
     bounds = bd.build_boundaries(grid.mask_rho.cpu().numpy(),
                                  grid.x_rho.cpu().numpy(),
                                  grid.y_rho.cpu().numpy(),
                                  closed_edges=False, device=grid.device)
-    return StepContext(grid=grid, bounds=bounds)
+    polys = holes = None
+    if cfg.settlementon and cfg.habitatfile:
+        xe, ye = bounds.x_edges.cpu().numpy(), bounds.y_edges.cpu().numpy()
+
+        def load(path):
+            return stl.build_polygons(
+                _project_polys(stl.read_polygon_csv(path), cfg), xe, ye,
+                device=grid.device)
+
+        polys = load(cfg.habitatfile)
+        if cfg.holesExist and cfg.holefile:
+            holes = load(cfg.holefile)
+    return StepContext(grid=grid, bounds=bounds, polys=polys, holes=holes)
 
 
 def rho_axes_from_grid(gd: RomsGridData, cfg: Config):
@@ -81,17 +109,8 @@ def grid_from_roms(gd: RomsGridData, cfg: Config, dtype, device) -> Grid:
 
 
 def load_grid(cfg: Config, device) -> Grid:
+    """The run's Grid; files without s-levels get cfg.us uniform levels."""
     hist = RomsSeries(cfg).path_for(0) if cfg.dirin else None
-    has_levels = False
-    for path in (cfg.NCgridfile, hist):
-        if path and os.path.exists(path):
-            nc = NCFile(path)
-            has_levels |= _find(nc, _GRID_NAMES["s_rho"]) is not None
-            nc.close()
-    if not has_levels:
-        # ltjax.io.roms would synthesize uniform levels through ltjax.grid
-        raise NotImplementedError("grid/history files without s_rho: "
-                                  "uniform-level synthesis is not ported")
     gd = read_grid(cfg.NCgridfile, cfg, hist_path=hist)
     return grid_from_roms(gd, cfg, getattr(torch, cfg.dtype_pos), device)
 
@@ -111,7 +130,7 @@ def init_particles_from_parfile(cfg: Config, device) -> st.Particles:
 def enabled_lanes(cfg: Config) -> List[str]:
     """The physics a run takes besides advection, as named in the
     startup line: hturb, vturb_aks / vturb_const, behavior<type>,
-    mortality."""
+    mortality, settlement, salt_temp."""
     lanes = ["advection"]
     if cfg.HTurbOn:
         lanes.append("hturb")
@@ -121,6 +140,10 @@ def enabled_lanes(cfg: Config) -> List[str]:
         lanes.append(f"behavior{cfg.Behavior}")
     if cfg.mortality:
         lanes.append("mortality")
+    if cfg.settlementon:
+        lanes.append("settlement")
+    if cfg.SaltTempOn:
+        lanes.append("salt_temp")
     return lanes
 
 
@@ -204,7 +227,8 @@ def run(cfg: Config, resume: bool = False, device=None,
             while win_start < ext:                  # drop stale records
                 window.pop(0)
                 win_start += 1
-            fsW = stack_records(window[:E + 2], t_base, field_dtype, device)
+            fsW = stack_records(window[:E + 2], t_base, field_dtype, device,
+                                with_salt_temp=cfg.needs_salt_fields())
             timing.add("hydro_read", time.perf_counter() - tw)
 
             # --- compute E external steps --------------------------------

@@ -4,25 +4,26 @@ Per internal step each particle is released at its date of birth,
 advected by RK4 through ``find_currents`` (collapsed scheme), kicked by
 horizontal and vertical turbulence and by its behavior, reflected at
 coastlines / exited through open boundaries, reflected at the surface
-and bottom, and its status updated, mortality included (reference
-``run_Internal_Timestep``/``update_particles``).  An external step runs
-``cfg.internal_steps`` of them through the CUDA kernel on CUDA tensors
-(``kernels.ext_step.ext_step_fused``) or its plain version on CPU
-tensors.
+and bottom, its status updated (mortality, then settlement on habitat
+polygons), and salt and temperature sampled at its new position
+(reference ``run_Internal_Timestep``/``update_particles``).  An external
+step runs ``cfg.internal_steps`` of them through the CUDA kernel on CUDA
+tensors (``kernels.ext_step.ext_step_fused``) or its plain version on
+CPU tensors.
 
 Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
 step e is ``e * internal_steps + i``, as in ltjax.
 
 ``check_supported`` raises ``NotImplementedError`` for every option
-outside the ported slice (behaviors 4/5, stochastic mortality,
-settlement, salt, curvilinear grids, sharding, checkpoints): they are
-not silently dropped.
+outside the ported slice (stochastic mortality, curvilinear grids,
+sharding, checkpoints): they are not silently dropped.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 import torch
 
@@ -34,7 +35,9 @@ from .grid import Grid, locate
 from .kernels import ext_step as kx
 from .physics import behavior as bh
 from .physics import boundary as bd
+from .physics import settlement as stl
 from .physics import turb as tb
+from .physics.advect import sample_scalar
 
 
 @dataclass
@@ -42,6 +45,8 @@ class StepContext:
     """Static per-run data of the stepper (plus derived kernel tables)."""
     grid: Grid
     bounds: bd.Boundaries
+    polys: Optional[stl.Polygons] = None   # habitat polygons (settlement)
+    holes: Optional[stl.Polygons] = None   # hole polygons
     cache: dict = field(default_factory=dict)
 
 
@@ -58,10 +63,7 @@ def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
     """Raise NotImplementedError naming the first option outside the
     ported slice (stands in for ltjax.step.mode_flags)."""
     unsupported = [
-        ("Behavior", cfg.Behavior not in bh.PORTED_TYPES),
         ("stochastic_mortality", cfg.mortality and cfg.stochastic_mortality),
-        ("settlementon", cfg.settlementon),
-        ("SaltTempOn", cfg.SaltTempOn),
         ("tension_sigma", cfg.tension_sigma < 0),
         ("mesh_particles*mesh_tiles",
          cfg.mesh_particles * cfg.mesh_tiles > 1),
@@ -104,7 +106,10 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     """One internal timestep for the whole batch, collapsed scheme (the
     plain version of the CUDA kernel's per-thread step).  ``fields`` is
     the 3-record window (vertical turbulence reads its Aks), ``prec`` its
-    packed records; ``step_idx`` keys the random draws."""
+    packed records; ``step_idx`` keys the random draws.  Settlement tests
+    the reflected position against ``ctx.polys``/``ctx.holes``; SaltTempOn
+    samples ``fields.salt``/``.temp`` at the new position at t + idt for
+    every particle active at the step's start."""
     grid, bounds = ctx.grid, ctx.bounds
     turb, beh = make_params(cfg)
     dtype = p.x.dtype
@@ -158,6 +163,15 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     zeta1, h1 = pk.zeta_h_packed(grid, tabs[2], xr, yr)
     zr, _, hit_bot = bd.reflect_vertical(p.z + dz, zeta1, h1)
 
+    # --- settlement (habitat polygons at the reflected position) ---------
+    settles = torch.zeros_like(active)
+    spid = torch.full_like(p.settle_poly, -1)
+    if cfg.settlementon and ctx.polys is not None:
+        eligible = active & ((p.age + idt) >= cfg.pediage) & ~exited & ~stuck
+        settles, spid = stl.test_settlement(
+            ctx.polys, ctx.holes, bounds.x_edges, bounds.y_edges, xr, yr,
+            eligible, uniform=bounds.uniform)
+
     # --- apply updates under the active mask -----------------------------
     # DEAD overrides a same-step ERROR but not an exit
     new_status = torch.where(active & exited,
@@ -169,11 +183,25 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
         new_status = torch.where(active & dies & ~exited,
                                  torch.full_like(status, st.DEAD),
                                  new_status)
+    if cfg.settlementon:
+        new_status = torch.where(active & settles & (new_status == st.ACTIVE),
+                                 torch.full_like(status, st.SETTLED),
+                                 new_status)
+    new_x = torch.where(active, xr, p.x)
+    new_y = torch.where(active, yr, p.y)
+    new_z = torch.where(active, zr, p.z)
     out = p.replace(
-        x=torch.where(active, xr, p.x), y=torch.where(active, yr, p.y),
-        z=torch.where(active, zr, p.z),
+        x=new_x, y=new_y, z=new_z,
         age=torch.where(status >= st.ACTIVE, tt + idt - p.dob, p.age),
-        status=new_status)
+        status=new_status,
+        settle_poly=torch.where((new_status == st.SETTLED)
+                                & (p.settle_poly < 0), spid, p.settle_poly))
+    if cfg.SaltTempOn:
+        t1 = tt + idt
+        out = out.replace(**{
+            k: torch.where(active, sample_scalar(
+                grid, fields, getattr(fields, k), new_x, new_y, new_z, t1,
+                cfg.tension_sigma), getattr(p, k)) for k in ("salt", "temp")})
     if cfg.TrackCollisions:
         out = out.replace(
             hit_land=p.hit_land + torch.where(active, hits, 0).to(
@@ -191,7 +219,8 @@ def _sort(grid: Grid, p: st.Particles):
 def fieldset_slice(fs: FieldSet, e: int, r: int = 3) -> FieldSet:
     """Records [e, e + r) of a record window."""
     return FieldSet(*(getattr(fs, k)[e:e + r] for k in
-                      ("zeta", "u", "v", "w", "aks", "times")))
+                      ("zeta", "u", "v", "w", "aks", "salt", "temp",
+                       "times")))
 
 
 def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
@@ -209,13 +238,15 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     dt = float(cfg.dt)
     se = max(1, cfg.ext_sort_every)
     with_aks = bool(cfg.VTurbOn and cfg.readAks)
+    with_scalars = cfg.needs_salt_fields()
 
     def fused(p: st.Particles, fsR: FieldSet, t0: float,
               ext_idx0: int = 0) -> st.Particles:
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"fused step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = pk.build_packed_records(grid, fsR, with_aks=with_aks)
+        prec_all = pk.build_packed_records(grid, fsR, with_aks=with_aks,
+                                           with_scalars=with_scalars)
         cum = torch.arange(p.n, device=p.x.device)
         for e in range(n_fuse):
             if e % se == 0:

@@ -13,6 +13,12 @@ closed-form trajectory
     theta(t) = theta0 + Omega (1 + a zp) (t + b t^2 / 2)
 
 is RK4 truncation (and float32 round-off in float32 runs).
+
+With ``halocline=True`` the records also carry salt and temperature
+(``halocline_fields``): a halocline that is nonlinear in z and varies in
+x, so a spline fit that is wrong shows (a field linear in z is
+reproduced exactly by every spline).  Polygons for settlement runs are
+written by ``write_run_files(habitat=, holes=)``.
 """
 
 from __future__ import annotations
@@ -27,6 +33,7 @@ from . import convert
 from .fields import FieldSet, make_fieldset
 from .grid import (Grid, make_grid, song_haidvogel_cs,
                    uniform_sigma_levels)
+from .io.nc import write_netcdf
 from .scoord import s_depths
 
 
@@ -40,6 +47,7 @@ class SolidBodyCase:
     ramp_b: float
     h0: float
     parabolic_aks: bool = False   # Aks = bench.py's turb profile, else 0
+    halocline: bool = False       # salt/temp = halocline_fields, else 0
 
     def velocity(self, x, y, z, t):
         f = (1.0 + self.shear_a * z) * (1.0 + self.ramp_b * t)
@@ -80,8 +88,12 @@ class SolidBodyCase:
         aks = np.zeros_like(w)
         if self.parabolic_aks:
             aks = parabolic_aks(g)
+        salt = temp = np.zeros((us, ny, nx))
+        if self.halocline:
+            salt, temp = halocline_fields(g, t)
         return dict(zeta=np.zeros((ny, nx)), u=np.ascontiguousarray(u),
-                    v=np.ascontiguousarray(v), w=w, aks=aks)
+                    v=np.ascontiguousarray(v), w=w, aks=aks, salt=salt,
+                    temp=temp)
 
 
 def parabolic_aks(grid: Grid) -> np.ndarray:
@@ -96,17 +108,39 @@ def parabolic_aks(grid: Grid) -> np.ndarray:
     return np.ascontiguousarray(np.moveaxis(k, -1, 0))
 
 
+M2_PERIOD = 44714.0   # [s] principal lunar semidiurnal tide
+
+
+def halocline_fields(grid: Grid, t: float = 0.0):
+    """(salt, temp), each (us, Ny, Nx), at the rho levels of the resting
+    column at time t: S = 25 + 3 x/Lx - 5 tanh((z - z_h(t))/3) psu, a
+    halocline with |dS/dz| up to 5/3 psu/m, fresher to the west, that an
+    internal tide heaves about z = -10 m, z_h(t) = -10 + 2 sin(2 pi t /
+    M2_PERIOD); and T = 8 + 12 exp(z/15) degC."""
+    h = grid.h.cpu().numpy().astype(np.float64)
+    z_r = s_depths(np.zeros_like(h), h, grid.s_rho.cpu().numpy(),
+                   grid.Cs_r.cpu().numpy(), grid.hc, grid.vtransform)
+    x = grid.x_rho.cpu().numpy().astype(np.float64)
+    xf = ((x - x[0]) / (x[-1] - x[0]))[None, :, None]
+    z_h = -10.0 + 2.0 * np.sin(2.0 * np.pi * t / M2_PERIOD)
+    salt = 25.0 + 3.0 * xf - 5.0 * np.tanh((z_r - z_h) / 3.0)
+    temp = 8.0 + 12.0 * np.exp(z_r / 15.0)
+    return (np.ascontiguousarray(np.moveaxis(salt, -1, 0)),
+            np.ascontiguousarray(np.moveaxis(temp, -1, 0)))
+
+
 def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                          h0=50.0, omega=1e-4, shear_a=0.0, ramp_b=0.0,
                          vtransform=1, theta_s=0.0, dtype=torch.float64,
-                         device="cpu", mask=None,
-                         parabolic_aks=False) -> SolidBodyCase:
+                         device="cpu", mask=None, parabolic_aks=False,
+                         halocline=False) -> SolidBodyCase:
     """Solid-body rotation about the domain centre on a uniform grid.
 
     hc = h0 and Cs = s (theta_s = 0) make the Vtransform-1 levels
     z = h*s exactly; theta_s > 0 stretches the ladder.  ``mask`` (Ny, Nx)
     marks land cells (0).  ``parabolic_aks`` gives the records bench.py's
-    turb-variant Aks profile (``parabolic_aks``) instead of zeros."""
+    turb-variant Aks profile (``parabolic_aks``) instead of zeros, and
+    ``halocline`` salt and temperature (``halocline_fields``)."""
     x_rho = np.linspace(0.0, lx, nx)
     y_rho = np.linspace(0.0, ly, ny)
     h = np.full((ny, nx), h0)
@@ -119,7 +153,7 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                      vtransform=vtransform, dtype=dtype, device=device)
     return SolidBodyCase(grid=grid, omega=omega, xc=lx / 2, yc=ly / 2,
                          shear_a=shear_a, ramp_b=ramp_b, h0=h0,
-                         parabolic_aks=parabolic_aks)
+                         parabolic_aks=parabolic_aks, halocline=halocline)
 
 
 def fieldset_window(case: SolidBodyCase, t_first: float, dt: float,
@@ -136,6 +170,7 @@ def fieldset_window(case: SolidBodyCase, t_first: float, dt: float,
 
     return make_fieldset(stack("zeta"), stack("u"), stack("v"),
                          stack("w"), stack("aks"), np.asarray(times),
+                         salt=stack("salt"), temp=stack("temp"),
                          dtype=dtype, device=device)
 
 
@@ -171,9 +206,8 @@ def write_roms_files(case: SolidBodyCase, out_dir: str, n_records: int,
     """Write the case as a numbered multi-file ROMS history series + grid
     file (NetCDF3).  Returns (grid_path, [history_paths]).  With
     geographic=True the coordinates are written as lon/lat about
-    (lonmin, latmin) with this package's projection inverse."""
-    from ltjax.io.nc import write_netcdf
-
+    (lonmin, latmin) with this package's projection inverse.  A
+    ``halocline`` case writes salt and temp too."""
     os.makedirs(out_dir, exist_ok=True)
     g = case.grid
     nx, ny, us, ws = g.nx, g.ny, g.us, g.ws
@@ -239,6 +273,9 @@ def write_roms_files(case: SolidBodyCase, out_dir: str, n_records: int,
                       stack("w")),
                 "AKs": (("ocean_time", "s_w", "eta_rho", "xi_rho"),
                         stack("aks")),
+                **({k: (("ocean_time", "s_rho", "eta_rho", "xi_rho"),
+                        stack(k)) for k in ("salt", "temp")}
+                   if case.halocline else {}),
             })
         hist_paths.append(path)
         rec += n_this
@@ -254,15 +291,27 @@ def _nml_value(v) -> str:
     return repr(v)
 
 
+def _write_polygons(path: str, polys) -> None:
+    """A polygon CSV (lon, lat, id rows; planar: lon = x, lat = y)."""
+    with open(path, "w") as f:
+        for pid, v in polys:
+            for vx, vy in np.asarray(v, np.float64):
+                f.write(f"{vx:.9f},{vy:.9f},{int(pid)}\n")
+
+
 def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
-                    n_ext: int, dt: int, idt: int, **params) -> str:
+                    n_ext: int, dt: int, idt: int, habitat=None, holes=None,
+                    **params) -> str:
     """Write a complete planar run of ``case``: the ROMS grid + history
     series (n_ext + 2 records at t = 0, dt, ...), a parfile of the
     particles (x, y, z) released at t = 0, and an ``LTRANS.data``
     namelist; extra namelist ``params`` override the defaults.  The
-    series' AKs is the case's (``make_solid_body_case(parabolic_aks=)``).
-    Returns the namelist path (``python -m ltjax.run`` and
-    ``ltjax_torch.run`` both read it)."""
+    series' AKs, salt and temp are the case's
+    (``make_solid_body_case(parabolic_aks=, halocline=)``).  ``habitat``
+    and ``holes`` ([(id, (V, 2) xy vertices in metres)]) are written as
+    polygon CSVs and turn settlement on (``habitatfile``,
+    ``holesExist``/``holefile``).  Returns the namelist path
+    (``python -m ltjax.run`` and ``ltjax_torch.run`` both read it)."""
     write_roms_files(case, out_dir, n_records=n_ext + 2, dt=float(dt))
     parfile = os.path.join(out_dir, "parfile.csv")
     rows = np.stack([np.asarray(x, np.float64), np.asarray(y, np.float64),
@@ -278,6 +327,14 @@ def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
         numdigits=4, tdim=4, parfile=parfile,
         outpath=os.path.join(out_dir, "out"), NCOutFile="run1",
         writeCSV=True, writeNC=False)
+    if habitat is not None:
+        values.update(settlementon=True,
+                      habitatfile=os.path.join(out_dir, "habitat.csv"))
+        _write_polygons(values["habitatfile"], habitat)
+    if holes is not None:
+        values.update(holesExist=True,
+                      holefile=os.path.join(out_dir, "holes.csv"))
+        _write_polygons(values["holefile"], holes)
     values.update(params)
     path = os.path.join(out_dir, "LTRANS.data")
     with open(path, "w") as f:

@@ -1,5 +1,6 @@
 """ltjax_torch.physics.behavior vs ltjax.physics.behavior on identical
-inputs: types 0, 1, 2, 3, 6 and 7, with deterministic mortality.
+inputs: types 0, 1, 2, 3, 6 and 7, with deterministic mortality (types
+4 and 5, which cue on the salt field, in test_torch_salt.py).
 
 Inputs are made with numpy from a seed: positions anywhere in and just
 outside the water column, ages across the swim ramp and the death age,
@@ -83,9 +84,8 @@ def test_surface_irradiance_and_swim_speed_match_ltjax():
 
 
 @pytest.mark.parametrize("kw,name", [
-    (dict(behavior=4), "Behavior=4"), (dict(behavior=5), "Behavior=5"),
     (dict(mortality=True, stochastic=True), "stochastic_mortality")],
-    ids=["behavior4", "behavior5", "stochastic"])
+    ids=["stochastic"])
 def test_unported_options_raise(kw, name):
     d = {k: torch.tensor(v) for k, v in _inputs(8).items()}
     with pytest.raises(NotImplementedError, match=name):

@@ -1,0 +1,182 @@
+"""The port's own host modules against ltjax's, and the port's imports.
+
+* ``ltjax_torch.namelist`` / ``.config`` parse the ``&group ... /`` and
+  ``$group ... $end`` namelists of tests/test_namelist.py, and one
+  written by ``ltjax_torch.synth.write_run_files`` with settlement and
+  salt keys, to a Config equal to ltjax's field by field;
+  ``needs_salt_fields`` and ``validate`` agree.
+* ``ltjax_torch.io.roms.read_grid`` synthesizes uniform levels for a
+  grid file without s-levels, as ``ltjax.io.roms`` does, and
+  ``run.load_grid`` accepts it.
+* No module of ``ltjax_torch`` nor ``chip_smoke.py`` imports ``ltjax`` or
+  ``jax`` (an AST scan), and ``ltjax_torch.run`` runs a tiny CLI case in
+  a subprocess where both are unimportable.
+"""
+
+import ast
+import dataclasses
+import glob
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from ltjax import config as jconfig
+from ltjax import namelist as jnml
+from ltjax.io import roms as jroms
+from ltjax_torch import config as tconfig
+from ltjax_torch import namelist as tnml
+from ltjax_torch import run as trun
+from ltjax_torch import synth
+from ltjax_torch.io import nc as tnc
+from ltjax_torch.io import roms as troms
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+AMP = """
+&numparticles
+  numpar = 42
+/
+&timeparam
+  days = 0.5, dt = 3600, idt = 120  ! trailing comment
+/
+&romsgrid
+  NCgridfile = '/data/grid.nc'
+/
+&turbparam
+  HTurbOn = .TRUE.
+  ConstantHTurb = 1.5d1
+/
+&behavparam
+  Behavior = 4, readSalt = T, pediage = 2.5D5, Sgradient = 0.4
+/
+&settleparam
+  settlementon = .true., holesExist = .TRUE.
+/
+"""
+DOLLAR = AMP.replace("&", "$").replace("/\n", "$end\n")
+
+
+def _same_config(path, **kw):
+    tc = tconfig.config_from_namelist(path, **kw)
+    jc = jconfig.config_from_namelist(path, **kw)
+    assert dataclasses.asdict(tc) == dataclasses.asdict(jc)
+    assert tc.needs_salt_fields() == jc.needs_salt_fields()
+    return tc
+
+
+@pytest.mark.parametrize("text", [AMP, DOLLAR], ids=["ampersand", "dollar"])
+def test_namelist_and_config_match_ltjax(tmp_path, text):
+    assert tnml.parse_namelist(text) == jnml.parse_namelist(text)
+    p = tmp_path / "LTRANS.data"
+    p.write_text(text)
+    cfg = _same_config(str(p), idt=120)
+    assert (cfg.numpar, cfg.Behavior, cfg.pediage) == (42, 4, 2.5e5)
+    assert cfg.settlementon and cfg.holesExist and cfg.needs_salt_fields()
+
+
+def test_written_run_namelist_matches_ltjax(tmp_path):
+    case = synth.make_solid_body_case(nx=9, ny=9, us=4, lx=8e3, ly=8e3,
+                                      halocline=True)
+    sq = np.array([[2e3, 2e3], [6e3, 2e3], [6e3, 6e3], [2e3, 6e3]])
+    nml = synth.write_run_files(
+        case, str(tmp_path), [4e3], [4e3], [-5.0], n_ext=1, dt=600,
+        idt=300, habitat=[(7, sq)], holes=[(1, 0.5 * sq + 2e3)],
+        Behavior=5, readSalt=True, readTemp=True, SaltTempOn=True,
+        pediage=3600.0, Sgradient=0.3)
+    cfg = _same_config(nml)
+    assert cfg.settlementon and cfg.holesExist and cfg.SaltTempOn
+    assert os.path.exists(cfg.habitatfile) and os.path.exists(cfg.holefile)
+    # validate agrees on the salinity requirement of behaviors 4/5
+    for c in (tconfig.Config, jconfig.Config):
+        with pytest.raises(ValueError, match="readSalt"):
+            c(Behavior=4).validate()
+        c(Behavior=5, readSalt=True).validate()
+
+
+def test_grid_without_levels_gets_uniform_levels(tmp_path):
+    case = synth.make_solid_body_case(nx=9, ny=7, us=5, lx=8e3, ly=6e3,
+                                      halocline=True)
+    g = case.grid
+    path = str(tmp_path / "grid.nc")
+    x2 = np.broadcast_to(g.x_rho.numpy(), (7, 9))
+    y2 = np.broadcast_to(g.y_rho.numpy()[:, None], (7, 9))
+    tnc.write_netcdf(path, dims={"eta_rho": 7, "xi_rho": 9},
+                     variables={"x_rho": (("eta_rho", "xi_rho"), x2),
+                                "y_rho": (("eta_rho", "xi_rho"), y2),
+                                "h": (("eta_rho", "xi_rho"), g.h.numpy())})
+    cfg = tconfig.Config(us=5, ws=6, hc=50.0, NCgridfile=path,
+                         dtype_pos="float64")
+    want = jroms.read_grid(path, jconfig.Config(us=5, ws=6, hc=50.0))
+    got = troms.read_grid(path, cfg)
+    for k in ("s_rho", "s_w", "Cs_r", "Cs_w", "h", "lon_rho", "lat_rho"):
+        np.testing.assert_array_equal(getattr(got, k), getattr(want, k))
+    assert got.h.dtype.isnative
+    grid = trun.load_grid(cfg, "cpu")
+    np.testing.assert_allclose(grid.s_rho.numpy(), want.s_rho, rtol=0,
+                               atol=0)
+    assert grid.us == 5 and grid.ws == 6
+
+
+def test_curvilinear_grid_still_raises():
+    lon, lat = np.meshgrid(np.linspace(0.0, 1.0, 6), np.linspace(0.0, 1.0, 5))
+    gd = troms.RomsGridData(
+        lon_rho=lon + 0.1 * lat, lat_rho=lat, mask_rho=np.ones((5, 6)),
+        h=np.full((5, 6), 10.0), s_rho=np.array([-0.75, -0.25]),
+        s_w=np.array([-1.0, -0.5, 0.0]), Cs_r=np.array([-0.75, -0.25]),
+        Cs_w=np.array([-1.0, -0.5, 0.0]), hc=10.0, vtransform=1,
+        geographic=False)
+    assert not troms.is_rectilinear(gd)
+    with pytest.raises(NotImplementedError, match="curvilinear"):
+        trun.grid_from_roms(gd, tconfig.Config(), torch.float64, "cpu")
+
+
+def _imports(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module or ""
+
+
+def test_port_imports_neither_ltjax_nor_jax():
+    files = glob.glob(os.path.join(ROOT, "ltjax_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(ROOT, "chip_smoke.py")]
+    assert len(files) > 20
+    bad = [(os.path.relpath(f, ROOT), m) for f in files for m in _imports(f)
+           if m.split(".")[0] in ("ltjax", "jax", "jaxlib")]
+    assert bad == []
+
+
+NO_LTJAX = ("import runpy, sys; sys.modules['jax'] = None; "
+            "sys.modules['ltjax'] = None; "
+            "sys.argv = ['ltjax_torch.run'] + sys.argv[1:]; "
+            "runpy.run_module('ltjax_torch.run', run_name='__main__')")
+
+
+def test_cli_runs_without_ltjax(tmp_path):
+    case = synth.make_solid_body_case(nx=11, ny=11, us=4, lx=10e3, ly=10e3,
+                                      h0=20.0, halocline=True)
+    rng = np.random.default_rng(4)
+    n = 20
+    nml = synth.write_run_files(
+        case, str(tmp_path), rng.uniform(3e3, 7e3, n),
+        rng.uniform(3e3, 7e3, n), rng.uniform(-15.0, -5.0, n), n_ext=1,
+        dt=600, idt=300, habitat=[(3, np.array([[4e3, 4e3], [6e3, 4e3],
+                                               [6e3, 6e3], [4e3, 6e3]]))],
+        SaltTempOn=True, readSalt=True, readTemp=True)
+    r = subprocess.run([sys.executable, "-c", NO_LTJAX, nml], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-4000:]
+    first = json.loads(r.stdout.splitlines()[0])
+    assert first["lanes"] == ["advection", "settlement", "salt_temp"]
+    rows = np.loadtxt(os.path.join(tmp_path, "out", "run1.csv"),
+                      delimiter=",")
+    # time id lon lat depth status salt temp age poly: salt sampled
+    assert rows.shape[1] == 10 and (rows[rows[:, 0] > 0, 6] > 20.0).all()

@@ -37,9 +37,11 @@ from ltjax.config import Config
 from ltjax.grid import locate as jlocate
 from ltjax.kernels import ext_step as jes
 from ltjax.physics import boundary as jbd
+from ltjax.physics import settlement as jstl
 from ltjax.step import StepContext as JContext, internal_step
 from ltjax_torch import interop
 from ltjax_torch import packed as pk
+from ltjax_torch import synth
 from ltjax_torch import step as tstep
 from ltjax_torch.kernels import ext_step as kx
 
@@ -247,3 +249,84 @@ def test_turbulent_swimming_step_matches_jax_megakernel_interpret():
     # turbulence moved them, some died (900 s death age), the walk swam
     assert np.abs(out["z"] - np.asarray(p.z)).max() > 1.0
     assert (out["status"] == jst.DEAD).sum() > 0
+
+
+def test_settle_salt_oyster_step_matches_jax_collapsed_scan():
+    """The oyster configuration (behavior 4 on the halocline cue,
+    SaltTempOn, settlement on a habitat with a hole, mortality; pediage
+    inside the ages) through the plain version of the kernel, one
+    external step, against ltjax's collapsed-mode scan of internal_step
+    on the same inputs, in float32: positions to 0.5 m / 1e-3 m, salt and
+    temp to 1e-3, statuses and settle_poly equal."""
+    dtype = jnp.float32
+    c = jsynth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                    h0=50.0, omega=1e-4, dtype=dtype)
+    grid = c.grid._replace(mask_rho=jnp.asarray(_mask()))
+    fs = jsynth.fieldset_for(c, t_center=900.0, dt=1800.0, dtype=dtype)
+    salt, temp = synth.halocline_fields(interop.grid_from_numpy(_np(grid)))
+    fs = fs._replace(
+        salt=jnp.broadcast_to(jnp.asarray(np.moveaxis(salt, 0, -1), dtype),
+                              fs.salt.shape),
+        temp=jnp.broadcast_to(jnp.asarray(np.moveaxis(temp, 0, -1), dtype),
+                              fs.temp.shape))
+    bounds = jbd.build_boundaries(_mask(), np.asarray(grid.x_rho),
+                                  np.asarray(grid.y_rho))
+    xe, ye = np.asarray(bounds.x_edges), np.asarray(bounds.y_edges)
+    jpol = jstl.build_polygons([(5, np.array([[38e3, 38e3], [52e3, 39e3],
+                                              [50e3, 52e3], [39e3, 50e3]]))],
+                               xe, ye)
+    jhol = jstl.build_polygons([(1, np.array([[43e3, 43e3], [47e3, 43e3],
+                                              [45e3, 47e3]]))], xe, ye)
+    cfg = Config(numpar=256, dt=1800, idt=450, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float32",
+                 reflect_iters=2, TrackCollisions=True, Behavior=4,
+                 readSalt=True, readTemp=True, SaltTempOn=True,
+                 settlementon=True, holesExist=True, mortality=True,
+                 deadage=2 * 86400.0, pediage=86400.0, swimslow=2e-3,
+                 swimfast=5e-3, Sgradient=0.5)
+    rng = np.random.default_rng(8)
+    n = 256
+    age = rng.uniform(0.0, 2.5 * 86400.0, n)
+    p = jst.init_particles(rng.uniform(36e3, 54e3, n),
+                           rng.uniform(36e3, 54e3, n),
+                           rng.uniform(-16.0, -4.0, n), dtype=dtype)
+    p = p._replace(dob=jnp.asarray(-age, dtype), age=jnp.asarray(age, dtype),
+                   status=jnp.full(n, jst.ACTIVE, jnp.int32))
+    jctx = JContext(grid=grid, bounds=bounds, polys=jpol, holes=jhol)
+    prec = jpk.build_packed_records(grid, fs)
+    pp = p
+    for ii in range(cfg.internal_steps):
+        pp = internal_step(jctx, cfg, jr.key(4), pp, fs, ii * float(cfg.idt),
+                           ii, prec, mode="collapsed")
+    ctx = tstep.StepContext(
+        grid=interop.grid_from_numpy(_np(grid)),
+        bounds=interop.boundaries_from_numpy(_np(bounds)),
+        polys=interop.polygons_from_numpy(_np(jpol)),
+        holes=interop.polygons_from_numpy(_np(jhol)))
+    tfs = interop.fieldset_from_numpy(_np(fs))
+    out = interop.particles_to_numpy(kx.ext_step_fused(
+        ctx, cfg, interop.particles_from_numpy(_np(p)),
+        pk.build_packed_records(ctx.grid, tfs, with_scalars=True), 0.0,
+        fields=tfs, seed=interop.seed_from_key_data(jr.key_data(jr.key(4)))))
+    for k in ("status", "settle_poly", "hit_land", "hit_bottom"):
+        np.testing.assert_array_equal(out[k], np.asarray(getattr(pp, k)))
+    for k, tol in (("x", TOL_H), ("y", TOL_H), ("z", TOL_V),
+                   ("salt", 1e-3), ("temp", 1e-3)):
+        np.testing.assert_allclose(out[k], np.asarray(getattr(pp, k)),
+                                   rtol=0, atol=tol)
+    assert (out["status"] == jst.SETTLED).sum() > 0
+    assert (out["status"] == jst.DEAD).sum() > 0
+    assert np.ptp(out["salt"]) > 1.0
+
+
+@pytest.mark.parametrize("extra,want", [
+    (0, (-1, -1)), (7, (21, -1)), (12, (-1, 21)), (19, (21, 28))],
+    ids=["values", "aks", "salt", "aks-salt"])
+def test_lane_offsets(extra, want):
+    # us 6, ws 7: nv = 21 value lanes, then [7 Aks] [6 salt + 6 temp]
+    assert kx.lane_offsets(21 + extra, 6, 7) == want
+
+
+def test_lane_offsets_reject_other_tables():
+    with pytest.raises(ValueError, match="lanes"):
+        kx.lane_offsets(24, 6, 7)

@@ -23,7 +23,11 @@ left is f32 round-off, FMA contraction and the order of the Aks blend
 (collapse-then-blend in the kernel, blend-then-collapse in the plain
 version).  Ages straddle the swim ramp and the death age, and strong
 horizontal turbulence drives particles onto land in the same step as
-they die, so DEAD must override ERROR.
+they die, so DEAD must override ERROR.  The settlement and salt lanes
+are held the same way on the halocline of synth.halocline_fields, with
+a habitat square, a square hole and a slanted hexagon: statuses and
+settle_poly equal, salt and temp within 1e-3; behavior 4 without
+SaltTempOn leaves salt and temp at 0.
 """
 from dataclasses import replace
 
@@ -32,12 +36,13 @@ import numpy as np
 import pytest
 import torch
 
-from ltjax.config import Config
 from ltjax_torch import packed as pk
 from ltjax_torch import state as st
 from ltjax_torch import synth
+from ltjax_torch.config import Config
 from ltjax_torch.kernels import ext_step as kx
 from ltjax_torch.physics import boundary as bd
+from ltjax_torch.physics import settlement as stl
 from ltjax_torch.step import StepContext, _sort, make_fused_external_steps
 
 torch.set_num_threads(1)
@@ -197,7 +202,23 @@ LANES = {
     "dead-over-error": dict(HTurbOn=True, ConstantHTurb=2e4, mortality=True),
     **{f"behavior{b}": dict(Behavior=b, mortality=True) for b in
        (1, 2, 3, 6, 7)},
+    **{f"behavior{b}": dict(Behavior=b, readSalt=True, Sgradient=0.5,
+                            mortality=b == 4) for b in (4, 5)},
+    "salt": dict(SaltTempOn=True, readSalt=True, readTemp=True),
+    "settle": dict(settlementon=True, holesExist=True, HTurbOn=True,
+                   ConstantHTurb=2e4, mortality=True),
 }
+
+
+def _polygons():
+    """A habitat square (id 101) with a square hole and a slanted hexagon
+    (id 102) on the 100 km case."""
+    th = np.linspace(0.0, 2 * np.pi, 7)[:-1] + 0.3
+    hexagon = np.stack([30e3 + 5e3 * np.cos(th), 60e3 + 5e3 * np.sin(th)],
+                       -1)
+    square = np.array([[60e3, 60e3], [72e3, 60e3], [72e3, 72e3],
+                       [60e3, 72e3]])
+    return [(101, square), (102, hexagon)], [(1, square / 2 + 32e3)]
 BEH = dict(deadage=2 * 86400.0, pediage=86400.0, swimstart=3600.0,
            swimslow=2e-3, swimfast=5e-3, sink=5e-4, Hswimspeed=0.1,
            Swimdepth=3.0)
@@ -210,7 +231,14 @@ def test_kernel_lanes_match_plain_stepwise(gpu, name):
     trajectory's state, at 9 h of the day (DVM in daylight)."""
     c, ctx, cfg, p = _case(gpu, omega=1e-5)
     c.parabolic_aks = True
+    c.halocline = True
     cfg1 = replace(cfg, dt=cfg.idt, **BEH, **LANES[name])
+    if cfg1.settlementon:
+        habitat, holes = _polygons()
+        xe = ctx.bounds.x_edges.cpu().numpy()
+        ye = ctx.bounds.y_edges.cpu().numpy()
+        ctx.polys = stl.build_polygons(habitat, xe, ye, device=gpu)
+        ctx.holes = stl.build_polygons(holes, xe, ye, device=gpu)
     rng = np.random.default_rng(10)
     age = rng.uniform(0.0, 3 * 86400.0, p.n)
     p = p.replace(age=torch.tensor(age, dtype=torch.float32, device=gpu),
@@ -220,7 +248,8 @@ def test_kernel_lanes_match_plain_stepwise(gpu, name):
     t0 = 9 * 3600.0
     fs = synth.with_vertical_motion(
         synth.fieldset_for(c, t_center=t0 + 900.0, dt=1800.0), seed=12)
-    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg1.VTurbOn)
+    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg1.VTurbOn,
+                                  with_scalars=cfg1.needs_salt_fields())
     q = p
     moved = 0.0
     for i in range(4):
@@ -231,7 +260,9 @@ def test_kernel_lanes_match_plain_stepwise(gpu, name):
                                     ext_idx=i)
         torch.cuda.synchronize()
         assert (out.status != ref.status).sum() == 0
-        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3), ("age", 1e-3)):
+        assert (out.settle_poly != ref.settle_poly).sum() == 0
+        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3), ("age", 1e-3),
+                       ("salt", 1e-3), ("temp", 1e-3)):
             np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
                                        getattr(ref, k).cpu().numpy(),
                                        rtol=0, atol=tol)
@@ -241,6 +272,13 @@ def test_kernel_lanes_match_plain_stepwise(gpu, name):
     assert moved > 0.1
     if cfg1.mortality:
         assert (q.status == st.DEAD).sum() > 0
+    if cfg1.SaltTempOn:
+        assert float(q.salt.max() - q.salt.min()) > 1.0
+    else:
+        assert (q.salt == 0).all() and (q.temp == 0).all()
+    if cfg1.settlementon:
+        settled = q.settle_poly[q.status == st.SETTLED]
+        assert set(settled.tolist()) == {101, 102}
     if name == "dead-over-error":
         # some of the dead were stuck on land in the step they died
         alive = kx.ext_step_reference(ctx, replace(cfg1, mortality=False), p,

@@ -16,6 +16,13 @@ trajectories do not depend on how the external steps are chunked
 (``ext_fuse`` 2 and 4 give the same particles, bit for bit: the random
 draws are keyed by the global step index), and they follow ltjax.run's
 draws (same seed, same streams) to the same 0.5 m / 1e-3 m tolerance.
+
+The oyster run (behavior 4 on a halocline, SaltTempOn, settlement on a
+habitat square with a hole and a slanted triangle written as polygon
+CSVs, HTurb, Visser on Aks, mortality, pediage inside the run) does not
+depend on the chunking either, and its CSV's statuses and settle_poly
+equal ltjax.run's, salt and temp within 0.01 psu / degC (the positions
+differ by the two interpolation schemes, and dS/dz reaches 1.7 psu/m).
 """
 
 import json
@@ -185,3 +192,76 @@ def test_cli_matches_ltjax_run(run_case):
     np.testing.assert_allclose(final[:, 3], np.asarray(pj.y), rtol=0,
                                atol=0.5)
     np.testing.assert_array_equal(final[:, 5], np.asarray(pj.status))
+
+
+OYSTER = dict(Behavior=4, readSalt=True, readTemp=True, SaltTempOn=True,
+              Sgradient=0.5, swimslow=1e-3, swimfast=3e-3, pediage=1800.0,
+              HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True, readAks=True,
+              mortality=True, deadage=6300.0, seed=3)
+
+
+def oyster_polygons():
+    """A habitat square with a square hole and a slanted triangle (metres,
+    on the 30 km oyster case)."""
+    habitat = [(21, np.array([[9e3, 9e3], [17e3, 9e3], [17e3, 17e3],
+                              [9e3, 17e3]])),
+               (22, np.array([[18e3, 12e3], [24e3, 14e3], [19e3, 20e3]]))]
+    holes = [(1, np.array([[12e3, 12e3], [14e3, 12e3], [14e3, 14e3],
+                           [12e3, 14e3]]))]
+    return habitat, holes
+
+
+@pytest.fixture(scope="module")
+def oyster_runs(tmp_path_factory):
+    case = synth.make_solid_body_case(nx=31, ny=31, us=6, lx=30e3, ly=30e3,
+                                      h0=40.0, omega=1e-4,
+                                      dtype=torch.float64, parabolic_aks=True,
+                                      halocline=True)
+    rng = np.random.default_rng(15)
+    n = 150
+    x0 = rng.uniform(8e3, 22e3, n)
+    y0 = rng.uniform(8e3, 22e3, n)
+    z0 = rng.uniform(-16.0, -4.0, n)
+    habitat, holes = oyster_polygons()
+    out = {}
+    for fuse in (2, 4):
+        d = str(tmp_path_factory.mktemp(f"torch_oyster{fuse}"))
+        nml = synth.write_run_files(case, d, x0, y0, z0, n_ext=4, dt=DT,
+                                    idt=450, iprint=4 * DT, ext_fuse=fuse,
+                                    habitat=habitat, holes=holes, **OYSTER)
+        out[fuse] = (nml, d, _run_cli(nml),
+                     np.loadtxt(os.path.join(d, "out", "run1.csv"),
+                                delimiter=","))
+    return out
+
+
+def test_cli_oyster_run_independent_of_chunking(oyster_runs):
+    lines2, rows2 = oyster_runs[2][2], oyster_runs[2][3]
+    lines4, rows4 = oyster_runs[4][2], oyster_runs[4][3]
+    assert lines4[0]["lanes"] == ["advection", "hturb", "vturb_aks",
+                                  "behavior4", "mortality", "settlement",
+                                  "salt_temp"]
+    np.testing.assert_array_equal(_final(rows2), _final(rows4))
+    # columns: time id lon lat depth status salt temp age poly
+    final = _final(rows4)
+    status, poly = final[:, 5], final[:, 9]
+    assert set(poly[status == 2]) == {21, 22} and (poly[status != 2] < 0
+                                                   ).all()
+    assert (status == 3).sum() > 0 and lines4[-1]["settled"] > 0
+    assert np.ptp(final[:, 6]) > 1.0 and (final[:, 7] > 8.0).all()
+
+
+def test_cli_oyster_run_matches_ltjax_run(oyster_runs):
+    nml, d, _, rows = oyster_runs[4]
+    cfg = config_from_namelist(nml, outpath=os.path.join(d, "jax_out"))
+    jrun.run(cfg)
+    want = _final(np.loadtxt(os.path.join(d, "jax_out", "run1.csv"),
+                             delimiter=","))
+    final = _final(rows)
+    assert want.shape == final.shape
+    for col in (1, 5, 9):                      # id, status, settle_poly
+        np.testing.assert_array_equal(final[:, col], want[:, col])
+    for col in (6, 7):                         # salt, temp
+        np.testing.assert_allclose(final[:, col], want[:, col], rtol=0,
+                                   atol=0.01)
+    np.testing.assert_allclose(final[:, 4], want[:, 4], rtol=0, atol=1e-3)

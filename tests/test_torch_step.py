@@ -1,7 +1,7 @@
 """The slice as a whole: ltjax_torch.step.make_fused_external_steps vs
 ltjax.step.make_fused_external_steps, ``internal_step`` with turbulence,
-behaviors and mortality vs ltjax's collapsed-mode ``internal_step``, and
-the options outside the slice.
+behaviors, mortality, settlement and salt sampling vs ltjax's
+collapsed-mode ``internal_step``, and the options outside the slice.
 
 Setup of the fused comparison: tests/test_kernel.py's fused multi-step
 case (41x41 grid, us = 6, 256 particles, a 4-record window, n_fuse = 2)
@@ -18,7 +18,11 @@ across the swim ramp and the death age; strong horizontal turbulence
 drives some into land (reflections, stuck particles that die in the same
 step).  Both packages draw from the same streams (seed 9 here,
 ``jax.random.key(9)`` there).  Tolerance 1e-6 m per step in float64 over
-three chained steps; statuses and collision counts equal.
+three chained steps; statuses and collision counts equal.  The
+settlement and salt cases add the halocline of ``synth.halocline_fields``
+(perturbed per record and node), a square habitat with a square hole and
+a slanted hexagon with a slanted hole, and a pediage inside the ages:
+settle_poly equal, salt and temp to 1e-9 psu / degC.
 """
 
 import dataclasses
@@ -34,6 +38,7 @@ from ltjax import state as jst
 from ltjax import synth as jsynth
 from ltjax.config import Config
 from ltjax.physics import boundary as jbd
+from ltjax.physics import settlement as jstl
 from ltjax.step import StepContext as JContext
 from ltjax.step import internal_step as j_internal_step
 from ltjax.step import make_fused_external_steps as j_fused
@@ -42,6 +47,7 @@ from ltjax_torch import packed as tpk
 from ltjax_torch import state as tst
 from ltjax_torch import step as tstep
 from ltjax_torch import synth
+from ltjax_torch.physics import behavior as tbh
 from ltjax_torch.physics import boundary as bd
 
 torch.set_num_threads(1)
@@ -111,16 +117,15 @@ def test_fused_steps_match_ltjax():
 
 
 UNSUPPORTED = [
-    ("Behavior", dict(Behavior=4, readSalt=True)),
-    ("Behavior", dict(Behavior=5, readSalt=True)),
     ("stochastic_mortality", dict(mortality=True,
                                   stochastic_mortality=True)),
-    ("settlementon", dict(settlementon=True)),
-    ("SaltTempOn", dict(SaltTempOn=True)),
+    ("stochastic_mortality", dict(Behavior=4, readSalt=True, mortality=True,
+                                  stochastic_mortality=True)),
     ("tension_sigma", dict(tension_sigma=-1.0)),
     ("mesh_particles", dict(mesh_particles=2)),
     ("checkpoint_every", dict(checkpoint_every=4)),
     ("sort_depth_bands", dict(sort_depth_bands=2)),
+    ("--resume", dict()),
 ]
 
 
@@ -132,16 +137,13 @@ def _ctx():
 
 
 @pytest.mark.parametrize("name,kw", UNSUPPORTED,
-                         ids=["Behavior", "Behavior5", "mortality"]
-                         + [u[0] for u in UNSUPPORTED[3:]])
+                         ids=["mortality", "behavior4-stochastic"]
+                         + [u[0] for u in UNSUPPORTED[2:]])
 def test_unsupported_option_raises(name, kw):
     with pytest.raises(NotImplementedError, match=name):
+        if name == "--resume":
+            tstep.check_supported(_cfg(us=4, ws=5), _ctx(), resume=True)
         tstep.make_fused_external_steps(_ctx(), _cfg(us=4, ws=5, **kw), 1)
-
-
-def test_resume_raises():
-    with pytest.raises(NotImplementedError, match="--resume"):
-        tstep.check_supported(_cfg(us=4, ws=5), _ctx(), resume=True)
 
 
 def test_cuda_only_restrictions(monkeypatch):
@@ -161,7 +163,13 @@ def test_cuda_only_restrictions(monkeypatch):
 
 SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
          dict(VTurbOn=True, readAks=False, ConstantVTurb=1e-3)] + [
-    dict(Behavior=b, mortality=True) for b in (0, 1, 2, 3, 6, 7)]
+    dict(Behavior=b, mortality=True) for b in (0, 1, 2, 3, 6, 7)] + [
+    dict(Behavior=b, readSalt=True) for b in (4, 5)] + [
+    dict(settlementon=True, holesExist=True),
+    dict(SaltTempOn=True, readSalt=True, readTemp=True),
+    dict(Behavior=4, readSalt=True, SaltTempOn=True, settlementon=True,
+         holesExist=True, HTurbOn=True, VTurbOn=True, readAks=True,
+         mortality=True)]
 
 
 @pytest.mark.parametrize("kw", SLICE, ids=lambda kw: "-".join(
@@ -286,3 +294,111 @@ def test_fused_turbulent_run_invariant_to_sort():
     for k in tst.FIELDS:
         np.testing.assert_array_equal(outs[0][k], outs[1][k])
     assert np.abs(outs[0]["z"] - p.z.numpy()).max() > 0.5
+
+
+def _polygons():
+    """A square habitat with a square hole, a slanted hexagon with a
+    slanted triangular hole (metres, on the _f64_case grid)."""
+    th = np.linspace(0.0, 2 * np.pi, 7)[:-1] + 0.3
+    hexagon = np.stack([36e3 + 7e3 * np.cos(th), 38e3 + 6e3 * np.sin(th)],
+                       -1)
+    habitat = [(11, np.array([[8e3, 8e3], [22e3, 8e3], [22e3, 22e3],
+                              [8e3, 22e3]])), (12, hexagon)]
+    holes = [(1, np.array([[13e3, 13e3], [17e3, 13e3], [17e3, 17e3],
+                           [13e3, 17e3]])),
+             (2, np.array([[34e3, 36e3], [39e3, 37e3], [35e3, 41e3]]))]
+    return habitat, holes
+
+
+def _with_halocline(grid, fs, seed=7):
+    """fs with synth.halocline_fields' salt and temp, perturbed per record
+    and node."""
+    tg = interop.grid_from_numpy(_np(grid))
+    salt, temp = synth.halocline_fields(tg)
+    rng = np.random.default_rng(seed)
+
+    def per_record(a, amp):
+        a = np.moveaxis(a, 0, -1)[None]
+        return a + amp * rng.uniform(-1, 1, (3,) + a.shape[1:])
+
+    return fs._replace(salt=jnp.asarray(per_record(salt, 0.2)),
+                       temp=jnp.asarray(per_record(temp, 0.3)))
+
+
+SALT = dict(readSalt=True, readTemp=True, Sgradient=0.5, swimslow=1e-3,
+            swimfast=3e-3)
+SETTLE_STEP = {
+    "settle": dict(settlementon=True, holesExist=True, HTurbOn=True,
+                   ConstantHTurb=2e4, mortality=True),
+    "salt": dict(SaltTempOn=True, VTurbOn=True, readAks=True, **SALT),
+    "behavior4": dict(Behavior=4, mortality=True, **SALT),
+    "behavior5": dict(Behavior=5, HTurbOn=True, ConstantHTurb=1.0, **SALT),
+    "behavior4-salt-settle": dict(Behavior=4, SaltTempOn=True,
+                                  settlementon=True, holesExist=True,
+                                  HTurbOn=True, ConstantHTurb=2e4,
+                                  mortality=True, **SALT),
+    "behavior5-salt": dict(Behavior=5, SaltTempOn=True, **SALT),
+}
+
+
+@pytest.mark.parametrize("name", list(SETTLE_STEP))
+def test_settlement_and_salt_step_matches_ltjax_collapsed(name):
+    grid, fs, bounds, p = _f64_case()
+    fs = _with_halocline(grid, fs)
+    cfg = Config(numpar=p.n, dt=1800, idt=300, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float64",
+                 reflect_iters=2, TrackCollisions=True,
+                 **{**BEH, **SETTLE_STEP[name]})
+    cfg.validate()
+    habitat, holes = _polygons()
+    xe, ye = np.asarray(bounds.x_edges), np.asarray(bounds.y_edges)
+    jpol = jstl.build_polygons(habitat, xe, ye)
+    jhol = jstl.build_polygons(holes, xe, ye)
+    jctx = JContext(grid=grid, bounds=bounds, polys=jpol, holes=jhol)
+    jprec = jpk.build_packed_records(grid, fs)
+    ctx = tstep.StepContext(
+        grid=interop.grid_from_numpy(_np(grid)),
+        bounds=interop.boundaries_from_numpy(_np(bounds)),
+        polys=interop.polygons_from_numpy(_np(jpol)),
+        holes=interop.polygons_from_numpy(_np(jhol)))
+    tfs = interop.fieldset_from_numpy(_np(fs))
+    prec = tpk.build_packed_records(ctx.grid, tfs)
+    pj = p
+    pt = interop.particles_from_numpy(_np(p))
+    cues = 0
+    for i in range(3):
+        t = i * 300.0
+        pj = j_internal_step(jctx, cfg, jr.key(9), pj, fs, t, 40 + i,
+                             jprec, mode="collapsed")
+        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec)
+        out = interop.particles_to_numpy(pt)
+        for k in ("status", "settle_poly", "hit_land", "hit_bottom"):
+            np.testing.assert_array_equal(out[k], np.asarray(getattr(pj, k)))
+        for k in ("x", "y", "z", "age"):
+            np.testing.assert_allclose(out[k], np.asarray(getattr(pj, k)),
+                                       rtol=0, atol=1e-6)
+        for k in ("salt", "temp"):
+            np.testing.assert_allclose(out[k], np.asarray(getattr(pj, k)),
+                                       rtol=0, atol=1e-9)
+    st_, poly = out["status"], out["settle_poly"]
+    if cfg.settlementon:
+        # both habitat polygons took settlers, none settled in a hole
+        assert set(poly[st_ == jst.SETTLED]) == {11, 12}
+        assert (poly[st_ != jst.SETTLED] == -1).all()
+        hx, hy = out["x"][st_ == jst.SETTLED], out["y"][st_ == jst.SETTLED]
+        assert not ((hx > 13e3) & (hx < 17e3) & (hy > 13e3)
+                    & (hy < 17e3)).any()
+    if cfg.SaltTempOn:
+        moved = st_ != jst.NOT_RELEASED
+        assert (out["salt"][moved] > 15.0).all()
+        assert (out["temp"][moved] > 8.0).all()
+    else:
+        assert (out["salt"] == 0).all()
+    if cfg.Behavior in (4, 5):
+        # the halocline cue fired for some particles and not for others
+        q = interop.particles_from_numpy(_np(p))
+        dsdz, _ = tbh._salt_gradient(ctx.grid, tfs, q.x, q.y, q.z,
+                                     torch.tensor(0.0, dtype=torch.float64),
+                                     0.0)
+        cue = dsdz.abs() >= cfg.Sgradient
+        assert 0 < int(cue.sum()) < p.n
