@@ -7,8 +7,8 @@
 
 Builds the variants of the external-step CUDA kernel from
 ltjax_torch/kernels/csrc (one nvcc each, all started together), then
-runs six phases and fails (non-zero exit, no final line) if any of them
-fails:
+runs seven phases and fails (non-zero exit, no final line) if any of
+them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
    external step (30 internal steps) of 65,536 particles on the
@@ -50,7 +50,15 @@ fails:
    each kernel held against its plain version step by step and timed per
    external step at 65,536 and 1M; then per-step checks at 65,536 of
    behavior 5, sampling alone, behavior 4 without sampling, and
-   settlement, death and exits in the same step.
+   settlement, death and exits in the same step;
+7. curvilinear grids (the LTX_CURV variants): bench.py's curv geometry
+   (200x200x20, a 3% sinusoidal distortion) with phase 1's land block,
+   the kernel against its plain version at 65,536 particles (reflection
+   and exits on curved segments); bench.py's curv cell at 1M through
+   make_fused_external_steps (16 x 30, timed, against the circles) and
+   the kernel against its plain version on its first launch; per-step
+   checks of turbulence and of the oyster lanes on the curvilinear
+   halocline at 65,536; and the CLI on a geographic curvilinear series.
 
 Earlier stdout lines carry the card's name and power limit, the build
 report and each phase's numbers; the line before the last is the
@@ -125,15 +133,59 @@ def bench_case(torch, device, nx=200, ny=200, us=20, land=True,
     bench.py's turb-variant Aks profile and the synthetic halocline
     (salt and temperature, synth.halocline_fields)."""
     from ltjax_torch import synth
+    return synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=200e3,
+                                      ly=200e3, h0=50.0, omega=omega,
+                                      dtype=torch.float32, device=device,
+                                      mask=land_mask(nx, ny, land),
+                                      parabolic_aks=parabolic_aks,
+                                      halocline=halocline)
+
+
+def land_mask(nx, ny, land):
     mask = np.ones((ny, nx), np.int32)
     if land:
         # a 16 x 10 cell island east of the centre, in the rotation path
         mask[int(0.47 * ny):int(0.52 * ny), int(0.62 * nx):int(0.70 * nx)] = 0
-    return synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=200e3,
-                                      ly=200e3, h0=50.0, omega=omega,
-                                      dtype=torch.float32, device=device,
-                                      mask=mask, parabolic_aks=parabolic_aks,
-                                      halocline=halocline)
+    return mask
+
+
+def curv_bench_case(torch, device, nx=200, ny=200, us=20, land=True,
+                    omega=5e-5, parabolic_aks=False, halocline=False):
+    """bench.py's curv case (the 200 km square distorted by 3%, solid-body
+    rotation, omega 5e-5, h0 50 m), optionally with phase 1's land block,
+    the turb-variant Aks profile and the halocline."""
+    from ltjax_torch import synth
+    return synth.make_curv_case(nx=nx, ny=ny, us=us, lx=200e3, ly=200e3,
+                                h0=50.0, omega=omega, amp=0.03,
+                                mask=land_mask(nx, ny, land),
+                                dtype=torch.float32, device=device,
+                                parabolic_aks=parabolic_aks,
+                                halocline=halocline)
+
+
+def curv_water_particles(case, n, seed, margin=2.0):
+    """n positions on a curvilinear case, uniform in logical coordinates
+    at least ``margin`` cells inside the rim, whose 3x3 cell
+    neighbourhood is water; depths in [-40, -5] m."""
+    from ltjax_torch import synth
+    rng = np.random.default_rng(seed)
+    mask = case.grid.mask_rho.cpu().numpy()
+    ny, nx = mask.shape
+    ti, tj = [], []
+    while sum(len(t) for t in ti) < n:
+        a = rng.uniform(margin, nx - 1 - margin, n)
+        b = rng.uniform(margin, ny - 1 - margin, n)
+        i, j = np.rint(a).astype(int), np.rint(b).astype(int)
+        wet = np.ones(n, bool)
+        for dj in (-1, 0, 1):
+            for di in (-1, 0, 1):
+                wet &= mask[np.clip(j + dj, 0, ny - 1),
+                            np.clip(i + di, 0, nx - 1)] > 0
+        ti.append(a[wet])
+        tj.append(b[wet])
+    x, y = synth.logical_to_xy(case.x2d, case.y2d, np.concatenate(ti)[:n],
+                               np.concatenate(tj)[:n])
+    return x, y, rng.uniform(-40.0, -5.0, n)
 
 
 def make_cfg(n, **kw):
@@ -149,9 +201,13 @@ def context(case):
     from ltjax_torch.physics import boundary as bd
     from ltjax_torch.step import StepContext
     g = case.grid
-    bounds = bd.build_boundaries(g.mask_rho.cpu().numpy(),
-                                 g.x_rho.cpu().numpy(), g.y_rho.cpu().numpy(),
-                                 device=g.device)
+    mask = g.mask_rho.cpu().numpy()
+    if g.curv is not None:
+        bounds = bd.build_boundaries_curv(mask, case.x2d, case.y2d, g.curv,
+                                          device=g.device)
+    else:
+        bounds = bd.build_boundaries(mask, g.x_rho.cpu().numpy(),
+                                     g.y_rho.cpu().numpy(), device=g.device)
     return StepContext(grid=g, bounds=bounds)
 
 
@@ -308,16 +364,20 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
     edge, light threshold, |dS/dz| at Sgradient, riding speed), and
     settlement by a polygon edge; a particle within round-off of it may
     take the other branch, one swim step (or TST ride) away, or settle
-    in one version only.  Those "decision flips" are counted and allowed
-    for at most 0.01% of the particles (as hit-count mismatches are); the
-    other particles keep the tolerances.  Turbulence and the other lanes
+    in one version only; on a curvilinear grid the boundary cell
+    floor(ti + 0.5) of a point within f32 round-off of a cell edge may
+    differ, and with it the segment bucket or guard radius.  Those
+    "decision flips" are counted and allowed for at most 0.01% of the
+    particles (as hit-count mismatches are); the other particles keep the
+    tolerances.  Turbulence and the other lanes on a rectilinear grid
     allow none."""
     from dataclasses import replace
     from ltjax_torch import state as st
     from ltjax_torch.kernels import ext_step as kx
     cfg1 = replace(cfg, dt=cfg.idt)
     idt = float(cfg.idt)
-    thresholds = cfg.Behavior in (1, 2, 3, 4, 5, 7) or cfg.settlementon
+    thresholds = (cfg.Behavior in (1, 2, 3, 4, 5, 7) or cfg.settlementon
+                  or ctx.grid.curv is not None)
     res = {"phase": phase, "n": p.n, "steps": steps, "max_abs_dx": 0.0,
            "max_abs_dy": 0.0, "max_abs_dz": 0.0, "max_abs_dage": 0.0,
            "max_abs_dsalt": 0.0, "max_abs_dtemp": 0.0,
@@ -901,9 +961,26 @@ def fit_ops(K, P):
     return 31 + 31 * P + (K - 1) * (31 + 37 * P) + K * P + 14 + 9 * P
 
 
-def ops_per_step(cfg, us, ws):
+# f32 operations of one inverse-map solve (csrc ext_step.cu curv_logical,
+# counted from its source): the raster seed 16, each of the 3 Newton
+# steps 65, the final clamp 4; the residual of the inside test 40 more
+CURV_SOLVE_OPS = 16 + 3 * 65 + 4
+CURV_RESID_OPS = 40
+
+
+def curv_solves(cfg):
+    """Inverse-map solves of one internal step in the LTX_CURV variant:
+    4 RK4 stages, the vertical reflection's column, one per reflection
+    pass, the stage-1 column of Visser and of a behavior, and the two
+    inside tests (with residual)."""
+    return (5 + int(cfg.reflect_iters) + int(cfg.VTurbOn and cfg.readAks)
+            + int(cfg.Behavior != 0)), 2
+
+
+def ops_per_step(cfg, us, ws, curv=False):
     """f32 operations of one active particle's internal step in the
-    variant of cfg (integer Threefry words counted at the f32 rate)."""
+    variant of cfg (integer Threefry words counted at the f32 rate); on
+    a curvilinear grid plus its inverse-map solves."""
     stage = 10 + 2 * 31 + fit_ops(us, 2) + fit_ops(ws, 1) + 12
     ops = 4 * stage + 40 + 60 + 82 + 5          # RK4, reflect, vertical
     threefry = 120
@@ -921,6 +998,9 @@ def ops_per_step(cfg, us, ws):
             ops += fit_ops(us, 1)
     if cfg.SaltTempOn:
         ops += fit_ops(us, 2)
+    if curv:
+        plain, resid = curv_solves(cfg)
+        ops += (plain + resid) * CURV_SOLVE_OPS + resid * CURV_RESID_OPS
     return ops
 
 
@@ -944,7 +1024,11 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out):
     cols_out = cols_in
     nbytes = (prec.tab.numel() * 4 + kx.boundary_rows_table(ctx).numel() * 4
               + n * 4 * (cols_in + cols_out))
-    f32 = act * ops_per_step(cfg, ctx.grid.us, ctx.grid.ws)
+    curv = ctx.grid.curv is not None
+    if curv:
+        xy, seeds, _, _ = kx.curv_tables(ctx)
+        nbytes += xy.numel() * 4 + seeds.numel() * 4
+    f32 = act * ops_per_step(cfg, ctx.grid.us, ctx.grid.ws, curv)
     f64 = 0.0
     if cfg.settlementon and ctx.polys is not None:
         tabs = kx.settle_tables(ctx)
@@ -1179,15 +1263,197 @@ def phase3_oyster(torch, device, n=10_000, nx=60, us=10):
     assert res["counts"]["dead"] > 0, res
     assert res["salt_range"][1] - res["salt_range"][0] > 1.0, res
 
+# per-step checks of the curvilinear variants at 65,536 particles, on the
+# curvilinear halocline with random w and zeta (phase 7c)
+CURV_LANES = {
+    "turb": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                 readAks=True),
+    "oyster": dict(Behavior=4, readSalt=True, readTemp=True, SaltTempOn=True,
+                   Sgradient=0.5, settlementon=True, holesExist=True,
+                   HTurbOn=True, ConstantHTurb=300.0, mortality=True),
+}
+# the error of the curvilinear paths against the analytic circles: the
+# u/v nodes sit O(h^2 curvature) off the rho mesh, metres over hours;
+# the main path's 1 km cells (16 h) and the CLI's 60 km square with the
+# same distortion (4 h), within tests/test_curv.py's 20 m budget for 4 h
+# on 2.5 km cells
+TOL_ANALYTIC_CURV = 5.0
+TOL_ANALYTIC_CURV_CLI = 20.0
+
+
+def phase7(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
+           n_small=65536, reps=5):
+    """Curvilinear grids (LTX_CURV): (a) the kernel against its plain
+    version on bench.py's curv geometry with the land block, one
+    external step of 65,536 particles, timed; (b) bench.py's curv cell at
+    1M through make_fused_external_steps, 16 x 30 steps, timed, against
+    the circles, then the kernel against its plain version on its first
+    launch; (c) per internal step from the plain state at 65,536: HTurb +
+    Visser, and the oyster lanes on the halocline; (d) the CLI on a
+    geographic curvilinear series."""
+    from ltjax_torch import packed as pk, run, state as st, synth
+    from ltjax_torch.kernels import build, ext_step as kx
+    from ltjax_torch.step import (_sort, make_fused_external_steps,
+                                  summary_counts)
+    out = {}
+
+    # (a) kernel vs plain, land block and open rim
+    case = curv_bench_case(torch, device, nx=nx, ny=nx, us=us)
+    ctx = context(case)
+    cfg = make_cfg(n_small, us=us, ws=us + 1, TrackCollisions=True)
+    fs = synth.fieldset_for(case, t_center=0.0, dt=3600.0, device=device)
+    x, y, _ = curv_water_particles(case, n_small, seed=1)
+    z = near_surface_and_bottom(n_small, case.h0, seed=4)
+    p = st.init_particles(x, y, z, dtype=torch.float32, device=device)
+    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+    p, _ = _sort(case.grid, p)
+    ra = kernel_vs_plain(torch, "7a", ctx, cfg, p,
+                         pk.build_packed_records(case.grid, fs), reps, 2)
+    assert ra["hit_land_plain"] > 0, ra
+    assert ra["status_counts_plain"][st.OUT_OF_DOMAIN] > 0, ra
+    out["a"] = ra
+
+    # (b) bench.py's curv cell at 1M
+    case = curv_bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
+    ctx = context(case)
+    cfg = make_cfg(n, us=us, ws=us + 1)
+    dt = float(cfg.dt)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=torch.float32, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    fused(p0.take(torch.arange(128, device=device)), fsR, 0.0, 0)
+    torch.cuda.synchronize()
+    kx.reset_launches()
+    t0 = time.perf_counter()
+    pb = fused(p0, fsR, 0.0, 0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = dict(kx.ext_step_fused.variant_launches)
+    tag = build.tag("ext_step", kx.kernel_variant(cfg, curv=True))
+    counts = summary_counts(pb)
+    xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
+    err = np.hypot(pb.x.cpu().numpy() - xa, pb.y.cpu().numpy() - ya)
+    rb = {"phase": "7b", "n": n, "ext_steps": n_fuse,
+          "internal_steps": cfg.internal_steps, "variant": tag,
+          "launches": launches, "seconds": sec,
+          "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
+          "max_err_vs_analytic_m": float(err.max()),
+          "mean_err_vs_analytic_m": float(err.mean()), "counts": counts}
+    log(rb)
+    assert launches == {tag: n_fuse}, rb
+    assert counts["error"] == 0 and counts["active"] == n, rb
+    assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC_CURV, rb
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    ps, _ = _sort(case.grid, p0)
+    prec3 = pk.PackedRecords(tab=prec_all.tab[:3], times=prec_all.times[:3])
+    rb["kernel"] = kernel_vs_plain(torch, "7b", ctx, cfg, ps, prec3, 3, 1)
+    rb["bound"] = kernel_bound(cfg, ctx, prec3, ps,
+                               kx.ext_step_fused(ctx, cfg, ps, prec3, 0.0))
+    small, _ = _sort(case.grid, p0.take(torch.arange(n_small,
+                                                     device=device)))
+    rb["kernel_ms_" + str(n_small)] = cuda_time(
+        torch, lambda: kx.ext_step_fused(ctx, cfg, small, prec3, 0.0), reps)
+    rb["plain_ms_" + str(n_small)] = cuda_time(
+        torch, lambda: kx.ext_step_reference(ctx, cfg, small, prec3, 0.0), 1)
+    log({k: rb[k] for k in rb if k.startswith(("phase", "kernel_ms",
+                                               "plain_ms", "bound"))})
+    out["b"] = rb
+
+    # (c) per internal step: turbulence and the oyster lanes
+    case = curv_bench_case(torch, device, nx=nx, ny=nx, us=us, omega=5e-6,
+                           parabolic_aks=True, halocline=True)
+    ctx = with_polygons(context(case))
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(synth.fieldset_for(
+        case, t_center=t0 + 1800.0, dt=3600.0, device=device), seed=3)
+    x, y, _ = curv_water_particles(case, n_small, seed=1)
+    z = near_surface_and_bottom(n_small, case.h0, seed=4)
+    age = rng.uniform(0.0, 3 * 86400.0, n_small)
+    pc = st.init_particles(x, y, z, dob=-age, dtype=torch.float32,
+                           device=device)
+    pc = pc.replace(status=torch.full_like(pc.status, st.ACTIVE),
+                    age=torch.tensor(age, dtype=torch.float32,
+                                     device=device),
+                    pid=torch.tensor(rng.permutation(n_small),
+                                     dtype=torch.int32, device=device))
+    pc, _ = _sort(case.grid, pc)
+    for name, kw in CURV_LANES.items():
+        cfgc = make_cfg(n_small, TrackCollisions=True, **{**SWIM, **kw})
+        prec = pk.build_packed_records(case.grid, fs, with_aks=True,
+                                       with_scalars=True)
+        r, q = lanes_stepwise(torch, f"7c-{name}", ctx, cfgc, pc, prec, fs,
+                              t0, steps=5)
+        assert r["max_vertical_move_plain_m"] > 0.1, r
+        counts = np.bincount(q.status.cpu().numpy(), minlength=6)
+        if cfgc.settlementon:
+            settled = q.status == st.SETTLED
+            assert set(q.settle_poly[settled].tolist()) == {101, 102}, r
+            assert int((settled & in_hole(q.x, q.y)).sum()) == 0, r
+            assert float(q.salt.max() - q.salt.min()) > 1.0, r
+            assert counts[st.DEAD] > 0, r
+        out["c-" + name] = r
+
+    # (d) the CLI on a geographic curvilinear series, on the card
+    out["d"] = phase7_cli(torch, device)
+    return out
+
+
+def phase7_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
+    """ltjax_torch.run.main on a written geographic curvilinear ROMS
+    series (phase 3's size), CSV output, against the circles."""
+    from ltjax_torch import convert, run, synth
+    from ltjax_torch.kernels import build, ext_step as kx
+    work = os.path.join(ROOT, "build", "chip_smoke_curv")
+    case = synth.make_curv_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                h0=50.0, omega=5e-5, amp=0.03,
+                                dtype=torch.float64)
+    rng = np.random.default_rng(8)
+    x0 = rng.uniform(15e3, 45e3, n)
+    y0 = rng.uniform(15e3, 45e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    nml = synth.write_run_files(case, work, x0, y0, z0, n_ext=n_ext,
+                                dt=3600, idt=120, iprint=3600 * n_ext,
+                                ext_fuse=n_ext, dtype_pos="float32",
+                                geographic=True, lonmin=-76.0, latmin=37.0)
+    kx.reset_launches()
+    lines = run_cli(run, nml)
+    launches = dict(kx.ext_step_fused.variant_launches)
+    rows = np.loadtxt(os.path.join(work, "out", "run1.csv"), delimiter=",")
+    last = rows[rows[:, 0] == rows[:, 0].max()]
+    last = last[np.argsort(last[:, 1])]
+    x = convert.lon2x(last[:, 2], last[:, 3], -76.0, 37.0)
+    y = convert.lat2y(last[:, 3], 37.0)
+    xa, ya, _ = case.analytic(x0, y0, z0, n_ext * 3600.0)
+    err = np.hypot(x - xa, y - ya)
+    tag = build.tag("ext_step", kx.kernel_variant(
+        run.config_from_namelist(nml), curv=True))
+    res = {"phase": "7d", "n": n, "path": lines[0]["path"],
+           "curvilinear": lines[0]["curvilinear"], "launches": launches,
+           "max_err_vs_analytic_m": float(err.max()),
+           "counts": lines[-1]}
+    log(res)
+    assert res["path"] == "cuda_ext_step" and res["curvilinear"] is True, res
+    assert launches == {tag: n_ext}, res
+    assert last.shape[0] == n and np.all(last[:, 5] == 1), res
+    assert err.max() < TOL_ANALYTIC_CURV_CLI, res
+    return res
+
+
 
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
     2's grid and window (settle with phase 6's polygons, salt on its
-    halocline): a cold call, three timed warm calls, then torch.profiler
-    over one more warm call: the kernel's device time, all device time,
-    the wall time, the kernel's share of device time and the idle share
-    of the call (1 - device time / wall time)."""
+    halocline, curv on phase 7's curvilinear grid): a cold call, three
+    timed warm calls, then torch.profiler over one more warm call: the
+    kernel's device time, all device time, the wall time, the kernel's
+    share of device time and the idle share of the call (1 - device time
+    / wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ltjax_torch import state as st, synth
@@ -1200,8 +1466,13 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     x0 = rng.uniform(40e3, 160e3, n)
     y0 = rng.uniform(40e3, 160e3, n)
     out = {}
-    for name, kw in {"advect": {}, **LARVAL, **SETTLE_SALT}.items():
-        ctx = context(case)
+    curv = curv_bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
+    fs_curv = synth.fieldset_window(curv, -dt / 2, dt, n_fuse + 2,
+                                    device=device)
+    for name, kw in {"advect": {}, **LARVAL, **SETTLE_SALT,
+                     "curv": {}}.items():
+        ctx = context(curv if name == "curv" else case)
+        fs_cell = fs_curv if name == "curv" else fsR
         if kw.get("settlementon"):
             ctx = with_polygons(ctx)
         cfg = make_cfg(n, us=us, ws=us + 1, **kw)
@@ -1211,19 +1482,19 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
                                device=device)
         p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
         fused = make_fused_external_steps(ctx, cfg, n_fuse)
-        fused(p0, fsR, 0.0, 0)
+        fused(p0, fs_cell, 0.0, 0)
         torch.cuda.synchronize()
         rates = []
         for _ in range(3):
             t0 = time.perf_counter()
-            fused(p0, fsR, 0.0, 0)
+            fused(p0, fs_cell, 0.0, 0)
             torch.cuda.synchronize()
             rates.append(n * cfg.internal_steps * n_fuse
                          / (time.perf_counter() - t0))
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            fused(p0, fsR, 0.0, 0)
+            fused(p0, fs_cell, 0.0, 0)
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0)
         dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -1251,7 +1522,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -1272,7 +1543,9 @@ def main(argv=None):
     cfgs = [make_cfg(1, **kw) for kw in [
         {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
         *({**SWIM, **kw} for kw in LANE_CHECKS6.values()), OYSTER_CLI]]
-    variants = [kx.kernel_variant(c) for c in cfgs]
+    variants = [kx.kernel_variant(c) for c in cfgs] + [
+        kx.kernel_variant(make_cfg(1, **{**SWIM, **kw}), curv=True)
+        for kw in [{}, *CURV_LANES.values()]]
     t0 = time.perf_counter()
     build.prebuild("ext_step", variants)
     log({"build": "ext_step", "variants": len(variants),
@@ -1280,7 +1553,7 @@ def main(argv=None):
          "ptxas": {k: v["ptxas"] for k, v in build.report.items()}})
 
     run = (lambda k: only is None or k in only)
-    r1 = r1v = r2 = r4 = r6 = None
+    r1 = r1v = r2 = r4 = r6 = r7 = None
     if run(1):
         r1, r1v = phase1(torch, device)
     if run(2):
@@ -1295,6 +1568,8 @@ def main(argv=None):
         phase5(torch, device)
     if run(6):
         r6 = phase6(torch, device)
+    if run(7):
+        r7 = phase7(torch, device)
     if argv == ["--profile"]:
         profile_cells(torch, device)
     if only is not None:
@@ -1321,6 +1596,13 @@ def main(argv=None):
             name, sum(r["launches"].values()),
             max(r["stepwise"].get(k, 0.0) for k in errs),
             r["kernel_ms_1M"], r["plain_ms_1M"], r["bound"]))
+    rc = r7["b"]["kernel"]
+    kernels.append(entry(
+        "curv", sum(r7["b"]["launches"].values()),
+        max(max(r.get(k, 0.0) for r in (r7["a"], rc) for k in errs),
+            *(r7[c].get(k, 0.0) for c in ("c-turb", "c-oyster")
+              for k in errs)),
+        rc["kernel_ms"], rc["plain_ms"], r7["b"]["bound"]))
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

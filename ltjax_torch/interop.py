@@ -3,7 +3,8 @@
 The functions take e.g. ``{k: np.asarray(v) for k, v in
 jax_grid._asdict().items()}`` and build the port's containers with the
 same values, so both packages can be fed identical inputs without this
-package importing jax.
+package importing jax.  A curvilinear grid's or boundaries' ``curv`` is
+given the same way, as a dict of the fields of ``ltjax.grid.CurvMap``.
 """
 
 from __future__ import annotations
@@ -13,7 +14,7 @@ import torch
 
 from . import state as st
 from .fields import FieldSet
-from .grid import Grid
+from .grid import CurvMap, Grid
 from .physics.boundary import Boundaries
 from .physics.settlement import Polygons
 
@@ -28,23 +29,33 @@ def _t(v, device, dtype=None):
                            device=device)
 
 
+def curv_from_numpy(c, device="cpu"):
+    """CurvMap from the fields of an ``ltjax.grid.CurvMap`` (None stays
+    None)."""
+    if _is_none(c):
+        return None
+    return CurvMap(xy_flat=_t(c["xy_flat"], device),
+                   seed_i=_t(c["seed_i"], device, torch.int32),
+                   seed_j=_t(c["seed_j"], device, torch.int32),
+                   **{k: float(np.asarray(c[k])) for k in
+                      ("rx0", "ry0", "inv_rdx", "inv_rdy")})
+
+
 def grid_from_numpy(d: dict, device="cpu") -> Grid:
-    """Rectilinear Grid from the fields of an ``ltjax.grid.Grid``."""
-    if not _is_none(d.get("curv")):
-        raise NotImplementedError("curvilinear grids are not ported yet")
+    """Grid from the fields of an ``ltjax.grid.Grid``."""
     names = ("x_rho", "y_rho", "x_u", "y_v", "h", "mask_rho", "mask_u",
              "mask_v", "s_rho", "Cs_r", "s_w", "Cs_w")
     return Grid(**{k: _t(d[k], device) for k in names},
                 hc=float(np.asarray(d["hc"])),
                 vtransform=int(np.asarray(d["vtransform"])),
-                uniform=bool(np.asarray(d.get("uniform", False))))
+                uniform=bool(np.asarray(d.get("uniform", False))),
+                curv=curv_from_numpy(d.get("curv"), device))
 
 
 def boundaries_from_numpy(d: dict, device="cpu") -> Boundaries:
     """Boundaries from the fields of an ``ltjax.physics.boundary
-    .Boundaries`` (rectilinear)."""
-    if not _is_none(d.get("curv")):
-        raise NotImplementedError("curvilinear boundaries are not ported")
+    .Boundaries``."""
+    tol2 = d.get("curv_tol2")
     xe = np.asarray(d["x_edges"], np.float64)
     ye = np.asarray(d["y_edges"], np.float64)
     return Boundaries(
@@ -55,7 +66,9 @@ def boundaries_from_numpy(d: dict, device="cpu") -> Boundaries:
         cell_rows=_t(d["cell_rows"], device),
         uniform=bool(np.asarray(d["uniform"])),
         edges=(float(xe[0]), float(xe[1] - xe[0]), float(ye[0]),
-               float(ye[1] - ye[0]), float(xe[-1]), float(ye[-1])))
+               float(ye[1] - ye[0]), float(xe[-1]), float(ye[-1])),
+        curv=curv_from_numpy(d.get("curv"), device),
+        curv_tol2=None if _is_none(tol2) else float(np.asarray(tol2)))
 
 
 def fieldset_from_numpy(d: dict, device="cpu") -> FieldSet:

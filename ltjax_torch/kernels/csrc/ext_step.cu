@@ -14,11 +14,18 @@
 // t+idt, deterministic death, settlement on habitat polygons with holes
 // (the exact ray-casting test of ltjax.physics.settlement, in double),
 // salt and temperature sampled at the new position (SaltTempOn), and the
-// status lattice.  Curvilinear grids are not here yet.
+// status lattice.  Under LTX_CURV (the TPU kernel's curv_mode, K1f) every
+// lane runs on a curvilinear grid: each cell location is the inverse
+// bilinear map of ltjax.grid.curv_logical (seed raster + 3 Newton steps),
+// boundary cells are floor(ti + 0.5) and the inside test is the map's
+// residual, so reflection on the curved psi-mesh segments happens in the
+// kernel (the TPU kernel defers every particle near a boundary to its
+// exact patch; this one has no patch and defers nothing).
 //
 // Variants.  The options are compile-time macros (LTX_HTURB, LTX_VTURB
 // 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY, LTX_SETTLE,
-// LTX_SALT; the wrapper builds one library per combination), so each
+// LTX_SALT, LTX_CURV; the wrapper builds one library per combination), so
+// each
 // configuration carries only its own lanes; with all of them 0 the
 // kernel is the advection kernel alone.
 //
@@ -59,7 +66,12 @@
 // 3*Ny*Nx*nl*4 bytes: 30 MB for the 200x200x20 bench grid (40 MB with
 // Aks, 49 MB with salt and temp), which fits the 50 MB L2; a production
 // 800x600x25 grid (~420 MB) does not, and then every stage reads device
-// memory.  Settlement adds, per eligible particle and internal step, its
+// memory.  A curvilinear grid adds an inverse-map solve to every cell
+// location (4 stages, the vertical reflection's column, each reflection
+// pass and the two inside tests: ~9-11 per internal step), each 3 Newton
+// steps of 4 float2 corner loads and ~60 f32 operations; the map itself
+// recomputes from the raster seed every time, as the plain version does.
+// Settlement adds, per eligible particle and internal step, its
 // cell's candidate polygons: a few KB of f64 vertices in all.  The
 // Hilbert sort of the caller (once per ext_sort_every external steps) is
 // kept for L1/L2 locality: neighbouring threads read neighbouring cell
@@ -94,6 +106,9 @@
 #endif
 #ifndef LTX_SALT
 #define LTX_SALT 0
+#endif
+#ifndef LTX_CURV
+#define LTX_CURV 0
 #endif
 
 // params head (f32); must match ltjax_torch/kernels/ext_step.py
@@ -133,6 +148,17 @@ struct PolySet {
 struct Settle {
   const double* edge;               // cell-edge lattice x0, dx, y0, dy
   PolySet poly, hole;               // habitat polygons and holes
+};
+
+// the curvilinear inverse map (ltjax_torch.grid.CurvMap, as f32), a
+// kernel argument of its own like Settle; unused without LTX_CURV
+struct Curv {
+  const float2* xy;                 // (Ny*Nx) projected rho points
+  const int* seed_i;                // (my, mx) seed raster: nearest cell
+  const int* seed_j;
+  int mx, my;
+  float rx0, ry0, inv_rdx, inv_rdy; // raster origin and inverse spacing
+  float tol2;                       // squared inside-mesh residual tol
 };
 
 struct Args {
@@ -202,15 +228,83 @@ struct Stencil {
   float fx, fy;
 };
 
-__device__ __forceinline__ Stencil locate(const Args& a, float x, float y) {
+// ltjax_torch.grid.curv_logical: logical coordinates (ti, tj) of (x, y)
+// from the raster seed and 3 bounded Newton steps on the bilinear quad
+// map, clamped to the lattice; RESID adds r2, the squared residual of
+// the forward map at the clamped solution
+template <bool RESID>
+__device__ __forceinline__ void curv_logical(const Curv& c, int nx, int ny,
+                                             float x, float y, float& ti,
+                                             float& tj, float& r2) {
+  const float ri = fminf(fmaxf(floorf((x - c.rx0) * c.inv_rdx), 0.0f),
+                         (float)(c.mx - 1));
+  const float rj = fminf(fmaxf(floorf((y - c.ry0) * c.inv_rdy), 0.0f),
+                         (float)(c.my - 1));
+  const int rflat = (int)rj * c.mx + (int)ri;
+  ti = (float)c.seed_i[rflat] + 0.5f;
+  tj = (float)c.seed_j[rflat] + 0.5f;
+  for (int it = 0; it < 3; ++it) {
+    const float i = fminf(fmaxf(floorf(ti), 0.0f), (float)(nx - 2));
+    const float j = fminf(fmaxf(floorf(tj), 0.0f), (float)(ny - 2));
+    const float fx = ti - i, fy = tj - j;
+    const int base = (int)j * nx + (int)i;
+    const float2 c00 = c.xy[base], c01 = c.xy[base + 1];
+    const float2 c10 = c.xy[base + nx], c11 = c.xy[base + nx + 1];
+    const float ax0 = c01.x - c00.x, ax1 = c01.y - c00.y;
+    const float ay0 = c10.x - c00.x, ay1 = c10.y - c00.y;
+    const float b0 = c11.x - c01.x - c10.x + c00.x;
+    const float b1 = c11.y - c01.y - c10.y + c00.y;
+    const float fxy = fx * fy;
+    const float p0 = c00.x + fx * ax0 + fy * ay0 + fxy * b0;
+    const float p1 = c00.y + fx * ax1 + fy * ay1 + fxy * b1;
+    const float jx0 = ax0 + fy * b0, jx1 = ax1 + fy * b1;   // dP/dfx
+    const float jy0 = ay0 + fx * b0, jy1 = ay1 + fx * b1;   // dP/dfy
+    float det = jx0 * jy1 - jx1 * jy0;
+    det = fabsf(det) < 1e-30f ? 1e-30f : det;
+    const float rx = x - p0, ry = y - p1;
+    const float dfx = (jy1 * rx - jy0 * ry) / det;
+    const float dfy = (-jx1 * rx + jx0 * ry) / det;
+    ti = i + fminf(fmaxf(fx + dfx, -1.5f), 2.5f);
+    tj = j + fminf(fmaxf(fy + dfy, -1.5f), 2.5f);
+  }
+  ti = fminf(fmaxf(ti, 0.0f), (float)(nx - 1));
+  tj = fminf(fmaxf(tj, 0.0f), (float)(ny - 1));
+  if constexpr (RESID) {
+    const float i = fminf(fmaxf(floorf(ti), 0.0f), (float)(nx - 2));
+    const float j = fminf(fmaxf(floorf(tj), 0.0f), (float)(ny - 2));
+    const float fx = ti - i, fy = tj - j;
+    const int base = (int)j * nx + (int)i;
+    const float2 c00 = c.xy[base], c01 = c.xy[base + 1];
+    const float2 c10 = c.xy[base + nx], c11 = c.xy[base + nx + 1];
+    const float fxy = fx * fy;
+    const float p0 = c00.x + fx * (c01.x - c00.x) + fy * (c10.x - c00.x)
+                     + fxy * (c11.x - c01.x - c10.x + c00.x);
+    const float p1 = c00.y + fx * (c01.y - c00.y) + fy * (c10.y - c00.y)
+                     + fxy * (c11.y - c01.y - c10.y + c00.y);
+    r2 = (x - p0) * (x - p0) + (y - p1) * (y - p1);
+  }
+}
+
+__device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
+                                          float x, float y) {
+  Stencil s;
+#if LTX_CURV
+  float ti, tj, r2;
+  curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
+  const float fi = fminf(fmaxf(floorf(ti), 0.0f), (float)(a.nx - 2));
+  const float fj = fminf(fmaxf(floorf(tj), 0.0f), (float)(a.ny - 2));
+  const int i = (int)fi, j = (int)fj;
+  s.fx = fminf(fmaxf(ti - fi, 0.0f), 1.0f);
+  s.fy = fminf(fmaxf(tj - fj, 0.0f), 1.0f);
+#else
   const float* par = a.par;
   float tx = (x - par[P_X0]) / par[P_DX];
   float ty = (y - par[P_Y0]) / par[P_DY];
   int i = min(max((int)floorf(tx), 0), a.nx - 2);
   int j = min(max((int)floorf(ty), 0), a.ny - 2);
-  Stencil s;
   s.fx = fminf(fmaxf(tx - (float)i, 0.0f), 1.0f);
   s.fy = fminf(fmaxf(ty - (float)j, 0.0f), 1.0f);
+#endif
   s.r00 = ((long long)j * a.nx + i) * a.nl;
   s.r01 = s.r00 + a.nl;
   s.r10 = s.r00 + (long long)a.nx * a.nl;
@@ -316,12 +410,12 @@ __device__ void fit_eval(const Args& a, const Tension& T, const Stencil& st,
 }
 
 // find_currents at (x, y, z) from the records collapsed with weights l
-__device__ void find_currents(const Args& a, const Tension& T, const float* l,
-                              float x, float y, float z,
+__device__ void find_currents(const Args& a, const Curv& cv, const Tension& T,
+                              const float* l, float x, float y, float z,
                               float* cp, float* dp0, float* dp1,
                               float& u, float& v, float& w) {
   const float* par = a.par;
-  Stencil st = locate(a, x, y);
+  Stencil st = locate(a, cv, x, y);
   float zeta = lane(a, st, l, a.nv - 2);
   float h = lane(a, st, l, a.nv - 1);
   const float* s_r = par + P_HEAD;
@@ -343,34 +437,64 @@ __device__ void find_currents(const Args& a, const Tension& T, const float* l,
   v *= factor;
 }
 
-__device__ __forceinline__ const float* cell_row(const Args& a, float x,
+// the boundary cell row of (x, y): on a curvilinear grid boundary cell
+// (j, i) spans the rho logical range [i - 0.5, i + 0.5]
+__device__ __forceinline__ const float* cell_row(const Args& a,
+                                                 const Curv& cv, float x,
                                                  float y) {
+#if LTX_CURV
+  float ti, tj, r2;
+  curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
+  const int i = (int)fminf(fmaxf(floorf(ti + 0.5f), 0.0f), (float)(a.nx - 1));
+  const int j = (int)fminf(fmaxf(floorf(tj + 0.5f), 0.0f), (float)(a.ny - 1));
+#else
   const float* par = a.par;
   int i = (int)floorf((x - par[P_BX0]) / par[P_BDX]);
   int j = (int)floorf((y - par[P_BY0]) / par[P_BDY]);
   i = min(max(i, 0), a.nx - 1);
   j = min(max(j, 0), a.ny - 1);
+#endif
   return a.brows + ((long long)j * a.nx + i) * a.bl;
 }
 
-__device__ __forceinline__ bool in_water(const Args& a, float x, float y) {
+// inside the domain (the box; on a curvilinear grid the map's residual
+// within tol) and in a water cell
+__device__ __forceinline__ bool in_water(const Args& a, const Curv& cv,
+                                         float x, float y) {
+#if LTX_CURV
+  float ti, tj, r2;
+  curv_logical<true>(cv, a.nx, a.ny, x, y, ti, tj, r2);
+  const int i = (int)fminf(fmaxf(floorf(ti + 0.5f), 0.0f), (float)(a.nx - 1));
+  const int j = (int)fminf(fmaxf(floorf(tj + 0.5f), 0.0f), (float)(a.ny - 1));
+  return r2 <= cv.tol2 && a.brows[((long long)j * a.nx + i) * a.bl] > 0.5f;
+#else
   const float* par = a.par;
   bool inside = (x >= par[P_BX0]) && (x <= par[P_BX1])
                 && (y >= par[P_BY0]) && (y <= par[P_BY1]);
-  return inside && cell_row(a, x, y)[0] > 0.5f;
+  return inside && cell_row(a, cv, x, y)[0] > 0.5f;
+#endif
 }
 
 // boundary.reflect for one particle: (x0, y0) -> (x1, y1) becomes the
-// reflected endpoint; returns exited/stuck and the land-hit count
-__device__ void reflect(const Args& a, float x0, float y0, float& x1,
-                        float& y1, bool& exited, bool& stuck, int& hits) {
+// reflected endpoint; returns exited/stuck and the land-hit count.  On a
+// curvilinear grid a pass skips the segment that the previous pass
+// reflected from, as the plain version does: the f32 restart point lies
+// on either side of a slanted wall, and re-crossing it at tp ~ 0 would
+// reflect the particle into land.
+__device__ void reflect(const Args& a, const Curv& cv, float x0, float y0,
+                        float& x1, float& y1, bool& exited, bool& stuck,
+                        int& hits) {
   const float eps = 1e-6f;
   float px0 = x0, py0 = y0, px1 = x1, py1 = y1;
   float ms2x = 0.0f, ms2y = 0.0f;
   exited = false;
   hits = 0;
+#if LTX_CURV
+  float lax = NAN, lay = NAN, lbx = NAN, lby = NAN;   // last reflected from
+  float sax = 0.0f, say = 0.0f, sbx = 0.0f, sby = 0.0f;
+#endif
   for (int it = 0; it < a.n_iter; ++it) {
-    const float* row = cell_row(a, px0, py0);
+    const float* row = cell_row(a, cv, px0, py0);
     if (it == 0) { ms2x = row[3]; ms2y = row[4]; }
     float dx = px1 - px0, dy = py1 - py0;
     float tpm = INFINITY, exf = 0.0f, eyf = 0.0f, kindf = 0.0f;
@@ -378,6 +502,10 @@ __device__ void reflect(const Args& a, float x0, float y0, float& x1,
     for (int s = 0; s < a.s_max; ++s) {
       const float* sl = row + 8 + 8 * s;
       if (!(sl[5] > 0.5f)) continue;
+#if LTX_CURV
+      if (sl[0] == lax && sl[1] == lay && sl[2] == lbx && sl[3] == lby)
+        continue;
+#endif
       float ax = sl[0], ay = sl[1];
       float ex = sl[2] - ax, ey = sl[3] - ay;
       float apx = ax - px0, apy = ay - py0;
@@ -389,6 +517,9 @@ __device__ void reflect(const Args& a, float x0, float y0, float& x1,
                    && ts >= 0.0f && ts <= 1.0f;
       if (cross && tp < tpm) {          // first minimum wins (argmin)
         tpm = tp; exf = ex; eyf = ey; kindf = sl[4]; any = true;
+#if LTX_CURV
+        sax = sl[0]; say = sl[1]; sbx = sl[2]; sby = sl[3];
+#endif
       }
     }
     bool act = any && !exited;
@@ -410,13 +541,16 @@ __device__ void reflect(const Args& a, float x0, float y0, float& x1,
       px1 = ix + rrx;
       py1 = iy + rry;
       if (kind == LAND) hits += 1;
+#if LTX_CURV
+      lax = sax; lay = say; lbx = sbx; lby = sby;
+#endif
     }
     if (newly_exited) { px1 = ix; py1 = iy; exited = true; }
   }
-  stuck = !exited && !in_water(a, px1, py1);
+  stuck = !exited && !in_water(a, cv, px1, py1);
   // tunnel guard on the straight path of non-interacting particles
   if (hits == 0 && !exited && !stuck
-      && !in_water(a, 0.5f * (x0 + px1), 0.5f * (y0 + py1)))
+      && !in_water(a, cv, 0.5f * (x0 + px1), 0.5f * (y0 + py1)))
     stuck = true;
   // displacement guard: per-axis reach of the pre-move cell's bucket
   float ddx = x1 - x0, ddy = y1 - y0;
@@ -586,7 +720,7 @@ __device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
 
 template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT>
 __global__ void __launch_bounds__(128)
-ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
+ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_in,
                 const float* __restrict__ y_in,
                 const float* __restrict__ z_in,
                 const float* __restrict__ dob_in,
@@ -645,12 +779,12 @@ ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
     if (st != ACTIVE) continue;
     const float* l = coef + 9 * i;        // stage weights: t, t+idt/2, t+idt
     float u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
-    find_currents(a, T, l, x, y, z, cp, dp0, dp1, u1, v1, w1);
-    find_currents(a, T, l + 3, x + u1 * half, y + v1 * half, z + w1 * half,
-                  cp, dp0, dp1, u2, v2, w2);
-    find_currents(a, T, l + 3, x + u2 * half, y + v2 * half, z + w2 * half,
-                  cp, dp0, dp1, u3, v3, w3);
-    find_currents(a, T, l + 6, x + u3 * idt, y + v3 * idt, z + w3 * idt,
+    find_currents(a, cv, T, l, x, y, z, cp, dp0, dp1, u1, v1, w1);
+    find_currents(a, cv, T, l + 3, x + u1 * half, y + v1 * half,
+                  z + w1 * half, cp, dp0, dp1, u2, v2, w2);
+    find_currents(a, cv, T, l + 3, x + u2 * half, y + v2 * half,
+                  z + w2 * half, cp, dp0, dp1, u3, v3, w3);
+    find_currents(a, cv, T, l + 6, x + u3 * idt, y + v3 * idt, z + w3 * idt,
                   cp, dp0, dp1, u4, v4, w4);
     float dx = sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
     float dy = sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
@@ -673,7 +807,7 @@ ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
         dz = dz + R * par[P_VCONST];
       } else {
         // Aks blended at the stage-1 position and time
-        Stencil s1 = locate(a, x, y);
+        Stencil s1 = locate(a, cv, x, y);
         float zeta1 = lane(a, s1, l, a.nv - 2);
         float h1 = lane(a, s1, l, a.nv - 1);
         dz = dz + visser_dz(a, T.sigma, s1, l, zeta1, h1, z, R, idt, cp, dp0,
@@ -684,7 +818,7 @@ ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
     // --- behavior (free surface and depth at stage 1) -----------------------
     if constexpr (BEH != 0) {
       float bx = 0.0f, by = 0.0f, bz = 0.0f;
-      Stencil s1 = locate(a, x, y);
+      Stencil s1 = locate(a, cv, x, y);
       float zeta_b = lane(a, s1, l, a.nv - 2);
       float h_b = lane(a, s1, l, a.nv - 1);
       // ontogenetic swim speed at the pre-step age
@@ -747,10 +881,10 @@ ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
 
     bool exited, stuck;
     int hits;
-    reflect(a, x, y, x1, y1, exited, stuck, hits);
+    reflect(a, cv, x, y, x1, y1, exited, stuck, hits);
 
     // vertical reflection about zeta/h of the new column at t + idt
-    Stencil s4 = locate(a, x1, y1);
+    Stencil s4 = locate(a, cv, x1, y1);
     float zeta = lane(a, s4, l + 6, a.nv - 2);
     float h = lane(a, s4, l + 6, a.nv - 1);
     bool above = z1 > zeta;
@@ -815,7 +949,11 @@ ext_step_kernel(Args a, Settle sg, int n, const float* __restrict__ x_in,
 // settle_d holds the cell-edge lattice (x0, dx, y0, dy) and the f64
 // vertices (x then y) of the polygons and then of the holes; settle_i
 // their vertex counts, ids and per-cell candidate rows, polygons first.
-// Returns the launch's cudaError_t.
+// curv_xy (Ny*Nx, 2) and curv_seed (the seed_i then the seed_j raster,
+// each curv_my x curv_mx) with the raster origin, inverse spacings and
+// the squared residual tolerance are the curvilinear map, given exactly
+// when the library is an LTX_CURV variant.  Returns the launch's
+// cudaError_t.
 extern "C" int ltx_ext_step(
     const float* rtab, const float* brows, const float* params,
     const uint32_t* rngk, const float* x, const float* y, const float* z,
@@ -827,7 +965,9 @@ extern "C" int ltx_ext_step(
     int nx, int ny, int us, int ws, int nl, int aks0, int salt0,
     int vtransform, int n_int, int n_iter, int open_exits, int s_max,
     int n_poly, int vmax_poly, int cmax_poly, int n_hole, int vmax_hole,
-    int cmax_hole, void* stream) {
+    int cmax_hole, const float* curv_xy, const int* curv_seed, int curv_mx,
+    int curv_my, float curv_rx0, float curv_ry0, float curv_inv_rdx,
+    float curv_inv_rdy, float curv_tol2, void* stream) {
   if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const int nv = 2 * us + ws + 2;
   const int after_aks = aks0 >= 0 ? nv + ws : nv;
@@ -835,7 +975,9 @@ extern "C" int ltx_ext_step(
       || nl != (salt0 >= 0 ? salt0 + 2 * us : after_aks)
       || (LTX_VTURB == 2 && aks0 < 0)
       || ((LTX_SALT || LTX_BEHAVIOR == 4 || LTX_BEHAVIOR == 5) && salt0 < 0)
-      || (LTX_SETTLE && n_poly > 0 && (!settle_d || !settle_i)))
+      || (LTX_SETTLE && n_poly > 0 && (!settle_d || !settle_i))
+      || (LTX_CURV != 0) != (curv_xy != nullptr)
+      || (LTX_CURV && (!curv_seed || curv_mx < 1 || curv_my < 1)))
     return (int)cudaErrorInvalidValue;      // lane offsets, tables
   if (n <= 0) return 0;
   Args a;
@@ -873,12 +1015,16 @@ extern "C" int ltx_ext_step(
             settle_d ? settle_d + 4 + 2 * pv + hv : nullptr,
             hi, hi ? hi + n_hole : nullptr, hi ? hi + 2 * n_hole : nullptr,
             n_hole, vmax_hole, cmax_hole};
+  const long long ms = (long long)curv_mx * curv_my;
+  Curv cv = {reinterpret_cast<const float2*>(curv_xy), curv_seed,
+             curv_seed ? curv_seed + ms : nullptr, curv_mx, curv_my,
+             curv_rx0, curv_ry0, curv_inv_rdx, curv_inv_rdy, curv_tol2};
   int threads = 128;
   int blocks = (n + threads - 1) / threads;
   ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY,
                   LTX_SETTLE, LTX_SALT>
       <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          a, sg, n, x, y, z, dob, age, pid, status, spoly, salt, temp, x_out,
+          a, sg, cv, n, x, y, z, dob, age, pid, status, spoly, salt, temp, x_out,
           y_out, z_out, age_out, st_out, hitl_out, hitb_out, spoly_out,
           salt_out, temp_out);
   return (int)cudaGetLastError();

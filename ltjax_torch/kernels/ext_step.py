@@ -14,7 +14,10 @@ whole batch:
 The kernel is compiled once per combination of the options it covers
 (``kernel_variant``: horizontal turbulence, vertical turbulence constant
 or on the Aks profile, behavior type, mortality, settlement, salt
-sampling), so each configuration runs only its own lanes.  It reads the
+sampling, a curvilinear grid), so each configuration runs only its own
+lanes.  On a curvilinear grid it also reads the grid's inverse map
+(``curv_tables``: the f32 rho xy rows, the int32 seed raster and its
+scalars).  It reads the
 raw record table ``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (the nv value
 lanes, then the ws Aks lanes and the us salt + us temp lanes where the
 table has them, at the offsets ``lane_offsets`` finds), the boundary
@@ -57,11 +60,12 @@ VTURB_OFF, VTURB_CONST, VTURB_AKS = 0, 1, 2
 SWIM_TYPES = (1, 2, 3, 4, 5)   # behaviors drawing BEHAVE/MORTALITY words
 
 
-def kernel_variant(cfg) -> dict:
-    """The compile-time options of the kernel for a configuration (the
-    -D flags of csrc/ext_step.cu).  Settlement and salt sampling appear
-    only when on, so the variants without them build from the same flags
-    as before they existed."""
+def kernel_variant(cfg, curv: bool = False) -> dict:
+    """The compile-time options of the kernel for a configuration on a
+    rectilinear grid, or (``curv``) a curvilinear one (the -D flags of
+    csrc/ext_step.cu).  Settlement, salt sampling and the curvilinear map
+    appear only when on, so the variants without them build from the
+    same flags as before they existed."""
     vt = (VTURB_OFF if not cfg.VTurbOn
           else VTURB_AKS if cfg.readAks else VTURB_CONST)
     out = {"LTX_HTURB": int(bool(cfg.HTurbOn)), "LTX_VTURB": vt,
@@ -71,6 +75,8 @@ def kernel_variant(cfg) -> dict:
         out["LTX_SETTLE"] = 1
     if cfg.SaltTempOn:
         out["LTX_SALT"] = 1
+    if curv:
+        out["LTX_CURV"] = 1
     return out
 
 
@@ -198,6 +204,26 @@ def boundary_rows_table(ctx) -> torch.Tensor:
     return ctx.cache["brows"]
 
 
+def curv_tables(ctx):
+    """The curvilinear map as the kernel reads it, once per context: the
+    (Ny*Nx, 2) f32 rho xy rows, the int32 seed raster (seed_i then
+    seed_j, each (My, Mx) flat), (Mx, My), and the host floats (rx0, ry0,
+    inv_rdx, inv_rdy, curv_tol2) that the launch rounds to f32."""
+    if "curv" in ctx.cache:
+        return ctx.cache["curv"]
+    cm, b = ctx.grid.curv, ctx.bounds
+    if b.curv is None or b.curv_tol2 is None:
+        raise ValueError("ext_step_fused: a curvilinear grid needs "
+                         "curvilinear boundaries (build_boundaries_curv)")
+    my, mx = cm.seed_i.shape
+    out = (cm.xy_flat.to(torch.float32).contiguous(),
+           torch.cat([cm.seed_i.reshape(-1), cm.seed_j.reshape(-1)]
+                     ).to(torch.int32).contiguous(), (mx, my),
+           (cm.rx0, cm.ry0, cm.inv_rdx, cm.inv_rdy, b.curv_tol2))
+    ctx.cache["curv"] = out
+    return out
+
+
 def settle_tables(ctx):
     """The habitat polygons and holes as the kernel reads them, once per
     context: (f64 table, int32 table, (n, vmax, cmax) of the polygons,
@@ -256,7 +282,8 @@ def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
 
 
 _C_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 19
-               + [ctypes.c_void_p])
+               + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
+               + [ctypes.c_float] * 5 + [ctypes.c_void_p])
 
 
 def _lib(variant: dict):
@@ -284,7 +311,8 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     ``seed`` (default cfg.seed) key the random draws.
 
     CPU tensors take ``ext_step_reference``; CUDA tensors launch the
-    kernel (f32 positions, uniform grid) or raise."""
+    kernel (f32 positions; a uniform rectilinear or a curvilinear grid)
+    or raise."""
     dev = p.x.device
     if dev.type == "cpu":
         return ext_step_reference(ctx, cfg, p, prec, t0, fields, seed,
@@ -296,7 +324,12 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     bh.check_ported(bh.BehaveParams(behavior=cfg.Behavior,
                                     mortality=cfg.mortality,
                                     stochastic=cfg.stochastic_mortality))
-    variant = kernel_variant(cfg)
+    curv = g.curv is not None
+    if not curv and not (g.uniform and b.uniform):
+        raise NotImplementedError("ext_step_fused: the CUDA kernel locates "
+                                  "rectilinear cells arithmetically; grid "
+                                  "not uniform")
+    variant = kernel_variant(cfg, curv=curv)
     # the Visser lanes read the Aks lanes; sampling and behaviors 4/5
     # the salt (and temp) lanes
     nl = prec.tab.shape[-1]
@@ -308,9 +341,6 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         raise ValueError(f"ext_step_fused: SaltTempOn and behaviors 4/5 "
                          f"need the {2 * us} salt/temp lanes "
                          f"(build_packed_records(with_scalars=True))")
-    if not (g.uniform and b.uniform):
-        raise NotImplementedError("ext_step_fused: the CUDA kernel locates "
-                                  "cells arithmetically; grid not uniform")
     if ws > MAX_LEVELS or us > MAX_LEVELS:
         raise ValueError(f"ext_step_fused: {us}/{ws} levels exceed "
                          f"MAX_LEVELS={MAX_LEVELS}")
@@ -334,6 +364,10 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     settle = settle_tables(ctx) if cfg.settlementon else None
     if settle is not None and settle[0].device != dev:
         raise ValueError("ext_step_fused: polygons on another device")
+    cxy, cseed, (c_mx, c_my), c_scal = (
+        curv_tables(ctx) if curv else (None, None, (0, 0), (0.0,) * 5))
+    if curv and cxy.device != dev:
+        raise ValueError("ext_step_fused: curvilinear map on another device")
     n_int = cfg.internal_steps
     idt = float(cfg.idt)
     if n == 0:
@@ -378,7 +412,7 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         ptr(salt_o), ptr(temp_o), ptr(sd), ptr(si), n, g.nx, g.ny, us, ws,
         nl, aks0, salt0, g.vtransform, n_int, int(cfg.reflect_iters),
         int(bool(cfg.OpenOceanBoundary)), b.s_max, n_p, v_p, c_p, n_h, v_h,
-        c_h, stream)
+        c_h, ptr(cxy), ptr(cseed), c_mx, c_my, *c_scal, stream)
     if rc != 0:
         raise RuntimeError(f"ext_step kernel launch failed: CUDA error {rc}")
     ext_step_fused.launches += 1

@@ -1,8 +1,9 @@
 """Coastline/land boundary handling (counterpart of
-``ltjax.physics.boundary`` for rectilinear grids).
+``ltjax.physics.boundary``).
 
 Host side (numpy, once at init): boundary segments on the edges of the
-rho-cell lattice, a per-cell bucket of the segment ids in its 3x3
+rho-cell lattice (on a curvilinear grid, the quad edges of its psi
+corner mesh, ``build_boundaries_curv``), a per-cell bucket of the segment ids in its 3x3
 neighbourhood, and one flat row per cell:
 
     lane 0 water flag; lanes 3/4 per-axis squared displacement-guard
@@ -13,16 +14,28 @@ segments of its pre-move cell's row, reflect specularly about the
 earliest crossing, exit through open segments, repeat ``n_iter`` times;
 endpoints on land, tunnelled midpoints and displacements beyond the
 bucket's reach are reported ``stuck`` (status ERROR upstream).
+
+One departure from ltjax, on curvilinear grids: a pass ignores the
+segment that the previous pass reflected from.  A straight path that
+leaves a wall never crosses it again, so in exact arithmetic (and in
+float64, where the 1e-6 m nudge clears the wall) this changes nothing;
+in float32 the nudge is below the resolution of 1e4-1e5 m coordinates,
+the restart point lies on either side of a slanted wall by round-off,
+and ltjax's next pass may "cross" the same segment at tp ~ 0 and
+reflect the particle into land (stuck, ERROR).  On a rectilinear grid
+the intersection with an axis-aligned wall rounds onto the wall
+exactly, and reflect is ltjax's.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
 
-from ..grid import _is_uniform
+from ..grid import CurvMap, _is_uniform, curv_logical
 
 LAND = 0
 OPEN = 1
@@ -35,12 +48,15 @@ class Boundaries:
     seg_kind: torch.Tensor   # (S,) LAND or OPEN
     bucket: torch.Tensor     # (Ny, Nx, S_max) segment ids per cell, -1 pad
     x_edges: torch.Tensor    # (Nx+1,) float64 cell-edge x coordinates
-    y_edges: torch.Tensor    # (Ny+1,)
+    y_edges: torch.Tensor    # (Ny+1,)   (curvilinear: a uniform bounding-
+                             #   box raster, the settlement pruning lattice)
     water: torch.Tensor      # (Ny, Nx) int32 mask_rho
     cell_rows: torch.Tensor  # (Ny*Nx, 8 + 8*S_max) float64 cell rows
     uniform: bool            # edge axes uniform (arithmetic cell_of)
     edges: tuple             # host floats (x0, dx, y0, dy, x_last, y_last)
                              #   of the edge axes: no device sync to read
+    curv: Optional[CurvMap] = None     # curvilinear inverse map (cell_of)
+    curv_tol2: Optional[float] = None  # squared inside-mesh residual tol
 
     @property
     def s_max(self) -> int:
@@ -52,6 +68,24 @@ def _cell_edges(axis: np.ndarray) -> np.ndarray:
     first = axis[0] - (axis[1] - axis[0]) / 2
     last = axis[-1] + (axis[-1] - axis[-2]) / 2
     return np.concatenate([[first], mid, [last]])
+
+
+def _psi_mesh(x2: np.ndarray, y2: np.ndarray):
+    """Cell-corner (psi) mesh (Ny+1, Nx+1) of a rho-point mesh: interior
+    corners average the 4 surrounding rho points, rim corners extrapolate
+    linearly."""
+    def pad(a):
+        a = np.pad(a, 1, mode="edge").astype(np.float64)
+        a[0, :] = 2 * a[1, :] - a[2, :]
+        a[-1, :] = 2 * a[-2, :] - a[-3, :]
+        a[:, 0] = 2 * a[:, 1] - a[:, 2]
+        a[:, -1] = 2 * a[:, -2] - a[:, -3]
+        return a
+    xp = pad(x2)
+    yp = pad(y2)
+    px = 0.25 * (xp[:-1, :-1] + xp[:-1, 1:] + xp[1:, :-1] + xp[1:, 1:])
+    py = 0.25 * (yp[:-1, :-1] + yp[:-1, 1:] + yp[1:, :-1] + yp[1:, 1:])
+    return px, py
 
 
 def _assemble(mask: np.ndarray, psi_x: np.ndarray, psi_y: np.ndarray,
@@ -184,9 +218,55 @@ def build_boundaries(mask_rho, x_rho, y_rho, closed_edges=False,
                float(ye[1] - ye[0]), float(xe[-1]), float(ye[-1])))
 
 
+def build_boundaries_curv(mask_rho, x2d, y2d, curv: CurvMap,
+                          closed_edges=False, dtype=np.float64,
+                          device="cpu") -> Boundaries:
+    """createBounds for a curvilinear grid: the segments are the quad
+    edges of the psi mesh, cell location goes through the grid's inverse
+    map, and x_edges / y_edges are a uniform bounding-box raster (the
+    settlement pruning lattice)."""
+    mask = np.asarray(mask_rho).astype(np.int32)
+    ny, nx = mask.shape
+    x2 = np.asarray(x2d, np.float64)
+    y2 = np.asarray(y2d, np.float64)
+    psi_x, psi_y = _psi_mesh(x2, y2)
+    seg_a, seg_b, seg_kind, bucket, rows = _assemble(
+        mask, psi_x, psi_y, closed_edges, dtype)
+    xe = np.linspace(psi_x.min(), psi_x.max(), nx + 1)
+    ye = np.linspace(psi_y.min(), psi_y.max(), ny + 1)
+    # a point farther than a quarter of the shortest cell edge from its
+    # clamped rim cell lies outside the domain
+    ex = np.hypot(np.diff(x2, axis=1), np.diff(y2, axis=1)).min()
+    ey = np.hypot(np.diff(x2, axis=0), np.diff(y2, axis=0)).min()
+    tol = 0.25 * min(ex, ey)
+
+    def t(a):
+        return torch.as_tensor(a, device=device)
+
+    return Boundaries(
+        seg_a=t(seg_a), seg_b=t(seg_b), seg_kind=t(seg_kind),
+        bucket=t(bucket), x_edges=t(xe), y_edges=t(ye), water=t(mask),
+        cell_rows=t(rows), uniform=True,
+        edges=(float(xe[0]), float(xe[1] - xe[0]), float(ye[0]),
+               float(ye[1] - ye[0]), float(xe[-1]), float(ye[-1])),
+        curv=curv, curv_tol2=float(tol * tol))
+
+
+def _curv_cell(bounds: Boundaries, x, y):
+    """Boundary cell (i, j) on a curvilinear grid: cell (j, i) spans the
+    rho logical range [i - 0.5, i + 0.5]; and the map's resid2."""
+    ny, nx = bounds.water.shape
+    ti, tj, r2 = curv_logical(bounds.curv, nx, ny, x, y)
+    i = torch.floor(ti + 0.5).clamp(0.0, nx - 1.0).to(torch.int32)
+    j = torch.floor(tj + 0.5).clamp(0.0, ny - 1.0).to(torch.int32)
+    return i, j, r2
+
+
 def cell_of(bounds: Boundaries, x, y):
     """Rho-cell index (i, j) of a point, clamped to the grid."""
     ny, nx = bounds.water.shape
+    if bounds.curv is not None:
+        return _curv_cell(bounds, x, y)[:2]
     if bounds.uniform:
         x0, dx, y0, dy, _, _ = bounds.edges
         i = torch.floor((x - x0) / dx).to(torch.int32).clamp(0, nx - 1)
@@ -202,9 +282,13 @@ def cell_of(bounds: Boundaries, x, y):
 def in_water(bounds: Boundaries, x, y):
     """mbounds analog: is the point in a water cell of the domain?"""
     nx = bounds.water.shape[1]
-    i, j = cell_of(bounds, x, y)
-    x0, _, y0, _, x1, y1 = bounds.edges
-    inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
+    if bounds.curv is not None:
+        i, j, r2 = _curv_cell(bounds, x, y)
+        inside = r2 <= bounds.curv_tol2
+    else:
+        i, j = cell_of(bounds, x, y)
+        x0, _, y0, _, x1, y1 = bounds.edges
+        inside = (x >= x0) & (x <= x1) & (y >= y0) & (y <= y1)
     wet = bounds.cell_rows[j.long() * nx + i.long(), 0] > 0.5
     return inside & wet
 
@@ -225,6 +309,10 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
     tiny = torch.tensor(1e-30, dtype=dtype, device=x0.device)
     inf = torch.tensor(float("inf"), dtype=dtype, device=x0.device)
     ms2x = ms2y = None
+    # endpoints of the segment the previous pass reflected from (NaN: none;
+    # kept on curvilinear grids only)
+    last = torch.full((n, 1, 4), float("nan"), dtype=dtype, device=x0.device)
+    skip_last = bounds.curv is not None
 
     for it in range(n_iter):
         ci, cj = cell_of(bounds, px0, py0)
@@ -250,7 +338,8 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
         tp = (apx * ey - apy * ex) / denom_safe       # along particle path
         ts = (apx * dy - apy * dx) / denom_safe       # along segment
         crossing = (valid & (denom.abs() > 1e-30) & (tp > 0.0) & (tp <= 1.0)
-                    & (ts >= 0.0) & (ts <= 1.0))
+                    & (ts >= 0.0) & (ts <= 1.0)
+                    & ~(slots[..., :4] == last).all(dim=-1))
         tp_masked = torch.where(crossing, tp, inf)
         first = torch.argmin(tp_masked, dim=1, keepdim=True)
         act = crossing.gather(1, first)[:, 0] & ~exited
@@ -260,6 +349,7 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
         exf = ex.gather(1, first)[:, 0]
         eyf = ey.gather(1, first)[:, 0]
         kindf = kind.gather(1, first)[:, 0]
+        segf = slots[..., :4].gather(1, first[..., None].expand(-1, 1, 4))
 
         ix = px0 + tpf * (px1 - px0)                  # intersection point
         iy = py0 + tpf * (py1 - py0)
@@ -288,6 +378,8 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
         py1 = torch.where(newly_exited, iy, py1)
         hit_land = hit_land + (do_reflect & (kindf == LAND)).to(torch.int32)
         exited = exited | newly_exited
+        if skip_last:
+            last = torch.where(do_reflect[:, None, None], segf, last)
 
     stuck = ~exited & ~in_water(bounds, px1, py1)
     # tunnel guard: a particle with no boundary interaction whose

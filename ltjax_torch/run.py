@@ -2,13 +2,16 @@
 
 Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
 
-    python -m ltjax_torch.run path/to/LTRANS.data
+    python -m ltjax_torch.run path/to/LTRANS.data [--device cpu|cuda]
 
 The namelist is the reference's own ``LTRANS.data`` (read by
 ``ltjax_torch.config``, the port's copy of ``ltjax.config``).  The run
-takes the CUDA kernel path on a GPU (``dtype_pos = "float32"`` required
-there) and the plain PyTorch path on the CPU; the first stdout line is
-a JSON object naming the path taken and the enabled physics lanes, then
+takes the CUDA kernel path on the GPU (``dtype_pos = "float32"``
+required there), and refuses to start without one unless asked for the
+CPU (``--device cpu``), where it takes the plain PyTorch path.  The grid
+may be rectilinear or curvilinear (a ROMS file whose lon/lat vary along
+both axes).  The first stdout line is a JSON object naming the path
+taken, the grid kind and the enabled physics lanes, then
 one JSON line per chunk of external steps with status counts and
 particle-steps/s.  Random streams are keyed
 by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
@@ -21,6 +24,7 @@ files must be NetCDF3 unless ``h5py`` is installed
 
 from __future__ import annotations
 
+import argparse
 import json
 import os
 import shutil
@@ -35,7 +39,7 @@ from . import convert
 from . import state as st
 from .config import Config, config_from_namelist
 from .fields import stack_records
-from .grid import Grid, make_grid
+from .grid import Grid, make_curv_grid, make_grid
 from .io.roms import (RomsGridData, RomsSeries, _coord_2d, is_rectilinear,
                       read_grid)
 from .out.writer import TrajectoryWriter
@@ -58,14 +62,21 @@ def _project_polys(polys, cfg: Config):
 
 
 def build_context(cfg: Config, grid: Grid) -> StepContext:
-    """Boundaries from the land mask; the grid rim is OPEN (whether it
-    exits or reflects is cfg.OpenOceanBoundary's call at reflect time).
-    With settlement, the habitat polygons (and holes) from their CSVs,
-    projected and rasterized onto the boundary cell lattice."""
-    bounds = bd.build_boundaries(grid.mask_rho.cpu().numpy(),
-                                 grid.x_rho.cpu().numpy(),
-                                 grid.y_rho.cpu().numpy(),
-                                 closed_edges=False, device=grid.device)
+    """Boundaries from the land mask (on the psi mesh of a curvilinear
+    grid); the grid rim is OPEN (whether it exits or reflects is
+    cfg.OpenOceanBoundary's call at reflect time).  With settlement, the
+    habitat polygons (and holes) from their CSVs, projected and
+    rasterized onto the boundary cell lattice."""
+    mask = grid.mask_rho.cpu().numpy()
+    if grid.curv is not None:
+        xy = grid.curv.xy_flat.cpu().numpy().reshape(grid.ny, grid.nx, 2)
+        bounds = bd.build_boundaries_curv(mask, xy[..., 0], xy[..., 1],
+                                          grid.curv, closed_edges=False,
+                                          device=grid.device)
+    else:
+        bounds = bd.build_boundaries(mask, grid.x_rho.cpu().numpy(),
+                                     grid.y_rho.cpu().numpy(),
+                                     closed_edges=False, device=grid.device)
     polys = holes = None
     if cfg.settlementon and cfg.habitatfile:
         xe, ye = bounds.x_edges.cpu().numpy(), bounds.y_edges.cpu().numpy()
@@ -99,9 +110,21 @@ def rho_axes_from_grid(gd: RomsGridData, cfg: Config):
 
 
 def grid_from_roms(gd: RomsGridData, cfg: Config, dtype, device) -> Grid:
+    """The Grid of raw ROMS grid data: 1-D metre axes when lon varies
+    only along xi and lat only along eta, else every rho point projected
+    and the curvilinear inverse map (``make_curv_grid``)."""
     if not is_rectilinear(gd):
-        raise NotImplementedError("curvilinear ROMS grids are not ported "
-                                  "to ltjax_torch yet")
+        lon2, lat2 = _coord_2d(gd)
+        if gd.geographic:
+            y2 = convert.lat2y(lat2, cfg.latmin, cfg.Earth_Radius,
+                               cfg.SphericalProjection)
+            x2 = convert.lon2x(lon2, lat2, cfg.lonmin, cfg.latmin,
+                               cfg.Earth_Radius, cfg.SphericalProjection)
+        else:
+            x2, y2 = lon2, lat2
+        return make_curv_grid(x2, y2, gd.h, gd.mask_rho, gd.s_rho, gd.Cs_r,
+                              gd.s_w, gd.Cs_w, gd.hc, gd.vtransform,
+                              dtype=dtype, device=device)
     x_axis, y_axis = rho_axes_from_grid(gd, cfg)
     return make_grid(x_axis, y_axis, gd.h, gd.mask_rho, gd.s_rho, gd.Cs_r,
                      gd.s_w, gd.Cs_w, gd.hc, gd.vtransform, dtype=dtype,
@@ -162,10 +185,18 @@ class Timing:
 
 def run(cfg: Config, resume: bool = False, device=None,
         series_paths: Optional[List[str]] = None) -> st.Particles:
-    """Run the configured simulation; returns the final particles."""
+    """Run the configured simulation; returns the final particles.  The
+    run takes the CUDA device unless ``device`` names another; without
+    one it raises rather than fall back to the CPU."""
     cfg.validate()
-    device = torch.device(device if device is not None else
-                          ("cuda" if torch.cuda.is_available() else "cpu"))
+    if device is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "ltjax_torch.run: no CUDA device, and the run takes the GPU "
+                "unless asked for the CPU: pass --device cpu (or "
+                "run(cfg, device='cpu'))")
+        device = "cuda"
+    device = torch.device(device)
     timing = Timing()
     t0 = time.perf_counter()
     grid = load_grid(cfg, device)
@@ -192,7 +223,8 @@ def run(cfg: Config, resume: bool = False, device=None,
         "path": "cuda_ext_step" if device.type == "cuda" else "plain",
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
-        "uniform": bool(grid.uniform), "numpar": particles.n,
+        "uniform": bool(grid.uniform),
+        "curvilinear": grid.curv is not None, "numpar": particles.n,
         "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse,
         "lanes": enabled_lanes(cfg), "seed": cfg.seed}), flush=True)
 
@@ -264,11 +296,14 @@ def run(cfg: Config, resume: bool = False, device=None,
 
 
 def main(argv=None):
-    argv = argv if argv is not None else sys.argv[1:]
-    if not argv:
-        print("usage: python -m ltjax_torch.run LTRANS.data")
-        return 2
-    run(config_from_namelist(argv[0]), resume="--resume" in argv)
+    ap = argparse.ArgumentParser(prog="python -m ltjax_torch.run")
+    ap.add_argument("namelist", help="the run's LTRANS.data")
+    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
+                    help="default cuda; cpu takes the plain PyTorch path")
+    args = ap.parse_args(sys.argv[1:] if argv is None else argv)
+    run(config_from_namelist(args.namelist), resume=args.resume,
+        device=args.device)
     return 0
 
 

@@ -16,8 +16,9 @@ Random draws are keyed by (seed, step index, substream, particle id)
 step e is ``e * internal_steps + i``, as in ltjax.
 
 ``check_supported`` raises ``NotImplementedError`` for every option
-outside the ported slice (stochastic mortality, curvilinear grids,
-sharding, checkpoints): they are not silently dropped.
+outside the ported slice (stochastic mortality, non-uniform rectilinear
+grids on CUDA, sharding, checkpoints): they are not silently dropped.
+Curvilinear grids run on both devices.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from . import packed as pk
 from . import spatial as sp
 from . import state as st
 from .fields import FieldSet
-from .grid import Grid, locate
+from .grid import Grid, locate, logical_coords
 from .kernels import ext_step as kx
 from .physics import behavior as bh
 from .physics import boundary as bd
@@ -73,8 +74,8 @@ def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
     ]
     if ctx.grid.device.type == "cuda":
         unsupported += [
-            ("non-uniform grid on CUDA",
-             not (ctx.grid.uniform and ctx.bounds.uniform)),
+            ("non-uniform grid on CUDA", ctx.grid.curv is None
+             and not (ctx.grid.uniform and ctx.bounds.uniform)),
             ("dtype_pos other than float32 on CUDA",
              cfg.dtype_pos != "float32"),
         ]
@@ -211,8 +212,15 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
 
 
 def _sort(grid: Grid, p: st.Particles):
-    ci, _ = locate(grid.x_rho, p.x, grid.uniform)
-    cj, _ = locate(grid.y_rho, p.y, grid.uniform)
+    """Hilbert-sort the batch on its rho cells (logical cells floor(ti),
+    floor(tj) on a curvilinear grid)."""
+    if grid.curv is not None:
+        ti, tj = logical_coords(grid, p.x, p.y)
+        ci = torch.floor(ti).clamp(0, grid.nx - 1).to(torch.int32)
+        cj = torch.floor(tj).clamp(0, grid.ny - 1).to(torch.int32)
+    else:
+        ci, _ = locate(grid.x_rho, p.x, grid.uniform)
+        cj, _ = locate(grid.y_rho, p.y, grid.uniform)
     return sp.sort_by_cell(p, ci, cj)
 
 

@@ -8,9 +8,13 @@
 * ``ltjax_torch.io.roms.read_grid`` synthesizes uniform levels for a
   grid file without s-levels, as ``ltjax.io.roms`` does, and
   ``run.load_grid`` accepts it.
+* ``run.grid_from_roms`` builds the same curvilinear grid (projected rho
+  points, seed raster) as ``ltjax.io.roms.grid_from_roms`` from grid data
+  whose lon/lat vary along both axes, geographic or planar.
 * No module of ``ltjax_torch`` nor ``chip_smoke.py`` imports ``ltjax`` or
   ``jax`` (an AST scan), and ``ltjax_torch.run`` runs a tiny CLI case in
-  a subprocess where both are unimportable.
+  a subprocess where both are unimportable, with ``--device cpu``;
+  without the flag and without a GPU it refuses to start.
 """
 
 import ast
@@ -122,17 +126,37 @@ def test_grid_without_levels_gets_uniform_levels(tmp_path):
     assert grid.us == 5 and grid.ws == 6
 
 
-def test_curvilinear_grid_still_raises():
-    lon, lat = np.meshgrid(np.linspace(0.0, 1.0, 6), np.linspace(0.0, 1.0, 5))
-    gd = troms.RomsGridData(
-        lon_rho=lon + 0.1 * lat, lat_rho=lat, mask_rho=np.ones((5, 6)),
-        h=np.full((5, 6), 10.0), s_rho=np.array([-0.75, -0.25]),
-        s_w=np.array([-1.0, -0.5, 0.0]), Cs_r=np.array([-0.75, -0.25]),
-        Cs_w=np.array([-1.0, -0.5, 0.0]), hc=10.0, vtransform=1,
-        geographic=False)
-    assert not troms.is_rectilinear(gd)
-    with pytest.raises(NotImplementedError, match="curvilinear"):
-        trun.grid_from_roms(gd, tconfig.Config(), torch.float64, "cpu")
+@pytest.mark.parametrize("geographic", [True, False],
+                         ids=["geographic", "planar"])
+def test_curvilinear_roms_grid_matches_ltjax(geographic):
+    import jax.numpy as jnp
+    lon, lat = np.meshgrid(np.linspace(-76.0, -75.6, 9),
+                           np.linspace(37.0, 37.3, 7))
+    if not geographic:
+        lon, lat = 4e4 * (lon + 76.0), 4e4 * (lat - 37.0)
+    mask = np.ones((7, 9))
+    mask[3, 4] = 0
+    gd = dict(lon_rho=lon + 0.1 * (lat - lat.min()), lat_rho=lat,
+              mask_rho=mask, h=np.full((7, 9), 10.0),
+              s_rho=np.array([-0.75, -0.25]), s_w=np.array([-1.0, -0.5, 0.0]),
+              Cs_r=np.array([-0.75, -0.25]), Cs_w=np.array([-1.0, -0.5, 0.0]),
+              hc=10.0, vtransform=1, geographic=geographic)
+    assert not troms.is_rectilinear(troms.RomsGridData(**gd))
+    kw = dict(lonmin=-76.0, latmin=37.0, SphericalProjection=geographic)
+    want = jroms.grid_from_roms(jroms.RomsGridData(**gd),
+                                jconfig.Config(**kw), jnp.float64)
+    got = trun.grid_from_roms(troms.RomsGridData(**gd), tconfig.Config(**kw),
+                              torch.float64, "cpu")
+    assert want.curv is not None and got.curv is not None
+    for k in ("xy_flat", "seed_i", "seed_j"):
+        np.testing.assert_array_equal(getattr(got.curv, k).numpy(),
+                                      np.asarray(getattr(want.curv, k)))
+    for k in ("rx0", "ry0", "inv_rdx", "inv_rdy"):
+        assert getattr(got.curv, k) == float(getattr(want.curv, k))
+    for k in ("x_rho", "y_rho", "h", "mask_rho", "mask_u", "mask_v"):
+        np.testing.assert_array_equal(getattr(got, k).numpy(),
+                                      np.asarray(getattr(want, k)))
+    assert got.uniform is False
 
 
 def _imports(path):
@@ -170,7 +194,8 @@ def test_cli_runs_without_ltjax(tmp_path):
         dt=600, idt=300, habitat=[(3, np.array([[4e3, 4e3], [6e3, 4e3],
                                                [6e3, 6e3], [4e3, 6e3]]))],
         SaltTempOn=True, readSalt=True, readTemp=True)
-    r = subprocess.run([sys.executable, "-c", NO_LTJAX, nml], cwd=ROOT,
+    r = subprocess.run([sys.executable, "-c", NO_LTJAX, nml, "--device",
+                        "cpu"], cwd=ROOT,
                        env=dict(os.environ, PYTHONPATH=ROOT),
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-4000:]
@@ -180,3 +205,19 @@ def test_cli_runs_without_ltjax(tmp_path):
                       delimiter=",")
     # time id lon lat depth status salt temp age poly: salt sampled
     assert rows.shape[1] == 10 and (rows[rows[:, 0] > 0, 6] > 20.0).all()
+
+
+def test_cli_refuses_to_start_without_gpu(tmp_path):
+    """Without a CUDA device and without --device cpu the CLI stops with
+    a message naming the flag: it never carries on on the CPU."""
+    case = synth.make_solid_body_case(nx=9, ny=9, us=4, lx=8e3, ly=8e3)
+    nml = synth.write_run_files(case, str(tmp_path), [4e3], [4e3], [-5.0],
+                                n_ext=1, dt=600, idt=300)
+    r = subprocess.run([sys.executable, "-c", NO_LTJAX, nml], cwd=ROOT,
+                       env=dict(os.environ, PYTHONPATH=ROOT,
+                                CUDA_VISIBLE_DEVICES=""),
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert "no CUDA device" in r.stderr and "--device cpu" in r.stderr
+    assert r.stdout == ""
+    assert not os.path.exists(os.path.join(tmp_path, "out", "run1.csv"))

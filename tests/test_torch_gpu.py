@@ -28,6 +28,12 @@ are held the same way on the halocline of synth.halocline_fields, with
 a habitat square, a square hole and a slanted hexagon: statuses and
 settle_poly equal, salt and temp within 1e-3; behavior 4 without
 SaltTempOn leaves salt and temp at 0.
+
+The curvilinear variant (LTX_CURV) is held the same way on
+synth.make_curv_case with a land block: one external step against its
+plain version (tolerances as above, land hits and rim exits on curved
+segments), the per-step lanes (turbulence, behavior 3, the oyster
+lanes), and one launch per external step through the fused driver.
 """
 from dataclasses import replace
 
@@ -331,3 +337,121 @@ def test_wrapper_rejects_other_devices():
     meta = p.to("meta")
     with pytest.raises(ValueError, match="unsupported device"):
         kx.ext_step_fused(ctx, cfg, meta, rec, 0.0)
+
+
+def _curv_case(device, n=4096, omega=1e-4, **kw):
+    mask = np.ones((41, 41), np.int32)
+    mask[18:22, 26:30] = 0        # logical i 26-29, j 18-21
+    c = synth.make_curv_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                             h0=50.0, omega=omega, amp=0.03, mask=mask,
+                             dtype=torch.float32, device=device, **kw)
+    g = c.grid
+    ctx = StepContext(grid=g, bounds=bd.build_boundaries_curv(
+        mask, c.x2d, c.y2d, g.curv, device=device))
+    cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float32",
+                 reflect_iters=2, TrackCollisions=True)
+    rng = np.random.default_rng(9)
+    # half over the whole mesh, half just upstream (south) of the land
+    # block, whose south face is at logical tj = 17.5
+    h = n // 2
+    ti = np.concatenate([rng.uniform(0.5, 39.5, h),
+                         rng.uniform(25.0, 31.0, n - h)])
+    tj = np.concatenate([rng.uniform(0.5, 39.5, h),
+                         rng.uniform(14.5, 17.3, n - h)])
+    x, y = synth.logical_to_xy(c.x2d, c.y2d, ti, tj)
+    k = n // 3
+    z = np.concatenate([rng.uniform(-1.0, 0.0, k),
+                        rng.uniform(-49.9, -49.0, k),
+                        rng.uniform(-49.0, -1.0, n - 2 * k)])
+    p = st.init_particles(x, y, rng.permutation(z),
+                          dob=rng.choice([0.0, 900.0], n),
+                          dtype=torch.float32, device=device)
+    p, _ = _sort(g, p)
+    return c, ctx, cfg, p
+
+
+@pytest.mark.gpu
+def test_curv_kernel_matches_plain(gpu):
+    from ltjax_torch.kernels import build
+    c, ctx, cfg, p = _curv_case(gpu)
+    rec = pk.build_packed_records(
+        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    kx.reset_launches()
+    out = kx.ext_step_fused(ctx, cfg, p, rec, 0.0)
+    ref = kx.ext_step_reference(ctx, cfg, p, rec, 0.0)
+    torch.cuda.synchronize()
+    tag = build.tag("ext_step", kx.kernel_variant(cfg, curv=True))
+    assert kx.ext_step_fused.variant_launches == {tag: 1}
+    _compare(out, ref, p.n)
+    assert ref.hit_land.sum() > 0
+    assert (ref.status == st.OUT_OF_DOMAIN).sum() > 0
+
+
+CURV_LANES = {
+    "turb-aks": LANES["turb-aks"],
+    "behavior3": LANES["behavior3"],
+    "oyster": dict(Behavior=4, readSalt=True, readTemp=True, SaltTempOn=True,
+                   Sgradient=0.5, settlementon=True, holesExist=True,
+                   HTurbOn=True, ConstantHTurb=300.0, mortality=True),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(CURV_LANES))
+def test_curv_kernel_lanes_match_plain_stepwise(gpu, name):
+    c, ctx, cfg, p = _curv_case(gpu, omega=1e-5, parabolic_aks=True,
+                                halocline=True)
+    cfg1 = replace(cfg, dt=cfg.idt, **BEH, **CURV_LANES[name])
+    if cfg1.settlementon:
+        habitat, holes = _polygons()
+        xe = ctx.bounds.x_edges.cpu().numpy()
+        ye = ctx.bounds.y_edges.cpu().numpy()
+        ctx.polys = stl.build_polygons(habitat, xe, ye, device=gpu)
+        ctx.holes = stl.build_polygons(holes, xe, ye, device=gpu)
+    rng = np.random.default_rng(10)
+    age = rng.uniform(0.0, 3 * 86400.0, p.n)
+    p = p.replace(age=torch.tensor(age, dtype=torch.float32, device=gpu),
+                  dob=torch.tensor(-age, dtype=torch.float32, device=gpu),
+                  pid=torch.tensor(rng.permutation(p.n), dtype=torch.int32,
+                                   device=gpu))
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=t0 + 900.0, dt=1800.0), seed=12)
+    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg1.VTurbOn,
+                                  with_scalars=cfg1.needs_salt_fields())
+    q = p
+    for i in range(4):
+        t = t0 + i * float(cfg1.idt)
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                ext_idx=i)
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                    ext_idx=i)
+        torch.cuda.synchronize()
+        assert (out.status != ref.status).sum() == 0
+        assert (out.settle_poly != ref.settle_poly).sum() == 0
+        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3), ("age", 1e-3),
+                       ("salt", 1e-3), ("temp", 1e-3)):
+            np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
+                                       getattr(ref, k).cpu().numpy(),
+                                       rtol=0, atol=tol)
+        assert (out.hit_land != ref.hit_land).sum() <= 1e-4 * p.n
+        q = ref
+    if cfg1.HTurbOn:
+        assert q.hit_land.sum() > 0
+    if cfg1.settlementon:
+        settled = q.settle_poly[q.status == st.SETTLED]
+        assert set(settled.tolist()) == {101, 102}
+        assert float(q.salt.max() - q.salt.min()) > 1.0
+
+
+@pytest.mark.gpu
+def test_curv_fused_steps_launch_once_per_external_step(gpu):
+    c, ctx, cfg, p = _curv_case(gpu)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 5)
+    kx.reset_launches()
+    out = make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 0)
+    assert kx.ext_step_fused.launches == 3
+    assert [k for k in kx.ext_step_fused.variant_launches] == [
+        "ext_step-b0c1h0m0v0"]
+    assert torch.isfinite(out.x).all() and torch.isfinite(out.z).all()

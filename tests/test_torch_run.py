@@ -2,7 +2,8 @@
 planar synthetic ROMS series (NetCDF3) + parfile, CSV output.
 
 The run happens in a subprocess that first sets ``sys.modules["jax"] =
-None``, which proves the port never imports jax.  Its final positions
+None``, which proves the port never imports jax, and asks for the CPU
+(``--device cpu``).  Its final positions
 are held against ``ltjax.run.run`` on the same namelist and against the
 closed-form solid-body trajectory.  The fields are float32 on disk, and
 ltjax's CPU path interpolates with another scheme (fit-then-blend
@@ -63,7 +64,8 @@ def run_case(tmp_path_factory):
     nml = synth.write_run_files(case, d, x0, y0, z0, n_ext=N_EXT, dt=DT,
                                 idt=450, iprint=N_EXT * DT, ext_fuse=2)
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", NO_JAX, nml], cwd=ROOT,
+    r = subprocess.run([sys.executable, "-c", NO_JAX, nml, "--device",
+                        "cpu"], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     lines = [json.loads(ln) for ln in r.stdout.splitlines()
@@ -74,7 +76,8 @@ def run_case(tmp_path_factory):
 
 def _run_cli(nml):
     env = dict(os.environ, PYTHONPATH=ROOT)
-    r = subprocess.run([sys.executable, "-c", NO_JAX, nml], cwd=ROOT,
+    r = subprocess.run([sys.executable, "-c", NO_JAX, nml, "--device",
+                        "cpu"], cwd=ROOT,
                        env=env, capture_output=True, text=True, timeout=600)
     assert r.returncode == 0, r.stderr[-4000:]
     return [json.loads(ln) for ln in r.stdout.splitlines()
