@@ -5,10 +5,10 @@
     python3 chip_smoke.py --only 4,5 # some phases (no summary lines)
     python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
-Builds the variants of the external-step CUDA kernel from
-ltjax_torch/kernels/csrc (one nvcc each, all started together), then
-runs seven phases and fails (non-zero exit, no final line) if any of
-them fails:
+Builds the variants of the external-step CUDA kernel and the per-step
+RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
+together), then runs eight phases and fails (non-zero exit, no final
+line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
    external step (30 internal steps) of 65,536 particles on the
@@ -58,13 +58,24 @@ them fails:
    make_fused_external_steps (16 x 30, timed, against the circles) and
    the kernel against its plain version on its first launch; per-step
    checks of turbulence and of the oyster lanes on the curvilinear
-   halocline at 65,536; and the CLI on a geographic curvilinear series.
+   halocline at 65,536; and the CLI on a geographic curvilinear series;
+8. stochastic mortality through the per-step route (the per-internal-
+   step RK4 kernel and the PyTorch lanes): the RK4 kernel against its
+   plain version at 65,536 particles on phase 1's inputs and its random-w
+   case; bench.py's behavior cell with stochastic mortality at 1M (16 x
+   30 steps through make_fused_external_steps: 480 RK4 launches and none
+   of the whole-step kernel, timed, the dead share against 1 -
+   exp(-t/deadage), the circles), per internal step against the plain
+   route, the RK4 kernel timed at 1M and 65,536, and the internal step
+   split by the profiler; the oyster CLI run with stochastic mortality in
+   chunks of 2 and 4, and its lanes per step at 65,536.
 
-Earlier stdout lines carry the card's name and power limit, the build
-report and each phase's numbers; the line before the last is the
-per-kernel JSON summary (each variant's time, its plain version's, and
-its bound: the least time the card could take for the same work, from
-the bytes and operations counted in kernel_bound); the last line is
+Stdout carries the card's name and power limit, the build report, each
+phase's numbers and its wall time, then the per-kernel JSON summary
+(each kernel's time, its plain version's, and its bound: the least time
+the card could take for the same work, from the bytes and operations
+counted in kernel_bound and rk4_bound), the card's name and power limit
+again, and last
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 There is no CPU path: without CUDA the script exits non-zero.
 """
@@ -86,6 +97,8 @@ sys.path.insert(0, ROOT)
 
 KERNEL_SRC = "ltjax_torch/kernels/csrc/ext_step.cu"
 KERNEL_REPLACES = "ltjax/kernels/ext_step.py:1404"
+RK4_SRC = "ltjax_torch/kernels/csrc/rk4_step.cu"
+RK4_REPLACES = "ltjax/kernels/gather_interp.py:827"
 TOL_H = 0.5        # m, horizontal: f32 kernel vs plain (tests/test_kernel.py)
 TOL_V = 1e-3       # m, vertical
 MAX_MISMATCH = 1e-4   # status mismatches: at most 0.01% of particles
@@ -353,7 +366,7 @@ def kernel_vs_plain_stepwise(torch, phase, ctx, cfg, p, prec):
 
 
 def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
-                   seed=5):
+                   seed=5, per_step=False):
     """The stochastic, settlement and salt lanes, internal step by
     internal step from the plain trajectory's state (cfg.dt = cfg.idt;
     step i draws with step index i): horizontal TOL_H_STEP, vertical
@@ -370,10 +383,15 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
     "decision flips" are counted and allowed for at most 0.01% of the
     particles (as hit-count mismatches are); the other particles keep the
     tolerances.  Turbulence and the other lanes on a rectilinear grid
-    allow none."""
+    allow none.
+
+    ``per_step``: the per-step route instead, internal_step(mode="kernel")
+    (the RK4 kernel and the PyTorch lanes) against
+    internal_step(mode="collapsed")."""
     from dataclasses import replace
     from ltjax_torch import state as st
     from ltjax_torch.kernels import ext_step as kx
+    from ltjax_torch.step import internal_step
     cfg1 = replace(cfg, dt=cfg.idt)
     idt = float(cfg.idt)
     thresholds = (cfg.Behavior in (1, 2, 3, 4, 5, 7) or cfg.settlementon
@@ -387,10 +405,14 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
     q = p
     for i in range(steps):
         t = t0 + i * idt
-        out = kx.ext_step_fused(ctx, cfg1, q, prec, t, fields=fields,
-                                seed=seed, ext_idx=i)
-        ref = kx.ext_step_reference(ctx, cfg1, q, prec, t, fields=fields,
+        if per_step:
+            out, ref = (internal_step(ctx, cfg1, seed, q, fields, t, i, prec,
+                                      mode=m) for m in ("kernel", "collapsed"))
+        else:
+            out = kx.ext_step_fused(ctx, cfg1, q, prec, t, fields=fields,
                                     seed=seed, ext_idx=i)
+            ref = kx.ext_step_reference(ctx, cfg1, q, prec, t,
+                                        fields=fields, seed=seed, ext_idx=i)
         torch.cuda.synchronize()
         flip = ((((out.x - ref.x).abs() > TOL_H_STEP)
                  | ((out.y - ref.y).abs() > TOL_H_STEP)
@@ -953,12 +975,40 @@ FP32_PER_S = 67e12
 FP64_PER_S = 34e12
 
 
-def fit_ops(K, P):
+def fit_ops(K, P, lane=31):
     """f32 operations of fit_eval on K knots and P profiles (csrc
-    ext_step.cu, counted from its source: a lane gather-collapse-blend 31,
-    a knot 8, the small-tension coefficients 18, a Thomas row 4 + 4P, the
-    backward sweep to the interval ~K/2 x 2P, the evaluation 14 + 9P)."""
-    return 31 + 31 * P + (K - 1) * (31 + 37 * P) + K * P + 14 + 9 * P
+    find_currents.cuh, counted from its source: a lane ``lane`` (ext_step's
+    gather-collapse-blend of three records 31, rk4_step's blend of one
+    table 11), a knot 8, the small-tension coefficients 18, a Thomas row 4
+    + 4P, the backward sweep to the interval ~K/2 x 2P, the evaluation 14
+    + 9P)."""
+    return (31 + lane * P + (K - 1) * (31 + (lane + 6) * P) + K * P + 14
+            + 9 * P)
+
+
+def rk4_ops(us, ws):
+    """f32 operations of one particle in rk4_step.cu: 4 stages (the rho
+    cell 10, the zeta and h lanes, the u/v and w fits, the log layer 12)
+    and the RK4 combination."""
+    stage = 10 + 2 * 11 + fit_ops(us, 2, 11) + fit_ops(ws, 1, 11) + 12
+    return 4 * stage + 24
+
+
+def rk4_bound(grid, n, stage1=False):
+    """The least time the card could take for one launch of rk4_step on n
+    particles: the three stage tables read once, x, y, z read and dx, dy,
+    dz (and u1, v1) written once, over the HBM rate, against every
+    particle's operations (the kernel computes all of them, whatever
+    their status) over the f32 rate."""
+    from ltjax_torch import packed as pk
+    nv = pk.n_value_lanes(grid.us, grid.ws)
+    nbytes = 3 * grid.ny * grid.nx * nv * 4 + n * 4 * (6 + 2 * int(stage1))
+    f32 = n * rk4_ops(grid.us, grid.ws)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    t_ops = f32 / FP32_PER_S
+    return {"bound_ms": 1e3 * max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes > t_ops else "operations",
+            "bytes": nbytes, "f32_ops": f32, "f64_ops": 0.0}
 
 
 # f32 operations of one inverse-map solve (csrc ext_step.cu curv_logical,
@@ -1212,12 +1262,11 @@ def phase6(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     return out
 
 
-def phase3_oyster(torch, device, n=10_000, nx=60, us=10):
-    """The oyster CLI run: behavior 4 on the halocline, SaltTempOn,
-    settlement on a habitat square with a hole and a slanted triangle
-    (polygon CSVs), HTurb, Visser on the written AKs, mortality, pediage
-    inside the run; chunks of 2 and of 4 external steps must give the
-    same particles."""
+def oyster_cli_runs(torch, name, opts, n=10_000, nx=60, us=10):
+    """The oyster CLI run (options ``opts``) on a 60 km halocline case
+    with a habitat square with a hole and a slanted triangle (polygon
+    CSVs), 10,000 particles, 4 external steps, in chunks of 2 and of 4:
+    the final CSV rows of each, by particle, and the log lines of each."""
     from ltjax_torch import run, synth
     case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
                                       h0=50.0, omega=5e-5,
@@ -1234,19 +1283,28 @@ def phase3_oyster(torch, device, n=10_000, nx=60, us=10):
                            [26e3, 30e3]]))]
     finals, lines = {}, {}
     for fuse in (2, 4):
-        work = os.path.join(ROOT, "build", f"chip_smoke_oyster{fuse}")
+        work = os.path.join(ROOT, "build", f"chip_smoke_{name}{fuse}")
         nml = synth.write_run_files(
             case, work, x0, y0, z0, n_ext=4, dt=3600, idt=120,
             iprint=4 * 3600, ext_fuse=fuse, dtype_pos="float32",
-            habitat=habitat, holes=holes, **OYSTER_CLI)
+            habitat=habitat, holes=holes, **opts)
         lines[fuse] = run_cli(run, nml)
         rows = np.loadtxt(os.path.join(work, "out", "run1.csv"),
                           delimiter=",")
         last = rows[rows[:, 0] == rows[:, 0].max()]
         finals[fuse] = last[np.argsort(last[:, 1])]
+    return finals, lines
+
+
+def phase3_oyster(torch, device):
+    """The oyster CLI run: behavior 4 on the halocline, SaltTempOn,
+    settlement on a habitat square with a hole and a slanted triangle,
+    HTurb, Visser on the written AKs, mortality, pediage inside the run;
+    chunks of 2 and of 4 external steps must give the same particles."""
+    finals, lines = oyster_cli_runs(torch, "oyster", OYSTER_CLI)
     f = finals[4]       # time id lon lat depth status salt temp age poly
     status, poly = f[:, 5], f[:, 9]
-    res = {"phase": "3-oyster", "n": n,
+    res = {"phase": "3-oyster", "n": f.shape[0],
            "chunks_identical": bool(np.array_equal(finals[2], finals[4])),
            "lanes": lines[4][0]["lanes"], "path": lines[4][0]["path"],
            "counts": lines[4][-1],
@@ -1445,11 +1503,267 @@ def phase7_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
 
 
 
+# bench.py's behavior cell (bench.py:53-68: type-6 sinking at 5e-5 m/s,
+# mortality) with stochastic mortality at a 2-day death age, phase 8
+STOCHASTIC = dict(Behavior=6, sink=5e-5, mortality=True,
+                  stochastic_mortality=True, deadage=172800.0)
+# phase 3's oyster CLI run with stochastic mortality (phase 8c)
+OYSTER_STOCHASTIC = dict(OYSTER_CLI, stochastic_mortality=True)
+
+
+def rk4_vs_plain(torch, phase, grid, tabs, p, cfg, reps=5, plain_reps=2):
+    """The per-step RK4 kernel against its plain version on the same stage
+    tables and positions: max |dx|, |dy|, |dz| (TOL_H_STEP, TOL_V) and of
+    the stage-1 currents (TOL_H_STEP / idt), and the time of each per
+    launch (CUDA events)."""
+    from ltjax_torch import packed as pk
+    from ltjax_torch.kernels import rk4_step as kr
+    sig, z0m, idt = cfg.tension_sigma, cfg.z0, float(cfg.idt)
+
+    def kernel():
+        return kr.rk4_displacement_fused(grid, tabs, p.x, p.y, p.z, sig, z0m,
+                                         idt, stage1=True)
+
+    def plain():
+        return pk.rk4_displacement_collapsed(grid, tabs, p.x, p.y, p.z, sig,
+                                             z0m, idt)
+
+    out = kernel()
+    ref = plain() + pk.find_currents_collapsed(grid, tabs[0], p.x, p.y, p.z,
+                                               sig, z0m)[:2]
+    res = {"phase": phase, "n": p.n}
+    for k, a, b in zip(("dx", "dy", "dz", "u1", "v1"), out, ref):
+        res["max_abs_" + k] = float((a - b).abs().max())
+        assert bool(torch.isfinite(a).all()), (phase, k)
+    res["max_abs_move_m"] = float(torch.hypot(ref[0], ref[1]).max())
+    res["max_abs_dz_move_m"] = float(ref[2].abs().max())
+    if p.x.device.type == "cuda":
+        res["kernel_ms"] = cuda_time(torch, kernel, reps)
+        res["plain_ms"] = cuda_time(torch, plain, plain_reps)
+    log(res)
+    assert max(res["max_abs_dx"], res["max_abs_dy"]) <= TOL_H_STEP, res
+    assert res["max_abs_dz"] <= TOL_V, res
+    assert max(res["max_abs_u1"], res["max_abs_v1"]) <= TOL_H_STEP / idt, res
+    return res
+
+
+def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
+           n_small=65536):
+    """Stochastic mortality through the per-step route (the per-internal-
+    step RK4 kernel K2 and the PyTorch lanes): (a) K2 against its plain
+    version at 65,536 particles on phase 1's inputs and on its random-w
+    case; (b) bench.py's behavior cell with stochastic mortality at 1M,
+    16 x 30 steps through make_fused_external_steps (launches counted,
+    timed, dead share, circles), per internal step against the plain
+    route, K2 timed, the internal step split by the profiler; (c) the
+    oyster CLI run with stochastic mortality, and its lanes per step at
+    65,536."""
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import (_sort, fieldset_slice,
+                                  make_fused_external_steps, summary_counts)
+    out = {}
+
+    # (a) K2 against its plain version, phase 1's inputs
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us)
+    cfg = make_cfg(n_small, us=us, ws=us + 1)
+    idt = float(cfg.idt)
+    x, y, _ = water_particles(case, n_small, 2e3, 198e3, seed=1)
+    z = near_surface_and_bottom(n_small, case.h0, seed=4)
+    pa = st.init_particles(x, y, z, dtype=torch.float32, device=device)
+    pa, _ = _sort(case.grid, pa)
+    prec = pk.build_packed_records(case.grid, synth.fieldset_for(
+        case, t_center=0.0, dt=3600.0, device=device))
+    out["a"] = rk4_vs_plain(torch, "8a", case.grid, pk.stage_value_tables(
+        case.grid, prec, 0.0, idt), pa, cfg)
+    slow = bench_case(torch, device, nx=nx, ny=nx, us=us, omega=5e-6)
+    prec_v = pk.build_packed_records(case.grid, synth.with_vertical_motion(
+        synth.fieldset_for(slow, t_center=0.0, dt=3600.0, device=device),
+        seed=3))
+    out["a-vertical"] = rk4_vs_plain(
+        torch, "8a-vertical", case.grid,
+        pk.stage_value_tables(case.grid, prec_v, 600.0, idt), pa, cfg)
+    assert out["a-vertical"]["max_abs_dz_move_m"] > 0.1, out["a-vertical"]
+
+    # (b) bench.py's behavior cell with stochastic mortality at 1M
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
+    ctx = context(case)
+    cfg = make_cfg(n, us=us, ws=us + 1, **STOCHASTIC)
+    dt, n_int = float(cfg.dt), cfg.internal_steps
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = np.random.default_rng(1).uniform(-25.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=torch.float32, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    fused(p0.take(torch.arange(128, device=device)), fsR, 0.0, 0)
+    torch.cuda.synchronize()
+    kx.reset_launches()
+    kr.rk4_displacement_fused.launches = 0
+    t0 = time.perf_counter()
+    pb = fused(p0, fsR, 0.0, 0)
+    torch.cuda.synchronize()
+    sec = time.perf_counter() - t0
+    launches = {"rk4_displacement_fused": kr.rk4_displacement_fused.launches,
+                "ext_step_fused": kx.ext_step_fused.launches}
+    steps = n * n_int * n_fuse
+    rates = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        fused(p0, fsR, 0.0, 0)
+        torch.cuda.synchronize()
+        rates.append(steps / (time.perf_counter() - t1))
+    counts = summary_counts(pb)
+    p_dead = -np.expm1(-n_fuse * dt / cfg.deadage)
+    sd = np.sqrt(p_dead * (1 - p_dead) / n)
+    act = (pb.status == st.ACTIVE).cpu().numpy()
+    xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
+    err = np.hypot(pb.x.cpu().numpy() - xa, pb.y.cpu().numpy() - ya)[act]
+    rb = {"phase": "8b", "n": n, "ext_steps": n_fuse, "internal_steps": n_int,
+          "launches": launches, "seconds": sec,
+          "particle_steps_per_s": steps / sec, "warm_rates": rates,
+          "dead_share": counts["dead"] / n, "dead_share_expected": p_dead,
+          "dead_share_sd": sd,
+          "max_err_vs_analytic_active_m": float(err.max()),
+          "max_sink_m": float((p0.z - pb.z).max()), "counts": counts}
+    log(rb)
+    assert launches == {"rk4_displacement_fused": n_fuse * n_int,
+                        "ext_step_fused": 0}, rb
+    assert counts["error"] == 0 and counts["out_of_domain"] == 0, rb
+    assert abs(rb["dead_share"] - p_dead) <= 5 * sd, rb
+    assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, rb
+    assert rb["max_sink_m"] > 0.5 * cfg.sink * n_fuse * dt, rb
+
+    # per internal step over the first external step, from the plain
+    # route's state: the DEATH draws are bit-equal, so no status differs
+    ps, _ = _sort(case.grid, p0)
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    prec3 = pk.PackedRecords(tab=prec_all.tab[:3], times=prec_all.times[:3])
+    f3 = fieldset_slice(fsR, 0)
+    rs, _ = lanes_stepwise(torch, "8b", ctx, cfg, ps, prec3, f3, 0.0,
+                           steps=n_int, seed=cfg.seed, per_step=True)
+    assert rs["decision_flips"] == 0 and rs["status_mismatch"] == 0, rs
+    assert rs["status_counts_plain"][st.DEAD] > 0, rs
+    rb["stepwise"] = {k: v for k, v in rs.items() if k.startswith("max")
+                      or k.endswith("mismatch") or k == "decision_flips"}
+    # K2 per launch at 1M and 65,536 against its plain version: the
+    # main path's first launch (sorted batch, records 0..2, t = 0)
+    tabs = pk.stage_value_tables(case.grid, prec3, 0.0, float(cfg.idt))
+    small, _ = _sort(case.grid, p0.take(torch.arange(n_small,
+                                                     device=device)))
+    rb["kernel"] = {size: rk4_vs_plain(torch, f"8b-{size}", case.grid, tabs,
+                                       q, cfg, reps=10, plain_reps=2)
+                    for size, q in (("1M", ps), (str(n_small), small))}
+    rb["bound"] = rk4_bound(case.grid, n)
+    rb["profile"] = per_step_profile(torch, ctx, cfg, ps, prec3, f3)
+    log({k: rb[k] for k in ("phase", "bound", "profile")})
+    out["b"] = rb
+
+    # (c) the oyster CLI run, and its lanes per step at 65,536
+    out["c"] = phase8_cli(torch, device)
+    case = bench_case(torch, device, omega=5e-6, halocline=True,
+                      parabolic_aks=True)
+    ctx = with_polygons(context(case), rim=True)
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(synth.fieldset_for(
+        case, t_center=t0 + 1800.0, dt=3600.0, device=device), seed=3)
+    x, y, _ = water_particles(case, n_small, 2e3, 198e3, seed=1)
+    z = near_surface_and_bottom(n_small, case.h0, seed=4)
+    age = rng.uniform(0.0, 3 * 86400.0, n_small)
+    pc = st.init_particles(x, y, z, dob=-age, dtype=torch.float32,
+                           device=device)
+    pc = pc.replace(status=torch.full_like(pc.status, st.ACTIVE),
+                    age=torch.tensor(age, dtype=torch.float32, device=device),
+                    pid=torch.tensor(rng.permutation(n_small),
+                                     dtype=torch.int32, device=device))
+    pc, _ = _sort(case.grid, pc)
+    cfgc = make_cfg(n_small, TrackCollisions=True,
+                    **{**SWIM, **OYSTER_STOCHASTIC, "deadage": 3600.0})
+    rc, q = lanes_stepwise(torch, "8c-lanes", ctx, cfgc, pc,
+                           pk.build_packed_records(case.grid, fs), fs, t0,
+                           steps=5, per_step=True)
+    counts = np.bincount(q.status.cpu().numpy(), minlength=6)
+    assert counts[st.DEAD] > 0 and counts[st.SETTLED] > 0, rc
+    assert float(q.salt.max() - q.salt.min()) > 1.0, rc
+    out["c-lanes"] = rc
+    return out
+
+
+def per_step_profile(torch, ctx, cfg, p, prec, fields):
+    """Where an internal step of the per-step route spends the device's
+    time: torch.profiler over one warm external step (cfg.internal_steps
+    internal steps) for K2's device time (by kernel name) and all device
+    time, and over the stage-table builds of those steps alone; the
+    PyTorch lanes take the rest.  Idle share: 1 - device time / wall."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ltjax_torch import packed as pk
+    from ltjax_torch.step import per_step_external
+    idt, n_int = float(cfg.idt), cfg.internal_steps
+
+    def device_ms(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        k2 = [e for e in ev if "rk4_step_kernel" in e.name]
+        return (sum(e.time_range.elapsed_us() for e in ev) / 1e3,
+                sum(e.time_range.elapsed_us() for e in k2) / 1e3, len(k2),
+                wall)
+
+    all_ms, k2_ms, k2_n, wall = device_ms(
+        lambda: per_step_external(ctx, cfg, p, prec, 0.0, fields, 0))
+    tab_ms, _, _, _ = device_ms(
+        lambda: [pk.stage_value_tables(ctx.grid, prec, i * idt, idt)
+                 for i in range(n_int)])
+    res = {"internal_steps": n_int, "k2_launches": k2_n,
+           "device_ms": all_ms, "k2_ms": k2_ms, "stage_tables_ms": tab_ms,
+           "lanes_ms": all_ms - k2_ms - tab_ms, "wall_ms": wall,
+           "idle_share": 1.0 - all_ms / wall,
+           "k2_share_of_device": k2_ms / all_ms}
+    assert k2_n == n_int, res
+    return res
+
+
+def phase8_cli(torch, device):
+    """Phase 3's oyster CLI run with stochastic mortality: the per-step
+    route on the card, chunks of 2 and of 4 external steps give the same
+    particles, and some die."""
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    kx.reset_launches()
+    kr.rk4_displacement_fused.launches = 0
+    finals, lines = oyster_cli_runs(torch, "stochastic", OYSTER_STOCHASTIC)
+    f = finals[4]
+    res = {"phase": "8c", "n": f.shape[0],
+           "chunks_identical": bool(np.array_equal(finals[2], finals[4])),
+           "path": lines[4][0]["path"], "route": lines[4][0]["route"],
+           "lanes": lines[4][0]["lanes"], "counts": lines[4][-1],
+           "launches": {"rk4_displacement_fused":
+                        kr.rk4_displacement_fused.launches,
+                        "ext_step_fused": kx.ext_step_fused.launches}}
+    log(res)
+    assert res["chunks_identical"] and np.isfinite(f).all(), res
+    assert res["path"] == "cuda_rk4_step" and res["route"] == "per_step", res
+    assert res["counts"]["dead"] > 0, res
+    # both runs: 4 external steps x 30 internal steps each
+    assert res["launches"] == {"rk4_displacement_fused": 2 * 4 * 30,
+                               "ext_step_fused": 0}, res
+    return res
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
     2's grid and window (settle with phase 6's polygons, salt on its
-    halocline, curv on phase 7's curvilinear grid): a cold call, three
+    halocline, curv on phase 7's curvilinear grid, stochastic on the
+    per-step route, its kernel the RK4 kernel): a cold call, three
     timed warm calls, then torch.profiler over one more warm call: the
     kernel's device time, all device time, the wall time, the kernel's
     share of device time and the idle share of the call (1 - device time
@@ -1457,7 +1771,7 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     from ltjax_torch import state as st, synth
-    from ltjax_torch.step import make_fused_external_steps
+    from ltjax_torch.step import make_fused_external_steps, mode_flags
     case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
                       parabolic_aks=True, halocline=True)
     dt = 3600.0
@@ -1470,14 +1784,15 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     fs_curv = synth.fieldset_window(curv, -dt / 2, dt, n_fuse + 2,
                                     device=device)
     for name, kw in {"advect": {}, **LARVAL, **SETTLE_SALT,
-                     "curv": {}}.items():
+                     "curv": {}, "stochastic": STOCHASTIC}.items():
         ctx = context(curv if name == "curv" else case)
         fs_cell = fs_curv if name == "curv" else fsR
         if kw.get("settlementon"):
             ctx = with_polygons(ctx)
         cfg = make_cfg(n, us=us, ws=us + 1, **kw)
         z0 = np.random.default_rng(1).uniform(
-            -25.0 if name in ("behavior", "settle") else -40.0, -5.0, n)
+            -25.0 if name in ("behavior", "settle", "stochastic") else -40.0,
+            -5.0, n)
         p0 = st.init_particles(x0, y0, z0, dtype=torch.float32,
                                device=device)
         p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
@@ -1499,7 +1814,9 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
             wall = 1e3 * (time.perf_counter() - t0)
         dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         all_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
-        kern = [e for e in dev_ev if "ext_step_kernel" in e.name]
+        per_step = mode_flags(ctx, cfg) == "per_step"
+        kern = [e for e in dev_ev if ("rk4_step_kernel" if per_step
+                                      else "ext_step_kernel") in e.name]
         kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
         res = {"profile": name, "n": n, "ext_steps": n_fuse,
                "kernel_launches": len(kern), "kernel_device_ms": kern_ms,
@@ -1508,9 +1825,24 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
                "idle_share": 1.0 - all_ms / wall,
                "warm_rates": rates}
         log(res)
-        assert len(kern) == n_fuse, res
+        assert len(kern) == n_fuse * (cfg.internal_steps if per_step
+                                      else 1), res
         out[name] = res
     return out
+
+
+def kernel_targets():
+    """Every kernel library the phases run, as (source, variant) pairs
+    for build.prebuild: the whole-step kernel in each variant, and the
+    per-step RK4 kernel."""
+    from ltjax_torch.kernels import ext_step as kx
+    cfgs = [make_cfg(1, **kw) for kw in [
+        {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
+        *({**SWIM, **kw} for kw in LANE_CHECKS6.values()), OYSTER_CLI]]
+    variants = [kx.kernel_variant(c) for c in cfgs] + [
+        kx.kernel_variant(make_cfg(1, **{**SWIM, **kw}), curv=True)
+        for kw in [{}, *CURV_LANES.values()]]
+    return [("ext_step", v) for v in variants] + [("rk4_step", None)]
 
 
 def main(argv=None):
@@ -1522,7 +1854,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7,8 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -1539,42 +1871,36 @@ def main(argv=None):
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
-    # every variant the phases run, built together (one nvcc each)
-    cfgs = [make_cfg(1, **kw) for kw in [
-        {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
-        *({**SWIM, **kw} for kw in LANE_CHECKS6.values()), OYSTER_CLI]]
-    variants = [kx.kernel_variant(c) for c in cfgs] + [
-        kx.kernel_variant(make_cfg(1, **{**SWIM, **kw}), curv=True)
-        for kw in [{}, *CURV_LANES.values()]]
     t0 = time.perf_counter()
-    build.prebuild("ext_step", variants)
-    log({"build": "ext_step", "variants": len(variants),
-         "seconds": time.perf_counter() - t0,
+    targets = kernel_targets()
+    build.prebuild(targets)
+    log({"build": sorted({name for name, _ in targets}),
+         "libraries": len(targets), "seconds": time.perf_counter() - t0,
          "ptxas": {k: v["ptxas"] for k, v in build.report.items()}})
 
-    run = (lambda k: only is None or k in only)
-    r1 = r1v = r2 = r4 = r6 = r7 = None
-    if run(1):
-        r1, r1v = phase1(torch, device)
-    if run(2):
-        r2 = phase2(torch, device)
-    if run(3):
-        phase3(torch, device)
-        phase3_larval(torch, device)
-        phase3_oyster(torch, device)
-    if run(4):
-        r4 = phase4(torch, device)
-    if run(5):
-        phase5(torch, device)
-    if run(6):
-        r6 = phase6(torch, device)
-    if run(7):
-        r7 = phase7(torch, device)
+    phases = {1: lambda: phase1(torch, device),
+              2: lambda: phase2(torch, device),
+              3: lambda: (phase3(torch, device),
+                          phase3_larval(torch, device),
+                          phase3_oyster(torch, device)),
+              4: lambda: phase4(torch, device),
+              5: lambda: phase5(torch, device),
+              6: lambda: phase6(torch, device),
+              7: lambda: phase7(torch, device),
+              8: lambda: phase8(torch, device)}
+    res, wall = {}, {}
+    for k, fn in phases.items():
+        if only is None or k in only:
+            t0 = time.perf_counter()
+            res[k] = fn()
+            wall[k] = time.perf_counter() - t0
     if argv == ["--profile"]:
         profile_cells(torch, device)
+    log({"phase_wall_seconds": wall})
     if only is not None:
         log({"only": sorted(only), "passed": True})
         return
+    (r1, r1v), r2, r4, r6, r7, r8 = (res[k] for k in (1, 2, 4, 6, 7, 8))
     rk = r2["kernel"]          # timed at the main path's shape (1M)
     errs = ("max_abs_dx", "max_abs_dy", "max_abs_dz", "max_abs_dsalt",
             "max_abs_dtemp")
@@ -1603,6 +1929,21 @@ def main(argv=None):
             *(r7[c].get(k, 0.0) for c in ("c-turb", "c-oyster")
               for k in errs)),
         rc["kernel_ms"], rc["plain_ms"], r7["b"]["bound"]))
+    # the per-step RK4 kernel: launches of the main path (8b), errors of
+    # every comparison with its plain version, times per launch at 1M
+    k8 = r8["b"]["kernel"]["1M"]
+    rk4_errs = ("max_abs_dx", "max_abs_dy", "max_abs_dz")
+    kernels.append({
+        "name": "rk4_displacement_fused", "route": "cuda",
+        "source": RK4_SRC, "replaces": RK4_REPLACES,
+        "launches": r8["b"]["launches"]["rk4_displacement_fused"],
+        "max_abs_err": max(r[k] for r in (r8["a"], r8["a-vertical"],
+                                          *r8["b"]["kernel"].values(),
+                                          r8["b"]["stepwise"],
+                                          r8["c-lanes"]) for k in rk4_errs),
+        "ms": k8["kernel_ms"], "plain_ms": k8["plain_ms"],
+        "bound_ms": r8["b"]["bound"]["bound_ms"],
+        "bound_by": r8["b"]["bound"]["bound_by"], "library_ms": None})
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

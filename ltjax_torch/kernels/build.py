@@ -5,9 +5,11 @@ C interface and loaded with ``ctypes`` (no PyTorch headers: a build
 takes seconds).  A source may be compiled in several variants, each a
 set of ``-D`` macro values that specialise it at compile time.
 Libraries go to ``build/ltjax_torch/`` at the root of the checkout,
-keyed by a hash of the source, the flags and the variant, so a changed
-source rebuilds and an unchanged one loads at once.  ``prebuild`` starts
-the builds of several variants together, one ``nvcc`` each.  Every build
+keyed by a hash of the source, the headers of ``csrc`` it may include
+(``*.cuh``), the flags and the variant, so a changed source or header
+rebuilds and an unchanged one loads at once.  ``prebuild`` starts the
+builds of several sources and variants together, one ``nvcc`` each.
+Every build
 records nvcc's ``-Xptxas -v`` report (registers, stack, spills) in
 ``report``.
 """
@@ -72,11 +74,22 @@ def tag(name: str, variant=None) -> str:
                                 for k, v in sorted(variant.items()))
 
 
+@functools.lru_cache(maxsize=None)
+def _headers() -> bytes:
+    """The shared headers of csrc (every ``*.cuh``), read once."""
+    out = b""
+    for h in sorted(f for f in os.listdir(_CSRC) if f.endswith(".cuh")):
+        with open(os.path.join(_CSRC, h), "rb") as f:
+            out += h.encode() + f.read()
+    return out
+
+
 def _target(name: str, variant):
     src = os.path.join(_CSRC, name + ".cu")
     defs = [f"-D{k}={v}" for k, v in sorted((variant or {}).items())]
     with open(src, "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(FLAGS + defs).encode())
+        digest = hashlib.sha256(f.read() + _headers()
+                                + " ".join(FLAGS + defs).encode())
     so = os.path.join(BUILD_DIR,
                       f"{tag(name, variant)}-{digest.hexdigest()[:16]}.so")
     return src, defs, so
@@ -116,10 +129,11 @@ def _finish(key: str, job) -> None:
         print(f"[build] ptxas: {ln}", file=sys.stderr)
 
 
-def prebuild(name: str, variants) -> None:
-    """Build the given variants of ``csrc/<name>.cu`` concurrently."""
+def prebuild(targets) -> None:
+    """Build the given (name, variant) pairs of ``csrc/<name>.cu``
+    concurrently (variant None: the source as it is)."""
     jobs = {}
-    for v in variants:
+    for name, v in targets:
         key = tag(name, v)
         if key not in jobs:
             job = _start(name, v)

@@ -35,7 +35,8 @@
 // registers.  Every stage gathers the 4 corner rows x 3 records x nv
 // lanes straight from device memory (the TPU kernel's VMEM windows,
 // one-hot MXU blends and out-of-window patch have no purpose here: no
-// particle can miss a window).  The vertical fit streams the levels:
+// particle can miss a window) through find_currents.cuh, which this
+// kernel shares with rk4_step.cu.  The vertical fit streams the levels:
 // knots and blended values are computed level by level inside the
 // Thomas forward sweep, so only the sweep's cp/dp columns live in local
 // memory (MAX_LEVELS floats each); the evaluation interval is captured
@@ -88,6 +89,7 @@
 #include <stdint.h>
 
 #define MAX_LEVELS 64
+#include "find_currents.cuh"
 
 #ifndef LTX_HTURB
 #define LTX_HTURB 0
@@ -171,63 +173,6 @@ struct Args {
   long long C;
 };
 
-struct Tension {            // static-sigma spline constants of one thread
-  float sigma, small;       // small: series/exact crossover (f32: 0.5)
-  bool cubic;
-};
-
-__device__ __forceinline__ float gs_fn(const Tension& T, float B) {
-  if (T.cubic) return (B * B * B - B) / 6.0f;
-  float u = T.sigma;
-  if (u < T.small) {
-    float u2 = u * u, B2 = B * B;
-    float c = u2 / 6.0f + u2 * u2 / 120.0f + u2 * u2 * u2 / 5040.0f;
-    return B * ((B2 - 1.0f) / 6.0f + u2 * (B2 * B2 - 1.0f) / 120.0f
-                + u2 * u2 * (B2 * B2 * B2 - 1.0f) / 5040.0f) / (1.0f + c);
-  }
-  float ratio = expf(u * (B - 1.0f)) * (-expm1f(-2.0f * u * B))
-                / (-expm1f(-2.0f * u));
-  return (ratio - B) / (u * u);
-}
-
-// (1 - u cosh(uB)/sinh(u))/u^2 (the spline derivative's basis; series
-// below T.small, as tension._ds)
-__device__ __forceinline__ float ds_fn(const Tension& T, float B) {
-  float u = T.sigma;
-  if (u < T.small) {
-    float u2 = u * u, B2 = B * B;
-    float c = u2 / 6.0f + u2 * u2 / 120.0f + u2 * u2 * u2 / 5040.0f;
-    return ((1.0f / 6.0f - B2 / 2.0f) + u2 * (1.0f / 120.0f - B2 * B2 / 24.0f)
-            + u2 * u2 * (1.0f / 5040.0f - B2 * B2 * B2 / 720.0f)) / (1.0f + c);
-  }
-  float ratio = u * expf(u * (B - 1.0f)) * (1.0f + expf(-2.0f * u * B))
-                / (-expm1f(-2.0f * u));
-  return (1.0f - ratio) / (u * u);
-}
-
-// tridiagonal coefficients (off, diag) of one interval of width h
-__device__ __forceinline__ void coefs(const Tension& T, float h,
-                                      float& off, float& dia) {
-  float u = T.sigma;
-  if (u < T.small) {
-    float u2 = u * u;
-    off = h * (1.0f / 6.0f - 7.0f * u2 / 360.0f + 31.0f * u2 * u2 / 15120.0f);
-    dia = h * (1.0f / 3.0f - u2 / 45.0f + 2.0f * u2 * u2 / 945.0f);
-    return;
-  }
-  float em = -expm1f(-2.0f * u);
-  float u_over_sinh = 2.0f * u * expf(-u) / em;
-  float u_coth = u * (1.0f + expf(-2.0f * u)) / em;
-  off = (h / (u * u)) * (1.0f - u_over_sinh);
-  dia = (h / (u * u)) * (u_coth - 1.0f);
-}
-
-// bilinear corner rows + weights of one position on the rho lattice
-struct Stencil {
-  long long r00, r01, r10, r11;
-  float fx, fy;
-};
-
 // ltjax_torch.grid.curv_logical: logical coordinates (ti, tj) of (x, y)
 // from the raster seed and 3 bounded Newton steps on the bilinear quad
 // map, clamped to the lattice; RESID adds r2, the squared residual of
@@ -287,8 +232,8 @@ __device__ __forceinline__ void curv_logical(const Curv& c, int nx, int ny,
 
 __device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
                                           float x, float y) {
-  Stencil s;
 #if LTX_CURV
+  Stencil s;
   float ti, tj, r2;
   curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
   const float fi = fminf(fmaxf(floorf(ti), 0.0f), (float)(a.nx - 2));
@@ -296,20 +241,14 @@ __device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
   const int i = (int)fi, j = (int)fj;
   s.fx = fminf(fmaxf(ti - fi, 0.0f), 1.0f);
   s.fy = fminf(fmaxf(tj - fj, 0.0f), 1.0f);
-#else
-  const float* par = a.par;
-  float tx = (x - par[P_X0]) / par[P_DX];
-  float ty = (y - par[P_Y0]) / par[P_DY];
-  int i = min(max((int)floorf(tx), 0), a.nx - 2);
-  int j = min(max((int)floorf(ty), 0), a.ny - 2);
-  s.fx = fminf(fmaxf(tx - (float)i, 0.0f), 1.0f);
-  s.fy = fminf(fmaxf(ty - (float)j, 0.0f), 1.0f);
-#endif
   s.r00 = ((long long)j * a.nx + i) * a.nl;
   s.r01 = s.r00 + a.nl;
   s.r10 = s.r00 + (long long)a.nx * a.nl;
   s.r11 = s.r10 + a.nl;
   return s;
+#else
+  return locate_rect(a.par, a.nx, a.ny, a.nl, x, y);
+#endif
 }
 
 // lane k of the time-collapsed, bilinearly blended table at stencil s
@@ -327,114 +266,34 @@ __device__ __forceinline__ float lane(const Args& a, const Stencil& s,
          + (c10 * (1.0f - s.fx) + c11 * s.fx) * s.fy;
 }
 
-// s-level depth of knot (s, cs) in a column with surface zeta, depth h
-__device__ __forceinline__ float knot(const Args& a, float s, float cs,
-                                      float zeta, float h) {
-  float hc = a.par[P_HC];
-  if (a.vt == 1) {
-    float z0 = hc * s + (h - hc) * cs;
-    return z0 + zeta * (1.0f + z0 / h);
+// the corner source of find_currents_at: the three raw records collapsed
+// with the polintd weights l of one stage (lane above)
+struct Records {
+  const Args& a;
+  const float* l;
+  __device__ __forceinline__ float lane(const Stencil& s, int k) const {
+    return ::lane(a, s, l, k);
   }
-  float s_ = (hc * s + h * cs) / (hc + h);
-  return zeta + (zeta + h) * s_;
-}
-
-// Natural tension-spline fit of up to two profiles sharing one knot
-// ladder (lanes lane0 [, lane1]) and clamped evaluation at zq: the
-// value, or (DERIV) the derivative.  Returns the first knot depth
-// through z_first (log layer).
-template <bool DERIV = false>
-__device__ void fit_eval(const Args& a, const Tension& T, const Stencil& st,
-                         const float* l, const float* s_lad,
-                         const float* cs_lad, int K, int lane0, int lane1,
-                         float zeta, float h, float zq,
-                         float* cp, float* dp0, float* dp1,
-                         float& out0, float& out1, float& z_first) {
-  const bool two = lane1 >= 0;
-  float zprev = knot(a, s_lad[0], cs_lad[0], zeta, h);
-  float y0prev = lane(a, st, l, lane0);
-  float y1prev = two ? lane(a, st, l, lane1) : 0.0f;
-  z_first = zprev;
-  cp[0] = 0.0f; dp0[0] = 0.0f; dp1[0] = 0.0f;
-  // evaluation interval j (left/right knots and values), captured on
-  // the fly: the last k <= K-2 with zq >= z_k, or 0
-  int j = 0;
-  float zl = zprev, y0l = y0prev, y1l = y1prev;
-  float zr = zprev, y0r = y0prev, y1r = y1prev;
-  float offp = 0.0f, diap = 0.0f, dy0p = 0.0f, dy1p = 0.0f;
-  float zlast = zprev;
-  for (int k = 1; k < K; ++k) {
-    float zk = knot(a, s_lad[k], cs_lad[k], zeta, h);
-    float y0k = lane(a, st, l, lane0 + k);
-    float y1k = two ? lane(a, st, l, lane1 + k) : 0.0f;
-    float hk = zk - zprev;                       // interval k-1
-    float dy0 = (y0k - y0prev) / hk;
-    float dy1 = two ? (y1k - y1prev) / hk : 0.0f;
-    float offc, diac;
-    coefs(T, hk, offc, diac);
-    if (k >= 2) {                                // Thomas row i = k-1
-      int i = k - 1;
-      float denom = (diap + diac) - offp * cp[i - 1];
-      cp[i] = offc / denom;
-      dp0[i] = ((dy0 - dy0p) - offp * dp0[i - 1]) / denom;
-      if (two) dp1[i] = ((dy1 - dy1p) - offp * dp1[i - 1]) / denom;
-    }
-    if (k == j + 1) { zr = zk; y0r = y0k; y1r = y1k; }
-    if (k <= K - 2 && zq >= zk) { j = k; zl = zk; y0l = y0k; y1l = y1k; }
-    zprev = zk; y0prev = y0k; y1prev = y1k;
-    offp = offc; diap = diac; dy0p = dy0; dy1p = dy1;
-    zlast = zk;
+  __device__ __forceinline__ float knot(float s, float cs, float zeta,
+                                        float h) const {
+    return knot_depth(a.par[P_HC], a.vt, s, cs, zeta, h);
   }
-  // backward sweep from the natural end (z2[K-1] = 0) down to j
-  float x0 = 0.0f, x1 = 0.0f;
-  float s00 = 0.0f, s01 = 0.0f, s10 = 0.0f, s11 = 0.0f;
-  for (int i = K - 2; i >= j; --i) {
-    x0 = dp0[i] - cp[i] * x0;
-    if (two) x1 = dp1[i] - cp[i] * x1;
-    if (i == j + 1) { s01 = x0; s11 = x1; }
-    if (i == j) { s00 = x0; s10 = x1; }
+  __device__ __forceinline__ const float* ladders() const {
+    return a.par + P_HEAD;
   }
-  float zc = fminf(fmaxf(zq, z_first), zlast);
-  float hh = zr - zl;
-  float B2 = (zc - zl) / hh;
-  float B1 = 1.0f - B2;
-  if constexpr (DERIV) {
-    float d1 = ds_fn(T, B1), d2 = ds_fn(T, B2);
-    out0 = (y0r - y0l) / hh + hh * (s00 * d1 - s01 * d2);
-    out1 = (y1r - y1l) / hh + hh * (s10 * d1 - s11 * d2);
-  } else {
-    float g1 = gs_fn(T, B1), g2 = gs_fn(T, B2);
-    out0 = y0l * B1 + y0r * B2 + hh * hh * (s00 * g1 + s01 * g2);
-    out1 = y1l * B1 + y1r * B2 + hh * hh * (s10 * g1 + s11 * g2);
-  }
-}
+  __device__ __forceinline__ float z0m() const { return a.par[P_Z0M]; }
+  __device__ __forceinline__ int us() const { return a.us; }
+  __device__ __forceinline__ int ws() const { return a.ws; }
+  __device__ __forceinline__ int nv() const { return a.nv; }
+};
 
 // find_currents at (x, y, z) from the records collapsed with weights l
 __device__ void find_currents(const Args& a, const Curv& cv, const Tension& T,
                               const float* l, float x, float y, float z,
                               float* cp, float* dp0, float* dp1,
                               float& u, float& v, float& w) {
-  const float* par = a.par;
-  Stencil st = locate(a, cv, x, y);
-  float zeta = lane(a, st, l, a.nv - 2);
-  float h = lane(a, st, l, a.nv - 1);
-  const float* s_r = par + P_HEAD;
-  const float* cs_r = s_r + a.us;
-  const float* s_w = cs_r + a.us;
-  const float* cs_w = s_w + a.ws;
-  float zr0, zw0, dummy;
-  fit_eval(a, T, st, l, s_r, cs_r, a.us, 0, a.us, zeta, h, z,
-           cp, dp0, dp1, u, v, zr0);
-  fit_eval(a, T, st, l, s_w, cs_w, a.ws, 2 * a.us, -1, zeta, h, z,
-           cp, dp0, dp1, w, dummy, zw0);
-  // near-bottom log layer on u and v
-  float z0m = par[P_Z0M];
-  float zab = z + h;
-  float ztb = fmaxf(zr0 + h, 2.0f * z0m);
-  float decay = logf(fmaxf(zab, z0m) / z0m) / logf(ztb / z0m);
-  float factor = zab < ztb ? fminf(fmaxf(decay, 0.0f), 1.0f) : 1.0f;
-  u *= factor;
-  v *= factor;
+  find_currents_at(Records{a, l}, T, locate(a, cv, x, y), z, cp, dp0, dp1,
+                   u, v, w);
 }
 
 // the boundary cell row of (x, y): on a curvilinear grid boundary cell
@@ -683,14 +542,14 @@ __device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
   const float* s_w = par + P_HEAD + 2 * a.us;
   const float* cs_w = s_w + a.ws;
   const int K = a.ws;
-  float zprev = knot(a, s_w[0], cs_w[0], zeta, h);
+  float zprev = knot_depth(a.par[P_HC], a.vt, s_w[0], cs_w[0], zeta, h);
   float yprev = fmaxf(lane(a, st, l, a.nv), 0.0f);
   zk[0] = zprev;
   cp[0] = 0.0f;
   z2[0] = 0.0f;
   float offp = 0.0f, diap = 0.0f, dyp = 0.0f;
   for (int k = 1; k < K; ++k) {           // Thomas forward sweep
-    float zc = knot(a, s_w[k], cs_w[k], zeta, h);
+    float zc = knot_depth(a.par[P_HC], a.vt, s_w[k], cs_w[k], zeta, h);
     float yk = fmaxf(lane(a, st, l, a.nv + k), 0.0f);
     float hk = zc - zprev;
     float dy = (yk - yprev) / hk;
@@ -848,9 +707,9 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
           // halocline cue: dS/dz of the salt spline at the pre-step
           // position and time (stage-1 stencil, weights and knots)
           float dsdz, unused, zf;
-          fit_eval<true>(a, Ts, s1, l, par + P_HEAD, par + P_HEAD + a.us,
-                         a.us, a.salt0, -1, zeta_b, h_b, z, cp, dp0, dp1,
-                         dsdz, unused, zf);
+          fit_eval<true>(Records{a, l}, Ts, s1, par + P_HEAD,
+                         par + P_HEAD + a.us, a.us, a.salt0, -1, zeta_b, h_b,
+                         z, cp, dp0, dp1, dsdz, unused, zf);
           bool cue = fabsf(dsdz) >= par[P_SGRAD];
           bool young = age_pre < par[P_PEDIAGE];
           float down = -biased;                          // toward the bottom
@@ -923,9 +782,9 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
     // the vertical reflection
     if constexpr (SALT) {
       float zf;
-      fit_eval(a, Ts, s4, l + 6, par + P_HEAD, par + P_HEAD + a.us, a.us,
-               a.salt0, a.salt0 + a.us, zeta, h, z, cp, dp0, dp1, salt, temp,
-               zf);
+      fit_eval(Records{a, l + 6}, Ts, s4, par + P_HEAD, par + P_HEAD + a.us,
+               a.us, a.salt0, a.salt0 + a.us, zeta, h, z, cp, dp0, dp1, salt,
+               temp, zf);
     }
   }
   x_out[p] = x;

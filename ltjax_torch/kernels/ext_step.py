@@ -312,7 +312,12 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
 
     CPU tensors take ``ext_step_reference``; CUDA tensors launch the
     kernel (f32 positions; a uniform rectilinear or a curvilinear grid)
-    or raise."""
+    or raise.  Stochastic mortality raises on both: the kernel draws no
+    DEATH words."""
+    if cfg.mortality and cfg.stochastic_mortality:
+        # its DEATH draw is not in the kernel's key layout (step.mode_flags)
+        raise ValueError("ext_step_fused: stochastic_mortality takes the "
+                         "per-step route (step.per_step_external)")
     dev = p.x.device
     if dev.type == "cpu":
         return ext_step_reference(ctx, cfg, p, prec, t0, fields, seed,
@@ -321,9 +326,7 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         raise ValueError(f"ext_step_fused: unsupported device {dev}")
     g, b = ctx.grid, ctx.bounds
     n, us, ws = p.n, g.us, g.ws
-    bh.check_ported(bh.BehaveParams(behavior=cfg.Behavior,
-                                    mortality=cfg.mortality,
-                                    stochastic=cfg.stochastic_mortality))
+    bh.check_ported(bh.BehaveParams(behavior=cfg.Behavior))
     curv = g.curv is not None
     if not curv and not (g.uniform and b.uniform):
         raise NotImplementedError("ext_step_fused: the CUDA kernel locates "

@@ -18,11 +18,13 @@ Swimming types use the ontogenetic swim-speed ramp swimslow -> swimfast
 over [swimstart, pediage] and the biased-random-walk idiom: toward the
 preferred zone with probability P_BIAS (BEHAVE substream), a mixing walk
 r_mix * w_swim * idt otherwise (MORTALITY substream).  Mortality is
-deterministic death at age >= deadage.
+deterministic death at age >= deadage, or (``stochastic``) random death
+at the constant hazard 1/deadage: a released particle dies in a step with
+probability 1 - exp(-idt/deadage) on its own DEATH draw, bit-equal to
+ltjax's.
 
 The cue of types 4/5 is the derivative of the tension spline fitted to
-the salt profile at the particle (``_salt_gradient``).  Not ported yet,
-raising NotImplementedError: stochastic mortality.
+the salt profile at the particle (``_salt_gradient``).
 """
 
 from __future__ import annotations
@@ -67,12 +69,9 @@ class BehaveParams(NamedTuple):
 
 
 def check_ported(p: BehaveParams) -> None:
-    """Raise NotImplementedError for the options not ported yet."""
+    """Raise ValueError for a behavior type outside 0..7."""
     if p.behavior not in PORTED_TYPES:
         raise ValueError(f"Behavior={p.behavior}: types are 0..7")
-    if p.mortality and p.stochastic:
-        raise NotImplementedError("stochastic_mortality: not ported to "
-                                  "ltjax_torch yet")
 
 
 def swim_speed(age, p: BehaveParams, dtype):
@@ -114,7 +113,7 @@ def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
     dtype = x.dtype
     dev = x.device
     n = x.shape[0]
-    idt = torch.as_tensor(p.idt, dtype=dtype, device=dev)
+    idt = torch.full((), p.idt, dtype=dtype, device=dev)
     zero = torch.zeros(n, dtype=dtype, device=dev)
     dx = dy = dz = zero
 
@@ -154,7 +153,7 @@ def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
             dz = torch.where(age < p.pediage,
                              torch.where(cue, up, up * 0.5 + rnd * 0.5), dz)
     elif b == 6:
-        dz = -torch.as_tensor(p.sink, dtype=dtype, device=dev) * idt \
+        dz = -torch.full((), p.sink, dtype=dtype, device=dev) * idt \
             * torch.ones(n, dtype=dtype, device=dev)
     elif b == 7:
         u_c, v_c = currents
@@ -171,6 +170,12 @@ def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
         dy = torch.where(riding, p.Hswimspeed * v_c / spd_safe * idt, zero)
 
     dies = torch.zeros(n, dtype=torch.bool, device=dev)
-    if p.mortality:
+    if p.mortality and p.stochastic:
+        # constant hazard 1/deadage on the DEATH substream
+        u = rng.uniform(seed, step, rng.DEATH, pids, (), 0.0, 1.0, dtype)
+        p_die = -torch.expm1(-idt / torch.full((), p.deadage, dtype=dtype,
+                                               device=dev))
+        dies = (age >= 0.0) & (u < p_die)
+    elif p.mortality:
         dies = age >= p.deadage
     return dx, dy, dz, dies

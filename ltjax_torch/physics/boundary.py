@@ -306,8 +306,8 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
     hit_land = torch.zeros(n, dtype=torch.int32, device=x0.device)
     exited = torch.zeros(n, dtype=torch.bool, device=x0.device)
     px0, py0, px1, py1 = x0, y0, x1, y1
-    tiny = torch.tensor(1e-30, dtype=dtype, device=x0.device)
-    inf = torch.tensor(float("inf"), dtype=dtype, device=x0.device)
+    tiny = torch.full((), 1e-30, dtype=dtype, device=x0.device)
+    inf = torch.full((), float("inf"), dtype=dtype, device=x0.device)
     ms2x = ms2y = None
     # endpoints of the segment the previous pass reflected from (NaN: none;
     # kept on curvilinear grids only)

@@ -51,13 +51,13 @@ def vturb(grid: Grid, fields: FieldSet, seed, step, pids, x, y, z, t,
     """dz vertical random displacement (Visser RDM)."""
     dtype = x.dtype
     dev = x.device
-    idt = torch.as_tensor(params.idt, dtype=dtype, device=dev)
+    idt = torch.full((), params.idt, dtype=dtype, device=dev)
     R = rng.uniform(seed, step, rng.VTURB, pids, (), minval=-1.0,
                     maxval=1.0, dtype=dtype)
     r_var = 1.0 / 3.0
 
     if not params.use_aks:
-        K = torch.as_tensor(params.ConstantVTurb, dtype=dtype, device=dev)
+        K = torch.full((), params.ConstantVTurb, dtype=dtype, device=dev)
         return R * torch.sqrt(2.0 * K * idt / r_var)
 
     ir, jr, fxr, fyr = locate_rho(grid, x, y)

@@ -8,7 +8,10 @@ in all three.
 
 Words are uint32 values held in int64 tensors: PyTorch's CPU kernels
 have no uint32 ``+``, ``<<`` or ``>>``, so the arithmetic runs in int64
-and is masked to 32 bits after every add and shift.
+and is masked to 32 bits after every add and shift.  A key word may also
+be a Python int: the per-particle draws derive the (step, substream) key
+on the host in Python ints and pass it as such, so a draw on a CUDA
+tensor copies nothing to the device and waits for nothing.
 
 The seed.  ``ltjax.run`` derives its streams from ``jax.random.key(seed)``
 whose key words are (seed >> 32, seed & 0xFFFFFFFF) with 64-bit integers
@@ -43,12 +46,16 @@ def _words(v, like=None) -> torch.Tensor:
 
 
 def threefry2x32(k0, k1, x0, x1):
-    """Threefry-2x32, 20 rounds.  Args are uint32 words (broadcastable);
-    returns two int64 tensors of uint32 words."""
-    x0 = _words(x0)
-    x1 = _words(x1, x0)
-    k0 = _words(k0, x0)
-    k1 = _words(k1, x0)
+    """Threefry-2x32, 20 rounds.  Args are uint32 words (broadcastable;
+    the keys may be Python ints); returns two int64 tensors of uint32
+    words, or two Python ints when every arg is one."""
+    if all(isinstance(v, int) for v in (k0, k1, x0, x1)):
+        k0, k1, x0, x1 = (v & MASK for v in (k0, k1, x0, x1))
+    else:
+        x0 = _words(x0)
+        x1 = _words(x1, x0)
+        k0 = k0 & MASK if isinstance(k0, int) else _words(k0, x0)
+        k1 = k1 & MASK if isinstance(k1, int) else _words(k1, x0)
     ks = (k0, k1, k0 ^ k1 ^ _PARITY)
     x0 = (x0 + ks[0]) & MASK
     x1 = (x1 + ks[1]) & MASK
@@ -73,8 +80,11 @@ def seed_words(seed):
 
 
 def stream_key(seed, step, substream: int):
-    """Per-(step, substream) derived key pair (two int64 word tensors)."""
+    """Per-(step, substream) derived key pair: two Python ints for an int
+    step, else two int64 word tensors."""
     k0, k1 = seed_words(seed)
+    if isinstance(step, int):
+        return threefry2x32(k0, k1, step, substream)
     step = _words(step)
     return threefry2x32(k0, k1, step, torch.full_like(step, substream))
 
@@ -101,14 +111,14 @@ def box_muller(b0, b1, dtype=torch.float32):
     u1 = bits_to_uniform(b0, dtype)
     u2 = bits_to_uniform(b1, dtype)
     r = torch.sqrt(-2.0 * torch.log(u1))
-    th = torch.tensor(2.0 * 3.14159265358979, dtype=dtype,
-                      device=u2.device) * u2
+    th = torch.full((), 2.0 * 3.14159265358979, dtype=dtype,
+                    device=u2.device) * u2
     return r * torch.cos(th), r * torch.sin(th)
 
 
 def _bits(seed, step, substream, pids):
-    sk0, sk1 = stream_key(seed, step, substream)
-    return particle_bits(sk0.to(pids.device), sk1.to(pids.device), pids)
+    sk0, sk1 = stream_key(seed, step, substream)      # on the host
+    return particle_bits(int(sk0), int(sk1), pids)
 
 
 def normal(seed, step, substream, pids, shape_per=(),
@@ -126,8 +136,8 @@ def uniform(seed, step, substream, pids, shape_per=(), minval=0.0,
             maxval=1.0, dtype=torch.float32):
     """U(minval, maxval) per particle; shape_per () or (2,)."""
     b0, b1 = _bits(seed, step, substream, pids)
-    lo = torch.tensor(minval, dtype=dtype, device=pids.device)
-    span = torch.tensor(maxval, dtype=dtype, device=pids.device) - lo
+    lo = torch.full((), minval, dtype=dtype, device=pids.device)
+    span = torch.full((), maxval, dtype=dtype, device=pids.device) - lo
     u0 = lo + span * bits_to_uniform(b0, dtype)
     if shape_per == ():
         return u0

@@ -11,7 +11,10 @@ required there), and refuses to start without one unless asked for the
 CPU (``--device cpu``), where it takes the plain PyTorch path.  The grid
 may be rectilinear or curvilinear (a ROMS file whose lon/lat vary along
 both axes).  The first stdout line is a JSON object naming the path
-taken, the grid kind and the enabled physics lanes, then
+taken ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step":
+the per-internal-step kernel of the "per_step" route, which stochastic
+mortality takes; "plain" on the CPU), the route, the grid kind and the
+enabled physics lanes, then
 one JSON line per chunk of external steps with status counts and
 particle-steps/s.  Random streams are keyed
 by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
@@ -46,7 +49,7 @@ from .out.writer import TrajectoryWriter
 from .physics import boundary as bd
 from .physics import settlement as stl
 from .step import (StepContext, check_supported, make_fused_external_steps,
-                   summary_counts)
+                   mode_flags, summary_counts)
 
 
 def _project_polys(polys, cfg: Config):
@@ -219,8 +222,11 @@ def run(cfg: Config, resume: bool = False, device=None,
     timing.add("hydro_init", time.perf_counter() - t0)
 
     n_fuse = max(1, cfg.ext_fuse)
+    route = mode_flags(ctx, cfg)
     print(json.dumps({
-        "path": "cuda_ext_step" if device.type == "cuda" else "plain",
+        "path": ("plain" if device.type != "cuda" else
+                 "cuda_rk4_step" if route == "per_step" else "cuda_ext_step"),
+        "route": route,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
         "uniform": bool(grid.uniform),

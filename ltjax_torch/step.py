@@ -6,19 +6,30 @@ horizontal and vertical turbulence and by its behavior, reflected at
 coastlines / exited through open boundaries, reflected at the surface
 and bottom, its status updated (mortality, then settlement on habitat
 polygons), and salt and temperature sampled at its new position
-(reference ``run_Internal_Timestep``/``update_particles``).  An external
-step runs ``cfg.internal_steps`` of them through the CUDA kernel on CUDA
-tensors (``kernels.ext_step.ext_step_fused``) or its plain version on
-CPU tensors.
+(reference ``run_Internal_Timestep``/``update_particles``).
+
+An external step takes one of two routes (``mode_flags``, as ltjax's):
+
+* ``"ext_step"``: ``cfg.internal_steps`` internal steps in one launch of
+  the whole-external-step CUDA kernel on CUDA tensors
+  (``kernels.ext_step.ext_step_fused``), or its plain version on CPU
+  tensors;
+* ``"per_step"`` (stochastic mortality, whose DEATH draw the
+  whole-step kernel does not make): ``cfg.internal_steps`` calls of
+  ``internal_step(mode="kernel")``, each taking its RK4 displacement
+  from the per-internal-step CUDA kernel
+  (``kernels.rk4_step.rk4_displacement_fused``, or its plain version on
+  CPU tensors) and the rest from the PyTorch lanes below.
 
 Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
 step e is ``e * internal_steps + i``, as in ltjax.
 
 ``check_supported`` raises ``NotImplementedError`` for every option
-outside the ported slice (stochastic mortality, non-uniform rectilinear
-grids on CUDA, sharding, checkpoints): they are not silently dropped.
-Curvilinear grids run on both devices.
+outside the ported slice (non-uniform rectilinear grids on CUDA,
+stochastic mortality on a curvilinear grid on CUDA, sharding,
+checkpoints): they are not silently dropped.  Curvilinear grids run on
+both devices.
 """
 
 from __future__ import annotations
@@ -34,6 +45,7 @@ from . import state as st
 from .fields import FieldSet
 from .grid import Grid, locate, logical_coords
 from .kernels import ext_step as kx
+from .kernels import rk4_step as kr
 from .physics import behavior as bh
 from .physics import boundary as bd
 from .physics import settlement as stl
@@ -60,11 +72,20 @@ def summary_counts(p: st.Particles) -> dict:
             "out_of_domain": c[st.OUT_OF_DOMAIN], "error": c[st.ERROR]}
 
 
+def mode_flags(ctx: StepContext, cfg) -> str:
+    """The route of a configuration's external steps (counterpart of
+    ltjax.step.mode_flags): "per_step" for stochastic mortality, whose
+    DEATH draw is not in the whole-step kernel's key layout, else
+    "ext_step"."""
+    if cfg.mortality and cfg.stochastic_mortality:
+        return "per_step"
+    return "ext_step"
+
+
 def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
     """Raise NotImplementedError naming the first option outside the
-    ported slice (stands in for ltjax.step.mode_flags)."""
+    ported slice."""
     unsupported = [
-        ("stochastic_mortality", cfg.mortality and cfg.stochastic_mortality),
         ("tension_sigma", cfg.tension_sigma < 0),
         ("mesh_particles*mesh_tiles",
          cfg.mesh_particles * cfg.mesh_tiles > 1),
@@ -78,6 +99,11 @@ def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
              and not (ctx.grid.uniform and ctx.bounds.uniform)),
             ("dtype_pos other than float32 on CUDA",
              cfg.dtype_pos != "float32"),
+            # the per-step kernel locates rectilinear cells only; ltjax
+            # runs this case on its fit-then-blend packed scheme
+            ("stochastic_mortality on a curvilinear grid on CUDA",
+             ctx.grid.curv is not None
+             and mode_flags(ctx, cfg) == "per_step"),
         ]
     for name, bad in unsupported:
         if bad:
@@ -103,20 +129,30 @@ def make_params(cfg):
 
 def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
                   fields: FieldSet, t: float, step_idx: int,
-                  prec: pk.PackedRecords) -> st.Particles:
+                  prec: pk.PackedRecords,
+                  mode: str = "collapsed") -> st.Particles:
     """One internal timestep for the whole batch, collapsed scheme (the
     plain version of the CUDA kernel's per-thread step).  ``fields`` is
     the 3-record window (vertical turbulence reads its Aks), ``prec`` its
     packed records; ``step_idx`` keys the random draws.  Settlement tests
     the reflected position against ``ctx.polys``/``ctx.holes``; SaltTempOn
     samples ``fields.salt``/``.temp`` at the new position at t + idt for
-    every particle active at the step's start."""
+    every particle active at the step's start.
+
+    ``mode``: "collapsed" computes the RK4 displacement (and behavior 7's
+    stage-1 currents) in PyTorch; "kernel" takes both from
+    ``kernels.rk4_step.rk4_displacement_fused`` (the CUDA kernel on CUDA
+    tensors, the same PyTorch code on CPU tensors)."""
+    if mode not in ("collapsed", "kernel"):
+        raise ValueError(f"internal_step: mode {mode!r}")
     grid, bounds = ctx.grid, ctx.bounds
     turb, beh = make_params(cfg)
     dtype = p.x.dtype
+    dev = p.x.device
     idt = float(cfg.idt)
-    idt_t = torch.tensor(idt, dtype=dtype, device=p.x.device)
-    tt = torch.tensor(t, dtype=dtype, device=p.x.device)
+    # scalars filled in on the device (a host copy would wait for it)
+    idt_t = torch.full((), idt, dtype=dtype, device=dev)
+    tt = torch.full((), t, dtype=dtype, device=dev)
     tabs = pk.stage_value_tables(grid, prec, t, idt)
 
     # --- release (DOB reached) & masks ---------------------------------
@@ -126,8 +162,16 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     active = status == st.ACTIVE
 
     # --- advection ------------------------------------------------------
-    dx, dy, dz = pk.rk4_displacement_collapsed(
-        grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
+    stage1 = None
+    if mode == "kernel":
+        res = kr.rk4_displacement_fused(
+            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
+            stage1=cfg.Behavior == 7)
+        dx, dy, dz = res[:3]
+        stage1 = res[3:]
+    else:
+        dx, dy, dz = pk.rk4_displacement_collapsed(
+            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
 
     # --- turbulence -----------------------------------------------------
     if cfg.HTurbOn:
@@ -144,8 +188,8 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     if cfg.Behavior != 0 or cfg.mortality:
         zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
         if cfg.Behavior == 7:
-            cur = pk.find_currents_collapsed(grid, tabs[0], p.x, p.y, p.z,
-                                             cfg.tension_sigma, cfg.z0)[:2]
+            cur = stage1 or pk.find_currents_collapsed(
+                grid, tabs[0], p.x, p.y, p.z, cfg.tension_sigma, cfg.z0)[:2]
         else:
             cur = (torch.zeros_like(p.x), torch.zeros_like(p.x))
         bx, by, bz, dies = bh.behave(grid, fields, seed, step_idx, p.pid,
@@ -198,7 +242,9 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
         settle_poly=torch.where((new_status == st.SETTLED)
                                 & (p.settle_poly < 0), spid, p.settle_poly))
     if cfg.SaltTempOn:
-        t1 = tt + idt
+        # t + idt in the particles' dtype, on the host (polintd's weights
+        # are host scalars)
+        t1 = float(torch.tensor(t, dtype=dtype) + idt)
         out = out.replace(**{
             k: torch.where(active, sample_scalar(
                 grid, fields, getattr(fields, k), new_x, new_y, new_z, t1,
@@ -231,13 +277,30 @@ def fieldset_slice(fs: FieldSet, e: int, r: int = 3) -> FieldSet:
                        "times")))
 
 
+def per_step_external(ctx: StepContext, cfg, p: st.Particles,
+                      prec: pk.PackedRecords, t0: float, fields: FieldSet,
+                      ext_idx: int, seed=None) -> st.Particles:
+    """One external step on the per-step route: ``cfg.internal_steps``
+    calls of ``internal_step(mode="kernel")``, internal step i with step
+    index ext_idx * internal_steps + i (ltjax's per-step scan)."""
+    seed = cfg.seed if seed is None else seed
+    idt = float(cfg.idt)
+    n_int = cfg.internal_steps
+    for i in range(n_int):
+        p = internal_step(ctx, cfg, seed, p, fields, t0 + i * idt,
+                          int(ext_idx) * n_int + i, prec, mode="kernel")
+    return p
+
+
 def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     """``n_fuse`` consecutive external steps over an (n_fuse + 2)-record
     field window: external step e uses records [e, e+1, e+2], the same
     values as n_fuse calls on the rotating triple buffer (reference
     ``updateHydro``).  The batch is Hilbert-sorted every
     ``cfg.ext_sort_every`` external steps and returned in storage order.
-    ``cfg.seed`` keys the random streams.
+    ``cfg.seed`` keys the random streams.  Each external step takes the
+    route of ``mode_flags``: one whole-step kernel launch, or
+    ``per_step_external``.
 
     Returns ``fused(p, fsR, t0, ext_idx0) -> p'``; external step e of the
     call has index ext_idx0 + e."""
@@ -245,8 +308,11 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     grid = ctx.grid
     dt = float(cfg.dt)
     se = max(1, cfg.ext_sort_every)
-    with_aks = bool(cfg.VTurbOn and cfg.readAks)
-    with_scalars = cfg.needs_salt_fields()
+    per_step = mode_flags(ctx, cfg) == "per_step"
+    # the whole-step kernel reads the Aks and salt/temp lanes of the
+    # record table; the per-step lanes read the FieldSet
+    with_aks = bool(cfg.VTurbOn and cfg.readAks) and not per_step
+    with_scalars = cfg.needs_salt_fields() and not per_step
 
     def fused(p: st.Particles, fsR: FieldSet, t0: float,
               ext_idx0: int = 0) -> st.Particles:
@@ -262,9 +328,10 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
                 cum = cum[perm]
             prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
                                      times=prec_all.times[e:e + 3])
-            p = kx.ext_step_fused(ctx, cfg, p, prec3, float(t0) + e * dt,
-                                  fields=fieldset_slice(fsR, e),
-                                  ext_idx=int(ext_idx0) + e)
+            step = per_step_external if per_step else kx.ext_step_fused
+            p = step(ctx, cfg, p, prec3, float(t0) + e * dt,
+                     fields=fieldset_slice(fsR, e),
+                     ext_idx=int(ext_idx0) + e)
         return sp.unsort(p, cum)
 
     return fused

@@ -25,6 +25,10 @@ def _u_small(dtype) -> float:
 
 
 def _as(v, like: torch.Tensor) -> torch.Tensor:
+    """v as a tensor of like's dtype and device (a Python scalar is filled
+    in on the device: no host-to-device copy)."""
+    if isinstance(v, (int, float)):
+        return torch.full((), v, dtype=like.dtype, device=like.device)
     return torch.as_tensor(v, dtype=like.dtype, device=like.device)
 
 

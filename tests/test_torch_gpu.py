@@ -34,6 +34,13 @@ synth.make_curv_case with a land block: one external step against its
 plain version (tolerances as above, land hits and rim exits on curved
 segments), the per-step lanes (turbulence, behavior 3, the oyster
 lanes), and one launch per external step through the fused driver.
+
+The per-internal-step RK4 kernel (csrc/rk4_step.cu) is held against its
+plain version (packed.rk4_displacement_collapsed) on one internal step
+with a random w and zeta: horizontal 0.05 m, vertical 1e-3 m, the
+stage-1 currents to 0.05 m / idt.  The per-step route (stochastic
+mortality) launches it once per internal step and never calls the plain
+version.
 """
 from dataclasses import replace
 
@@ -47,6 +54,7 @@ from ltjax_torch import state as st
 from ltjax_torch import synth
 from ltjax_torch.config import Config
 from ltjax_torch.kernels import ext_step as kx
+from ltjax_torch.kernels import rk4_step as kr
 from ltjax_torch.physics import boundary as bd
 from ltjax_torch.physics import settlement as stl
 from ltjax_torch.step import StepContext, _sort, make_fused_external_steps
@@ -455,3 +463,45 @@ def test_curv_fused_steps_launch_once_per_external_step(gpu):
     assert [k for k in kx.ext_step_fused.variant_launches] == [
         "ext_step-b0c1h0m0v0"]
     assert torch.isfinite(out.x).all() and torch.isfinite(out.z).all()
+
+
+@pytest.mark.gpu
+@VARIANTS
+def test_rk4_kernel_matches_plain(gpu, vtransform, theta_s, sigma):
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5)
+    rec = pk.build_packed_records(c.grid, synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=900.0, dt=1800.0), seed=11))
+    idt = float(cfg.idt)
+    tabs = pk.stage_value_tables(c.grid, rec, 450.0, idt)
+    n0 = kr.rk4_displacement_fused.launches
+    out = kr.rk4_displacement_fused(c.grid, tabs, p.x, p.y, p.z, sigma,
+                                    cfg.z0, idt, stage1=True)
+    assert kr.rk4_displacement_fused.launches == n0 + 1
+    ref = pk.rk4_displacement_collapsed(c.grid, tabs, p.x, p.y, p.z, sigma,
+                                        cfg.z0, idt)
+    cur = pk.find_currents_collapsed(c.grid, tabs[0], p.x, p.y, p.z, sigma,
+                                     cfg.z0)[:2]
+    for a, b, tol in zip(out, ref + cur, (0.05, 0.05, 1e-3, 0.05 / idt,
+                                          0.05 / idt)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert float(ref[2].abs().max()) > 0.1          # w moved them
+
+
+@pytest.mark.gpu
+def test_per_step_route_launches_rk4_per_internal_step(gpu, monkeypatch):
+    calls = []
+    plain = pk.rk4_displacement_collapsed
+    monkeypatch.setattr(pk, "rk4_displacement_collapsed",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    c, ctx, cfg, p = _case(gpu)
+    cfg = replace(cfg, Behavior=7, Hswimspeed=0.1, swimslow=1e-3,
+                  swimfast=1e-3, mortality=True, stochastic_mortality=True,
+                  deadage=3600.0)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 5)
+    kx.reset_launches()
+    n0 = kr.rk4_displacement_fused.launches
+    out = make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 0)
+    assert kr.rk4_displacement_fused.launches == n0 + 3 * cfg.internal_steps
+    assert kx.ext_step_fused.launches == 0 and not calls
+    assert torch.isfinite(out.x).all() and (out.status == st.DEAD).any()

@@ -24,6 +24,12 @@ CSVs, HTurb, Visser on Aks, mortality, pediage inside the run) does not
 depend on the chunking either, and its CSV's statuses and settle_poly
 equal ltjax.run's, salt and temp within 0.01 psu / degC (the positions
 differ by the two interpolation schemes, and dS/dz reaches 1.7 psu/m).
+
+A turbulent run with stochastic mortality takes the per-step route (the
+startup line says so), gives the same particles in chunks of 2 and of 4,
+kills some of them, and follows ltjax.run's draws: the same particles
+die (the DEATH draws are bit-equal) and the positions agree to 0.5 m /
+1e-3 m.
 """
 
 import json
@@ -111,6 +117,61 @@ def turb_runs(tmp_path_factory):
     return case, (x0, y0, z0), out
 
 
+STOCHASTIC = dict(TURB, mortality=True, stochastic_mortality=True,
+                  deadage=5400.0)
+
+
+@pytest.fixture(scope="module")
+def stochastic_runs(tmp_path_factory):
+    """A turbulent series with stochastic mortality in chunks of 2 and of
+    4 external steps."""
+    case = synth.make_solid_body_case(nx=31, ny=31, us=6, lx=30e3, ly=30e3,
+                                      h0=40.0, omega=1e-4,
+                                      dtype=torch.float64, parabolic_aks=True)
+    rng = np.random.default_rng(16)
+    n = 150
+    x0 = rng.uniform(8e3, 22e3, n)
+    y0 = rng.uniform(8e3, 22e3, n)
+    z0 = rng.uniform(-35.0, -3.0, n)
+    out = {}
+    for fuse in (2, 4):
+        d = str(tmp_path_factory.mktemp(f"torch_stochastic{fuse}"))
+        nml = synth.write_run_files(case, d, x0, y0, z0, n_ext=4, dt=DT,
+                                    idt=450, iprint=4 * DT, ext_fuse=fuse,
+                                    **STOCHASTIC)
+        out[fuse] = (nml, d, _run_cli(nml),
+                     np.loadtxt(os.path.join(d, "out", "run1.csv"),
+                                delimiter=","))
+    return out
+
+
+def test_cli_stochastic_mortality_run(stochastic_runs):
+    lines2, rows2 = stochastic_runs[2][2], stochastic_runs[2][3]
+    lines4, rows4 = stochastic_runs[4][2], stochastic_runs[4][3]
+    assert lines4[0]["route"] == "per_step" and lines4[0]["path"] == "plain"
+    assert lines4[0]["lanes"] == ["advection", "hturb", "vturb_aks",
+                                  "mortality"]
+    np.testing.assert_array_equal(_final(rows2), _final(rows4))
+    status = _final(rows4)[:, 5]
+    # p = 1 - exp(-450/5400) per step over 16 steps: ~74% dead
+    assert 0 < (status == 3).sum() < len(status)
+    assert lines4[-1]["dead"] == (status == 3).sum()
+
+
+def test_cli_stochastic_mortality_run_matches_ltjax_run(stochastic_runs):
+    nml, d, _, rows = stochastic_runs[4]
+    cfg = config_from_namelist(nml, outpath=os.path.join(d, "jax_out"))
+    pj = jrun.run(cfg)
+    final = _final(rows)
+    np.testing.assert_array_equal(final[:, 5], np.asarray(pj.status))
+    np.testing.assert_allclose(final[:, 2], np.asarray(pj.x), rtol=0,
+                               atol=0.5)
+    np.testing.assert_allclose(final[:, 3], np.asarray(pj.y), rtol=0,
+                               atol=0.5)
+    np.testing.assert_allclose(final[:, 4], np.asarray(pj.z), rtol=0,
+                               atol=1e-3)
+
+
 def test_cli_turbulent_run_independent_of_chunking(turb_runs):
     case, (x0, y0, z0), out = turb_runs
     lines2, rows2 = out[2][2], out[2][3]
@@ -172,6 +233,7 @@ def _final(rows):
 def test_cli_runs_without_jax(run_case):
     case, nml, d, (x0, y0, z0), lines, rows = run_case
     assert lines[0]["path"] == "plain" and lines[0]["uniform"] is True
+    assert lines[0]["route"] == "ext_step"
     assert [ln["n_fused"] for ln in lines[1:]] == [2, 1]
     assert lines[-1]["active"] == len(x0) and lines[-1]["error"] == 0
     # two snapshots: t = 0 and the end of the run

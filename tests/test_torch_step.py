@@ -1,7 +1,9 @@
 """The slice as a whole: ltjax_torch.step.make_fused_external_steps vs
 ltjax.step.make_fused_external_steps, ``internal_step`` with turbulence,
 behaviors, mortality, settlement and salt sampling vs ltjax's
-collapsed-mode ``internal_step``, and the options outside the slice.
+collapsed-mode ``internal_step``, the per-step route of stochastic
+mortality (``mode_flags``, ``internal_step(mode="kernel")``), and the
+options outside the slice.
 
 Setup of the fused comparison: tests/test_kernel.py's fused multi-step
 case (41x41 grid, us = 6, 256 particles, a 4-record window, n_fuse = 2)
@@ -10,6 +12,14 @@ mode at f32-exact precision (kernel_precision="highest"), with its exact
 out-of-window patch, so every particle is comparable.  Tolerances
 (float32, as tests/test_kernel.py): horizontal 0.5 m, vertical 1e-3 m;
 statuses equal.
+
+Setup of the per-step comparison: the same 41x41 case with type-6
+sinking and stochastic mortality (death age 1 h, so most particles die
+in the two external steps), through the port's fused driver against a
+loop of ltjax's collapsed-mode ``internal_step`` over the same two
+external steps (step indices e * internal_steps + i).  Float32,
+tolerances as above; statuses equal, DEAD included (the DEATH draws are
+bit-equal).
 
 Setup of the internal-step comparison: a 21x21 float64 grid with a land
 block, a seeded random free surface and w, a parabolic Aks profile
@@ -116,11 +126,89 @@ def test_fused_steps_match_ltjax():
     np.testing.assert_allclose(out["y"][free], ya[free], rtol=0, atol=0.5)
 
 
+def test_per_step_route_matches_ltjax_scan():
+    dtype = jnp.float32
+    c = jsynth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                    h0=50.0, omega=5e-5, dtype=dtype)
+    grid = c.grid._replace(mask_rho=jnp.asarray(_mask()))
+    dt, n_ext = 1800.0, 2
+    fsR = jsynth.fieldset_window(c, -0.5 * dt, dt, n_ext + 2, dtype=dtype)
+    bounds = jbd.build_boundaries(_mask(), np.asarray(grid.x_rho),
+                                  np.asarray(grid.y_rho))
+    cfg = _cfg(Behavior=6, sink=5e-4, mortality=True,
+               stochastic_mortality=True, deadage=3600.0, seed=4)
+    rng = np.random.default_rng(3)
+    n = 256
+    p = jst.init_particles(rng.uniform(38e3, 52e3, n),
+                           rng.uniform(38e3, 52e3, n),
+                           rng.uniform(-40.0, -5.0, n), dtype=dtype)
+    p = p._replace(status=jnp.full(n, jst.ACTIVE, jnp.int32))
+    jctx = JContext(grid=grid, bounds=bounds, polys=None, holes=None)
+    n_int, idt = cfg.internal_steps, float(cfg.idt)
+    pj = p
+    for e in range(n_ext):
+        f3 = fsR._replace(**{k: getattr(fsR, k)[e:e + 3]
+                             for k in fsR._fields})
+        prec = jpk.build_packed_records(grid, f3)
+        for i in range(n_int):
+            pj = j_internal_step(jctx, cfg, jr.key(4), pj, f3,
+                                 e * dt + i * idt, e * n_int + i, prec,
+                                 mode="collapsed")
+
+    ctx = tstep.StepContext(grid=interop.grid_from_numpy(_np(grid)),
+                            bounds=interop.boundaries_from_numpy(
+                                _np(bounds)))
+    assert tstep.mode_flags(ctx, cfg) == "per_step"
+    pt = tstep.make_fused_external_steps(ctx, cfg, n_ext)(
+        interop.particles_from_numpy(_np(p)),
+        interop.fieldset_from_numpy(_np(fsR)), 0.0, 0)
+    out = interop.particles_to_numpy(pt)
+    np.testing.assert_array_equal(out["status"], np.asarray(pj.status))
+    np.testing.assert_array_equal(out["pid"], np.arange(n))
+    for k, tol in (("x", 0.5), ("y", 0.5), ("z", 1e-3), ("age", 1e-3)):
+        np.testing.assert_allclose(out[k], np.asarray(getattr(pj, k)),
+                                   rtol=0, atol=tol)
+    np.testing.assert_array_equal(out["hit_land"], np.asarray(pj.hit_land))
+    dead = (out["status"] == jst.DEAD).sum()
+    assert 0.3 * n < dead < n                 # ~62% expected
+    assert (out["status"] == jst.ACTIVE).sum() > 0
+
+
+MODES = [
+    (dict(), "ext_step"),
+    (dict(mortality=True), "ext_step"),
+    (dict(stochastic_mortality=True), "ext_step"),     # no mortality at all
+    (dict(mortality=True, stochastic_mortality=True), "per_step"),
+    (dict(Behavior=4, readSalt=True, SaltTempOn=True, settlementon=True,
+          holesExist=True, mortality=True, stochastic_mortality=True),
+     "per_step"),
+]
+
+
+@pytest.mark.parametrize("kw,route", MODES,
+                         ids=["advection", "mortality", "stochastic-off",
+                              "stochastic", "oyster-stochastic"])
+def test_mode_flags_routes_stochastic_mortality(kw, route):
+    assert tstep.mode_flags(_ctx(), _cfg(us=4, ws=5, **kw)) == route
+
+
+def test_ext_step_kernel_refuses_stochastic_mortality():
+    """The whole-step kernel draws no DEATH words: its wrapper refuses
+    stochastic mortality on every device and names the per-step route."""
+    from ltjax_torch.kernels import ext_step as kx
+    ctx = _ctx()
+    g = ctx.grid
+    p = tst.init_particles(np.full(4, 4e3), np.full(4, 4e3),
+                           np.full(4, -5.0), dtype=torch.float32)
+    fs = synth.fieldset_for(synth.make_solid_body_case(
+        nx=9, ny=9, us=4, dtype=torch.float32), t_center=900.0, dt=1800.0)
+    prec = tpk.build_packed_records(g, fs)
+    cfg = _cfg(us=4, ws=5, mortality=True, stochastic_mortality=True)
+    with pytest.raises(ValueError, match="per-step route"):
+        kx.ext_step_fused(ctx, cfg, p, prec, 0.0, fields=fs)
+
+
 UNSUPPORTED = [
-    ("stochastic_mortality", dict(mortality=True,
-                                  stochastic_mortality=True)),
-    ("stochastic_mortality", dict(Behavior=4, readSalt=True, mortality=True,
-                                  stochastic_mortality=True)),
     ("tension_sigma", dict(tension_sigma=-1.0)),
     ("mesh_particles", dict(mesh_particles=2)),
     ("checkpoint_every", dict(checkpoint_every=4)),
@@ -137,8 +225,7 @@ def _ctx():
 
 
 @pytest.mark.parametrize("name,kw", UNSUPPORTED,
-                         ids=["mortality", "behavior4-stochastic"]
-                         + [u[0] for u in UNSUPPORTED[2:]])
+                         ids=[u[0] for u in UNSUPPORTED])
 def test_unsupported_option_raises(name, kw):
     with pytest.raises(NotImplementedError, match=name):
         if name == "--resume":
@@ -161,6 +248,25 @@ def test_cuda_only_restrictions(monkeypatch):
     tstep.check_supported(_cfg(us=4, ws=5), ctx)       # the slice itself
 
 
+def test_stochastic_mortality_on_curvilinear_cuda_refused(monkeypatch):
+    """The per-step kernel locates rectilinear cells only: stochastic
+    mortality on a curvilinear grid is refused on CUDA (checked here by
+    presenting the grid as on CUDA) and runs on the CPU."""
+    c = synth.make_curv_case(nx=9, ny=9, us=4, lx=8e3, ly=8e3, h0=20.0,
+                             dtype=torch.float32)
+    g = c.grid
+    ctx = tstep.StepContext(grid=g, bounds=bd.build_boundaries_curv(
+        g.mask_rho.numpy(), c.x2d, c.y2d, g.curv))
+    stochastic = _cfg(us=4, ws=5, mortality=True, stochastic_mortality=True)
+    tstep.check_supported(stochastic, ctx)              # CPU: the plain path
+    monkeypatch.setattr(type(ctx.grid), "device",
+                        property(lambda self: torch.device("cuda")))
+    with pytest.raises(NotImplementedError,
+                       match="stochastic_mortality on a curvilinear grid"):
+        tstep.check_supported(stochastic, ctx)
+    tstep.check_supported(_cfg(us=4, ws=5, mortality=True), ctx)
+
+
 SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
          dict(VTurbOn=True, readAks=False, ConstantVTurb=1e-3)] + [
     dict(Behavior=b, mortality=True) for b in (0, 1, 2, 3, 6, 7)] + [
@@ -169,7 +275,8 @@ SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
     dict(SaltTempOn=True, readSalt=True, readTemp=True),
     dict(Behavior=4, readSalt=True, SaltTempOn=True, settlementon=True,
          holesExist=True, HTurbOn=True, VTurbOn=True, readAks=True,
-         mortality=True)]
+         mortality=True),
+    dict(Behavior=6, mortality=True, stochastic_mortality=True)]
 
 
 @pytest.mark.parametrize("kw", SLICE, ids=lambda kw: "-".join(
@@ -220,7 +327,17 @@ SLICE_STEP = {
     **{f"behavior{b}": dict(Behavior=b, mortality=True, HTurbOn=True,
                             ConstantHTurb=2e4, VTurbOn=True, readAks=True)
        for b in (1, 2, 3, 6, 7)},
+    # the per-step route: RK4 and TST's stage-1 currents through the
+    # per-step kernel's wrapper (its plain version on the CPU)
+    "behavior7-stochastic": dict(Behavior=7, mortality=True,
+                                 stochastic_mortality=True, deadage=3600.0,
+                                 HTurbOn=True, ConstantHTurb=2e4,
+                                 VTurbOn=True, readAks=True),
 }
+
+
+def _mode(cfg):
+    return "kernel" if cfg.stochastic_mortality else "collapsed"
 BEH = dict(deadage=2 * 86400.0, pediage=86400.0, swimstart=3600.0,
            swimslow=2e-3, swimfast=5e-3, sink=5e-4, Hswimspeed=0.1,
            Swimdepth=3.0)
@@ -246,7 +363,8 @@ def test_internal_step_matches_ltjax_collapsed(name):
         t = i * 300.0
         pj = j_internal_step(jctx, cfg, jr.key(9), pj, fs, t, 40 + i,
                              jprec, mode="collapsed")
-        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec)
+        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec,
+                                 mode=_mode(cfg))
         out = interop.particles_to_numpy(pt)
         np.testing.assert_array_equal(out["status"], np.asarray(pj.status))
         for k in ("x", "y", "z", "age"):
@@ -338,6 +456,11 @@ SETTLE_STEP = {
                                   HTurbOn=True, ConstantHTurb=2e4,
                                   mortality=True, **SALT),
     "behavior5-salt": dict(Behavior=5, SaltTempOn=True, **SALT),
+    "oyster-stochastic": dict(Behavior=4, SaltTempOn=True, settlementon=True,
+                              holesExist=True, HTurbOn=True,
+                              ConstantHTurb=2e4, VTurbOn=True, readAks=True,
+                              mortality=True, stochastic_mortality=True,
+                              deadage=3600.0, **SALT),
 }
 
 
@@ -370,7 +493,8 @@ def test_settlement_and_salt_step_matches_ltjax_collapsed(name):
         t = i * 300.0
         pj = j_internal_step(jctx, cfg, jr.key(9), pj, fs, t, 40 + i,
                              jprec, mode="collapsed")
-        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec)
+        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec,
+                                 mode=_mode(cfg))
         out = interop.particles_to_numpy(pt)
         for k in ("status", "settle_poly", "hit_land", "hit_bottom"):
             np.testing.assert_array_equal(out[k], np.asarray(getattr(pj, k)))
@@ -394,6 +518,8 @@ def test_settlement_and_salt_step_matches_ltjax_collapsed(name):
         assert (out["temp"][moved] > 8.0).all()
     else:
         assert (out["salt"] == 0).all()
+    if cfg.stochastic_mortality:
+        assert (st_ == jst.DEAD).sum() > 0
     if cfg.Behavior in (4, 5):
         # the halocline cue fired for some particles and not for others
         q = interop.particles_from_numpy(_np(p))
