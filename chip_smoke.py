@@ -13,9 +13,14 @@ line) if any of them fails:
 1. the kernel against its plain PyTorch version on the card: one
    external step (30 internal steps) of 65,536 particles on the
    200x200x20 bench grid with a land block (reflection) and an open rim
-   (exits), particles near the surface and in the bottom log layer; then
-   the same with a seeded random w and zeta, internal step by internal
-   step (w fit, surface and bottom reflection);
+   (exits), particles near the surface and in the bottom log layer, on
+   the affine and on a stretched ladder (theta_s 4, hc 10 m: depths that
+   depend on Cs and hc); then the same with a seeded random w and zeta,
+   internal step by internal step (w fit, surface and bottom
+   reflection); then each path of the staged corner source with its
+   counter: unsorted inputs (every block from device memory, as
+   block_boxes predicts), a dense sorted patch (staged), and a flow ten
+   times faster (misses);
 2. the advection main path at real size: 1,000,000 particles, 16 fused
    external steps x 30 internal steps through ltjax_torch.step
    .make_fused_external_steps, held against the closed-form trajectory;
@@ -61,17 +66,23 @@ line) if any of them fails:
    halocline at 65,536; and the CLI on a geographic curvilinear series;
 8. stochastic mortality through the per-step route (the per-internal-
    step RK4 kernel and the PyTorch lanes): the RK4 kernel against its
-   plain version at 65,536 particles on phase 1's inputs and its random-w
-   case; bench.py's behavior cell with stochastic mortality at 1M (16 x
+   plain version at 65,536 particles on phase 1's inputs, its random-w
+   case, the stretched ladder and the staged source's three paths;
+   bench.py's behavior cell with stochastic mortality at 1M (16 x
    30 steps through make_fused_external_steps: 480 RK4 launches and none
-   of the whole-step kernel, timed, the dead share against 1 -
+   of the whole-step kernel, timed, the staged share, the dead share
+   against 1 -
    exp(-t/deadage), the circles), per internal step against the plain
    route, the RK4 kernel timed at 1M and 65,536, and the internal step
    split by the profiler; the oyster CLI run with stochastic mortality in
    chunks of 2 and 4, and its lanes per step at 65,536.
 
-Stdout carries the card's name and power limit, the build report, each
-phase's numbers and its wall time, then the per-kernel JSON summary
+Stdout carries the card's name and power limit, the build report (per
+library ptxas's registers, stack and spills, and its dynamic shared
+memory and blocks per SM at the bench shape), each phase's numbers (the
+main paths' staging counters: staged_block_steps, global_block_steps,
+staged_misses, and the staged share) and its wall time, then the
+per-kernel JSON summary
 (each kernel's time, its plain version's, and its bound: the least time
 the card could take for the same work, from the bytes and operations
 counted in kernel_bound and rk4_bound), the card's name and power limit
@@ -109,6 +120,9 @@ TOL_ANALYTIC_CLI = 0.5
 # the stochastic lanes, per internal step from the same state: the draws
 # are bit-equal, what is left is f32 round-off and FMA contraction
 TOL_H_STEP = 0.05
+# phase 1's advection per internal step (1-vertical): 4 f32 ulps of a
+# position at 128-256 km (0.0508 m measured on the H100)
+TOL_H_STEP1 = 0.0625
 TOL_HTURB_EXACT = 1e-5   # m, random-walk deviates near the origin
 TOL_VARIANCE = 0.02      # relative, random-walk variance vs 2 K t
 TOL_WELL_MIXED = 0.03    # relative, each of 10 depth bins vs N / 10
@@ -140,18 +154,26 @@ def log(obj):
 
 
 def bench_case(torch, device, nx=200, ny=200, us=20, land=True,
-               omega=5e-5, parabolic_aks=False, halocline=False):
+               omega=5e-5, parabolic_aks=False, halocline=False,
+               stretched=False):
     """The bench.py advect case (200 km square, solid-body rotation,
     omega 5e-5, h0 50 m), optionally with a land block in its path,
-    bench.py's turb-variant Aks profile and the synthetic halocline
-    (salt and temperature, synth.halocline_fields)."""
+    bench.py's turb-variant Aks profile, the synthetic halocline (salt
+    and temperature, synth.halocline_fields) and (``stretched``) a
+    stretched ladder, theta_s 4 with hc 10 m < h0, on which the s-level
+    depths depend on both Cs and hc (with Cs = s or hc = h0 they depend
+    on neither)."""
     from ltjax_torch import synth
     return synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=200e3,
                                       ly=200e3, h0=50.0, omega=omega,
                                       dtype=torch.float32, device=device,
                                       mask=land_mask(nx, ny, land),
                                       parabolic_aks=parabolic_aks,
-                                      halocline=halocline)
+                                      halocline=halocline,
+                                      **(STRETCHED if stretched else {}))
+
+
+STRETCHED = dict(theta_s=4.0, hc=10.0)
 
 
 def land_mask(nx, ny, land):
@@ -306,10 +328,12 @@ def kernel_vs_plain(torch, phase, ctx, cfg, p, prec, reps, plain_reps):
     events)."""
     from ltjax_torch.kernels import ext_step as kx
     ref = kx.ext_step_reference(ctx, cfg, p, prec, 0.0)
+    kx.reset_launches()
     out = kx.ext_step_fused(ctx, cfg, p, prec, 0.0)
     if p.x.device.type == "cuda":
         torch.cuda.synchronize()
-    res = {"phase": phase, "n": p.n, **compare(phase, p, out, ref)}
+    res = {"phase": phase, "n": p.n, **compare(phase, p, out, ref),
+           "staging": kx.counts()}
     ms = plain_ms = None
     if p.x.device.type == "cuda":
         ms = cuda_time(torch, lambda: kx.ext_step_fused(ctx, cfg, p, prec,
@@ -327,51 +351,20 @@ def kernel_vs_plain(torch, phase, ctx, cfg, p, prec, reps, plain_reps):
     return res
 
 
-def kernel_vs_plain_stepwise(torch, phase, ctx, cfg, p, prec):
-    """The internal steps of one external step, each launched on its own
-    (cfg.dt = cfg.idt) from the plain trajectory's state, kernel against
-    plain at every step.  With random w the whole-step comparison is
-    ill-conditioned: near the bottom the log layer turns round-off in z
-    into metres of horizontal drift, which moves w, so f32 against f64 of
-    the plain version alone differs by hundreds of metres after 30 steps.
-    Step by step both sides start from the same state."""
-    from dataclasses import replace
-    from ltjax_torch.kernels import ext_step as kx
-    cfg1 = replace(cfg, dt=cfg.idt)
-    idt = float(cfg.idt)
-    res = {"phase": phase, "n": p.n, "steps": cfg.internal_steps,
-           "max_abs_dx": 0.0, "max_abs_dy": 0.0, "max_abs_dz": 0.0,
-           "status_mismatch": 0, "hit_land_mismatch": 0,
-           "hit_bottom_mismatch": 0, "hit_bottom_plain": 0,
-           "surface_crossings_plain": 0}
-    q = p
-    for i in range(cfg.internal_steps):
-        t = i * idt
-        out = kx.ext_step_fused(ctx, cfg1, q, prec, t)
-        ref = kx.ext_step_reference(ctx, cfg1, q, prec, t)
-        r = compare(phase, q, out, ref)
-        check(r, p.n)                  # per-step bounds
-        for k, v in r.items():
-            res[k] = (max(res.get(k, 0.0), v) if k.startswith("max")
-                      else res.get(k, 0) + v)
-        res["hit_bottom_plain"] += int((ref.hit_bottom - q.hit_bottom).sum())
-        res["surface_crossings_plain"] += surface_crossings(ctx, cfg1, q,
-                                                           prec, t)
-        q = ref
-    res["max_vertical_move_plain_m"] = float((q.z - p.z).abs().max())
-    res["status_counts_plain"] = np.bincount(q.status.cpu().numpy(),
-                                             minlength=6).tolist()
-    log(res)
-    return res
-
-
 def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
-                   seed=5, per_step=False):
-    """The stochastic, settlement and salt lanes, internal step by
-    internal step from the plain trajectory's state (cfg.dt = cfg.idt;
-    step i draws with step index i): horizontal TOL_H_STEP, vertical
-    TOL_V, age 1e-3 s, salt and temp TOL_SALT, equal statuses and
-    settle_poly, hit_land / hit_bottom mismatches <= 0.01%.
+                   seed=5, per_step=False, crossings=False,
+                   tol_h=TOL_H_STEP):
+    """The kernel's lanes, internal step by internal step from the plain
+    trajectory's state (cfg.dt = cfg.idt; step i draws with step index
+    i): horizontal tol_h (TOL_H_STEP), vertical TOL_V, age 1e-3 s, salt
+    and temp TOL_SALT, equal statuses and settle_poly, hit_land / hit_bottom
+    mismatches <= 0.01%.  Whole external steps are ill-conditioned under
+    a random w or the stochastic lanes: near the bottom the log layer
+    turns round-off in z into metres of horizontal drift, which moves w,
+    so f32 against f64 of the plain version alone differs by hundreds of
+    metres after 30 steps; step by step both sides start from the same
+    state.  ``crossings`` also counts the plain version's bottom hits and
+    surface crossings (before reflection) over the steps.
 
     Behaviors 1-5 and 7 decide by a threshold on a continuous value (zone
     edge, light threshold, |dS/dz| at Sgradient, riding speed), and
@@ -402,6 +395,8 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
            "status_mismatch": 0, "settle_poly_mismatch": 0,
            "hit_land_mismatch": 0, "hit_bottom_mismatch": 0,
            "decision_flips": 0}
+    if crossings:
+        res.update(hit_bottom_plain=0, surface_crossings_plain=0)
     q = p
     for i in range(steps):
         t = t0 + i * idt
@@ -414,8 +409,8 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
             ref = kx.ext_step_reference(ctx, cfg1, q, prec, t,
                                         fields=fields, seed=seed, ext_idx=i)
         torch.cuda.synchronize()
-        flip = ((((out.x - ref.x).abs() > TOL_H_STEP)
-                 | ((out.y - ref.y).abs() > TOL_H_STEP)
+        flip = ((((out.x - ref.x).abs() > tol_h)
+                 | ((out.y - ref.y).abs() > tol_h)
                  | ((out.z - ref.z).abs() > TOL_V))
                 & (out.status == ref.status))
         if cfg.settlementon:
@@ -437,10 +432,15 @@ def lanes_stepwise(torch, phase, ctx, cfg, p, prec, fields, t0, steps,
         r = compare(phase, q_cmp, out, ref_cmp)
         r["max_abs_dage"] = float((out.age - ref_cmp.age).abs().max())
         r["decision_flips"] = n_flip if thresholds else 0
-        check(r, p.n, TOL_H_STEP, strict_status=True)
+        check(r, p.n, tol_h, strict_status=True)
         assert r["max_abs_dage"] <= 1e-3, r
         for k, v in r.items():
             res[k] = max(res[k], v) if k.startswith("max") else res[k] + v
+        if crossings:
+            res["hit_bottom_plain"] += int((ref.hit_bottom
+                                            - q.hit_bottom).sum())
+            res["surface_crossings_plain"] += surface_crossings(ctx, cfg1, q,
+                                                               prec, t)
         q = ref
     res["max_vertical_move_plain_m"] = float((q.z - p.z).abs().max())
     res["max_horizontal_move_plain_m"] = float(
@@ -472,15 +472,18 @@ def surface_crossings(ctx, cfg, p, prec, t0):
 
 
 def phase1(torch, device, n=65536, nx=200, us=20, reps=5):
-    """Kernel vs plain version on the same inputs, two checks.
+    """Kernel vs plain version on the same inputs.
 
     1. One external step (30 internal steps in one launch, timed) of
        solid-body rotation with the land block (reflection) and the open
        rim (exits); a third of the particles 0.1-1 m above the bottom,
-       in the log layer, a third within a metre of the surface.
+       in the log layer, a third within a metre of the surface; then the
+       same on a stretched ladder (depths that depend on Cs and hc).
     2. Rotation ten times slower (<= 0.7 m/s) with a seeded random w
-       (+-5 mm/s) and zeta (std 0.3 m), step by step: the w-ladder fit,
-       the zeta-moved knots and the surface and bottom reflections.
+       (+-5 mm/s) and zeta (std 0.3 m), step by step (lanes_stepwise:
+       TOL_H_STEP1, TOL_V, equal statuses): the w-ladder fit, the
+       zeta-moved knots and the surface and bottom reflections.
+    3. Each path of the staged corner source (phase1_staging).
 
     f32 knows the height above the bottom z + h to ~4e-6 m, and the log
     layer's factor has slope 1/((z + h) ln(z_tb/z0)): a particle within
@@ -496,26 +499,132 @@ def phase1(torch, device, n=65536, nx=200, us=20, reps=5):
     fs = synth.fieldset_for(case, t_center=0.0, dt=3600.0, device=device)
     x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
     z = near_surface_and_bottom(n, case.h0, seed=4)
-    p = st.init_particles(x, y, z, dtype=torch.float32, device=device)
-    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
-    p, _ = _sort(case.grid, p)         # as the main path hands it over
-    res = kernel_vs_plain(torch, 1, ctx, cfg, p,
-                          pk.build_packed_records(case.grid, fs), reps, 2)
+    pu = st.init_particles(x, y, z, dtype=torch.float32, device=device)
+    pu = pu.replace(status=torch.full_like(pu.status, st.ACTIVE))
+    p, _ = _sort(case.grid, pu)        # as the main path hands it over
+    prec = pk.build_packed_records(case.grid, fs)
+    res = kernel_vs_plain(torch, 1, ctx, cfg, p, prec, reps, 2)
     # the land block and the open rim were both exercised
     assert res["hit_land_plain"] > 0, res
     assert res["status_counts_plain"][st.OUT_OF_DOMAIN] > 0, res
+
+    stretched = bench_case(torch, device, nx=nx, ny=nx, us=us,
+                           stretched=True)
+    assert ladder_depends_on_cs_and_hc(stretched.grid)
+    res_s = kernel_vs_plain(
+        torch, "1-stretched", context(stretched), cfg, p,
+        pk.build_packed_records(stretched.grid, synth.fieldset_for(
+            stretched, t_center=0.0, dt=3600.0, device=device)), 1, 1)
+    assert res_s["hit_land_plain"] > 0, res_s
 
     slow = bench_case(torch, device, nx=nx, ny=nx, us=us, omega=5e-6)
     prec_v = pk.build_packed_records(case.grid, synth.with_vertical_motion(
         synth.fieldset_for(slow, t_center=0.0, dt=3600.0, device=device),
         seed=3))
-    res_v = kernel_vs_plain_stepwise(torch, "1-vertical", ctx, cfg, p,
-                                     prec_v)
+    res_v, _ = lanes_stepwise(torch, "1-vertical", ctx, cfg, p, prec_v, None,
+                              0.0, cfg.internal_steps, crossings=True,
+                              tol_h=TOL_H_STEP1)
     # the bottom and the surface were both hit, and particles moved
     assert res_v["hit_bottom_plain"] > 0, res_v
     assert res_v["surface_crossings_plain"] > 0, res_v
     assert res_v["max_vertical_move_plain_m"] > 1.0, res_v
-    return res, res_v
+    res_g = phase1_staging(torch, device, case, ctx, cfg, pu, prec)
+    return res, res_s, res_v, res_g
+
+
+def ladder_depends_on_cs_and_hc(grid, h=50.0):
+    """The grid's rho and w depths in a resting column of depth h move by
+    more than 0.5 m when Cs is replaced by s, and when hc is replaced by
+    h: a kernel that reads hc or Cs wrongly cannot pass on it."""
+    from ltjax_torch.scoord import s_depths
+    zero, hh = np.zeros(1), np.full(1, h)
+    for s, cs in ((grid.s_rho, grid.Cs_r), (grid.s_w, grid.Cs_w)):
+        s, cs = s.cpu().numpy(), cs.cpu().numpy()
+        z = s_depths(zero, hh, s, cs, grid.hc, grid.vtransform)
+        for z_other in (s_depths(zero, hh, s, s, grid.hc, grid.vtransform),
+                        s_depths(zero, hh, s, cs, h, grid.vtransform)):
+            if np.abs(z - z_other).max() <= 0.5:
+                return False
+    return True
+
+
+def phase1_staging(torch, device, case, ctx, cfg, pu, prec, n=65536):
+    """Each path of the staged corner source against the plain version,
+    with its own counter (csrc find_currents.cuh):
+
+    * overflow: phase 1's inputs unsorted (one external step, whole-step
+      tolerances): every block's box exceeds the budget and runs from
+      device memory; global_block_steps of a one-internal-step launch
+      equals block_boxes' count of the blocks that do not fit;
+    * staged: 65,536 sorted particles on a 24 x 24 km patch west of the
+      centre (~110 a cell; the main path has ~70): the blocks stage, as
+      block_boxes predicts for the first internal step;
+    * misses: the same batch in a flow four times faster (7-12 m/s,
+      0.9-1.4 cells an internal step), internal step by internal step
+      (lanes_stepwise): stencils leave the box and read device memory.
+      Ten times faster would be 2-4 cells a step, past the displacement
+      guard's 1.5 cells: every particle would end ERROR in the first
+      step."""
+    from dataclasses import replace
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import ext_step as kx
+    from ltjax_torch.step import _sort
+    nl = prec.tab.shape[-1]
+    cfg1 = replace(cfg, dt=cfg.idt)
+
+    def first_step(q):
+        """(measured, predicted) global_block_steps of the first internal
+        step of batch q."""
+        kx.reset_launches()
+        kx.ext_step_fused(ctx, cfg1, q, prec, 0.0)
+        got = kx.counts()["global_block_steps"]
+        b = kx.block_boxes(ctx.grid, q.x, q.y, q.status, nl)
+        return got, int((b["live"] & ~b["fits"]).sum())
+
+    out = {}
+    r = kernel_vs_plain(torch, "1-overflow", ctx, cfg, pu, prec, 1, 1)
+    r["global_first_step"], r["global_first_step_predicted"] = first_step(pu)
+    log({"phase": "1-overflow", "staging": r["staging"],
+         "global_first_step": r["global_first_step"],
+         "predicted": r["global_first_step_predicted"]})
+    g = r["staging"]
+    assert g["global_block_steps"] > 9 * g["staged_block_steps"], r
+    assert r["global_first_step"] == r["global_first_step_predicted"], r
+    out["overflow"] = r
+
+    rng = np.random.default_rng(11)
+    # depths clear of the log layer: near the bottom a particle lags its
+    # block in the rotation and the boxes grow
+    pd = st.init_particles(rng.uniform(40e3, 64e3, n),
+                           rng.uniform(88e3, 112e3, n),
+                           rng.uniform(-40.0, -5.0, n),
+                           dtype=torch.float32, device=device)
+    pd = pd.replace(status=torch.full_like(pd.status, st.ACTIVE))
+    pd, _ = _sort(ctx.grid, pd)
+    r = kernel_vs_plain(torch, "1-staged", ctx, cfg, pd, prec, 1, 1)
+    r["global_first_step"], r["global_first_step_predicted"] = first_step(pd)
+    log({"phase": "1-staged", "staging": r["staging"],
+         "global_first_step": r["global_first_step"],
+         "predicted": r["global_first_step_predicted"]})
+    g = r["staging"]
+    assert g["staged_block_steps"] > 9 * g["global_block_steps"], r
+    assert r["global_first_step"] == r["global_first_step_predicted"], r
+    out["staged"] = r
+
+    fast = bench_case(torch, device, nx=case.grid.nx, ny=case.grid.ny,
+                      us=case.grid.us, omega=2e-4)
+    prec_f = pk.build_packed_records(ctx.grid, synth.fieldset_for(
+        fast, t_center=0.0, dt=3600.0, device=device))
+    kx.reset_launches()
+    r, _ = lanes_stepwise(torch, "1-misses", ctx, cfg, pd, prec_f, None, 0.0,
+                          steps=5)
+    r["staging"] = kx.counts()
+    log({"phase": "1-misses", "staging": r["staging"]})
+    assert r["staging"]["staged_misses"] > 0, r
+    assert r["staging"]["staged_block_steps"] > 0, r
+    assert r["status_counts_plain"][st.ACTIVE] > 0.9 * n, r
+    out["misses"] = r
+    return out
 
 
 def near_surface_and_bottom(n, h0, seed):
@@ -553,12 +662,13 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
             torch.cuda.synchronize()
 
     sync()
-    kx.ext_step_fused.launches = 0
+    kx.reset_launches()
     t0 = time.perf_counter()
     p = fused(p0, fsR, 0.0, 0)
     sync()
     sec_on = time.perf_counter() - t0
     launches = kx.ext_step_fused.launches
+    staging = kx.counts()
 
     # sort off: the same kernel calls on the unsorted batch
     prec_all = pk.build_packed_records(case.grid, fsR)
@@ -584,7 +694,8 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
            "particle_steps_per_s_sort_off": steps / sec_off,
            "max_err_vs_analytic_m": float(err.max()),
            "max_err_vs_analytic_sort_off_m": float(err_off.max()),
-           "counts": counts}
+           "counts": counts, "staging": staging,
+           "staged_share": staged_share(staging)}
     log(res)
     # the CPU rehearsal of this function runs the plain version
     assert launches == (n_fuse if device.type == "cuda" else 0), res
@@ -599,8 +710,29 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     res["kernel"] = kernel_vs_plain(torch, 2, ctx, cfg, ps, prec3, 3, 1)
     res["bound"] = kernel_bound(cfg, ctx, prec3, ps,
                                 kx.ext_step_fused(ctx, cfg, ps, prec3, 0.0))
-    log({"phase": 2, "bound": res["bound"]})
+    # block_boxes predicts the blocks of the first internal step that
+    # run from device memory
+    from dataclasses import replace
+    kx.reset_launches()
+    kx.ext_step_fused(ctx, replace(cfg, dt=cfg.idt), ps, prec3, 0.0)
+    b = kx.block_boxes(case.grid, ps.x, ps.y, ps.status, prec3.tab.shape[-1])
+    res["global_first_step"] = kx.counts()[
+        "global_block_steps"]
+    res["global_first_step_predicted"] = int((b["live"] & ~b["fits"]).sum())
+    log({"phase": 2, "bound": res["bound"],
+         "global_first_step": res["global_first_step"],
+         "predicted": res["global_first_step_predicted"]})
+    if device.type == "cuda":
+        assert res["staged_share"] > 0.9, res["staging"]
+        assert (res["global_first_step"]
+                == res["global_first_step_predicted"]), res
     return res
+
+
+def staged_share(c):
+    """Staged block-steps over all block-steps with an active particle."""
+    tot = c["staged_block_steps"] + c["global_block_steps"]
+    return c["staged_block_steps"] / tot if tot else None
 
 
 def phase3(torch, device, n=10_000, nx=60, us=10, n_ext=4):
@@ -741,11 +873,13 @@ def phase4(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches = dict(kx.ext_step_fused.variant_launches)
+        staging = kx.counts()
         tag = build.tag("ext_step", kx.kernel_variant(cfg))
         counts = summary_counts(p)
         res = {"phase": f"4-{name}", "n": n, "ext_steps": n_fuse,
                "internal_steps": cfg.internal_steps, "variant": tag,
-               "launches": launches, "seconds": sec,
+               "launches": launches, "staging": staging,
+               "staged_share": staged_share(staging), "seconds": sec,
                "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
                "max_vertical_move_m": float((p.z - p0.z).abs().max()),
                "counts": counts}
@@ -1140,11 +1274,13 @@ def phase6(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
         launches = dict(kx.ext_step_fused.variant_launches)
+        staging = kx.counts()
         tag = build.tag("ext_step", kx.kernel_variant(cfg))
         counts = summary_counts(p)
         res = {"phase": f"6-{name}", "n": n, "ext_steps": n_fuse,
                "internal_steps": cfg.internal_steps, "variant": tag,
-               "launches": launches, "seconds": sec,
+               "launches": launches, "staging": staging,
+               "staged_share": staged_share(staging), "seconds": sec,
                "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
                "max_vertical_move_m": float((p.z - p0.z).abs().max()),
                "counts": counts}
@@ -1392,13 +1528,15 @@ def phase7(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = dict(kx.ext_step_fused.variant_launches)
+    staging = kx.counts()
     tag = build.tag("ext_step", kx.kernel_variant(cfg, curv=True))
     counts = summary_counts(pb)
     xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
     err = np.hypot(pb.x.cpu().numpy() - xa, pb.y.cpu().numpy() - ya)
     rb = {"phase": "7b", "n": n, "ext_steps": n_fuse,
           "internal_steps": cfg.internal_steps, "variant": tag,
-          "launches": launches, "seconds": sec,
+          "launches": launches, "staging": staging,
+          "staged_share": staged_share(staging), "seconds": sec,
           "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
           "max_err_vs_analytic_m": float(err.max()),
           "mean_err_vs_analytic_m": float(err.mean()), "counts": counts}
@@ -1584,6 +1722,17 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
         torch, "8a-vertical", case.grid,
         pk.stage_value_tables(case.grid, prec_v, 600.0, idt), pa, cfg)
     assert out["a-vertical"]["max_abs_dz_move_m"] > 0.1, out["a-vertical"]
+    # the stretched ladder, in the slow flow with random w (the fast one
+    # carries round-off of z in the bottom log layer into metres of x)
+    stretched = bench_case(torch, device, nx=nx, ny=nx, us=us, omega=5e-6,
+                           stretched=True)
+    assert ladder_depends_on_cs_and_hc(stretched.grid)
+    out["a-stretched"] = rk4_vs_plain(
+        torch, "8a-stretched", stretched.grid, pk.stage_value_tables(
+            stretched.grid, pk.build_packed_records(
+                stretched.grid, synth.with_vertical_motion(synth.fieldset_for(
+                    stretched, t_center=0.0, dt=3600.0, device=device),
+                    seed=3)), 600.0, idt), pa, cfg, reps=1, plain_reps=1)
 
     # (b) bench.py's behavior cell with stochastic mortality at 1M
     case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
@@ -1845,6 +1994,27 @@ def kernel_targets():
     return [("ext_step", v) for v in variants] + [("rk4_step", None)]
 
 
+def staging_report(targets, us=20, ws=21):
+    """Per whole-step library at the bench shape (us 20, ws 21): the
+    record lanes it reads, its dynamic shared memory per block (three
+    tiles of tile_points points) and the blocks one SM holds (occupancy
+    calculator)."""
+    from ltjax_torch import packed as pk
+    from ltjax_torch.kernels import build, ext_step as kx
+    nv = pk.n_value_lanes(us, ws)
+    out = {}
+    for name, v in targets:
+        if name != "ext_step":
+            continue
+        salt = v.get("LTX_SALT") or v["LTX_BEHAVIOR"] in (4, 5)
+        nl = (nv + (ws if v["LTX_VTURB"] == kx.VTURB_AKS else 0)
+              + (2 * us if salt else 0))
+        out[build.tag(name, v)] = {"nl": nl, "tile_points": kx.tile_points(nl),
+                                   "dynamic_smem_bytes": kx.stage_bytes(nl),
+                                   "blocks_per_sm": kx.blocks_per_sm(v, nl)}
+    return out
+
+
 def main(argv=None):
     import torch
     argv = sys.argv[1:] if argv is None else argv
@@ -1876,7 +2046,8 @@ def main(argv=None):
     build.prebuild(targets)
     log({"build": sorted({name for name, _ in targets}),
          "libraries": len(targets), "seconds": time.perf_counter() - t0,
-         "ptxas": {k: v["ptxas"] for k, v in build.report.items()}})
+         "ptxas": {k: v["ptxas"] for k, v in build.report.items()},
+         "staging": staging_report(targets)})
 
     phases = {1: lambda: phase1(torch, device),
               2: lambda: phase2(torch, device),
@@ -1900,7 +2071,8 @@ def main(argv=None):
     if only is not None:
         log({"only": sorted(only), "passed": True})
         return
-    (r1, r1v), r2, r4, r6, r7, r8 = (res[k] for k in (1, 2, 4, 6, 7, 8))
+    (r1, r1s, r1v, r1g), r2, r4, r6, r7, r8 = (res[k] for k in
+                                               (1, 2, 4, 6, 7, 8))
     rk = r2["kernel"]          # timed at the main path's shape (1M)
     errs = ("max_abs_dx", "max_abs_dy", "max_abs_dz", "max_abs_dsalt",
             "max_abs_dtemp")
@@ -1915,7 +2087,9 @@ def main(argv=None):
                 "bound_by": bound["bound_by"], "library_ms": None}
 
     kernels = [entry("advect", r2["launches"],
-                     max(r.get(k, 0.0) for r in (r1, r1v, rk) for k in errs),
+                     max(r.get(k, 0.0) for r in (r1, r1s, r1v, rk,
+                                                 *r1g.values())
+                         for k in errs),
                      rk["kernel_ms"], rk["plain_ms"], r2["bound"])]
     for name, r in {**r4, **{k: r6[k] for k in SETTLE_SALT}}.items():
         kernels.append(entry(
@@ -1937,7 +2111,8 @@ def main(argv=None):
         "name": "rk4_displacement_fused", "route": "cuda",
         "source": RK4_SRC, "replaces": RK4_REPLACES,
         "launches": r8["b"]["launches"]["rk4_displacement_fused"],
-        "max_abs_err": max(r[k] for r in (r8["a"], r8["a-vertical"],
+        "max_abs_err": max(r[k] for r in (*(r8[c] for c in r8
+                                            if c.startswith("a")),
                                           *r8["b"]["kernel"].values(),
                                           r8["b"]["stepwise"],
                                           r8["c-lanes"]) for k in rk4_errs),

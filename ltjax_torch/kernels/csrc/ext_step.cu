@@ -29,21 +29,41 @@
 // configuration carries only its own lanes; with all of them 0 the
 // kernel is the advection kernel alone.
 //
-// Design.  One thread per particle, 128 threads a block, one launch per
-// external step; the n_int internal steps run inside the thread with
-// x, y, z, status (and the age, where behavior or mortality read it) in
-// registers.  Every stage gathers the 4 corner rows x 3 records x nv
-// lanes straight from device memory (the TPU kernel's VMEM windows,
-// one-hot MXU blends and out-of-window patch have no purpose here: no
-// particle can miss a window) through find_currents.cuh, which this
-// kernel shares with rk4_step.cu.  The vertical fit streams the levels:
-// knots and blended values are computed level by level inside the
-// Thomas forward sweep, so only the sweep's cp/dp columns live in local
-// memory (MAX_LEVELS floats each); the evaluation interval is captured
-// on the fly and the backward sweep stops there.  The Visser term needs
-// the Aks spline's derivative at z and its value at z_mid, an interval
-// known only after the derivative: its fit keeps the whole z2 column
-// and the knots in those same local arrays and evaluates twice.
+// Design.  One thread per particle, LTX_BLOCK = 128 threads a block, one
+// launch per external step; the n_int internal steps run inside the
+// thread with x, y, z, status (and the age, where behavior or mortality
+// read it) in registers.  find_currents.cuh (shared with rk4_step.cu)
+// fits and evaluates; every lane read of a step goes through the staged
+// corner source below: at the top of each internal step the block
+// reduces the box of its active particles' stage-1 cells, and when the
+// box (grown by a cell on each side) holds at most tile_points rho
+// points it collapses the three raw records into three shared-memory
+// tiles (t, t + idt/2, t + idt) of every lane of the table, once per
+// point (stage_records: each box row is bw * nl consecutive floats of a
+// record, so the loads are coalesced; 4-byte loads, no 16-byte ones).
+// The fit scratch stays in local memory: its frame size measured no
+// cost.  __launch_bounds__(128, 4): every variant at <= 128 registers
+// with no spills, where ptxas alone chose 96 with spills in 6 variants;
+// measured, the bound makes the advect and behavior cells 4-5% faster
+// at 1M particles and 15-23% at 65,536, turb 1-5% slower.
+// The four RK4 stages, the Visser Aks fit, the behavior column and the
+// 4/5 salt cue (stage 1), the vertical reflection's column and SaltTempOn
+// (t + idt) then blend 4 shared words per lane where the global path
+// loads 12 scattered ones.  A lookup outside the box and every lookup of
+// a block whose box is too large read the raw records with the same
+// arithmetic (collapse, blend), and are counted (staged_misses,
+// global_block_steps, beside staged_block_steps): the result does not
+// depend on which path a lookup took.  The inverse curvilinear map, the
+// boundary rows and the polygons stay direct reads.  The TPU kernel's
+// VMEM windows, one-hot MXU blends and out-of-window patch are not
+// ported: a miss is served in the kernel.  The vertical fit streams the
+// levels: knots and blended values are computed level by level inside
+// the Thomas forward sweep, so only the sweep's cp/dp columns live in
+// local memory (MAX_LEVELS floats each); the evaluation interval is
+// captured on the fly and the backward sweep stops there.  The Visser
+// term needs the Aks spline's derivative at z and its value at z_mid, an
+// interval known only after the derivative: its fit keeps the whole z2
+// column and the knots in those same local arrays and evaluates twice.
 //
 // Random streams.  The host passes the derived key pair of every
 // (internal step, substream) (ext_step.py rng_keys_array, the words of
@@ -60,23 +80,32 @@
 // test_settlement does on the f64 vertices, so both versions decide
 // alike on equal positions.
 //
-// What bounds it.  Gathers: 4 x 3 x nv floats per stage (nv = 2us+ws+2;
-// ~3 KB per stage at us = 20), plus ws Aks lanes twice per internal step
-// with the Visser lanes, us salt lanes once with behaviors 4/5 and 2us
-// salt + temp lanes once with SaltTempOn.  The record table is
-// 3*Ny*Nx*nl*4 bytes: 30 MB for the 200x200x20 bench grid (40 MB with
-// Aks, 49 MB with salt and temp), which fits the 50 MB L2; a production
-// 800x600x25 grid (~420 MB) does not, and then every stage reads device
-// memory.  A curvilinear grid adds an inverse-map solve to every cell
-// location (4 stages, the vertical reflection's column, each reflection
-// pass and the two inside tests: ~9-11 per internal step), each 3 Newton
-// steps of 4 float2 corner loads and ~60 f32 operations; the map itself
-// recomputes from the raster seed every time, as the plain version does.
-// Settlement adds, per eligible particle and internal step, its
-// cell's candidate polygons: a few KB of f64 vertices in all.  The
-// Hilbert sort of the caller (once per ext_sort_every external steps) is
-// kept for L1/L2 locality: neighbouring threads read neighbouring cell
-// rows.
+// What bounds it.  Without staging every stage gathers 4 x 3 x nv
+// scattered floats (nv = 2us+ws+2; ~3 KB per stage at us =
+// 20), 12 loads per lane, each warp load touching as many cache lines as
+// its threads have distinct corner rows; so built, the kernel ran at 5-7%
+// of its bound (operations, an IEEE divide of the Thomas sweeps counted
+// as one).  Staged, a block-step loads its box once (points x nl x 3 records,
+// ~40 floats a thread on the bench grid's sorted blocks) and the stages
+// read shared memory; what is left is the spline arithmetic (~15k f32
+// operations a particle-step, two dependent Thomas recurrences per
+// stage), the fit scratch in local memory, and the misses.  Shared
+// memory: 3 x tile_points x (nl | 1) x 4 bytes a block (27 KB for
+// advection at 36 points, 48 KB for the oyster lanes at 32), beside 128
+// bytes of static reduction scratch; at 4 blocks of 128 threads an SM
+// (the register limit) the tiles leave the rest of the SM's 256 KB to L1.
+// The record table is 3*Ny*Nx*nl*4 bytes: 30 MB for the 200x200x20 bench
+// grid (40 MB with Aks, 49 MB with salt and temp), which fits the 50 MB
+// L2; a production 800x600x25 grid (~420 MB) does not, and then the
+// staging loads come from device memory.  A curvilinear grid adds an
+// inverse-map solve to every cell location (4 stages, the vertical
+// reflection's column, each reflection pass and the two inside tests:
+// ~9-11 per internal step), each 3 Newton steps of 4 float2 corner loads
+// and ~60 f32 operations; the map itself recomputes from the raster seed
+// every time, as the plain version does.  Settlement adds, per eligible
+// particle and internal step, its cell's candidate polygons: a few KB of
+// f64 vertices in all.  The caller's Hilbert sort (once per
+// ext_sort_every external steps) is what makes a block's box small.
 //
 // Arithmetic mirrors the plain PyTorch version (ltjax_torch.packed,
 // .physics.turb, .physics.behavior and .physics.boundary) operation for
@@ -230,49 +259,221 @@ __device__ __forceinline__ void curv_logical(const Curv& c, int nx, int ny,
   }
 }
 
+// ---- the staged corner source ------------------------------------------
+//
+// At the top of each internal step a block reduces the rho-cell bounding
+// box of its active particles' stage-1 positions (block_box), grows it by
+// one cell on each side (a stage moves a particle by less than a cell at
+// the speeds of the bench cases: 4.2 m/s x 120 s = 0.5 km on 1 km cells)
+// and, if its points fit the launch's budget (Stage::points), writes
+// three tiles into dynamic shared memory, one per stage time (t,
+// t + idt/2, t + idt), each point and lane the three raw records
+// collapsed once (collapse(), the arithmetic of the global path).  A tile
+// is [row][column][lane], ls = nl | 1 floats per point (odd, so the
+// distinct points that a warp reads fall in distinct banks; threads of
+// one point read one word, a broadcast), rows bw points wide; the three
+// tiles are Stage::ts floats apart.
+
+// the bilinear blend of four corner values (every corner source)
+__device__ __forceinline__ float blend(const Stencil& s, float c00, float c01,
+                                       float c10, float c11) {
+  return (c00 * (1.0f - s.fx) + c01 * s.fx) * (1.0f - s.fy)
+         + (c10 * (1.0f - s.fx) + c11 * s.fx) * s.fy;
+}
+
+// threads a block (the launch's); not an #ifndef option: build.tag reads
+// those as the variant's macros
+#define LTX_BLOCK 128
+
+// the staged rho points [i0, i0 + bw) x [j0, j0 + bh) of a block's tiles;
+// bw = 0: nothing staged
+struct Box {
+  int i0, j0, bw, bh;
+};
+
+enum { BOX_EMPTY = 0, BOX_STAGED = 1, BOX_GLOBAL = 2 };
+
+// the box of the cells (i, j) of the block's active threads (act), grown
+// by one cell on each side and clipped to the nx x ny points; staged
+// (bw > 0) if it holds at most max_points points.  kind: BOX_EMPTY (no
+// active thread), BOX_STAGED or BOX_GLOBAL.  Every thread of the block
+// calls it (it holds a barrier); red is 2 x 4 x LTX_BLOCK/32 ints of
+// shared memory, used by half per call (parity), so that the next call
+// may write the other half while a slow warp still reads this one.
+__device__ __forceinline__ Box block_box(bool act, int i, int j, int nx,
+                                         int ny, int max_points, int* red,
+                                         int parity, int& kind) {
+  constexpr int NW = LTX_BLOCK / 32;
+  const unsigned full = 0xffffffffu;
+  const int big = 0x7fffffff;
+  int v0 = __reduce_min_sync(full, act ? i : big);
+  int v1 = __reduce_min_sync(full, act ? -i : big);
+  int v2 = __reduce_min_sync(full, act ? j : big);
+  int v3 = __reduce_min_sync(full, act ? -j : big);
+  int* r = red + parity * 4 * NW;
+  const int w = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+    r[w] = v0;
+    r[NW + w] = v1;
+    r[2 * NW + w] = v2;
+    r[3 * NW + w] = v3;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < NW; ++k) {
+    v0 = min(v0, r[k]);
+    v1 = min(v1, r[NW + k]);
+    v2 = min(v2, r[2 * NW + k]);
+    v3 = min(v3, r[3 * NW + k]);
+  }
+  Box b = {0, 0, 0, 0};
+  if (v0 == big) {
+    kind = BOX_EMPTY;
+    return b;
+  }
+  b.i0 = max(v0 - 1, 0);
+  b.j0 = max(v2 - 1, 0);
+  const int bw = min(2 - v1, nx - 1) - b.i0 + 1;
+  const int bh = min(2 - v3, ny - 1) - b.j0 + 1;
+  kind = bw * bh <= max_points ? BOX_STAGED : BOX_GLOBAL;
+  if (kind == BOX_STAGED) {
+    b.bw = bw;
+    b.bh = bh;
+  }
+  return b;
+}
+
+// stencil s of cell (i, j) into the tiles of box b (tile_lanes ls), or
+// a miss: counted when the block staged
+__device__ __forceinline__ void stage_in(Stencil& s, const Box& b, int i,
+                                         int j, int ls, int& miss) {
+  const int di = i - b.i0, dj = j - b.j0;
+  if (di >= 0 && di + 1 < b.bw && dj >= 0 && dj + 1 < b.bh) {
+    s.t = (dj * b.bw + di) * ls;
+    s.rs = b.bw * ls;
+  } else if (b.bw > 0) {
+    ++miss;
+  }
+}
+
+// the launch's staging counters: staged_block_steps, global_block_steps,
+// staged_misses (one atomic per block and warp at the kernel's end; every
+// thread calls it)
+__device__ __forceinline__ void count_staging(unsigned long long* cnt,
+                                              int staged, int global,
+                                              int miss) {
+  const int m = __reduce_add_sync(0xffffffffu, miss);
+  if ((threadIdx.x & 31) == 0 && m > 0)
+    atomicAdd(cnt + 2, (unsigned long long)m);
+  if (threadIdx.x == 0) {
+    if (staged > 0) atomicAdd(cnt, (unsigned long long)staged);
+    if (global > 0) atomicAdd(cnt + 1, (unsigned long long)global);
+  }
+}
+
+// the launch's staged corner source: a kernel argument of its own, like
+// Settle
+struct Stage {
+  unsigned long long* cnt;   // staged_block_steps, global_block_steps,
+                             // staged_misses
+  int points;                // rho points a block may stage (tile_points)
+  int ls, ts;                // tile_lanes (nl | 1); floats between tiles
+};
+
+extern __shared__ float ltx_tiles[];   // three tiles of Stage::ts floats
+
+// the cell (i, j) and stencil of (x, y), not staged
 __device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
-                                          float x, float y) {
+                                          float x, float y, int& i, int& j) {
 #if LTX_CURV
   Stencil s;
   float ti, tj, r2;
   curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
   const float fi = fminf(fmaxf(floorf(ti), 0.0f), (float)(a.nx - 2));
   const float fj = fminf(fmaxf(floorf(tj), 0.0f), (float)(a.ny - 2));
-  const int i = (int)fi, j = (int)fj;
+  i = (int)fi;
+  j = (int)fj;
   s.fx = fminf(fmaxf(ti - fi, 0.0f), 1.0f);
   s.fy = fminf(fmaxf(tj - fj, 0.0f), 1.0f);
   s.r00 = ((long long)j * a.nx + i) * a.nl;
-  s.r01 = s.r00 + a.nl;
-  s.r10 = s.r00 + (long long)a.nx * a.nl;
-  s.r11 = s.r10 + a.nl;
+  s.t = -1;
+  s.rs = 0;
   return s;
 #else
-  return locate_rect(a.par, a.nx, a.ny, a.nl, x, y);
+  return locate_rect(a.par, a.nx, a.ny, a.nl, x, y, i, j);
 #endif
 }
 
-// lane k of the time-collapsed, bilinearly blended table at stencil s
-__device__ __forceinline__ float lane(const Args& a, const Stencil& s,
-                                      const float* l, int k) {
+// the stencil of (x, y) in the tiles of box b, or a (counted) miss
+__device__ __forceinline__ Stencil locate(const Args& a, const Stage& sp,
+                                          const Curv& cv, const Box& b,
+                                          float x, float y, int& miss) {
+  int i, j;
+  Stencil s = locate(a, cv, x, y, i, j);
+  stage_in(s, b, i, j, sp.ls, miss);
+  return s;
+}
+
+// one record triple collapsed with the polintd weights l of a stage
+// (the staged and the global path alike)
+__device__ __forceinline__ float collapse(float v0, float v1, float v2,
+                                          const float* l) {
+  return fmaf(v2, l[2], fmaf(v1, l[1], v0 * l[0]));
+}
+
+// lane k of the table collapsed to stage time q (weights l + 3q: t,
+// t + idt/2, t + idt), blended at stencil s: from the tiles where s is
+// staged, else from the raw records
+__device__ __forceinline__ float lane(const Args& a, const Stage& sp,
+                                      const Stencil& s, const float* l,
+                                      int q, int k) {
+  if (s.t >= 0) {
+    const float* t = ltx_tiles + q * sp.ts + s.t + k;
+    return blend(s, t[0], t[sp.ls], t[s.rs], t[s.rs + sp.ls]);
+  }
   const long long R = a.C * a.nl;
   const float* t0 = a.rtab + k;
   const float* t1 = t0 + R;
   const float* t2 = t1 + R;
-  float c00 = t0[s.r00] * l[0] + t1[s.r00] * l[1] + t2[s.r00] * l[2];
-  float c01 = t0[s.r01] * l[0] + t1[s.r01] * l[1] + t2[s.r01] * l[2];
-  float c10 = t0[s.r10] * l[0] + t1[s.r10] * l[1] + t2[s.r10] * l[2];
-  float c11 = t0[s.r11] * l[0] + t1[s.r11] * l[1] + t2[s.r11] * l[2];
-  return (c00 * (1.0f - s.fx) + c01 * s.fx) * (1.0f - s.fy)
-         + (c10 * (1.0f - s.fx) + c11 * s.fx) * s.fy;
+  const float* w = l + 3 * q;
+  const long long r01 = s.r00 + a.nl;
+  const long long r10 = s.r00 + (long long)a.nx * a.nl;
+  const long long r11 = r10 + a.nl;
+  return blend(s, collapse(t0[s.r00], t1[s.r00], t2[s.r00], w),
+               collapse(t0[r01], t1[r01], t2[r01], w),
+               collapse(t0[r10], t1[r10], t2[r10], w),
+               collapse(t0[r11], t1[r11], t2[r11], w));
 }
 
-// the corner source of find_currents_at: the three raw records collapsed
-// with the polintd weights l of one stage (lane above)
+// the three tiles of box b: at every point and lane the raw records
+// collapsed with the weights of stage q = 0, 1, 2 (l + 3q).  Each box row
+// is bw * nl consecutive floats of every record: coalesced loads.
+__device__ void stage_records(const Args& a, const Stage& sp, const Box& b,
+                              const float* l) {
+  const long long R = a.C * a.nl;
+  const int span = b.bw * a.nl;
+  for (int r = 0; r < b.bh; ++r) {
+    const float* src = a.rtab + ((long long)(b.j0 + r) * a.nx + b.i0) * a.nl;
+    float* dst = ltx_tiles + r * b.bw * sp.ls;
+    for (int e = threadIdx.x; e < span; e += LTX_BLOCK) {
+      float* d = dst + e + (e / a.nl) * (sp.ls - a.nl);   // point, lane
+      const float v0 = src[e], v1 = src[e + R], v2 = src[e + 2 * R];
+      d[0] = collapse(v0, v1, v2, l);
+      d[sp.ts] = collapse(v0, v1, v2, l + 3);
+      d[2 * sp.ts] = collapse(v0, v1, v2, l + 6);
+    }
+  }
+}
+
+// the corner source of find_currents_at: stage q of the internal step
+// whose weights start at l (lane above)
 struct Records {
   const Args& a;
+  const Stage& sp;
   const float* l;
+  int q;
   __device__ __forceinline__ float lane(const Stencil& s, int k) const {
-    return ::lane(a, s, l, k);
+    return ::lane(a, sp, s, l, q, k);
   }
   __device__ __forceinline__ float knot(float s, float cs, float zeta,
                                         float h) const {
@@ -287,13 +488,15 @@ struct Records {
   __device__ __forceinline__ int nv() const { return a.nv; }
 };
 
-// find_currents at (x, y, z) from the records collapsed with weights l
-__device__ void find_currents(const Args& a, const Curv& cv, const Tension& T,
-                              const float* l, float x, float y, float z,
-                              float* cp, float* dp0, float* dp1,
-                              float& u, float& v, float& w) {
-  find_currents_at(Records{a, l}, T, locate(a, cv, x, y), z, cp, dp0, dp1,
-                   u, v, w);
+// find_currents at (x, y, z) on stage q of the internal step (weights l)
+__device__ void find_currents(const Args& a, const Stage& sp, const Curv& cv,
+                              const Tension& T, const Box& b, const float* l,
+                              int q, float x, float y, float z, float* cp,
+                              float* dp0, float* dp1, int& miss, float& u,
+                              float& v, float& w) {
+  find_currents_at(Records{a, sp, l, q}, T,
+                   locate(a, sp, cv, b, x, y, miss), z, cp, dp0, dp1, u, v,
+                   w);
 }
 
 // the boundary cell row of (x, y): on a curvilinear grid boundary cell
@@ -507,16 +710,16 @@ __device__ __forceinline__ float bits_to_uniform(uint32_t b) {
 
 // spline value (deriv = false) or derivative at zq of the fitted Aks
 // column: knots zk, second derivatives z2, values re-read from the lanes
-__device__ float aks_eval(const Args& a, const Tension& T, const Stencil& st,
-                          const float* l, const float* zk, const float* z2,
-                          int K, float zq, bool deriv) {
+__device__ float aks_eval(const Args& a, const Stage& sp, const Tension& T,
+                          const Stencil& st, const float* l, const float* zk,
+                          const float* z2, int K, float zq, bool deriv) {
   zq = fminf(fmaxf(zq, zk[0]), zk[K - 1]);
   int j = 0;
   for (int k = 1; k < K; ++k) j += zq >= zk[k] ? 1 : 0;
   j = min(j, K - 2);
   float x0 = zk[j], x1 = zk[j + 1];
-  float y0 = fmaxf(lane(a, st, l, a.nv + j), 0.0f);
-  float y1 = fmaxf(lane(a, st, l, a.nv + j + 1), 0.0f);
+  float y0 = fmaxf(lane(a, sp, st, l, 0, a.nv + j), 0.0f);
+  float y1 = fmaxf(lane(a, sp, st, l, 0, a.nv + j + 1), 0.0f);
   float h = x1 - x0;
   float B2 = (zq - x0) / h;
   float B1 = 1.0f - B2;
@@ -527,13 +730,13 @@ __device__ float aks_eval(const Args& a, const Tension& T, const Stencil& st,
 }
 
 // dz = K'(z) idt + R sqrt(2 K(z_mid) idt / (1/3)) on the Aks lanes (after
-// the nv value lanes) blended at stencil st with the stage-1 weights l;
+// the nv value lanes) blended at stencil st at stage 1 (weights l);
 // physics.turb.vturb: Aks clipped at >= 0 before a natural tension fit
 // on the w ladder, z_mid = clip(z + K' idt / 2) to the knot range.
-__device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
-                           const float* l, float zeta, float h, float z,
-                           float R, float idt, float* cp, float* z2,
-                           float* zk) {
+__device__ float visser_dz(const Args& a, const Stage& sp, float sigma,
+                           const Stencil& st, const float* l, float zeta,
+                           float h, float z, float R, float idt, float* cp,
+                           float* z2, float* zk) {
   Tension T;                 // tension.evaluate: series at sigma = 0
   T.sigma = sigma;
   T.small = 0.5f;
@@ -543,14 +746,14 @@ __device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
   const float* cs_w = s_w + a.ws;
   const int K = a.ws;
   float zprev = knot_depth(a.par[P_HC], a.vt, s_w[0], cs_w[0], zeta, h);
-  float yprev = fmaxf(lane(a, st, l, a.nv), 0.0f);
+  float yprev = fmaxf(lane(a, sp, st, l, 0, a.nv), 0.0f);
   zk[0] = zprev;
   cp[0] = 0.0f;
   z2[0] = 0.0f;
   float offp = 0.0f, diap = 0.0f, dyp = 0.0f;
   for (int k = 1; k < K; ++k) {           // Thomas forward sweep
     float zc = knot_depth(a.par[P_HC], a.vt, s_w[k], cs_w[k], zeta, h);
-    float yk = fmaxf(lane(a, st, l, a.nv + k), 0.0f);
+    float yk = fmaxf(lane(a, sp, st, l, 0, a.nv + k), 0.0f);
     float hk = zc - zprev;
     float dy = (yk - yprev) / hk;
     float offc, diac;
@@ -571,15 +774,17 @@ __device__ float visser_dz(const Args& a, float sigma, const Stencil& st,
     x = z2[i] - cp[i] * x;
     z2[i] = x;
   }
-  float kprime = aks_eval(a, T, st, l, zk, z2, K, z, true);
+  float kprime = aks_eval(a, sp, T, st, l, zk, z2, K, z, true);
   float zmid = fminf(fmaxf(z + 0.5f * kprime * idt, zk[0]), zk[K - 1]);
-  float kmid = fmaxf(aks_eval(a, T, st, l, zk, z2, K, zmid, false), 0.0f);
+  float kmid = fmaxf(aks_eval(a, sp, T, st, l, zk, z2, K, zmid, false),
+                     0.0f);
   return kprime * idt + R * sqrtf(2.0f * kmid * idt / (1.0f / 3.0f));
 }
 
 template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT>
-__global__ void __launch_bounds__(128)
-ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_in,
+__global__ void __launch_bounds__(LTX_BLOCK, 4)
+ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
+                const float* __restrict__ x_in,
                 const float* __restrict__ y_in,
                 const float* __restrict__ z_in,
                 const float* __restrict__ dob_in,
@@ -601,8 +806,9 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
   constexpr bool AGE = MORT || SWIM || BEH == 7 || SETTLE;
   constexpr bool RNG = HT || VT != 0 || SWIM;
   constexpr int STRIDE = SWIM ? 8 : 4;    // key words per internal step
-  int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= n) return;
+  __shared__ int red[2 * 4 * (LTX_BLOCK / 32)];
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  const bool live = p < n;   // every thread reaches the staging barriers
   const float* par = a.par;
   Tension T;
   T.sigma = par[P_SIGMA];
@@ -612,17 +818,20 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
   Ts.cubic = false;          // series at sigma = 0, as the plain version
   float cp[MAX_LEVELS], dp0[MAX_LEVELS], dp1[MAX_LEVELS];
 
-  float x = x_in[p], y = y_in[p], z = z_in[p], dob = dob_in[p];
+  const int q = live ? p : 0;
+  float x = x_in[q], y = y_in[q], z = z_in[q], dob = dob_in[q];
   float age = 0.0f;
-  if constexpr (AGE) age = age_in[p];
+  if constexpr (AGE) age = age_in[q];
   uint32_t pid = 0u;
-  if constexpr (RNG) pid = (uint32_t)pid_in[p];
-  int st = st_in[p];
+  if constexpr (RNG) pid = (uint32_t)pid_in[q];
+  int st = live ? st_in[q] : -1;   // past the batch: never active
   int spoly = 0;
-  if constexpr (SETTLE) spoly = spoly_in[p];
+  if constexpr (SETTLE) spoly = spoly_in[q];
   float salt = 0.0f, temp = 0.0f;
-  if constexpr (SALT) { salt = salt_in[p]; temp = temp_in[p]; }
+  if constexpr (SALT) { salt = salt_in[q]; temp = temp_in[q]; }
   int hitl = 0, hitb = 0;
+  int miss = 0, blocks = 0;   // staged misses; block-steps staged + 2^16 x
+                              // global (thread 0's count)
   const float idt = par[P_IDT];
   const float half = 0.5f * idt;
   const float sixth = idt / 6.0f;
@@ -635,16 +844,30 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
     if constexpr (AGE) {
       if (st >= ACTIVE) age = (t_i + idt) - dob;
     }
-    if (st != ACTIVE) continue;
     const float* l = coef + 9 * i;        // stage weights: t, t+idt/2, t+idt
+    // the block's box of stage-1 cells; its three tiles when it fits
+    const bool act = st == ACTIVE;
+    int ci = 0, cj = 0, kind;
+    Stencil s1;
+    if (act) s1 = locate(a, cv, x, y, ci, cj);
+    const Box box = block_box(act, ci, cj, a.nx, a.ny, sp.points, red, i & 1,
+                              kind);
+    if (kind == BOX_STAGED) {
+      stage_records(a, sp, box, l);
+      __syncthreads();
+    }
+    blocks += kind == BOX_STAGED ? 1 : kind == BOX_GLOBAL ? 1 << 16 : 0;
+    if (!act) continue;
+    stage_in(s1, box, ci, cj, sp.ls, miss);
     float u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
-    find_currents(a, cv, T, l, x, y, z, cp, dp0, dp1, u1, v1, w1);
-    find_currents(a, cv, T, l + 3, x + u1 * half, y + v1 * half,
-                  z + w1 * half, cp, dp0, dp1, u2, v2, w2);
-    find_currents(a, cv, T, l + 3, x + u2 * half, y + v2 * half,
-                  z + w2 * half, cp, dp0, dp1, u3, v3, w3);
-    find_currents(a, cv, T, l + 6, x + u3 * idt, y + v3 * idt, z + w3 * idt,
-                  cp, dp0, dp1, u4, v4, w4);
+    find_currents_at(Records{a, sp, l, 0}, T, s1, z, cp, dp0, dp1, u1, v1,
+                     w1);
+    find_currents(a, sp, cv, T, box, l, 1, x + u1 * half, y + v1 * half,
+                  z + w1 * half, cp, dp0, dp1, miss, u2, v2, w2);
+    find_currents(a, sp, cv, T, box, l, 1, x + u2 * half, y + v2 * half,
+                  z + w2 * half, cp, dp0, dp1, miss, u3, v3, w3);
+    find_currents(a, sp, cv, T, box, l, 2, x + u3 * idt, y + v3 * idt,
+                  z + w3 * idt, cp, dp0, dp1, miss, u4, v4, w4);
     float dx = sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
     float dy = sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
     float dz = sixth * (w1 + 2.0f * w2 + 2.0f * w3 + w4);
@@ -666,20 +889,20 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
         dz = dz + R * par[P_VCONST];
       } else {
         // Aks blended at the stage-1 position and time
-        Stencil s1 = locate(a, cv, x, y);
-        float zeta1 = lane(a, s1, l, a.nv - 2);
-        float h1 = lane(a, s1, l, a.nv - 1);
-        dz = dz + visser_dz(a, T.sigma, s1, l, zeta1, h1, z, R, idt, cp, dp0,
-                            dp1);
+        Stencil sv = locate(a, sp, cv, box, x, y, miss);
+        float zeta1 = lane(a, sp, sv, l, 0, a.nv - 2);
+        float h1 = lane(a, sp, sv, l, 0, a.nv - 1);
+        dz = dz + visser_dz(a, sp, T.sigma, sv, l, zeta1, h1, z, R, idt, cp,
+                            dp0, dp1);
       }
     }
 
     // --- behavior (free surface and depth at stage 1) -----------------------
     if constexpr (BEH != 0) {
       float bx = 0.0f, by = 0.0f, bz = 0.0f;
-      Stencil s1 = locate(a, cv, x, y);
-      float zeta_b = lane(a, s1, l, a.nv - 2);
-      float h_b = lane(a, s1, l, a.nv - 1);
+      Stencil sb = locate(a, sp, cv, box, x, y, miss);
+      float zeta_b = lane(a, sp, sb, l, 0, a.nv - 2);
+      float h_b = lane(a, sp, sb, l, 0, a.nv - 1);
       // ontogenetic swim speed at the pre-step age
       float frac = fminf(fmaxf((age_pre - par[P_SWIMSTART]) / par[P_SWIMDEN],
                                0.0f), 1.0f);
@@ -707,7 +930,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
           // halocline cue: dS/dz of the salt spline at the pre-step
           // position and time (stage-1 stencil, weights and knots)
           float dsdz, unused, zf;
-          fit_eval<true>(Records{a, l}, Ts, s1, par + P_HEAD,
+          fit_eval<true>(Records{a, sp, l, 0}, Ts, sb, par + P_HEAD,
                          par + P_HEAD + a.us, a.us, a.salt0, -1, zeta_b, h_b,
                          z, cp, dp0, dp1, dsdz, unused, zf);
           bool cue = fabsf(dsdz) >= par[P_SGRAD];
@@ -743,9 +966,9 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
     reflect(a, cv, x, y, x1, y1, exited, stuck, hits);
 
     // vertical reflection about zeta/h of the new column at t + idt
-    Stencil s4 = locate(a, cv, x1, y1);
-    float zeta = lane(a, s4, l + 6, a.nv - 2);
-    float h = lane(a, s4, l + 6, a.nv - 1);
+    Stencil s4 = locate(a, sp, cv, box, x1, y1, miss);
+    float zeta = lane(a, sp, s4, l, 2, a.nv - 2);
+    float h = lane(a, sp, s4, l, 2, a.nv - 1);
     bool above = z1 > zeta;
     float za = above ? 2.0f * zeta - z1 : z1;
     bool below = za < -h;
@@ -782,11 +1005,13 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
     // the vertical reflection
     if constexpr (SALT) {
       float zf;
-      fit_eval(Records{a, l + 6}, Ts, s4, par + P_HEAD, par + P_HEAD + a.us,
-               a.us, a.salt0, a.salt0 + a.us, zeta, h, z, cp, dp0, dp1, salt,
-               temp, zf);
+      fit_eval(Records{a, sp, l, 2}, Ts, s4, par + P_HEAD,
+               par + P_HEAD + a.us, a.us, a.salt0, a.salt0 + a.us, zeta, h,
+               z, cp, dp0, dp1, salt, temp, zf);
     }
   }
+  count_staging(sp.cnt, blocks & 0xffff, blocks >> 16, miss);
+  if (!live) return;
   x_out[p] = x;
   y_out[p] = y;
   z_out[p] = z;
@@ -796,6 +1021,34 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
   st_out[p] = st;
   hitl_out[p] = hitl;
   hitb_out[p] = hitb;
+}
+
+// the variant of this library, and its dynamic shared memory opt-in
+// (above 48 KB a block needs it; set once per larger size)
+static constexpr auto kernel_fn =
+    &ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY,
+                     LTX_SETTLE, LTX_SALT>;
+
+static cudaError_t allow_smem(size_t smem) {
+  static size_t allowed = 48 * 1024;
+  if (smem <= allowed) return cudaSuccess;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel_fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess) allowed = smem;
+  return e;
+}
+
+// Blocks of this variant that one SM holds when each stages tile_points
+// points of a table with nl lanes (the occupancy calculator), or minus a
+// cudaError_t.
+extern "C" int ltx_ext_step_blocks_per_sm(int nl, int tile_points) {
+  const size_t smem = 3 * (size_t)tile_points * (nl | 1) * sizeof(float);
+  int blocks = 0;
+  cudaError_t e = allow_smem(smem);
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, kernel_fn,
+                                                      LTX_BLOCK, smem);
+  return e == cudaSuccess ? blocks : -(int)e;
 }
 
 // One external step of n particles, in the variant this library was
@@ -811,7 +1064,11 @@ ext_step_kernel(Args a, Settle sg, Curv cv, int n, const float* __restrict__ x_i
 // curv_xy (Ny*Nx, 2) and curv_seed (the seed_i then the seed_j raster,
 // each curv_my x curv_mx) with the raster origin, inverse spacings and
 // the squared residual tolerance are the curvilinear map, given exactly
-// when the library is an LTX_CURV variant.  Returns the launch's
+// when the library is an LTX_CURV variant.  tile_points is the rho points
+// a block may stage (the launch takes 3 * tile_points * (nl | 1) floats of
+// dynamic shared memory; 0 runs every block from device memory); counters
+// (3 u64, zeroed by the caller once) accumulate staged_block_steps,
+// global_block_steps and staged_misses.  Returns the launch's
 // cudaError_t.
 extern "C" int ltx_ext_step(
     const float* rtab, const float* brows, const float* params,
@@ -826,7 +1083,8 @@ extern "C" int ltx_ext_step(
     int n_poly, int vmax_poly, int cmax_poly, int n_hole, int vmax_hole,
     int cmax_hole, const float* curv_xy, const int* curv_seed, int curv_mx,
     int curv_my, float curv_rx0, float curv_ry0, float curv_inv_rdx,
-    float curv_inv_rdy, float curv_tol2, void* stream) {
+    float curv_inv_rdy, float curv_tol2, int tile_points,
+    unsigned long long* counters, void* stream) {
   if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const int nv = 2 * us + ws + 2;
   const int after_aks = aks0 >= 0 ? nv + ws : nv;
@@ -836,7 +1094,8 @@ extern "C" int ltx_ext_step(
       || ((LTX_SALT || LTX_BEHAVIOR == 4 || LTX_BEHAVIOR == 5) && salt0 < 0)
       || (LTX_SETTLE && n_poly > 0 && (!settle_d || !settle_i))
       || (LTX_CURV != 0) != (curv_xy != nullptr)
-      || (LTX_CURV && (!curv_seed || curv_mx < 1 || curv_my < 1)))
+      || (LTX_CURV && (!curv_seed || curv_mx < 1 || curv_my < 1))
+      || tile_points < 0 || !counters)
     return (int)cudaErrorInvalidValue;      // lane offsets, tables
   if (n <= 0) return 0;
   Args a;
@@ -878,13 +1137,14 @@ extern "C" int ltx_ext_step(
   Curv cv = {reinterpret_cast<const float2*>(curv_xy), curv_seed,
              curv_seed ? curv_seed + ms : nullptr, curv_mx, curv_my,
              curv_rx0, curv_ry0, curv_inv_rdx, curv_inv_rdy, curv_tol2};
-  int threads = 128;
-  int blocks = (n + threads - 1) / threads;
-  ext_step_kernel<LTX_HTURB, LTX_VTURB, LTX_BEHAVIOR, LTX_MORTALITY,
-                  LTX_SETTLE, LTX_SALT>
-      <<<blocks, threads, 0, (cudaStream_t)stream>>>(
-          a, sg, cv, n, x, y, z, dob, age, pid, status, spoly, salt, temp, x_out,
-          y_out, z_out, age_out, st_out, hitl_out, hitb_out, spoly_out,
-          salt_out, temp_out);
+  Stage sp = {counters, tile_points, nl | 1, tile_points * (nl | 1)};
+  const size_t smem = 3 * (size_t)sp.ts * sizeof(float);
+  cudaError_t e = allow_smem(smem);
+  if (e != cudaSuccess) return (int)e;
+  const int blocks = (n + LTX_BLOCK - 1) / LTX_BLOCK;
+  kernel_fn<<<blocks, LTX_BLOCK, smem, (cudaStream_t)stream>>>(
+      a, sg, cv, sp, n, x, y, z, dob, age, pid, status, spoly, salt, temp,
+      x_out, y_out, z_out, age_out, st_out, hitl_out, hitb_out, spoly_out,
+      salt_out, temp_out);
   return (int)cudaGetLastError();
 }

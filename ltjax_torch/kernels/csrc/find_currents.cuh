@@ -7,16 +7,21 @@
 // zeta and h), and the log-layer decay of u/v near the bottom.
 //
 // Where the blended lanes come from is the caller's: a corner source
-// ``Src`` provides
+// ``Src`` and the stencil type ``St`` of its lookups, with
 //
-//   float lane(const Stencil& s, int k)  lane k blended at stencil s
+//   float lane(const St& s, int k)  lane k blended at stencil s
 //   float knot(float s, float cs, float zeta, float h)  s-level depth
 //   const float* ladders()  s_rho (us), Cs_r (us), s_w (ws), Cs_w (ws)
 //   float z0m()  bottom roughness
 //   int us(), ws(), nv()  levels and value lanes (nv = 2us + ws + 2)
 //
-// ext_step.cu collapses three raw records with the polintd weights of the
-// stage per corner; rk4_step.cu reads one time-collapsed stage table.
+// ext_step.cu blends the three raw records collapsed with the polintd
+// weights of the stage, from a block's shared-memory tiles where it can
+// (its staged corner source); rk4_step.cu gathers the four corner rows of
+// one time-collapsed stage table from device memory.  Stencil carries a
+// position's cell weights, its corner-00 offset r00 in the table (rows
+// `stride` floats apart) and, for a staged source, its offset t in the
+// tiles (-1: not staged) and the tiles' row stride rs.
 //
 // The vertical fit streams the levels: knots and blended values are
 // computed level by level inside the Thomas forward sweep, so only the
@@ -84,28 +89,31 @@ __device__ __forceinline__ void coefs(const Tension& T, float h,
   dia = (h / (u * u)) * (u_coth - 1.0f);
 }
 
-// bilinear corner rows + weights of one position on the rho lattice
+// bilinear corner offsets + weights of one position on the rho lattice:
+// corner 00 at r00 in the table (rows `stride` floats apart, corner 01 at
+// r00 + stride, 10 at r00 + nx * stride) and at t in the block's tiles
+// (-1: not staged; corner 01 at t + tile_lanes, 10 at t + rs)
 struct Stencil {
-  long long r00, r01, r10, r11;
+  long long r00;
+  int t, rs;
   float fx, fy;
 };
 
-// the rectilinear cell of (x, y) on uniform rho axes (par[0..3]: x0, dx,
-// y0, dy), as grid.locate; the corner rows are `stride` floats apart
+// the rectilinear cell (i, j) of (x, y) on uniform rho axes (par[0..3]:
+// x0, dx, y0, dy), as grid.locate; not staged
 __device__ __forceinline__ Stencil locate_rect(const float* par, int nx,
                                                int ny, int stride, float x,
-                                               float y) {
+                                               float y, int& i, int& j) {
   Stencil s;
   float tx = (x - par[0]) / par[1];
   float ty = (y - par[2]) / par[3];
-  int i = min(max((int)floorf(tx), 0), nx - 2);
-  int j = min(max((int)floorf(ty), 0), ny - 2);
+  i = min(max((int)floorf(tx), 0), nx - 2);
+  j = min(max((int)floorf(ty), 0), ny - 2);
   s.fx = fminf(fmaxf(tx - (float)i, 0.0f), 1.0f);
   s.fy = fminf(fmaxf(ty - (float)j, 0.0f), 1.0f);
   s.r00 = ((long long)j * nx + i) * stride;
-  s.r01 = s.r00 + stride;
-  s.r10 = s.r00 + (long long)nx * stride;
-  s.r11 = s.r10 + stride;
+  s.t = -1;
+  s.rs = 0;
   return s;
 }
 
@@ -124,8 +132,8 @@ __device__ __forceinline__ float knot_depth(float hc, int vt, float s,
 // ladder (lanes lane0 [, lane1]) and clamped evaluation at zq: the
 // value, or (DERIV) the derivative.  Returns the first knot depth
 // through z_first (log layer).
-template <bool DERIV = false, class Src>
-__device__ void fit_eval(const Src& src, const Tension& T, const Stencil& st,
+template <bool DERIV = false, class Src, class St>
+__device__ void fit_eval(const Src& src, const Tension& T, const St& st,
                          const float* s_lad, const float* cs_lad, int K,
                          int lane0, int lane1, float zeta, float h, float zq,
                          float* cp, float* dp0, float* dp1,
@@ -190,9 +198,9 @@ __device__ void fit_eval(const Src& src, const Tension& T, const Stencil& st,
 }
 
 // find_currents at depth z in the column of stencil st: (u, v, w)
-template <class Src>
+template <class Src, class St>
 __device__ void find_currents_at(const Src& src, const Tension& T,
-                                 const Stencil& st, float z, float* cp,
+                                 const St& st, float z, float* cp,
                                  float* dp0, float* dp1, float& u, float& v,
                                  float& w) {
   const int us = src.us(), ws = src.ws();

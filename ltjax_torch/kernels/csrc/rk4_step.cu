@@ -16,9 +16,14 @@
 // Design.  One thread per particle, 128 threads a block, one launch per
 // internal step.  Each stage gathers its 4 corner rows x nv lanes straight
 // from device memory: the TPU kernel's VMEM windows, one-hot MXU blends,
-// out-of-window flag and exact patch, and its particle-block padding have
-// no purpose here (no particle can miss a window).  Grids: uniform
-// rectilinear (arithmetic cell location); tension: the static sigma >= 0.
+// out-of-window flag and exact patch, and its particle-block padding are
+// not ported.  Grids: uniform rectilinear (arithmetic cell location);
+// tension: the static sigma >= 0.  The staged corner source of
+// find_currents.cuh (a block's box of the three tables in shared memory)
+// was measured on this kernel and lost: 2.15-2.26 ms a launch at 1M
+// against 1.97 gathered (H100 80GB HBM3, 700 W), from more registers
+// (112-126, 4 blocks an SM, against 96 and 5) on a quarter of ext_step's
+// words per lane, one launch per internal step to stage for.
 //
 // What bounds it.  Per particle 4 stages x 4 corners x nv lanes of
 // gathers (~1 KB per stage at us = 20) from three tables of
@@ -42,11 +47,31 @@ struct Grid {
   int nx, ny, us, ws, nv, vt;
 };
 
+// the four corner rows (nv floats apart) + weights of one position
+struct Rows {
+  long long r00, r01, r10, r11;
+  float fx, fy;
+};
+
+__device__ __forceinline__ Rows locate_rows(const Grid& g, float x,
+                                            float y) {
+  int i, j;
+  const Stencil c = locate_rect(g.par, g.nx, g.ny, g.nv, x, y, i, j);
+  Rows s;
+  s.fx = c.fx;
+  s.fy = c.fy;
+  s.r00 = c.r00;
+  s.r01 = s.r00 + g.nv;
+  s.r10 = s.r00 + (long long)g.nx * g.nv;
+  s.r11 = s.r10 + g.nv;
+  return s;
+}
+
 // the corner source of find_currents_at: one stage table (C, nv)
 struct StageTable {
   const Grid& g;
   const float* __restrict__ tab;
-  __device__ __forceinline__ float lane(const Stencil& s, int k) const {
+  __device__ __forceinline__ float lane(const Rows& s, int k) const {
     return (tab[s.r00 + k] * (1.0f - s.fx) + tab[s.r01 + k] * s.fx)
                * (1.0f - s.fy)
            + (tab[s.r10 + k] * (1.0f - s.fx) + tab[s.r11 + k] * s.fx) * s.fy;
@@ -69,8 +94,7 @@ __device__ __forceinline__ void stage(const Grid& g, const Tension& T,
                                       float z, float* cp, float* dp0,
                                       float* dp1, float& u, float& v,
                                       float& w) {
-  find_currents_at(StageTable{g, tab}, T,
-                   locate_rect(g.par, g.nx, g.ny, g.nv, x, y), z, cp, dp0,
+  find_currents_at(StageTable{g, tab}, T, locate_rows(g, x, y), z, cp, dp0,
                    dp1, u, v, w);
 }
 

@@ -7,7 +7,10 @@ whole batch:
 
 * on CUDA tensors it launches ``csrc/ext_step.cu`` (one thread per
   particle, the internal-step loop inside the thread) and counts the
-  launch in ``ext_step_fused.launches``;
+  launch in ``ext_step_fused.launches`` and its staging (the blocks that
+  staged their box in shared memory, those that ran from device memory,
+  the lookups that left a staged box) in ``.counters``, read with
+  ``counts``;
 * on CPU tensors it runs ``ext_step_reference``, the plain PyTorch
   version: a loop of ``step.internal_step`` (collapsed scheme).
 
@@ -258,6 +261,73 @@ def settle_tables(ctx):
     return out
 
 
+# The staged corner source (csrc find_currents.cuh): a block of BLOCK
+# threads stages at most STAGE_POINTS rho points, and at most STAGE_BYTES
+# of shared memory, per internal step.
+BLOCK = 128
+STAGE_POINTS = 36        # a 6 x 6 box: 2 x 2 cells and the margin
+STAGE_BYTES = 48 * 1024
+
+
+def tile_lanes(nl: int) -> int:
+    """Floats per rho point in a tile: the table's nl lanes, padded to an
+    odd count so that the points that the threads of a warp read fall in
+    different banks."""
+    return nl | 1
+
+
+def tile_points(nl: int) -> int:
+    """Rho points a block may stage: STAGE_POINTS, or fewer where three
+    tiles (t, t + idt/2, t + idt) of that many points would exceed
+    STAGE_BYTES."""
+    return min(STAGE_POINTS, STAGE_BYTES // (3 * 4 * tile_lanes(nl)))
+
+
+def stage_bytes(nl: int) -> int:
+    """The dynamic shared memory of a launch: three tiles of
+    tile_points(nl) points."""
+    return 3 * 4 * tile_lanes(nl) * tile_points(nl)
+
+
+def block_boxes(grid, x, y, status=None, nl: int = 0,
+                block: int = BLOCK) -> dict:
+    """Each block's staged box, as the kernels size it (plain PyTorch).
+
+    Block b holds particles [b*block, (b+1)*block).  Its box is the rho
+    points of the cells (``grid.locate_rho_ij``) of its ACTIVE particles
+    (``status`` None: all), grown by one cell on each side and clipped to
+    the grid: points i0..i1 x j0..j1 (inclusive; -1 for a block with no
+    active particle).  ``points`` is the box's size, ``nbytes`` the shared
+    memory of its three tiles (3 x points x tile_lanes(nl) x 4 bytes), and
+    ``fits`` whether it is within the launch's tile_points(nl): a block
+    that does not fit runs from global memory."""
+    from ..grid import locate_rho_ij
+    n = x.shape[0]
+    nb = -(-n // block)
+    i, j, _, _ = locate_rho_ij(grid, x, y)
+    act = (torch.ones(n, dtype=torch.bool, device=x.device)
+           if status is None else status == st.ACTIVE)
+    pad = nb * block - n
+
+    def blocks(v, fill):
+        v = torch.where(act, v.to(torch.int64), fill)
+        return torch.nn.functional.pad(v, (0, pad), value=fill).view(nb,
+                                                                     block)
+    big = 1 << 40
+    live = torch.nn.functional.pad(act, (0, pad)).view(nb, block).any(1)
+    i0 = (blocks(i, big).amin(1) - 1).clamp(min=0)
+    i1 = (blocks(i, -1).amax(1) + 2).clamp(max=grid.nx - 1)
+    j0 = (blocks(j, big).amin(1) - 1).clamp(min=0)
+    j1 = (blocks(j, -1).amax(1) + 2).clamp(max=grid.ny - 1)
+    points = torch.where(live, (i1 - i0 + 1) * (j1 - j0 + 1), 0)
+    neg = torch.full_like(i0, -1)
+    return {"i0": torch.where(live, i0, neg), "i1": torch.where(live, i1, neg),
+            "j0": torch.where(live, j0, neg), "j1": torch.where(live, j1, neg),
+            "live": live, "points": points,
+            "nbytes": 3 * 4 * tile_lanes(nl) * points,
+            "fits": live & (points <= tile_points(nl))}
+
+
 def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
                        t0: float, fields=None, seed=None,
                        ext_idx: int = 0) -> st.Particles:
@@ -283,7 +353,28 @@ def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
 
 _C_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 19
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_float] * 5 + [ctypes.c_void_p])
+               + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p,
+                                          ctypes.c_void_p])
+COUNTERS = ("staged_block_steps", "global_block_steps", "staged_misses")
+
+
+def _counters(dev) -> torch.Tensor:
+    """The staging counters on device ``dev`` (3 x int64, in COUNTERS
+    order), made zero at first use; every launch adds to them there."""
+    t = ext_step_fused.counters.get(dev)
+    if t is None:
+        t = ext_step_fused.counters[dev] = torch.zeros(3, dtype=torch.int64,
+                                                       device=dev)
+    return t
+
+
+def counts() -> dict:
+    """The staging counters of the launches since reset_launches, summed
+    over devices (a host read: it waits for those launches)."""
+    tot = [0, 0, 0]
+    for t in ext_step_fused.counters.values():
+        tot = [a + int(b) for a, b in zip(tot, t.tolist())]
+    return dict(zip(COUNTERS, tot))
 
 
 def _lib(variant: dict):
@@ -293,6 +384,16 @@ def _lib(variant: dict):
         fn.argtypes = _C_ARGTYPES
         fn.restype = ctypes.c_int
     return fn
+
+
+def blocks_per_sm(variant: dict, nl: int) -> int:
+    """Blocks of a variant that one SM holds when each stages
+    tile_points(nl) points (CUDA's occupancy calculator; builds the
+    library)."""
+    fn = build.load("ext_step", variant).ltx_ext_step_blocks_per_sm
+    fn.argtypes = [ctypes.c_int, ctypes.c_int]
+    fn.restype = ctypes.c_int
+    return fn(nl, tile_points(nl))
 
 
 def _check_col(name, v, n, dtype, dev):
@@ -415,7 +516,8 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         ptr(salt_o), ptr(temp_o), ptr(sd), ptr(si), n, g.nx, g.ny, us, ws,
         nl, aks0, salt0, g.vtransform, n_int, int(cfg.reflect_iters),
         int(bool(cfg.OpenOceanBoundary)), b.s_max, n_p, v_p, c_p, n_h, v_h,
-        c_h, ptr(cxy), ptr(cseed), c_mx, c_my, *c_scal, stream)
+        c_h, ptr(cxy), ptr(cseed), c_mx, c_my, *c_scal, tile_points(nl),
+        _counters(dev).data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"ext_step kernel launch failed: CUDA error {rc}")
     ext_step_fused.launches += 1
@@ -440,8 +542,13 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
 
 ext_step_fused.launches = 0             # every launch
 ext_step_fused.variant_launches = {}    # launches per compiled variant
+ext_step_fused.counters = {}            # device -> staging counters
 
 
 def reset_launches() -> None:
+    """Zero the launch counts and the staging counters (on the device, no
+    wait)."""
     ext_step_fused.launches = 0
     ext_step_fused.variant_launches = {}
+    for t in ext_step_fused.counters.values():
+        t.zero_()

@@ -1,10 +1,11 @@
 """Spatial locality: Hilbert ordering of the particle batch.
 
-Counterpart of ``ltjax.spatial``.  On the GPU the external-step kernel
-gathers straight from device memory, so the sort is for cache locality
-(neighbouring threads read neighbouring cell rows of the record table
-from L1/L2), not for any window.  The permutation indexes each column
-directly: the TPU's packed-row gather workaround has no purpose here.
+Counterpart of ``ltjax.spatial``.  On the GPU the sort gives each block
+of the kernels' threads a small box of cells, which the block stages in
+shared memory (``kernels.ext_step.block_boxes``); a block whose
+particles are spread reads device memory instead.  The permutation
+indexes each column directly: the TPU's packed-row gather workaround has
+no purpose here.
 """
 
 from __future__ import annotations

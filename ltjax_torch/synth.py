@@ -151,14 +151,16 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                          h0=50.0, omega=1e-4, shear_a=0.0, ramp_b=0.0,
                          vtransform=1, theta_s=0.0, dtype=torch.float64,
                          device="cpu", mask=None, parabolic_aks=False,
-                         halocline=False) -> SolidBodyCase:
+                         halocline=False, hc=None) -> SolidBodyCase:
     """Solid-body rotation about the domain centre on a uniform grid.
 
-    hc = h0 and Cs = s (theta_s = 0) make the Vtransform-1 levels
-    z = h*s exactly; theta_s > 0 stretches the ladder.  ``mask`` (Ny, Nx)
-    marks land cells (0).  ``parabolic_aks`` gives the records bench.py's
-    turb-variant Aks profile (``parabolic_aks``) instead of zeros, and
-    ``halocline`` salt and temperature (``halocline_fields``)."""
+    hc = h0 (the default) and Cs = s (theta_s = 0) make the Vtransform-1
+    levels z = h*s exactly; theta_s > 0 stretches the ladder, and with
+    ``hc`` < h0 as well the depths depend on both Cs and hc.  ``mask``
+    (Ny, Nx) marks land cells (0).  ``parabolic_aks`` gives the records
+    bench.py's turb-variant Aks profile (``parabolic_aks``) instead of
+    zeros, and ``halocline`` salt and temperature
+    (``halocline_fields``)."""
     x_rho = np.linspace(0.0, lx, nx)
     y_rho = np.linspace(0.0, ly, ny)
     h = np.full((ny, nx), h0)
@@ -167,7 +169,8 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
     s_rho, s_w = uniform_sigma_levels(us)
     grid = make_grid(x_rho, y_rho, h, mask, s_rho,
                      song_haidvogel_cs(s_rho, theta_s), s_w,
-                     song_haidvogel_cs(s_w, theta_s), hc=h0,
+                     song_haidvogel_cs(s_w, theta_s),
+                     hc=h0 if hc is None else hc,
                      vtransform=vtransform, dtype=dtype, device=device)
     return SolidBodyCase(grid=grid, omega=omega, xc=lx / 2, yc=ly / 2,
                          shear_a=shear_a, ramp_b=ramp_b, h0=h0,

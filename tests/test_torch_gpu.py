@@ -73,14 +73,14 @@ def gpu():
 
 
 def _case(device, vtransform=1, theta_s=0.0, sigma=0.0, n=4096,
-          omega=1e-4):
+          omega=1e-4, hc=None):
     mask = np.ones((41, 41), np.int32)
     mask[19:22, 30:33] = 0        # x 75-80 km, y 47.5-52.5 km
     c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
                                    h0=50.0, omega=omega, shear_a=0.004,
                                    vtransform=vtransform, theta_s=theta_s,
                                    dtype=torch.float32, device=device,
-                                   mask=mask)
+                                   mask=mask, hc=hc)
     g = c.grid
     ctx = StepContext(grid=g, bounds=bd.build_boundaries(
         mask, g.x_rho.cpu().numpy(), g.y_rho.cpu().numpy(), device=device))
@@ -108,10 +108,13 @@ def _case(device, vtransform=1, theta_s=0.0, sigma=0.0, n=4096,
     return c, ctx, cfg, p
 
 
+# stretched-hc: theta_s 4 and hc 10 m < h0, so the depths depend on both
+# Cs and hc (with Cs = s or hc = h0 a kernel that misreads one passes)
 VARIANTS = pytest.mark.parametrize(
-    "vtransform,theta_s,sigma",
-    [(1, 0.0, 0.0), (2, 4.0, 0.0), (1, 4.0, 4.0)],
-    ids=["affine", "stretched-vt2", "tension"])
+    "vtransform,theta_s,sigma,hc",
+    [(1, 0.0, 0.0, None), (2, 4.0, 0.0, None), (1, 4.0, 4.0, None),
+     (1, 4.0, 0.0, 10.0)],
+    ids=["affine", "stretched-vt2", "tension", "stretched-hc"])
 
 
 def _compare(out, ref, n):
@@ -128,8 +131,8 @@ def _compare(out, ref, n):
 
 @pytest.mark.gpu
 @VARIANTS
-def test_kernel_matches_plain(gpu, vtransform, theta_s, sigma):
-    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma)
+def test_kernel_matches_plain(gpu, vtransform, theta_s, sigma, hc):
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, hc=hc)
     rec = pk.build_packed_records(
         c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
     n0 = kx.ext_step_fused.launches
@@ -144,10 +147,11 @@ def test_kernel_matches_plain(gpu, vtransform, theta_s, sigma):
 
 @pytest.mark.gpu
 @VARIANTS
-def test_kernel_matches_plain_vertical(gpu, vtransform, theta_s, sigma):
+def test_kernel_matches_plain_vertical(gpu, vtransform, theta_s, sigma, hc):
     """Random w and zeta, every internal step launched on its own from
     the plain trajectory's state."""
-    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5)
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5,
+                           hc=hc)
     rec = pk.build_packed_records(c.grid, synth.with_vertical_motion(
         synth.fieldset_for(c, t_center=900.0, dt=1800.0), seed=11))
     cfg1 = replace(cfg, dt=cfg.idt)
@@ -467,8 +471,9 @@ def test_curv_fused_steps_launch_once_per_external_step(gpu):
 
 @pytest.mark.gpu
 @VARIANTS
-def test_rk4_kernel_matches_plain(gpu, vtransform, theta_s, sigma):
-    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5)
+def test_rk4_kernel_matches_plain(gpu, vtransform, theta_s, sigma, hc):
+    c, ctx, cfg, p = _case(gpu, vtransform, theta_s, sigma, omega=1e-5,
+                           hc=hc)
     rec = pk.build_packed_records(c.grid, synth.with_vertical_motion(
         synth.fieldset_for(c, t_center=900.0, dt=1800.0), seed=11))
     idt = float(cfg.idt)
@@ -505,3 +510,77 @@ def test_per_step_route_launches_rk4_per_internal_step(gpu, monkeypatch):
     assert kr.rk4_displacement_fused.launches == n0 + 3 * cfg.internal_steps
     assert kx.ext_step_fused.launches == 0 and not calls
     assert torch.isfinite(out.x).all() and (out.status == st.DEAD).any()
+
+
+def _staging_case(device, path):
+    """The staged corner source's paths (csrc find_currents.cuh) on the
+    100 km case without land: 4096 particles on a 10 x 10 km patch west
+    of the centre (~250 a 2.5 km cell), Hilbert-sorted ("sorted": every
+    block stages), unsorted over the whole domain ("unsorted": every
+    block overflows and runs from device memory), or sorted in a flow 2.5
+    times faster ("fast": 5-7.5 m/s, 0.9-1.4 cells an internal step, so
+    stencils leave the box; within the displacement guard's 1.5 cells)."""
+    omega = 2.5e-4 if path == "fast" else 1e-4
+    c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                   h0=50.0, omega=omega, shear_a=0.004,
+                                   dtype=torch.float32, device=device)
+    g = c.grid
+    ctx = StepContext(grid=g, bounds=bd.build_boundaries(
+        g.mask_rho.cpu().numpy(), g.x_rho.cpu().numpy(),
+        g.y_rho.cpu().numpy(), device=device))
+    n = 4096
+    cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float32",
+                 reflect_iters=2, TrackCollisions=True)
+    rng = np.random.default_rng(13)
+    lo, hi = ((2e3, 98e3), (2e3, 98e3)) if path == "unsorted" else \
+        ((20e3, 30e3), (45e3, 55e3))
+    p = st.init_particles(rng.uniform(*lo, n), rng.uniform(*hi, n),
+                          rng.uniform(-49.0, -1.0, n), dtype=torch.float32,
+                          device=device)
+    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+    if path != "unsorted":
+        p, _ = _sort(g, p)
+    return c, ctx, cfg, p
+
+
+def _path_counter(staging, path):
+    if path == "sorted":
+        # all but a block at a jump of the Hilbert curve
+        assert staging["staged_block_steps"] > 9 * staging[
+            "global_block_steps"]
+    elif path == "unsorted":
+        assert staging["global_block_steps"] > 0
+        assert staging["staged_block_steps"] == 0
+    else:
+        assert staging["staged_misses"] > 0
+
+
+STAGING = pytest.mark.parametrize("path", ["sorted", "unsorted", "fast"])
+
+
+@pytest.mark.gpu
+@STAGING
+def test_staged_kernel_paths_match_plain(gpu, path):
+    """K1 advection: one internal step at a time from the same state
+    (horizontal 0.05 m, vertical 1e-3 m, equal statuses) for 4 steps."""
+    c, ctx, cfg, p = _staging_case(gpu, path)
+    rec = pk.build_packed_records(
+        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    cfg1 = replace(cfg, dt=cfg.idt)
+    kx.reset_launches()
+    q = p
+    for i in range(4):
+        t = i * float(cfg.idt)
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t)
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t)
+        torch.cuda.synchronize()
+        assert (out.status != ref.status).sum() == 0
+        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3)):
+            np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
+                                       getattr(ref, k).cpu().numpy(),
+                                       rtol=0, atol=tol)
+        q = ref
+    _path_counter(kx.counts(), path)
+    assert float((q.x - p.x).abs().max()) > 100.0
+    assert float((q.status == st.ACTIVE).float().mean()) > 0.9
