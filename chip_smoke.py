@@ -2,12 +2,12 @@
 """Drive the PyTorch/CUDA port (ltjax_torch) once on one GPU.
 
     python3 chip_smoke.py            # every phase
-    python3 chip_smoke.py --only 4,5 # some phases (no summary lines)
+    python3 chip_smoke.py --only 4,9 # some phases (no summary lines)
     python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
 Builds the variants of the external-step CUDA kernel and the per-step
 RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs eight phases and fails (non-zero exit, no final
+together), then runs nine phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -75,7 +75,21 @@ line) if any of them fails:
    exp(-t/deadage), the circles), per internal step against the plain
    route, the RK4 kernel timed at 1M and 65,536, and the internal step
    split by the profiler; the oyster CLI run with stochastic mortality in
-   chunks of 2 and 4, and its lanes per step at 65,536.
+   chunks of 2 and 4, and its lanes per step at 65,536;
+9. the builds that let an LTRANS v2b run file start on the card:
+   float64 positions (LTX_POS64), stretched rectilinear axes searched
+   (LTX_AXES) and the per-step kernel on a curvilinear grid (LTX_CURV):
+   (a) each against its plain version at 65,536 on phase 1's and phase
+   8a's inputs; (b) the main path in float64 at full width, bench.py's
+   advect cell with dtype_pos float64 (1M, 16 x 30, the circles); (c) a
+   stretched-grid advection cell at 1M, 16 x 30 (spacing x1.002 a
+   cell), and the same grid with stochastic mortality; (d) bench.py's
+   curv cell with stochastic mortality at 1M, 16 x 30 (480 launches),
+   the dead share and per internal step against the plain route; (e) the
+   CLI on run files without a dtype_pos key: the float64 path against
+   the closed form, BoundaryBLNs, checkpoint_every = 2 and --resume
+   (final particles equal to the uninterrupted run's), and a stochastic
+   run on the per-step route in float64.
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -155,21 +169,23 @@ def log(obj):
 
 def bench_case(torch, device, nx=200, ny=200, us=20, land=True,
                omega=5e-5, parabolic_aks=False, halocline=False,
-               stretched=False):
+               stretched=False, dtype=None, axes=1.0):
     """The bench.py advect case (200 km square, solid-body rotation,
     omega 5e-5, h0 50 m), optionally with a land block in its path,
     bench.py's turb-variant Aks profile, the synthetic halocline (salt
     and temperature, synth.halocline_fields) and (``stretched``) a
     stretched ladder, theta_s 4 with hc 10 m < h0, on which the s-level
     depths depend on both Cs and hc (with Cs = s or hc = h0 they depend
-    on neither)."""
+    on neither); the grid in ``dtype`` (default float32), on rho axes
+    whose spacing grows by ``axes`` a cell (1: uniform)."""
     from ltjax_torch import synth
     return synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=200e3,
                                       ly=200e3, h0=50.0, omega=omega,
-                                      dtype=torch.float32, device=device,
+                                      dtype=dtype or torch.float32,
+                                      device=device,
                                       mask=land_mask(nx, ny, land),
                                       parabolic_aks=parabolic_aks,
-                                      halocline=halocline,
+                                      halocline=halocline, stretch=axes,
                                       **(STRETCHED if stretched else {}))
 
 
@@ -185,15 +201,17 @@ def land_mask(nx, ny, land):
 
 
 def curv_bench_case(torch, device, nx=200, ny=200, us=20, land=True,
-                    omega=5e-5, parabolic_aks=False, halocline=False):
+                    omega=5e-5, parabolic_aks=False, halocline=False,
+                    dtype=None):
     """bench.py's curv case (the 200 km square distorted by 3%, solid-body
     rotation, omega 5e-5, h0 50 m), optionally with phase 1's land block,
-    the turb-variant Aks profile and the halocline."""
+    the turb-variant Aks profile and the halocline; the map in ``dtype``
+    (default float32)."""
     from ltjax_torch import synth
     return synth.make_curv_case(nx=nx, ny=ny, us=us, lx=200e3, ly=200e3,
                                 h0=50.0, omega=omega, amp=0.03,
                                 mask=land_mask(nx, ny, land),
-                                dtype=torch.float32, device=device,
+                                dtype=dtype or torch.float32, device=device,
                                 parabolic_aks=parabolic_aks,
                                 halocline=halocline)
 
@@ -257,10 +275,14 @@ def water_particles(case, n, lo, hi, seed):
     while sum(len(o[0]) for o in out) < n:
         x = rng.uniform(lo, hi, n)
         y = rng.uniform(lo, hi, n)
-        i = np.clip(np.rint((x - xa[0]) / (xa[1] - xa[0])).astype(int), 0,
-                    len(xa) - 1)
-        j = np.clip(np.rint((y - ya[0]) / (ya[1] - ya[0])).astype(int), 0,
-                    len(ya) - 1)
+        if g.uniform:
+            i = np.clip(np.rint((x - xa[0]) / (xa[1] - xa[0])).astype(int),
+                        0, len(xa) - 1)
+            j = np.clip(np.rint((y - ya[0]) / (ya[1] - ya[0])).astype(int),
+                        0, len(ya) - 1)
+        else:                            # stretched axes: nearest node
+            i = np.rint(np.interp(x, xa, np.arange(len(xa)))).astype(int)
+            j = np.rint(np.interp(y, ya, np.arange(len(ya)))).astype(int)
         # keep particles whose 3x3 cell neighbourhood is water
         wet = np.ones(n, bool)
         for dj in (-1, 0, 1):
@@ -774,10 +796,10 @@ def phase3(torch, device, n=10_000, nx=60, us=10, n_ext=4):
     return res
 
 
-def run_cli(run, nml):
+def run_cli(run, nml, *args):
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
-        rc = run.main([nml])
+        rc = run.main([nml, *args])
     lines = buf.getvalue().splitlines()
     for ln in lines:
         log(f"[run] {ln}")
@@ -1128,21 +1150,35 @@ def rk4_ops(us, ws):
     return 4 * stage + 24
 
 
-def rk4_bound(grid, n, stage1=False):
+def rk4_bound(grid, n, stage1=False, pos64=False):
     """The least time the card could take for one launch of rk4_step on n
-    particles: the three stage tables read once, x, y, z read and dx, dy,
-    dz (and u1, v1) written once, over the HBM rate, against every
-    particle's operations (the kernel computes all of them, whatever
-    their status) over the f32 rate."""
+    particles: the three stage tables (and a curvilinear grid's map, or
+    searched rho axes) read once, x, y, z read and dx, dy, dz (and u1,
+    v1) written once, over the HBM rate, against every particle's
+    operations (the kernel computes all of them, whatever their status)
+    over the peak rate of their type: with float64 positions (``pos64``)
+    the cell location, the knots, the log layer and the RK4 sums are
+    f64."""
     from ltjax_torch import packed as pk
-    nv = pk.n_value_lanes(grid.us, grid.ws)
-    nbytes = 3 * grid.ny * grid.nx * nv * 4 + n * 4 * (6 + 2 * int(stage1))
-    f32 = n * rk4_ops(grid.us, grid.ws)
+    us, ws = grid.us, grid.ws
+    nv = pk.n_value_lanes(us, ws)
+    item = 8 if pos64 else 4
+    nbytes = 3 * grid.ny * grid.nx * nv * 4 + n * item * (6 + 2 * int(stage1))
+    extra = 0
+    if grid.curv is not None:
+        nbytes += grid.ny * grid.nx * 2 * item + 2 * grid.curv.seed_i.numel() * 4
+        extra = 4 * CURV_SOLVE_OPS
+    elif not grid.uniform:
+        nbytes += (grid.nx + grid.ny) * item
+        extra = 4 * 2 * AXIS_SEARCH_OPS
+    ops = n * (rk4_ops(us, ws) + extra)
+    pos = n * (4 * (10 + 12 + 8 * (us + ws)) + 24 + extra) if pos64 else 0
+    f32, f64 = ops - pos, pos
     t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = f32 / FP32_PER_S
+    t_ops = f32 / FP32_PER_S + f64 / FP64_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes > t_ops else "operations",
-            "bytes": nbytes, "f32_ops": f32, "f64_ops": 0.0}
+            "bytes": nbytes, "f32_ops": f32, "f64_ops": f64}
 
 
 # f32 operations of one inverse-map solve (csrc ext_step.cu curv_logical,
@@ -1161,31 +1197,70 @@ def curv_solves(cfg):
             + int(cfg.Behavior != 0)), 2
 
 
-def ops_per_step(cfg, us, ws, curv=False):
-    """f32 operations of one active particle's internal step in the
-    variant of cfg (integer Threefry words counted at the f32 rate); on
-    a curvilinear grid plus its inverse-map solves."""
+# operations of one searched axis (csrc find_currents.cuh search_right,
+# locate_axis): 8 halvings of 4 on a 200-point axis, the fraction 5
+AXIS_SEARCH_OPS = 8 * 4 + 5
+
+
+def axis_searches(cfg, ctx):
+    """Axis searches of one internal step in the LTX_AXES variant: two a
+    rho-cell location where the rho axes are not uniform (4 RK4 stages,
+    the vertical reflection's column, Visser's and a behavior's stage-1
+    column), two an edge location where the cell edges are not (each
+    reflection pass, the two inside tests, settlement)."""
+    g, b = ctx.grid, ctx.bounds
+    n = 0
+    if g.curv is None and not g.uniform:
+        n += 2 * (5 + int(cfg.VTurbOn and cfg.readAks)
+                  + int(cfg.Behavior != 0))
+    if g.curv is None and not b.uniform:
+        n += 2 * (int(cfg.reflect_iters) + 2 + int(cfg.settlementon))
+    return n
+
+
+def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0):
+    """(f32, f64) operations of one active particle's internal step in
+    the variant of cfg (integer Threefry words counted at the f32 rate);
+    on a curvilinear grid plus its inverse-map solves, on searched axes
+    plus the searches.  With float64 positions (``pos64``) the cell
+    location, knots, log layer, RK4 sums, turbulence, behavior,
+    reflection, the vertical bounds and the scalar fits (Visser, the 4/5
+    cue, SaltTempOn) are f64, as csrc/ext_step.cu's LTX_POS64 build runs
+    them; the blend and find_currents' fits stay f32."""
     stage = 10 + 2 * 31 + fit_ops(us, 2) + fit_ops(ws, 1) + 12
     ops = 4 * stage + 40 + 60 + 82 + 5          # RK4, reflect, vertical
+    pos = 4 * (10 + 12 + 8 * (us + ws)) + 40 + 60 + 82 + 5
     threefry = 120
     if cfg.HTurbOn:
         ops += threefry + 12
+        pos += 12
     if cfg.VTurbOn:
         ops += threefry + 4
+        pos += 4
         if cfg.readAks:
-            ops += 72 + fit_ops(ws, 1) + 2 * ws + 2 * (ws + 62 + 20)
+            v = 72 + fit_ops(ws, 1) + 2 * ws + 2 * (ws + 62 + 20)
+            ops += v
+            pos += v
     if cfg.Behavior:
         ops += 80
+        pos += 80
         if cfg.Behavior in (1, 2, 3, 4, 5):
             ops += 2 * threefry + 10
+            pos += 10
         if cfg.Behavior in (4, 5):
             ops += fit_ops(us, 1)
+            pos += fit_ops(us, 1)
     if cfg.SaltTempOn:
         ops += fit_ops(us, 2)
+        pos += fit_ops(us, 2)
     if curv:
         plain, resid = curv_solves(cfg)
-        ops += (plain + resid) * CURV_SOLVE_OPS + resid * CURV_RESID_OPS
-    return ops
+        c = (plain + resid) * CURV_SOLVE_OPS + resid * CURV_RESID_OPS
+        ops += c
+        pos += c
+    ops += searches * AXIS_SEARCH_OPS
+    pos += searches * AXIS_SEARCH_OPS
+    return (ops - pos, pos) if pos64 else (ops, 0)
 
 
 def kernel_bound(cfg, ctx, prec, p_in, p_out):
@@ -1203,17 +1278,28 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out):
     n, n_int = p_in.n, cfg.internal_steps
     act = 0.5 * (int((p_in.status == st.ACTIVE).sum())
                  + int((p_out.status == st.ACTIVE).sum())) * n_int
-    cols_in = 7 + (1 if cfg.settlementon else 0) + (2 if cfg.SaltTempOn
-                                                     else 0)
-    cols_out = cols_in
-    nbytes = (prec.tab.numel() * 4 + kx.boundary_rows_table(ctx).numel() * 4
-              + n * 4 * (cols_in + cols_out))
+    pdt = p_in.x.dtype
+    pos64 = pdt == torch.float64
+    item = 8 if pos64 else 4
+    # float columns x y z dob age (+ salt temp) in the positions' dtype,
+    # int32 status pid (+ settle_poly); out: the same, hit counts int32
+    fcols = 5 + (2 if cfg.SaltTempOn else 0)
+    icols = 2 + (1 if cfg.settlementon else 0)
+    nbytes = (prec.tab.numel() * 4
+              + kx.boundary_rows_table(ctx, pdt).numel() * item
+              + 2 * n * (item * fcols + 4 * icols))
     curv = ctx.grid.curv is not None
     if curv:
-        xy, seeds, _, _ = kx.curv_tables(ctx)
-        nbytes += xy.numel() * 4 + seeds.numel() * 4
-    f32 = act * ops_per_step(cfg, ctx.grid.us, ctx.grid.ws, curv)
-    f64 = 0.0
+        xy, seeds, _, _ = kx.curv_tables(ctx, pdt)
+        nbytes += xy.numel() * item + seeds.numel() * 4
+    searches = axis_searches(cfg, ctx)
+    if searches:
+        nbytes += sum(t.numel() * t.element_size()
+                      for pair in kx.axes_tables(ctx, pdt) if pair
+                      for t in pair)
+    o32, o64 = ops_per_step(cfg, ctx.grid.us, ctx.grid.ws, curv, pos64,
+                            searches)
+    f32, f64 = act * o32, act * o64
     if cfg.settlementon and ctx.polys is not None:
         tabs = kx.settle_tables(ctx)
         nbytes += tabs[0].numel() * 8 + tabs[1].numel() * 4
@@ -1228,7 +1314,7 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out):
             c = ps.cell_cands[j.long(), i.long()].long()
             nv = torch.where(c >= 0, ps.nverts.long()[c.clamp(min=0)], 0)
             edges += float(nv.sum(dim=1).double().mean())
-        f64 = act * (8 + 9 * edges)
+        f64 += act * (8 + 9 * edges)
     t_bytes = nbytes / HBM_BYTES_PER_S
     t_ops = f32 / FP32_PER_S + f64 / FP64_PER_S
     return {"bound_ms": 1e3 * max(t_bytes, t_ops),
@@ -1907,12 +1993,393 @@ def phase8_cli(torch, device):
     return res
 
 
+# phase 9: the variants that let an LTRANS v2b run file start on the card
+# rho axes whose spacing grows by 0.2% a cell (x1.49 over 200 cells):
+# rho axes and cell edges both searched
+AXES_STRETCH = 1.002
+# spacing that grows by 5e-8 a cell: not uniform at grid.py's 1e-9, but
+# uniform at the boundary edges' 1e-4 (rho axes searched, edges not)
+AXES_GRID_ONLY = 1 + 5e-8
+POS_COLS = ("x", "y", "z", "dob", "age", "salt", "temp")
+
+
+def dtype_name(dtype):
+    return str(dtype).replace("torch.", "")
+
+
+def phase9a(torch, device, n=65536, nx=200, us=20):
+    """The new variants against their plain versions at 65,536 particles:
+    K1 on phase 1's inputs (land block, open rim, particles near the
+    surface and in the log layer; one external step) in float64, on
+    stretched axes (rho axes and edges searched; rho axes only) and both;
+    K2 on phase 8a's random-w case in float64, on stretched axes and on
+    bench.py's curv geometry with the land block (float32 and float64)."""
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import build, ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import _sort
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    for name, dtype, axes in (("9a-f64", f64, 1.0),
+                              ("9a-axes", f32, AXES_STRETCH),
+                              ("9a-axes-grid", f32, AXES_GRID_ONLY),
+                              ("9a-f64-axes", f64, AXES_STRETCH)):
+        case = bench_case(torch, device, nx=nx, ny=nx, us=us, dtype=dtype,
+                          axes=axes)
+        ctx = context(case)
+        assert case.grid.uniform == (axes == 1.0)
+        assert ctx.bounds.uniform == (axes != AXES_STRETCH)
+        cfg = make_cfg(n, us=us, ws=us + 1, TrackCollisions=True,
+                       dtype_pos=dtype_name(dtype))
+        x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
+        z = near_surface_and_bottom(n, case.h0, seed=4)
+        p = st.init_particles(x, y, z, dtype=dtype, device=device)
+        p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+        p, _ = _sort(case.grid, p)
+        prec = pk.build_packed_records(case.grid, synth.fieldset_for(
+            case, t_center=0.0, dt=3600.0, device=device))
+        r = kernel_vs_plain(torch, name, ctx, cfg, p, prec, 3, 1)
+        tag = build.tag("ext_step", kx.variant_of(ctx, cfg, dtype))
+        r["variant"] = tag
+        assert ("p1" in tag) == (dtype == f64) and (
+            ("a1" in tag) == (axes != 1.0)), tag
+        assert r["hit_land_plain"] > 0, r
+        assert r["status_counts_plain"][st.OUT_OF_DOMAIN] > 0, r
+        out[name] = r
+
+    cfg = make_cfg(n, us=us, ws=us + 1)
+    idt = float(cfg.idt)
+    for name, dtype, geo in (("9a-rk4-f64", f64, 1.0),
+                             ("9a-rk4-axes", f32, AXES_STRETCH),
+                             ("9a-rk4-f64-axes", f64, AXES_STRETCH),
+                             ("9a-rk4-curv", f32, "curv"),
+                             ("9a-rk4-f64-curv", f64, "curv")):
+        if geo == "curv":
+            case = curv_bench_case(torch, device, nx=nx, ny=nx, us=us,
+                                   omega=5e-6, dtype=dtype)
+            x, y, _ = curv_water_particles(case, n, seed=1)
+        else:
+            case = bench_case(torch, device, nx=nx, ny=nx, us=us,
+                              omega=5e-6, dtype=dtype, axes=geo)
+            x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
+        z = near_surface_and_bottom(n, case.h0, seed=4)
+        p, _ = _sort(case.grid, st.init_particles(x, y, z, dtype=dtype,
+                                                  device=device))
+        prec = pk.build_packed_records(case.grid, synth.with_vertical_motion(
+            synth.fieldset_for(case, t_center=0.0, dt=3600.0,
+                               device=device), seed=3))
+        kr.rk4_displacement_fused.variant_launches = {}
+        r = rk4_vs_plain(torch, name, case.grid, pk.stage_value_tables(
+            case.grid, prec, 600.0, idt), p, cfg, reps=3, plain_reps=1)
+        r["variant"] = build.tag("rk4_step",
+                                 kr.kernel_variant(case.grid, dtype))
+        if device.type == "cuda":
+            assert (r["variant"]
+                    in kr.rk4_displacement_fused.variant_launches), r
+        assert r["max_abs_dz_move_m"] > 0.1, r
+        out[name] = r
+    return out
+
+
+def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True):
+    """One call of make_fused_external_steps (the main path) on p0, after
+    a warm call on 128 particles, with every launch count and the staging
+    counters set to 0 just before it: (particles, seconds, {tag:
+    launches} of both kernels, staging counters)."""
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import make_fused_external_steps
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    if warm:
+        fused(p0.take(torch.arange(128, device=p0.x.device)), fsR, 0.0, 0)
+    sync(torch, p0.x.device)
+    kx.reset_launches()
+    kr.rk4_displacement_fused.launches = 0
+    kr.rk4_displacement_fused.variant_launches = {}
+    t0 = time.perf_counter()
+    p = fused(p0, fsR, 0.0, 0)
+    sync(torch, p0.x.device)
+    sec = time.perf_counter() - t0
+    launches = {**kx.ext_step_fused.variant_launches,
+                **kr.rk4_displacement_fused.variant_launches}
+    return p, sec, launches, kx.counts()
+
+
+def sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def advect_cell(torch, device, name, dtype, axes, n, nx, us, n_fuse,
+                n_small=65536):
+    """bench.py's advect cell (phase 2's inputs) in ``dtype`` on rho axes
+    stretched by ``axes``: the main path at n particles, n_fuse x 30
+    steps, against the circles; then the kernel against its plain version
+    on its first launch (n and n_small particles, timed), its bound, and
+    K2 in the same variant family on the same inputs (timed at n)."""
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import build, ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import _sort, summary_counts
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      dtype=dtype, axes=axes)
+    ctx = context(case)
+    cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos=dtype_name(dtype))
+    dt = float(cfg.dt)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=dtype, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    p, sec, launches, staging = fused_cell(torch, ctx, cfg, p0, fsR, n_fuse)
+    tag = build.tag("ext_step", kx.variant_of(ctx, cfg, dtype))
+    counts = summary_counts(p)
+    xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
+    err = np.hypot(p.x.cpu().numpy() - xa, p.y.cpu().numpy() - ya)
+    res = {"phase": name, "n": n, "ext_steps": n_fuse,
+           "internal_steps": cfg.internal_steps, "variant": tag,
+           "launches": launches, "staging": staging,
+           "staged_share": staged_share(staging), "seconds": sec,
+           "particle_steps_per_s": n * cfg.internal_steps * n_fuse / sec,
+           "max_err_vs_analytic_m": float(err.max()), "counts": counts,
+           "dtype": dtype_name(p.x.dtype)}
+    log(res)
+    assert p.x.dtype == dtype, res
+    if device.type == "cuda":
+        assert launches == {tag: n_fuse}, res
+    assert counts["error"] == 0 and counts["active"] == n, res
+    assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, res
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    prec3 = pk.PackedRecords(tab=prec_all.tab[:3], times=prec_all.times[:3])
+    ps, _ = _sort(case.grid, p0)
+    res["kernel"] = kernel_vs_plain(torch, name, ctx, cfg, ps, prec3, 3, 1)
+    res["bound"] = kernel_bound(cfg, ctx, prec3, ps,
+                                kx.ext_step_fused(ctx, cfg, ps, prec3, 0.0))
+    small, _ = _sort(case.grid, p0.take(torch.arange(n_small,
+                                                     device=device)))
+    if device.type == "cuda":
+        res["kernel_ms_" + str(n_small)] = cuda_time(
+            torch, lambda: kx.ext_step_fused(ctx, cfg, small, prec3, 0.0), 5)
+        res["plain_ms_" + str(n_small)] = cuda_time(
+            torch, lambda: kx.ext_step_reference(ctx, cfg, small, prec3,
+                                                 0.0), 1)
+    tabs = pk.stage_value_tables(case.grid, prec3, 0.0, float(cfg.idt))
+    res["rk4"] = {size: rk4_vs_plain(torch, f"{name}-rk4-{size}", case.grid,
+                                     tabs, q, cfg, reps=10, plain_reps=1)
+                  for size, q in (("1M", ps), (str(n_small), small))}
+    res["rk4_variant"] = build.tag("rk4_step",
+                                   kr.kernel_variant(case.grid, dtype))
+    res["rk4_bound"] = rk4_bound(case.grid, n, stage1=True,
+                                 pos64=dtype == torch.float64)
+    log({k: res[k] for k in res if k.startswith(("phase", "kernel_ms",
+                                                 "plain_ms", "bound",
+                                                 "rk4_bound"))})
+    return res, (case, ctx, fsR, p0)
+
+
+def stochastic_cell(torch, device, name, case, ctx, fsR, p0, n_fuse,
+                    stepwise=False):
+    """The cell of ``case`` with stochastic mortality (bench.py's behavior
+    cell: type-6 sinking, a 2-day death age) through the per-step route:
+    the main path at p0's size, n_fuse x 30 steps (K2 launched once per
+    internal step, K1 never), the dead share against 1 - exp(-t/deadage)
+    within 5 sd, no ERROR; with ``stepwise`` also per internal step
+    against the plain route over the first external step (0 status
+    mismatches)."""
+    from ltjax_torch import packed as pk, state as st
+    from ltjax_torch.kernels import build, rk4_step as kr
+    from ltjax_torch.step import _sort, fieldset_slice, summary_counts
+    n = p0.n
+    cfg = make_cfg(n, us=case.grid.us, ws=case.grid.ws,
+                   dtype_pos=dtype_name(p0.x.dtype), **STOCHASTIC)
+    dt, n_int = float(cfg.dt), cfg.internal_steps
+    p, sec, launches, _ = fused_cell(torch, ctx, cfg, p0, fsR, n_fuse)
+    tag = build.tag("rk4_step", kr.kernel_variant(case.grid, p0.x.dtype))
+    counts = summary_counts(p)
+    p_dead = -np.expm1(-n_fuse * dt / cfg.deadage)
+    sd = np.sqrt(p_dead * (1 - p_dead) / n)
+    res = {"phase": name, "n": n, "ext_steps": n_fuse,
+           "internal_steps": n_int, "variant": tag, "launches": launches,
+           "seconds": sec,
+           "particle_steps_per_s": n * n_int * n_fuse / sec,
+           "dead_share": counts["dead"] / n, "dead_share_expected": p_dead,
+           "dead_share_sd": sd, "counts": counts}
+    log(res)
+    if device.type == "cuda":
+        assert launches == {tag: n_fuse * n_int}, res
+    assert counts["error"] == 0, res
+    assert abs(res["dead_share"] - p_dead) <= 5 * sd, res
+    if stepwise:
+        ps, _ = _sort(case.grid, p0)
+        prec_all = pk.build_packed_records(case.grid, fsR)
+        prec3 = pk.PackedRecords(tab=prec_all.tab[:3],
+                                 times=prec_all.times[:3])
+        rs, _ = lanes_stepwise(torch, name, ctx, cfg, ps, prec3,
+                               fieldset_slice(fsR, 0), 0.0, steps=n_int,
+                               seed=cfg.seed, per_step=True)
+        assert rs["status_mismatch"] == 0, rs
+        assert rs["status_counts_plain"][st.DEAD] > 0, rs
+        res["stepwise"] = {k: v for k, v in rs.items() if k.startswith("max")
+                           or k.endswith("mismatch")
+                           or k == "decision_flips"}
+    return res
+
+
+def phase9(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
+           n_small=65536):
+    """LTRANS v2b run files on the card (phase 9's builds): (a) each new
+    variant against its plain version at 65,536 (phase9a); (b) the main
+    path in float64 at full width: bench.py's advect cell with dtype_pos
+    float64, 1M particles, 16 x 30 steps, against the circles, K1's
+    LTX_POS64 build; K2's float64 build timed on its inputs; (c) the
+    advect cell on stretched axes (x1.002 a cell), 1M, 16 x 30, float32,
+    K1's LTX_AXES build, and the same grid with stochastic mortality for
+    4 x 30 steps (K2's LTX_AXES build); (d) bench.py's curv cell with
+    stochastic mortality at 1M, 16 x 30 (480 launches of K2's LTX_CURV
+    build), per internal step against the plain route; (e) the CLI on
+    unmodified run files (phase9_cli)."""
+    from ltjax_torch import state as st, synth
+    out = {"a": phase9a(torch, device, n=n_small, nx=nx, us=us)}
+    out["b"], _ = advect_cell(torch, device, "9b", torch.float64, 1.0, n,
+                              nx, us, n_fuse, n_small)
+    out["c"], (case, ctx, fsR, p0) = advect_cell(
+        torch, device, "9c", torch.float32, AXES_STRETCH, n, nx, us, n_fuse,
+        n_small)
+    z0 = np.random.default_rng(1).uniform(-25.0, -5.0, n)
+    p0 = p0.replace(z=torch.as_tensor(z0, dtype=p0.z.dtype, device=device))
+    out["c-stochastic"] = stochastic_cell(torch, device, "9c-stochastic",
+                                          case, ctx, synth.fieldset_window(
+                                              case, -1800.0, 3600.0, 6,
+                                              device=device), p0, 4)
+    case = curv_bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
+    ctx = context(case)
+    fsR = synth.fieldset_window(case, -1800.0, 3600.0, n_fuse + 2,
+                                device=device)
+    rng = np.random.default_rng(0)
+    p0 = st.init_particles(rng.uniform(40e3, 160e3, n),
+                           rng.uniform(40e3, 160e3, n),
+                           np.random.default_rng(1).uniform(-25.0, -5.0, n),
+                           dtype=torch.float32, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    rd = stochastic_cell(torch, device, "9d", case, ctx, fsR, p0, n_fuse,
+                         stepwise=True)
+    from ltjax_torch import packed as pk
+    from ltjax_torch.step import _sort
+    ps, _ = _sort(case.grid, p0)
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    tabs = pk.stage_value_tables(case.grid, pk.PackedRecords(
+        tab=prec_all.tab[:3], times=prec_all.times[:3]), 0.0, 120.0)
+    rd["rk4"] = rk4_vs_plain(torch, "9d-rk4-1M", case.grid, tabs, ps,
+                             make_cfg(n), reps=10, plain_reps=1)
+    rd["rk4_bound"] = rk4_bound(case.grid, n, stage1=True)
+    log({k: rd[k] for k in ("phase", "rk4_bound")})
+    out["d"] = rd
+    out["e"] = phase9_cli(torch, device)
+    return out
+
+
+def phase9_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
+    """ltjax_torch.run.main on run files written without a dtype_pos key
+    (LTRANS v2b's own keys; float64 positions by default): the startup
+    line names the whole-step kernel and float64; the closed form as in
+    phase 3; BoundaryBLNs writes xyBounds.csv and llBounds.csv; with
+    checkpoint_every = 2 over 4 external steps, a run resumed (--resume)
+    from the first checkpoint after the last was deleted ends with the
+    uninterrupted run's particles (every column equal); and a run with
+    stochastic mortality takes K2's float64 build (4 x 30 launches)."""
+    import shutil
+    from ltjax_torch import checkpoint as ckpt, run, synth
+    from ltjax_torch.kernels import build, ext_step as kx, rk4_step as kr
+    work = os.path.join(ROOT, "build", "chip_smoke9")
+    shutil.rmtree(work, ignore_errors=True)
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    x0 = rng.uniform(15e3, 45e3, n)
+    y0 = rng.uniform(15e3, 45e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    cdir = os.path.join(work, "ckpt")
+    nml = synth.write_run_files(case, work, x0, y0, z0, n_ext=n_ext,
+                                dt=3600, idt=120, iprint=3600 * n_ext,
+                                BoundaryBLNs=True, checkpoint_every=2,
+                                checkpoint_dir=cdir)
+    with open(nml) as f:
+        assert "dtype_pos" not in f.read()
+    kx.reset_launches()
+    lines = run_cli(run, nml)
+    start = lines[0]
+    rows = np.loadtxt(os.path.join(work, "out", "run1.csv"), delimiter=",")
+    last = rows[rows[:, 0] == rows[:, 0].max()]
+    last = last[np.argsort(last[:, 1])]
+    xa, ya, _ = case.analytic(x0, y0, z0, n_ext * 3600.0)
+    err = np.hypot(last[:, 2] - xa, last[:, 3] - ya)[last[:, 5] == 1]
+    nseg = 4 * case.grid.mask_rho.numel()  # an upper bound on segments
+    with open(os.path.join(work, "out", "xyBounds.csv")) as f:
+        xy_rows = f.read().splitlines()
+    with open(os.path.join(work, "out", "llBounds.csv")) as f:
+        ll_rows = f.read().splitlines()
+    full = ckpt.load(os.path.join(cdir, "ckpt_4.npz"))
+    os.remove(os.path.join(cdir, "ckpt_4.npz"))
+    resumed_lines = run_cli(run, nml, "--resume")
+    again = ckpt.load(os.path.join(cdir, "ckpt_4.npz"))
+    equal = {k: bool(torch.equal(getattr(full[0], k), getattr(again[0], k)))
+             for k in ("x", "y", "z", "status", "age", "dob", "pid",
+                       "settle_poly", "hit_land", "hit_bottom")}
+    res = {"phase": "9e", "n": n, "path": start["path"],
+           "dtype_pos": start["dtype_pos"], "lanes": start["lanes"],
+           "launches": dict(kx.ext_step_fused.variant_launches),
+           "max_err_vs_analytic_m": float(err.max()),
+           "active_at_end": int(err.size),
+           "xy_bounds_rows": len(xy_rows) - 1,
+           "ll_bounds_rows": len(ll_rows) - 1,
+           "checkpoints": sorted(os.listdir(cdir)),
+           "resumed_from": resumed_lines[1]["ext"],
+           "resumed_equal": equal, "final_meta": again[1:3]}
+    log(res)
+    want = "cuda_ext_step" if device.type == "cuda" else "plain"
+    assert start["path"] == want and start["dtype_pos"] == "float64", res
+    assert full[0].x.dtype == torch.float64, res
+    assert err.size > 0.9 * n and err.max() < TOL_ANALYTIC_CLI, res
+    assert xy_rows[0] == "ax,ay,bx,by,kind" and 0 < res["xy_bounds_rows"], res
+    assert res["ll_bounds_rows"] == res["xy_bounds_rows"] <= nseg, res
+    assert res["checkpoints"] == ["ckpt_2.npz", "ckpt_4.npz"], res
+    assert res["resumed_from"] == 2 and all(equal.values()), res
+    if device.type == "cuda":
+        # the uninterrupted run's 4 launches and the resumed run's 2
+        tag = build.tag("ext_step", kx.kernel_variant(run.Config(),
+                                                      pos64=True))
+        assert res["launches"] == {tag: n_ext + n_ext // 2}, res
+
+    # stochastic mortality: the per-step route in float64
+    work_s = os.path.join(work, "stochastic")
+    nml = synth.write_run_files(case, work_s, x0, y0, z0, n_ext=n_ext,
+                                dt=3600, idt=120, **STOCHASTIC)
+    kx.reset_launches()
+    kr.rk4_displacement_fused.variant_launches = {}
+    lines = run_cli(run, nml)
+    rs = {"phase": "9e-stochastic", "path": lines[0]["path"],
+          "route": lines[0]["route"], "dtype_pos": lines[0]["dtype_pos"],
+          "launches": {**kx.ext_step_fused.variant_launches,
+                       **kr.rk4_displacement_fused.variant_launches},
+          "counts": lines[-1]}
+    log(rs)
+    assert rs["route"] == "per_step" and rs["dtype_pos"] == "float64", rs
+    assert rs["counts"]["dead"] > 0 and rs["counts"]["error"] == 0, rs
+    if device.type == "cuda":
+        assert rs["path"] == "cuda_rk4_step", rs
+        assert rs["launches"] == {"rk4_step-p1": n_ext * 30}, rs
+    res["stochastic"] = rs
+    return res
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
     2's grid and window (settle with phase 6's polygons, salt on its
     halocline, curv on phase 7's curvilinear grid, stochastic on the
-    per-step route, its kernel the RK4 kernel): a cold call, three
+    per-step route, its kernel the RK4 kernel), and phase 9's cells
+    (advect-f64 in float64, advect-axes on stretched axes, curv-stochastic
+    on the curvilinear grid through the per-step route): a cold call, three
     timed warm calls, then torch.profiler over one more warm call: the
     kernel's device time, all device time, the wall time, the kernel's
     share of device time and the idle share of the call (1 - device time
@@ -1930,20 +2397,31 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     y0 = rng.uniform(40e3, 160e3, n)
     out = {}
     curv = curv_bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
-    fs_curv = synth.fieldset_window(curv, -dt / 2, dt, n_fuse + 2,
-                                    device=device)
-    for name, kw in {"advect": {}, **LARVAL, **SETTLE_SALT,
-                     "curv": {}, "stochastic": STOCHASTIC}.items():
-        ctx = context(curv if name == "curv" else case)
-        fs_cell = fs_curv if name == "curv" else fsR
+    grids = {"curv": curv,
+             "f64": bench_case(torch, device, nx=nx, ny=nx, us=us,
+                               land=False, dtype=torch.float64),
+             "axes": bench_case(torch, device, nx=nx, ny=nx, us=us,
+                                land=False, axes=AXES_STRETCH)}
+    windows = {k: synth.fieldset_window(c, -dt / 2, dt, n_fuse + 2,
+                                        device=device)
+               for k, c in grids.items()}
+    cells = {"advect": {}, **LARVAL, **SETTLE_SALT, "curv": {},
+             "stochastic": STOCHASTIC, "advect-f64": {}, "advect-axes": {},
+             "curv-stochastic": STOCHASTIC}
+    for name, kw in cells.items():
+        key = next((k for k in grids if name.startswith(k)
+                    or name.endswith(k)), None)
+        ctx = context(grids[key] if key else case)
+        fs_cell = windows[key] if key else fsR
         if kw.get("settlementon"):
             ctx = with_polygons(ctx)
-        cfg = make_cfg(n, us=us, ws=us + 1, **kw)
+        dtype = torch.float64 if key == "f64" else torch.float32
+        cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos=dtype_name(dtype),
+                       **kw)
         z0 = np.random.default_rng(1).uniform(
-            -25.0 if name in ("behavior", "settle", "stochastic") else -40.0,
-            -5.0, n)
-        p0 = st.init_particles(x0, y0, z0, dtype=torch.float32,
-                               device=device)
+            -25.0 if name in ("behavior", "settle", "stochastic",
+                              "curv-stochastic") else -40.0, -5.0, n)
+        p0 = st.init_particles(x0, y0, z0, dtype=dtype, device=device)
         p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
         fused = make_fused_external_steps(ctx, cfg, n_fuse)
         fused(p0, fs_cell, 0.0, 0)
@@ -1990,8 +2468,15 @@ def kernel_targets():
         *({**SWIM, **kw} for kw in LANE_CHECKS6.values()), OYSTER_CLI]]
     variants = [kx.kernel_variant(c) for c in cfgs] + [
         kx.kernel_variant(make_cfg(1, **{**SWIM, **kw}), curv=True)
-        for kw in [{}, *CURV_LANES.values()]]
-    return [("ext_step", v) for v in variants] + [("rk4_step", None)]
+        for kw in [{}, *CURV_LANES.values()]] + [
+        kx.kernel_variant(make_cfg(1), pos64=True),
+        kx.kernel_variant(make_cfg(1), axes=True),
+        kx.kernel_variant(make_cfg(1), pos64=True, axes=True)]
+    return [("ext_step", v) for v in variants] + [
+        ("rk4_step", v or None) for v in (
+            {}, {"LTX_POS64": 1}, {"LTX_AXES": 1},
+            {"LTX_AXES": 1, "LTX_POS64": 1}, {"LTX_CURV": 1},
+            {"LTX_CURV": 1, "LTX_POS64": 1})]
 
 
 def staging_report(targets, us=20, ws=21):
@@ -2024,7 +2509,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7,8 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7,8,9 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -2058,7 +2543,8 @@ def main(argv=None):
               5: lambda: phase5(torch, device),
               6: lambda: phase6(torch, device),
               7: lambda: phase7(torch, device),
-              8: lambda: phase8(torch, device)}
+              8: lambda: phase8(torch, device),
+              9: lambda: phase9(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:
@@ -2071,8 +2557,8 @@ def main(argv=None):
     if only is not None:
         log({"only": sorted(only), "passed": True})
         return
-    (r1, r1s, r1v, r1g), r2, r4, r6, r7, r8 = (res[k] for k in
-                                               (1, 2, 4, 6, 7, 8))
+    (r1, r1s, r1v, r1g), r2, r4, r6, r7, r8, r9 = (res[k] for k in
+                                                   (1, 2, 4, 6, 7, 8, 9))
     rk = r2["kernel"]          # timed at the main path's shape (1M)
     errs = ("max_abs_dx", "max_abs_dy", "max_abs_dz", "max_abs_dsalt",
             "max_abs_dtemp")
@@ -2119,6 +2605,39 @@ def main(argv=None):
         "ms": k8["kernel_ms"], "plain_ms": k8["plain_ms"],
         "bound_ms": r8["b"]["bound"]["bound_ms"],
         "bound_by": r8["b"]["bound"]["bound_by"], "library_ms": None})
+    # phase 9's builds: the launches of their main paths (9b-9e), the
+    # errors of every comparison with their plain versions (9a and the
+    # first launches), times at 1M on their main paths' inputs
+    r9a = r9["a"]
+    for name, r, small in (("advect-f64", r9["b"], ("9a-f64", "9a-f64-axes")),
+                           ("advect-axes", r9["c"],
+                            ("9a-axes", "9a-axes-grid", "9a-f64-axes"))):
+        kernels.append(entry(
+            name, sum(r["launches"].values()),
+            max(q.get(k, 0.0) for q in (r["kernel"],
+                                        *(r9a[c] for c in small))
+                for k in errs),
+            r["kernel"]["kernel_ms"], r["kernel"]["plain_ms"], r["bound"]))
+    for name, r, main, small in (
+            ("f64", r9["b"], r9["e"]["stochastic"],
+             ("9a-rk4-f64", "9a-rk4-f64-axes", "9a-rk4-f64-curv")),
+            ("axes", r9["c"], r9["c-stochastic"],
+             ("9a-rk4-axes", "9a-rk4-f64-axes")),
+            ("curv", r9["d"], r9["d"],
+             ("9a-rk4-curv", "9a-rk4-f64-curv"))):
+        k1m = r["rk4"]["1M"] if "1M" in r["rk4"] else r["rk4"]
+        comps = [k1m, *(r9a[c] for c in small)]
+        if "stepwise" in main:
+            comps.append(main["stepwise"])
+        kernels.append({
+            "name": f"rk4_displacement_fused[{name}]", "route": "cuda",
+            "source": RK4_SRC, "replaces": RK4_REPLACES,
+            "launches": sum(v for k, v in main["launches"].items()
+                            if k.startswith("rk4_step")),
+            "max_abs_err": max(q[k] for q in comps for k in rk4_errs),
+            "ms": k1m["kernel_ms"], "plain_ms": k1m["plain_ms"],
+            "bound_ms": r["rk4_bound"]["bound_ms"],
+            "bound_by": r["rk4_bound"]["bound_by"], "library_ms": None})
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

@@ -146,8 +146,8 @@ class Config:
     BoundaryBLNs: bool = False
 
     # --- TPU-build-only knobs (no reference analog) ----------------------
-    dtype_pos: str = "float64"    # particle position dtype ("float64" on CPU,
-                                  #   "float32" on TPU benches)
+    dtype_pos: str = "float64"    # particle position dtype (float64, or
+                                  #   float32: the GPU kernels' faster builds)
     dtype_field: str = "float32"  # field gather/interpolation dtype
     tension_sigma: float = 0.0    # uniform dimensionless spline tension;
                                   #   <0 => adaptive (SIGS-like) selection

@@ -256,6 +256,15 @@ class RomsSeries:
                                            cfg.constTemp, rho_k)
         return out
 
+    def seek(self, global_record: int):
+        """Position the cursor at a global record index (for resume),
+        counting cfg.tdim records per file (the reference's fixed
+        records-per-file series layout), as ltjax's seek does."""
+        global_record = max(0, global_record)
+        tdim = max(1, self.cfg.tdim)
+        self._open(global_record // tdim)
+        self.rec_idx = global_record % tdim
+
     def close(self):
         if self._nc is not None:
             self._nc.close()

@@ -24,10 +24,22 @@
 //
 // Variants.  The options are compile-time macros (LTX_HTURB, LTX_VTURB
 // 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY, LTX_SETTLE,
-// LTX_SALT, LTX_CURV; the wrapper builds one library per combination), so
-// each
-// configuration carries only its own lanes; with all of them 0 the
-// kernel is the advection kernel alone.
+// LTX_SALT, LTX_CURV, LTX_POS64, LTX_AXES; the wrapper builds one library
+// per combination), so each configuration carries only its own lanes;
+// with all of them 0 the kernel is the advection kernel alone.
+// LTX_POS64 (dtype_pos = "float64") makes the particle state pos_t =
+// double (find_currents.cuh): cell location, the RK4 sums, turbulence,
+// behavior, reflection on f64 boundary rows, the vertical bounds, the age
+// and the scalar fits (Visser, the 4/5 cue, SaltTempOn) run in f64, as
+// the plain version runs them in the particles' dtype, while the
+// tables' blend and find_currents' fits stay f32, as packed.py casts
+// them; the f64 head scalars come in a params vector of their own
+// (Args.dpar).  LTX_AXES locates cells by binary search on the rho axes
+// (a grid whose axes are not uniform, grid.locate) and on the boundary
+// cell edges (boundary.cell_of, settlement), each where it is not
+// uniform: the two are tested with different tolerances (1e-9 and
+// 1e-4), so the kernel takes each pair or its absence at run time
+// (Axes, a kernel argument of its own).
 //
 // Design.  One thread per particle, LTX_BLOCK = 128 threads a block, one
 // launch per external step; the n_int internal steps run inside the
@@ -42,10 +54,11 @@
 // point (stage_records: each box row is bw * nl consecutive floats of a
 // record, so the loads are coalesced; 4-byte loads, no 16-byte ones).
 // The fit scratch stays in local memory: its frame size measured no
-// cost.  __launch_bounds__(128, 4): every variant at <= 128 registers
-// with no spills, where ptxas alone chose 96 with spills in 6 variants;
-// measured, the bound makes the advect and behavior cells 4-5% faster
-// at 1M particles and 15-23% at 65,536, turb 1-5% slower.
+// cost.  __launch_bounds__(128, 4): every float32 variant at <= 128
+// registers with no spills, where ptxas alone chose 96 with spills in 6
+// variants; measured, the bound makes the advect and behavior cells 4-5%
+// faster at 1M particles and 15-23% at 65,536, turb 1-5% slower.  The
+// float64 variants' bound is LTX_MIN_BLOCKS below (measured too).
 // The four RK4 stages, the Visser Aks fit, the behavior column and the
 // 4/5 salt cue (stage 1), the vertical reflection's column and SaltTempOn
 // (t + idt) then blend 4 shared words per lane where the global path
@@ -76,7 +89,7 @@
 // fully inside one polygon and defers rim and hole cells to its exact
 // out-of-window patch.  This kernel has no patch and no window: every
 // eligible particle walks its cell's candidate list and ray-casts each
-// candidate's edges in double on its f32 position promoted, as
+// candidate's edges in double on its position (f32 ones promoted), as
 // test_settlement does on the f64 vertices, so both versions decide
 // alike on equal positions.
 //
@@ -118,7 +131,6 @@
 #include <stdint.h>
 
 #define MAX_LEVELS 64
-#include "find_currents.cuh"
 
 #ifndef LTX_HTURB
 #define LTX_HTURB 0
@@ -141,6 +153,15 @@
 #ifndef LTX_CURV
 #define LTX_CURV 0
 #endif
+#ifndef LTX_POS64
+#define LTX_POS64 0
+#endif
+#ifndef LTX_AXES
+#define LTX_AXES 0
+#endif
+
+#include "find_currents.cuh"
+#include "curv.cuh"
 
 // params head (f32); must match ltjax_torch/kernels/ext_step.py
 enum {
@@ -181,83 +202,44 @@ struct Settle {
   PolySet poly, hole;               // habitat polygons and holes
 };
 
-// the curvilinear inverse map (ltjax_torch.grid.CurvMap, as f32), a
-// kernel argument of its own like Settle; unused without LTX_CURV
-struct Curv {
-  const float2* xy;                 // (Ny*Nx) projected rho points
-  const int* seed_i;                // (my, mx) seed raster: nearest cell
-  const int* seed_j;
-  int mx, my;
-  float rx0, ry0, inv_rdx, inv_rdy; // raster origin and inverse spacing
-  float tol2;                       // squared inside-mesh residual tol
-};
-
 struct Args {
   const float* __restrict__ rtab;   // (3, C, nl) raw record lanes
-  const float* __restrict__ brows;  // (C, bl) boundary cell rows
+  const pos_t* __restrict__ brows;  // (C, bl) boundary cell rows
   const float* __restrict__ par;    // head + ladders + weights
   const uint32_t* __restrict__ rngk;  // per-step derived key pairs
   int nx, ny, us, ws, nv, nl, vt, n_int, n_iter, open_exits, s_max, bl;
   int salt0;                        // first salt lane (temp follows)
   long long C;
+#if LTX_POS64
+  const double* __restrict__ dpar;  // par's layout in float64
+#endif
 };
 
-// ltjax_torch.grid.curv_logical: logical coordinates (ti, tj) of (x, y)
-// from the raster seed and 3 bounded Newton steps on the bilinear quad
-// map, clamped to the lattice; RESID adds r2, the squared residual of
-// the forward map at the clamped solution
-template <bool RESID>
-__device__ __forceinline__ void curv_logical(const Curv& c, int nx, int ny,
-                                             float x, float y, float& ti,
-                                             float& tj, float& r2) {
-  const float ri = fminf(fmaxf(floorf((x - c.rx0) * c.inv_rdx), 0.0f),
-                         (float)(c.mx - 1));
-  const float rj = fminf(fmaxf(floorf((y - c.ry0) * c.inv_rdy), 0.0f),
-                         (float)(c.my - 1));
-  const int rflat = (int)rj * c.mx + (int)ri;
-  ti = (float)c.seed_i[rflat] + 0.5f;
-  tj = (float)c.seed_j[rflat] + 0.5f;
-  for (int it = 0; it < 3; ++it) {
-    const float i = fminf(fmaxf(floorf(ti), 0.0f), (float)(nx - 2));
-    const float j = fminf(fmaxf(floorf(tj), 0.0f), (float)(ny - 2));
-    const float fx = ti - i, fy = tj - j;
-    const int base = (int)j * nx + (int)i;
-    const float2 c00 = c.xy[base], c01 = c.xy[base + 1];
-    const float2 c10 = c.xy[base + nx], c11 = c.xy[base + nx + 1];
-    const float ax0 = c01.x - c00.x, ax1 = c01.y - c00.y;
-    const float ay0 = c10.x - c00.x, ay1 = c10.y - c00.y;
-    const float b0 = c11.x - c01.x - c10.x + c00.x;
-    const float b1 = c11.y - c01.y - c10.y + c00.y;
-    const float fxy = fx * fy;
-    const float p0 = c00.x + fx * ax0 + fy * ay0 + fxy * b0;
-    const float p1 = c00.y + fx * ax1 + fy * ay1 + fxy * b1;
-    const float jx0 = ax0 + fy * b0, jx1 = ax1 + fy * b1;   // dP/dfx
-    const float jy0 = ay0 + fx * b0, jy1 = ay1 + fx * b1;   // dP/dfy
-    float det = jx0 * jy1 - jx1 * jy0;
-    det = fabsf(det) < 1e-30f ? 1e-30f : det;
-    const float rx = x - p0, ry = y - p1;
-    const float dfx = (jy1 * rx - jy0 * ry) / det;
-    const float dfy = (-jx1 * rx + jx0 * ry) / det;
-    ti = i + fminf(fmaxf(fx + dfx, -1.5f), 2.5f);
-    tj = j + fminf(fmaxf(fy + dfy, -1.5f), 2.5f);
-  }
-  ti = fminf(fmaxf(ti, 0.0f), (float)(nx - 1));
-  tj = fminf(fmaxf(tj, 0.0f), (float)(ny - 1));
-  if constexpr (RESID) {
-    const float i = fminf(fmaxf(floorf(ti), 0.0f), (float)(nx - 2));
-    const float j = fminf(fmaxf(floorf(tj), 0.0f), (float)(ny - 2));
-    const float fx = ti - i, fy = tj - j;
-    const int base = (int)j * nx + (int)i;
-    const float2 c00 = c.xy[base], c01 = c.xy[base + 1];
-    const float2 c10 = c.xy[base + nx], c11 = c.xy[base + nx + 1];
-    const float fxy = fx * fy;
-    const float p0 = c00.x + fx * (c01.x - c00.x) + fy * (c10.x - c00.x)
-                     + fxy * (c11.x - c01.x - c10.x + c00.x);
-    const float p1 = c00.y + fx * (c01.y - c00.y) + fy * (c10.y - c00.y)
-                     + fxy * (c11.y - c01.y - c10.y + c00.y);
-    r2 = (x - p0) * (x - p0) + (y - p1) * (y - p1);
-  }
+// the params in the positions' type: par's layout, in float64 under
+// LTX_POS64 (every head scalar, ladder and E0 that the plain version
+// computes in the particles' dtype); par itself keeps the float32 ones
+// (sigma of the float32 fits, the polintd weights)
+__device__ __forceinline__ const pos_t* ppar(const Args& a) {
+#if LTX_POS64
+  return a.dpar;
+#else
+  return a.par;
+#endif
 }
+
+// searched axes (LTX_AXES), a kernel argument of its own (Args's size
+// sets every variant's register allocation): the rho axes where the grid
+// is not uniform (null: arithmetic, grid.locate), the boundary cell edges
+// where they are not (null: arithmetic, boundary.cell_of), in the
+// positions' type, and the same edges in float64 for settlement
+struct Axes {
+  const pos_t* xr;
+  const pos_t* yr;
+  const pos_t* xe;
+  const pos_t* ye;
+  const double* sxe;
+  const double* sye;
+};
 
 // ---- the staged corner source ------------------------------------------
 //
@@ -382,34 +364,30 @@ struct Stage {
 
 extern __shared__ float ltx_tiles[];   // three tiles of Stage::ts floats
 
-// the cell (i, j) and stencil of (x, y), not staged
+// the cell (i, j) and stencil of (x, y), not staged: the inverse map on a
+// curvilinear grid, a binary search on rho axes that are not uniform
+// (LTX_AXES), else arithmetic
 __device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
-                                          float x, float y, int& i, int& j) {
+                                          const Axes& ax, pos_t x, pos_t y,
+                                          int& i, int& j) {
 #if LTX_CURV
-  Stencil s;
-  float ti, tj, r2;
-  curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
-  const float fi = fminf(fmaxf(floorf(ti), 0.0f), (float)(a.nx - 2));
-  const float fj = fminf(fmaxf(floorf(tj), 0.0f), (float)(a.ny - 2));
-  i = (int)fi;
-  j = (int)fj;
-  s.fx = fminf(fmaxf(ti - fi, 0.0f), 1.0f);
-  s.fy = fminf(fmaxf(tj - fj, 0.0f), 1.0f);
-  s.r00 = ((long long)j * a.nx + i) * a.nl;
-  s.t = -1;
-  s.rs = 0;
-  return s;
+  return locate_curv(cv, a.nx, a.ny, a.nl, x, y, i, j);
 #else
-  return locate_rect(a.par, a.nx, a.ny, a.nl, x, y, i, j);
+#if LTX_AXES
+  if (ax.xr)
+    return locate_searched(ax.xr, ax.yr, a.nx, a.ny, a.nl, x, y, i, j);
+#endif
+  return locate_rect(ppar(a), a.nx, a.ny, a.nl, x, y, i, j);
 #endif
 }
 
 // the stencil of (x, y) in the tiles of box b, or a (counted) miss
 __device__ __forceinline__ Stencil locate(const Args& a, const Stage& sp,
-                                          const Curv& cv, const Box& b,
-                                          float x, float y, int& miss) {
+                                          const Curv& cv, const Axes& ax,
+                                          const Box& b, pos_t x, pos_t y,
+                                          int& miss) {
   int i, j;
-  Stencil s = locate(a, cv, x, y, i, j);
+  Stencil s = locate(a, cv, ax, x, y, i, j);
   stage_in(s, b, i, j, sp.ls, miss);
   return s;
 }
@@ -475,14 +453,17 @@ struct Records {
   __device__ __forceinline__ float lane(const Stencil& s, int k) const {
     return ::lane(a, sp, s, l, q, k);
   }
-  __device__ __forceinline__ float knot(float s, float cs, float zeta,
-                                        float h) const {
-    return knot_depth(a.par[P_HC], a.vt, s, cs, zeta, h);
+  // the knot depth in the positions' type (the fit rounds it to its own)
+  template <class Z>
+  __device__ __forceinline__ pos_t knot(pos_t s, pos_t cs, Z zeta,
+                                        Z h) const {
+    return knot_depth<pos_t>(ppar(a)[P_HC], a.vt, s, cs, (pos_t)zeta,
+                             (pos_t)h);
   }
-  __device__ __forceinline__ const float* ladders() const {
-    return a.par + P_HEAD;
+  __device__ __forceinline__ const pos_t* ladders() const {
+    return ppar(a) + P_HEAD;
   }
-  __device__ __forceinline__ float z0m() const { return a.par[P_Z0M]; }
+  __device__ __forceinline__ pos_t z0m() const { return ppar(a)[P_Z0M]; }
   __device__ __forceinline__ int us() const { return a.us; }
   __device__ __forceinline__ int ws() const { return a.ws; }
   __device__ __forceinline__ int nv() const { return a.nv; }
@@ -490,29 +471,42 @@ struct Records {
 
 // find_currents at (x, y, z) on stage q of the internal step (weights l)
 __device__ void find_currents(const Args& a, const Stage& sp, const Curv& cv,
-                              const Tension& T, const Box& b, const float* l,
-                              int q, float x, float y, float z, float* cp,
-                              float* dp0, float* dp1, int& miss, float& u,
-                              float& v, float& w) {
+                              const Axes& ax, const Tension& T, const Box& b,
+                              const float* l, int q, pos_t x, pos_t y,
+                              pos_t z, float* cp, float* dp0, float* dp1,
+                              int& miss, pos_t& u, pos_t& v, pos_t& w) {
   find_currents_at(Records{a, sp, l, q}, T,
-                   locate(a, sp, cv, b, x, y, miss), z, cp, dp0, dp1, u, v,
-                   w);
+                   locate(a, sp, cv, ax, b, x, y, miss), z, cp, dp0, dp1, u,
+                   v, w);
 }
 
 // the boundary cell row of (x, y): on a curvilinear grid boundary cell
-// (j, i) spans the rho logical range [i - 0.5, i + 0.5]
-__device__ __forceinline__ const float* cell_row(const Args& a,
-                                                 const Curv& cv, float x,
-                                                 float y) {
+// (j, i) spans the rho logical range [i - 0.5, i + 0.5]; the cell edges
+// are searched where they are not uniform (LTX_AXES, boundary.cell_of)
+__device__ __forceinline__ const pos_t* cell_row(const Args& a,
+                                                 const Curv& cv,
+                                                 const Axes& ax, pos_t x,
+                                                 pos_t y) {
 #if LTX_CURV
-  float ti, tj, r2;
+  pos_t ti, tj, r2;
   curv_logical<false>(cv, a.nx, a.ny, x, y, ti, tj, r2);
-  const int i = (int)fminf(fmaxf(floorf(ti + 0.5f), 0.0f), (float)(a.nx - 1));
-  const int j = (int)fminf(fmaxf(floorf(tj + 0.5f), 0.0f), (float)(a.ny - 1));
+  const int i = (int)m_min(m_max(m_floor(ti + pos_t(0.5)), pos_t(0)),
+                           (pos_t)(a.nx - 1));
+  const int j = (int)m_min(m_max(m_floor(tj + pos_t(0.5)), pos_t(0)),
+                           (pos_t)(a.ny - 1));
 #else
-  const float* par = a.par;
-  int i = (int)floorf((x - par[P_BX0]) / par[P_BDX]);
-  int j = (int)floorf((y - par[P_BY0]) / par[P_BDY]);
+  const pos_t* par = ppar(a);
+  int i, j;
+#if LTX_AXES
+  if (ax.xe) {
+    i = search_right(ax.xe, a.nx + 1, x) - 1;
+    j = search_right(ax.ye, a.ny + 1, y) - 1;
+  } else
+#endif
+  {
+    i = (int)m_floor((x - par[P_BX0]) / par[P_BDX]);
+    j = (int)m_floor((y - par[P_BY0]) / par[P_BDY]);
+  }
   i = min(max(i, 0), a.nx - 1);
   j = min(max(j, 0), a.ny - 1);
 #endif
@@ -522,18 +516,21 @@ __device__ __forceinline__ const float* cell_row(const Args& a,
 // inside the domain (the box; on a curvilinear grid the map's residual
 // within tol) and in a water cell
 __device__ __forceinline__ bool in_water(const Args& a, const Curv& cv,
-                                         float x, float y) {
+                                         const Axes& ax, pos_t x, pos_t y) {
 #if LTX_CURV
-  float ti, tj, r2;
+  pos_t ti, tj, r2;
   curv_logical<true>(cv, a.nx, a.ny, x, y, ti, tj, r2);
-  const int i = (int)fminf(fmaxf(floorf(ti + 0.5f), 0.0f), (float)(a.nx - 1));
-  const int j = (int)fminf(fmaxf(floorf(tj + 0.5f), 0.0f), (float)(a.ny - 1));
-  return r2 <= cv.tol2 && a.brows[((long long)j * a.nx + i) * a.bl] > 0.5f;
+  const int i = (int)m_min(m_max(m_floor(ti + pos_t(0.5)), pos_t(0)),
+                           (pos_t)(a.nx - 1));
+  const int j = (int)m_min(m_max(m_floor(tj + pos_t(0.5)), pos_t(0)),
+                           (pos_t)(a.ny - 1));
+  return r2 <= cv.tol2
+         && a.brows[((long long)j * a.nx + i) * a.bl] > pos_t(0.5);
 #else
-  const float* par = a.par;
+  const pos_t* par = ppar(a);
   bool inside = (x >= par[P_BX0]) && (x <= par[P_BX1])
                 && (y >= par[P_BY0]) && (y <= par[P_BY1]);
-  return inside && cell_row(a, cv, x, y)[0] > 0.5f;
+  return inside && cell_row(a, cv, ax, x, y)[0] > pos_t(0.5);
 #endif
 }
 
@@ -543,40 +540,41 @@ __device__ __forceinline__ bool in_water(const Args& a, const Curv& cv,
 // reflected from, as the plain version does: the f32 restart point lies
 // on either side of a slanted wall, and re-crossing it at tp ~ 0 would
 // reflect the particle into land.
-__device__ void reflect(const Args& a, const Curv& cv, float x0, float y0,
-                        float& x1, float& y1, bool& exited, bool& stuck,
-                        int& hits) {
-  const float eps = 1e-6f;
-  float px0 = x0, py0 = y0, px1 = x1, py1 = y1;
-  float ms2x = 0.0f, ms2y = 0.0f;
+__device__ void reflect(const Args& a, const Curv& cv, const Axes& axs,
+                        pos_t x0, pos_t y0, pos_t& x1, pos_t& y1,
+                        bool& exited, bool& stuck, int& hits) {
+  const pos_t eps = pos_t(1e-6);
+  const pos_t tiny = pos_t(1e-30);
+  pos_t px0 = x0, py0 = y0, px1 = x1, py1 = y1;
+  pos_t ms2x = pos_t(0), ms2y = pos_t(0);
   exited = false;
   hits = 0;
 #if LTX_CURV
-  float lax = NAN, lay = NAN, lbx = NAN, lby = NAN;   // last reflected from
-  float sax = 0.0f, say = 0.0f, sbx = 0.0f, sby = 0.0f;
+  pos_t lax = NAN, lay = NAN, lbx = NAN, lby = NAN;   // last reflected from
+  pos_t sax = pos_t(0), say = pos_t(0), sbx = pos_t(0), sby = pos_t(0);
 #endif
   for (int it = 0; it < a.n_iter; ++it) {
-    const float* row = cell_row(a, cv, px0, py0);
+    const pos_t* row = cell_row(a, cv, axs, px0, py0);
     if (it == 0) { ms2x = row[3]; ms2y = row[4]; }
-    float dx = px1 - px0, dy = py1 - py0;
-    float tpm = INFINITY, exf = 0.0f, eyf = 0.0f, kindf = 0.0f;
+    pos_t dx = px1 - px0, dy = py1 - py0;
+    pos_t tpm = INFINITY, exf = pos_t(0), eyf = pos_t(0), kindf = pos_t(0);
     bool any = false;
     for (int s = 0; s < a.s_max; ++s) {
-      const float* sl = row + 8 + 8 * s;
-      if (!(sl[5] > 0.5f)) continue;
+      const pos_t* sl = row + 8 + 8 * s;
+      if (!(sl[5] > pos_t(0.5))) continue;
 #if LTX_CURV
       if (sl[0] == lax && sl[1] == lay && sl[2] == lbx && sl[3] == lby)
         continue;
 #endif
-      float ax = sl[0], ay = sl[1];
-      float ex = sl[2] - ax, ey = sl[3] - ay;
-      float apx = ax - px0, apy = ay - py0;
-      float denom = dx * ey - dy * ex;
-      float dsafe = fabsf(denom) < 1e-30f ? 1e-30f : denom;
-      float tp = (apx * ey - apy * ex) / dsafe;
-      float ts = (apx * dy - apy * dx) / dsafe;
-      bool cross = fabsf(denom) > 1e-30f && tp > 0.0f && tp <= 1.0f
-                   && ts >= 0.0f && ts <= 1.0f;
+      pos_t ax = sl[0], ay = sl[1];
+      pos_t ex = sl[2] - ax, ey = sl[3] - ay;
+      pos_t apx = ax - px0, apy = ay - py0;
+      pos_t denom = dx * ey - dy * ex;
+      pos_t dsafe = m_abs(denom) < tiny ? tiny : denom;
+      pos_t tp = (apx * ey - apy * ex) / dsafe;
+      pos_t ts = (apx * dy - apy * dx) / dsafe;
+      bool cross = m_abs(denom) > tiny && tp > pos_t(0) && tp <= pos_t(1)
+                   && ts >= pos_t(0) && ts <= pos_t(1);
       if (cross && tp < tpm) {          // first minimum wins (argmin)
         tpm = tp; exf = ex; eyf = ey; kindf = sl[4]; any = true;
 #if LTX_CURV
@@ -586,18 +584,18 @@ __device__ void reflect(const Args& a, const Curv& cv, float x0, float y0,
     }
     bool act = any && !exited;
     if (!act) continue;
-    float ix = px0 + tpm * (px1 - px0);
-    float iy = py0 + tpm * (py1 - py0);
-    float rx = px1 - ix, ry = py1 - iy;
-    float elen2 = fmaxf(exf * exf + eyf * eyf, 1e-30f);
-    float proj = (rx * exf + ry * eyf) / elen2;
-    float rrx = 2.0f * proj * exf - rx;
-    float rry = 2.0f * proj * eyf - ry;
+    pos_t ix = px0 + tpm * (px1 - px0);
+    pos_t iy = py0 + tpm * (py1 - py0);
+    pos_t rx = px1 - ix, ry = py1 - iy;
+    pos_t elen2 = m_max(exf * exf + eyf * eyf, tiny);
+    pos_t proj = (rx * exf + ry * eyf) / elen2;
+    pos_t rrx = pos_t(2) * proj * exf - rx;
+    pos_t rry = pos_t(2) * proj * eyf - ry;
     int kind = (int)kindf;
     bool newly_exited = a.open_exits && kind == OPEN;
     bool do_reflect = a.open_exits ? kind == LAND : true;
     if (do_reflect) {
-      float nrm = sqrtf(fmaxf(rrx * rrx + rry * rry, 1e-30f));
+      pos_t nrm = m_sqrt(m_max(rrx * rrx + rry * rry, tiny));
       px0 = ix + eps * rrx / nrm;
       py0 = iy + eps * rry / nrm;
       px1 = ix + rrx;
@@ -609,13 +607,14 @@ __device__ void reflect(const Args& a, const Curv& cv, float x0, float y0,
     }
     if (newly_exited) { px1 = ix; py1 = iy; exited = true; }
   }
-  stuck = !exited && !in_water(a, cv, px1, py1);
+  stuck = !exited && !in_water(a, cv, axs, px1, py1);
   // tunnel guard on the straight path of non-interacting particles
   if (hits == 0 && !exited && !stuck
-      && !in_water(a, cv, 0.5f * (x0 + px1), 0.5f * (y0 + py1)))
+      && !in_water(a, cv, axs, pos_t(0.5) * (x0 + px1),
+                   pos_t(0.5) * (y0 + py1)))
     stuck = true;
   // displacement guard: per-axis reach of the pre-move cell's bucket
-  float ddx = x1 - x0, ddy = y1 - y0;
+  pos_t ddx = x1 - x0, ddy = y1 - y0;
   if (!exited && (ddx * ddx > ms2x || ddy * ddy > ms2y)) stuck = true;
   x1 = px1;
   y1 = py1;
@@ -643,14 +642,24 @@ __device__ bool in_polygon(const PolySet& s, int k, double px, double py) {
 }
 
 // id of the first candidate habitat polygon of the point's cell that
-// contains it, unless a candidate hole does; -1 otherwise
-__device__ int settle_id(const Settle& sg, int nx, int ny, float x,
-                         float y) {
+// contains it, unless a candidate hole does; -1 otherwise.  The cell is
+// searched on the f64 edges where they are not uniform (LTX_AXES).
+__device__ int settle_id(const Settle& sg, const Axes& ax, int nx, int ny,
+                         pos_t x, pos_t y) {
   const double px = (double)x, py = (double)y;
-  const int i = (int)fmin(fmax(floor((px - sg.edge[0]) / sg.edge[1]), 0.0),
-                          (double)(nx - 1));
-  const int j = (int)fmin(fmax(floor((py - sg.edge[2]) / sg.edge[3]), 0.0),
-                          (double)(ny - 1));
+  int i, j;
+#if LTX_AXES
+  if (ax.sxe) {
+    i = min(max(search_right(ax.sxe, nx + 1, px) - 1, 0), nx - 1);
+    j = min(max(search_right(ax.sye, ny + 1, py) - 1, 0), ny - 1);
+  } else
+#endif
+  {
+    i = (int)fmin(fmax(floor((px - sg.edge[0]) / sg.edge[1]), 0.0),
+                  (double)(nx - 1));
+    j = (int)fmin(fmax(floor((py - sg.edge[2]) / sg.edge[3]), 0.0),
+                  (double)(ny - 1));
+  }
   const long long cell = (long long)j * nx + i;
   int id = -1;
   const int* c = sg.poly.cands + cell * sg.poly.cmax;
@@ -700,29 +709,33 @@ __device__ __forceinline__ void particle_bits(const Args& a, int stride,
   threefry2x32(k[0], k[1], b0, b1);
 }
 
-// word -> (0, 1): the top 24 bits, offset half an ulp from 0
-__device__ __forceinline__ float bits_to_uniform(uint32_t b) {
-  return (float)(int)(b >> 8) * 5.9604644775390625e-08f
-         + 2.98023223876953125e-08f;
+// word -> (0, 1): the top 24 bits, offset half an ulp from 0, in the
+// positions' type (rng.bits_to_uniform in the particles' dtype)
+__device__ __forceinline__ pos_t bits_to_uniform(uint32_t b) {
+  return (pos_t)(int)(b >> 8) * pos_t(5.9604644775390625e-08)
+         + pos_t(2.98023223876953125e-08);
 }
 
 // ---- Visser random displacement on the Aks profile ---------------------
 
 // spline value (deriv = false) or derivative at zq of the fitted Aks
-// column: knots zk, second derivatives z2, values re-read from the lanes
-__device__ float aks_eval(const Args& a, const Stage& sp, const Tension& T,
-                          const Stencil& st, const float* l, const float* zk,
-                          const float* z2, int K, float zq, bool deriv) {
-  zq = fminf(fmaxf(zq, zk[0]), zk[K - 1]);
+// column: knots zk, second derivatives z2, values re-read from the lanes;
+// in the positions' type (physics.turb.vturb fits in the particles'
+// dtype)
+__device__ pos_t aks_eval(const Args& a, const Stage& sp,
+                          const TensionT<pos_t>& T, const Stencil& st,
+                          const float* l, const pos_t* zk, const pos_t* z2,
+                          int K, pos_t zq, bool deriv) {
+  zq = m_min(m_max(zq, zk[0]), zk[K - 1]);
   int j = 0;
   for (int k = 1; k < K; ++k) j += zq >= zk[k] ? 1 : 0;
   j = min(j, K - 2);
-  float x0 = zk[j], x1 = zk[j + 1];
-  float y0 = fmaxf(lane(a, sp, st, l, 0, a.nv + j), 0.0f);
-  float y1 = fmaxf(lane(a, sp, st, l, 0, a.nv + j + 1), 0.0f);
-  float h = x1 - x0;
-  float B2 = (zq - x0) / h;
-  float B1 = 1.0f - B2;
+  pos_t x0 = zk[j], x1 = zk[j + 1];
+  pos_t y0 = m_max((pos_t)lane(a, sp, st, l, 0, a.nv + j), pos_t(0));
+  pos_t y1 = m_max((pos_t)lane(a, sp, st, l, 0, a.nv + j + 1), pos_t(0));
+  pos_t h = x1 - x0;
+  pos_t B2 = (zq - x0) / h;
+  pos_t B1 = pos_t(1) - B2;
   if (deriv)
     return (y1 - y0) / h + h * (z2[j] * ds_fn(T, B1) - z2[j + 1] * ds_fn(T, B2));
   return y0 * B1 + y1 * B2 + h * h * (z2[j] * gs_fn(T, B1)
@@ -733,34 +746,34 @@ __device__ float aks_eval(const Args& a, const Stage& sp, const Tension& T,
 // the nv value lanes) blended at stencil st at stage 1 (weights l);
 // physics.turb.vturb: Aks clipped at >= 0 before a natural tension fit
 // on the w ladder, z_mid = clip(z + K' idt / 2) to the knot range.
-__device__ float visser_dz(const Args& a, const Stage& sp, float sigma,
-                           const Stencil& st, const float* l, float zeta,
-                           float h, float z, float R, float idt, float* cp,
-                           float* z2, float* zk) {
-  Tension T;                 // tension.evaluate: series at sigma = 0
+__device__ pos_t visser_dz(const Args& a, const Stage& sp, pos_t sigma,
+                           const Stencil& st, const float* l, pos_t zeta,
+                           pos_t h, pos_t z, pos_t R, pos_t idt, pos_t* cp,
+                           pos_t* z2, pos_t* zk) {
+  TensionT<pos_t> T;         // tension.evaluate: series at sigma = 0
   T.sigma = sigma;
-  T.small = 0.5f;
+  T.small = POS_SMALL;
   T.cubic = false;
-  const float* par = a.par;
-  const float* s_w = par + P_HEAD + 2 * a.us;
-  const float* cs_w = s_w + a.ws;
+  const pos_t* par = ppar(a);
+  const pos_t* s_w = par + P_HEAD + 2 * a.us;
+  const pos_t* cs_w = s_w + a.ws;
   const int K = a.ws;
-  float zprev = knot_depth(a.par[P_HC], a.vt, s_w[0], cs_w[0], zeta, h);
-  float yprev = fmaxf(lane(a, sp, st, l, 0, a.nv), 0.0f);
+  pos_t zprev = knot_depth(par[P_HC], a.vt, s_w[0], cs_w[0], zeta, h);
+  pos_t yprev = m_max((pos_t)lane(a, sp, st, l, 0, a.nv), pos_t(0));
   zk[0] = zprev;
-  cp[0] = 0.0f;
-  z2[0] = 0.0f;
-  float offp = 0.0f, diap = 0.0f, dyp = 0.0f;
+  cp[0] = pos_t(0);
+  z2[0] = pos_t(0);
+  pos_t offp = pos_t(0), diap = pos_t(0), dyp = pos_t(0);
   for (int k = 1; k < K; ++k) {           // Thomas forward sweep
-    float zc = knot_depth(a.par[P_HC], a.vt, s_w[k], cs_w[k], zeta, h);
-    float yk = fmaxf(lane(a, sp, st, l, 0, a.nv + k), 0.0f);
-    float hk = zc - zprev;
-    float dy = (yk - yprev) / hk;
-    float offc, diac;
+    pos_t zc = knot_depth(par[P_HC], a.vt, s_w[k], cs_w[k], zeta, h);
+    pos_t yk = m_max((pos_t)lane(a, sp, st, l, 0, a.nv + k), pos_t(0));
+    pos_t hk = zc - zprev;
+    pos_t dy = (yk - yprev) / hk;
+    pos_t offc, diac;
     coefs(T, hk, offc, diac);
     if (k >= 2) {
       int i = k - 1;
-      float denom = (diap + diac) - offp * cp[i - 1];
+      pos_t denom = (diap + diac) - offp * cp[i - 1];
       cp[i] = offc / denom;
       z2[i] = ((dy - dyp) - offp * z2[i - 1]) / denom;
     }
@@ -768,38 +781,59 @@ __device__ float visser_dz(const Args& a, const Stage& sp, float sigma,
     zprev = zc; yprev = yk;
     offp = offc; diap = diac; dyp = dy;
   }
-  float x = 0.0f;                         // natural end: z2[K-1] = 0
-  z2[K - 1] = 0.0f;
+  pos_t x = pos_t(0);                     // natural end: z2[K-1] = 0
+  z2[K - 1] = pos_t(0);
   for (int i = K - 2; i >= 0; --i) {
     x = z2[i] - cp[i] * x;
     z2[i] = x;
   }
-  float kprime = aks_eval(a, sp, T, st, l, zk, z2, K, z, true);
-  float zmid = fminf(fmaxf(z + 0.5f * kprime * idt, zk[0]), zk[K - 1]);
-  float kmid = fmaxf(aks_eval(a, sp, T, st, l, zk, z2, K, zmid, false),
-                     0.0f);
-  return kprime * idt + R * sqrtf(2.0f * kmid * idt / (1.0f / 3.0f));
+  pos_t kprime = aks_eval(a, sp, T, st, l, zk, z2, K, z, true);
+  pos_t zmid = m_min(m_max(z + pos_t(0.5) * kprime * idt, zk[0]), zk[K - 1]);
+  pos_t kmid = m_max(aks_eval(a, sp, T, st, l, zk, z2, K, zmid, false),
+                     pos_t(0));
+  return kprime * idt
+         + R * m_sqrt(pos_t(2) * kmid * idt / (pos_t(1) / pos_t(3)));
 }
 
+// blocks of 128 threads an SM that __launch_bounds__ asks for: 4 (at most
+// 128 registers) for the float32 variants.  The float64 ones (LTX_POS64)
+// carry twice the position registers; measured (tools/bounds_ab.py pos64,
+// kernel ms at 1M, H100 80GB HBM3, 700 W), 4 blocks with spills beat 3
+// without: advect 88.05 against 97.29 ms (2 blocks: 133.70), behavior
+// 85.05 / 95.99, turb 120.62 / 124.25, but salt 139.98 / 130.94 (452 B
+// of spill loads at 4), so the SaltTempOn builds ask for 3.
+#ifndef POS64_MIN_BLOCKS
+#if LTX_SALT
+#define POS64_MIN_BLOCKS 3
+#else
+#define POS64_MIN_BLOCKS 4
+#endif
+#endif
+#if LTX_POS64
+#define LTX_MIN_BLOCKS POS64_MIN_BLOCKS
+#else
+#define LTX_MIN_BLOCKS 4
+#endif
+
 template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT>
-__global__ void __launch_bounds__(LTX_BLOCK, 4)
+__global__ void __launch_bounds__(LTX_BLOCK, LTX_MIN_BLOCKS)
 ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
-                const float* __restrict__ x_in,
-                const float* __restrict__ y_in,
-                const float* __restrict__ z_in,
-                const float* __restrict__ dob_in,
-                const float* __restrict__ age_in,
+                const pos_t* __restrict__ x_in,
+                const pos_t* __restrict__ y_in,
+                const pos_t* __restrict__ z_in,
+                const pos_t* __restrict__ dob_in,
+                const pos_t* __restrict__ age_in,
                 const int* __restrict__ pid_in,
                 const int* __restrict__ st_in,
                 const int* __restrict__ spoly_in,
-                const float* __restrict__ salt_in,
-                const float* __restrict__ temp_in,
-                float* __restrict__ x_out, float* __restrict__ y_out,
-                float* __restrict__ z_out, float* __restrict__ age_out,
+                const pos_t* __restrict__ salt_in,
+                const pos_t* __restrict__ temp_in,
+                pos_t* __restrict__ x_out, pos_t* __restrict__ y_out,
+                pos_t* __restrict__ z_out, pos_t* __restrict__ age_out,
                 int* __restrict__ st_out,
                 int* __restrict__ hitl_out, int* __restrict__ hitb_out,
-                int* __restrict__ spoly_out, float* __restrict__ salt_out,
-                float* __restrict__ temp_out) {
+                int* __restrict__ spoly_out, pos_t* __restrict__ salt_out,
+                pos_t* __restrict__ temp_out, Axes ax) {
   // behaviors that swim read the age and draw BEHAVE/MORTALITY words;
   // settlement reads the age too (eligible from pediage on)
   constexpr bool SWIM = BEH >= 1 && BEH <= 5;
@@ -809,38 +843,51 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
   __shared__ int red[2 * 4 * (LTX_BLOCK / 32)];
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = p < n;   // every thread reaches the staging barriers
-  const float* par = a.par;
-  Tension T;
-  T.sigma = par[P_SIGMA];
+  const pos_t* par = ppar(a);
+  Tension T;                 // find_currents: float32 fits
+  T.sigma = a.par[P_SIGMA];
   T.small = 0.5f;
   T.cubic = T.sigma == 0.0f;
-  Tension Ts = T;            // salt/temp splines: tension.evaluate's
-  Ts.cubic = false;          // series at sigma = 0, as the plain version
+  TensionT<pos_t> Ts;        // Visser, the 4/5 cue, salt/temp: tension
+  Ts.sigma = par[P_SIGMA];   // .evaluate's series at sigma = 0, in the
+  Ts.small = POS_SMALL;      // particles' dtype, as the plain version
+  Ts.cubic = false;
   float cp[MAX_LEVELS], dp0[MAX_LEVELS], dp1[MAX_LEVELS];
+#if LTX_POS64
+  // the scratch of those fits in float64
+  constexpr int FIT64 = VT == 2 || SALT || BEH == 4 || BEH == 5
+                            ? MAX_LEVELS : 1;
+  double cq[FIT64], dq0[FIT64], dq1[FIT64];
+#else
+  float* cq = cp;
+  float* dq0 = dp0;
+  float* dq1 = dp1;
+#endif
 
   const int q = live ? p : 0;
-  float x = x_in[q], y = y_in[q], z = z_in[q], dob = dob_in[q];
-  float age = 0.0f;
+  pos_t x = x_in[q], y = y_in[q], z = z_in[q], dob = dob_in[q];
+  pos_t age = pos_t(0);
   if constexpr (AGE) age = age_in[q];
   uint32_t pid = 0u;
   if constexpr (RNG) pid = (uint32_t)pid_in[q];
   int st = live ? st_in[q] : -1;   // past the batch: never active
   int spoly = 0;
   if constexpr (SETTLE) spoly = spoly_in[q];
-  float salt = 0.0f, temp = 0.0f;
+  pos_t salt = pos_t(0), temp = pos_t(0);
   if constexpr (SALT) { salt = salt_in[q]; temp = temp_in[q]; }
   int hitl = 0, hitb = 0;
   int miss = 0, blocks = 0;   // staged misses; block-steps staged + 2^16 x
                               // global (thread 0's count)
-  const float idt = par[P_IDT];
-  const float half = 0.5f * idt;
-  const float sixth = idt / 6.0f;
-  const float* coef = par + P_HEAD + 2 * (a.us + a.ws);
+  const pos_t idt = par[P_IDT];
+  const pos_t half = pos_t(0.5) * idt;
+  const pos_t sixth = idt / pos_t(6);
+  const float* coef = a.par + P_HEAD + 2 * (a.us + a.ws);
+  const pos_t* pcoef = par + P_HEAD + 2 * (a.us + a.ws);
 
   for (int i = 0; i < a.n_int; ++i) {
-    float t_i = par[P_T0] + (float)i * idt;
+    pos_t t_i = par[P_T0] + (pos_t)i * idt;
     if (st == NOT_RELEASED && t_i >= dob) st = ACTIVE;
-    const float age_pre = age;  // behavior, mortality, settlement read it
+    const pos_t age_pre = age;  // behavior, mortality, settlement read it
     if constexpr (AGE) {
       if (st >= ACTIVE) age = (t_i + idt) - dob;
     }
@@ -849,7 +896,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     const bool act = st == ACTIVE;
     int ci = 0, cj = 0, kind;
     Stencil s1;
-    if (act) s1 = locate(a, cv, x, y, ci, cj);
+    if (act) s1 = locate(a, cv, ax, x, y, ci, cj);
     const Box box = block_box(act, ci, cj, a.nx, a.ny, sp.points, red, i & 1,
                               kind);
     if (kind == BOX_STAGED) {
@@ -859,124 +906,127 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     blocks += kind == BOX_STAGED ? 1 : kind == BOX_GLOBAL ? 1 << 16 : 0;
     if (!act) continue;
     stage_in(s1, box, ci, cj, sp.ls, miss);
-    float u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
+    pos_t u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
     find_currents_at(Records{a, sp, l, 0}, T, s1, z, cp, dp0, dp1, u1, v1,
                      w1);
-    find_currents(a, sp, cv, T, box, l, 1, x + u1 * half, y + v1 * half,
+    find_currents(a, sp, cv, ax, T, box, l, 1, x + u1 * half, y + v1 * half,
                   z + w1 * half, cp, dp0, dp1, miss, u2, v2, w2);
-    find_currents(a, sp, cv, T, box, l, 1, x + u2 * half, y + v2 * half,
+    find_currents(a, sp, cv, ax, T, box, l, 1, x + u2 * half, y + v2 * half,
                   z + w2 * half, cp, dp0, dp1, miss, u3, v3, w3);
-    find_currents(a, sp, cv, T, box, l, 2, x + u3 * idt, y + v3 * idt,
+    find_currents(a, sp, cv, ax, T, box, l, 2, x + u3 * idt, y + v3 * idt,
                   z + w3 * idt, cp, dp0, dp1, miss, u4, v4, w4);
-    float dx = sixth * (u1 + 2.0f * u2 + 2.0f * u3 + u4);
-    float dy = sixth * (v1 + 2.0f * v2 + 2.0f * v3 + v4);
-    float dz = sixth * (w1 + 2.0f * w2 + 2.0f * w3 + w4);
+    pos_t dx = sixth * (u1 + pos_t(2) * u2 + pos_t(2) * u3 + u4);
+    pos_t dy = sixth * (v1 + pos_t(2) * v2 + pos_t(2) * v3 + v4);
+    pos_t dz = sixth * (w1 + pos_t(2) * w2 + pos_t(2) * w3 + w4);
 
     // --- turbulence ------------------------------------------------------
     if constexpr (HT) {
       uint32_t b0, b1;
       particle_bits(a, STRIDE, i, HTURB, pid, b0, b1);
-      float r = sqrtf(-2.0f * logf(bits_to_uniform(b0)));
-      float th = (float)(2.0 * 3.14159265358979) * bits_to_uniform(b1);
-      dx = dx + r * cosf(th) * par[P_HSCALE];
-      dy = dy + r * sinf(th) * par[P_HSCALE];
+      pos_t r = m_sqrt(pos_t(-2) * m_log(bits_to_uniform(b0)));
+      pos_t th = (pos_t)(2.0 * 3.14159265358979) * bits_to_uniform(b1);
+      dx = dx + r * m_cos(th) * par[P_HSCALE];
+      dy = dy + r * m_sin(th) * par[P_HSCALE];
     }
     if constexpr (VT != 0) {
       uint32_t b0, b1;
       particle_bits(a, STRIDE, i, VTURB, pid, b0, b1);
-      float R = -1.0f + 2.0f * bits_to_uniform(b0);
+      pos_t R = pos_t(-1) + pos_t(2) * bits_to_uniform(b0);
       if constexpr (VT == 1) {
         dz = dz + R * par[P_VCONST];
       } else {
         // Aks blended at the stage-1 position and time
-        Stencil sv = locate(a, sp, cv, box, x, y, miss);
-        float zeta1 = lane(a, sp, sv, l, 0, a.nv - 2);
-        float h1 = lane(a, sp, sv, l, 0, a.nv - 1);
-        dz = dz + visser_dz(a, sp, T.sigma, sv, l, zeta1, h1, z, R, idt, cp,
-                            dp0, dp1);
+        Stencil sv = locate(a, sp, cv, ax, box, x, y, miss);
+        pos_t zeta1 = (pos_t)lane(a, sp, sv, l, 0, a.nv - 2);
+        pos_t h1 = (pos_t)lane(a, sp, sv, l, 0, a.nv - 1);
+        dz = dz + visser_dz(a, sp, Ts.sigma, sv, l, zeta1, h1, z, R, idt, cq,
+                            dq0, dq1);
       }
     }
 
     // --- behavior (free surface and depth at stage 1) -----------------------
     if constexpr (BEH != 0) {
-      float bx = 0.0f, by = 0.0f, bz = 0.0f;
-      Stencil sb = locate(a, sp, cv, box, x, y, miss);
-      float zeta_b = lane(a, sp, sb, l, 0, a.nv - 2);
-      float h_b = lane(a, sp, sb, l, 0, a.nv - 1);
+      pos_t bx = pos_t(0), by = pos_t(0), bz = pos_t(0);
+      Stencil sb = locate(a, sp, cv, ax, box, x, y, miss);
+      pos_t zeta_b = (pos_t)lane(a, sp, sb, l, 0, a.nv - 2);
+      pos_t h_b = (pos_t)lane(a, sp, sb, l, 0, a.nv - 1);
       // ontogenetic swim speed at the pre-step age
-      float frac = fminf(fmaxf((age_pre - par[P_SWIMSTART]) / par[P_SWIMDEN],
-                               0.0f), 1.0f);
-      float wsw = par[P_SWIMSLOW] + par[P_SWIMDIFF] * frac;
-      wsw = age_pre >= par[P_SWIMSTART] ? wsw : 0.0f;
+      pos_t frac = m_min(m_max((age_pre - par[P_SWIMSTART]) / par[P_SWIMDEN],
+                               pos_t(0)), pos_t(1));
+      pos_t wsw = par[P_SWIMSLOW] + par[P_SWIMDIFF] * frac;
+      wsw = age_pre >= par[P_SWIMSTART] ? wsw : pos_t(0);
       if constexpr (SWIM) {
         uint32_t b0, b1;
         particle_bits(a, STRIDE, i, BEHAVE, pid, b0, b1);
-        float r_dir = bits_to_uniform(b0);
+        pos_t r_dir = bits_to_uniform(b0);
         particle_bits(a, STRIDE, i, MORTALITY, pid, b0, b1);
-        float r_mix = -1.0f + 2.0f * bits_to_uniform(b0);
-        float rnd = r_mix * wsw * idt;
-        float toward = BEH == 2 ? -1.0f : 1.0f;       // biased walk
-        float biased = (r_dir < 0.8f ? toward : -toward) * wsw * idt;
+        pos_t r_mix = pos_t(-1) + pos_t(2) * bits_to_uniform(b0);
+        pos_t rnd = r_mix * wsw * idt;
+        pos_t toward = BEH == 2 ? pos_t(-1) : pos_t(1);   // biased walk
+        pos_t biased = (r_dir < pos_t(0.8) ? toward : -toward) * wsw * idt;
         if constexpr (BEH == 1) {
-          bz = z < (zeta_b - 2.0f) ? biased : rnd;     // SURFACE_ZONE
+          bz = z < (zeta_b - pos_t(2)) ? biased : rnd;   // SURFACE_ZONE
         } else if constexpr (BEH == 2) {
-          bz = z > (-h_b + 2.0f) ? biased : rnd;       // BOTTOM_ZONE
+          bz = z > (-h_b + pos_t(2)) ? biased : rnd;     // BOTTOM_ZONE
         } else if constexpr (BEH == 3) {
-          float e0 = coef[9 * a.n_int + i];
-          float light = e0 * expf(-par[P_KP] * fmaxf(zeta_b - z, 0.0f));
+          pos_t e0 = pcoef[9 * a.n_int + i];
+          pos_t light = e0 * m_exp(-par[P_KP] * m_max(zeta_b - z, pos_t(0)));
           bz = light > par[P_THRESH] ? -wsw * idt
-               : (e0 > 0.0f ? wsw * idt : rnd);
+               : (e0 > pos_t(0) ? wsw * idt : rnd);
         } else {
           // halocline cue: dS/dz of the salt spline at the pre-step
           // position and time (stage-1 stencil, weights and knots)
-          float dsdz, unused, zf;
+          pos_t dsdz, unused, zf;
           fit_eval<true>(Records{a, sp, l, 0}, Ts, sb, par + P_HEAD,
                          par + P_HEAD + a.us, a.us, a.salt0, -1, zeta_b, h_b,
-                         z, cp, dp0, dp1, dsdz, unused, zf);
-          bool cue = fabsf(dsdz) >= par[P_SGRAD];
+                         z, cq, dq0, dq1, dsdz, unused, zf);
+          bool cue = m_abs(dsdz) >= par[P_SGRAD];
           bool young = age_pre < par[P_PEDIAGE];
-          float down = -biased;                          // toward the bottom
+          pos_t down = -biased;                          // toward the bottom
           if constexpr (BEH == 4)
             bz = young ? (cue ? biased : rnd) : down;
           else
-            bz = young ? (cue ? biased : biased * 0.5f + rnd * 0.5f) : down;
+            bz = young ? (cue ? biased : biased * pos_t(0.5)
+                                             + rnd * pos_t(0.5))
+                       : down;
         }
       } else if constexpr (BEH == 6) {
-        bz = -par[P_SINK] * idt * 1.0f;
+        bz = -par[P_SINK] * idt * pos_t(1);
       } else if constexpr (BEH == 7) {
         // tidal-stream transport on the stage-1 currents
-        float speed = sqrtf(u1 * u1 + v1 * v1);
-        bool riding = speed > 0.05f;                   // TST_MIN_SPEED
-        float target = riding ? zeta_b - par[P_SWIMDEPTH] : -h_b + 0.5f;
-        bz = fminf(fmaxf(target - z, -wsw * idt - 1.0f), wsw * idt + 1.0f);
-        float spd = fmaxf(speed, 1e-12f);
-        bx = riding ? par[P_HSWIM] * u1 / spd * idt : 0.0f;
-        by = riding ? par[P_HSWIM] * v1 / spd * idt : 0.0f;
+        pos_t speed = m_sqrt(u1 * u1 + v1 * v1);
+        bool riding = speed > pos_t(0.05);             // TST_MIN_SPEED
+        pos_t target = riding ? zeta_b - par[P_SWIMDEPTH] : -h_b + pos_t(0.5);
+        bz = m_min(m_max(target - z, -wsw * idt - pos_t(1)),
+                   wsw * idt + pos_t(1));
+        pos_t spd = m_max(speed, pos_t(1e-12));
+        bx = riding ? par[P_HSWIM] * u1 / spd * idt : pos_t(0);
+        by = riding ? par[P_HSWIM] * v1 / spd * idt : pos_t(0);
       }
       dx = dx + bx;
       dy = dy + by;
       dz = dz + bz;
     }
-    float x1 = x + dx;
-    float y1 = y + dy;
-    float z1 = z + dz;
+    pos_t x1 = x + dx;
+    pos_t y1 = y + dy;
+    pos_t z1 = z + dz;
 
     bool exited, stuck;
     int hits;
-    reflect(a, cv, x, y, x1, y1, exited, stuck, hits);
+    reflect(a, cv, ax, x, y, x1, y1, exited, stuck, hits);
 
     // vertical reflection about zeta/h of the new column at t + idt
-    Stencil s4 = locate(a, sp, cv, box, x1, y1, miss);
-    float zeta = lane(a, sp, s4, l, 2, a.nv - 2);
-    float h = lane(a, sp, s4, l, 2, a.nv - 1);
+    Stencil s4 = locate(a, sp, cv, ax, box, x1, y1, miss);
+    pos_t zeta = (pos_t)lane(a, sp, s4, l, 2, a.nv - 2);
+    pos_t h = (pos_t)lane(a, sp, s4, l, 2, a.nv - 1);
     bool above = z1 > zeta;
-    float za = above ? 2.0f * zeta - z1 : z1;
+    pos_t za = above ? pos_t(2) * zeta - z1 : z1;
     bool below = za < -h;
-    float zb = below ? -2.0f * h - za : za;
+    pos_t zb = below ? pos_t(-2) * h - za : za;
 
     x = x1;
     y = y1;
-    z = fminf(fmaxf(zb, -h), zeta);
+    z = m_min(m_max(zb, -h), zeta);
     hitl += hits;
     hitb += below ? 1 : 0;
     if (exited) st = OUT_OF_DOMAIN;
@@ -992,7 +1042,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     if constexpr (SETTLE) {
       if (st == ACTIVE && sg.poly.n > 0
           && age_pre + idt >= par[P_PEDIAGE]) {
-        int id = settle_id(sg, a.nx, a.ny, x, y);
+        int id = settle_id(sg, ax, a.nx, a.ny, x, y);
         if (id >= 0) {
           st = SETTLED;
           if (spoly < 0) spoly = id;
@@ -1004,10 +1054,10 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     // settled in it included): stage-4 weights, the stencil and knots of
     // the vertical reflection
     if constexpr (SALT) {
-      float zf;
+      pos_t zf;
       fit_eval(Records{a, sp, l, 2}, Ts, s4, par + P_HEAD,
                par + P_HEAD + a.us, a.us, a.salt0, a.salt0 + a.us, zeta, h,
-               z, cp, dp0, dp1, salt, temp, zf);
+               z, cq, dq0, dq1, salt, temp, zf);
     }
   }
   count_staging(sp.cnt, blocks & 0xffff, blocks >> 16, miss);
@@ -1052,7 +1102,10 @@ extern "C" int ltx_ext_step_blocks_per_sm(int nl, int tile_points) {
 }
 
 // One external step of n particles, in the variant this library was
-// compiled for (LTX_* macros).  rngk may be null when the variant draws
+// compiled for (LTX_* macros).  The particle columns x, y, z, dob, age,
+// salt, temp and their outputs and the boundary rows are pos_t (float64
+// under LTX_POS64, which also takes dparams: params's layout in float64).
+// rngk may be null when the variant draws
 // nothing; age/age_out are read/written only where the variant carries
 // the age, spoly/spoly_out with settlement, salt/temp and their outputs
 // with SaltTempOn.  The record table's lanes are the nv value lanes, the
@@ -1068,23 +1121,29 @@ extern "C" int ltx_ext_step_blocks_per_sm(int nl, int tile_points) {
 // a block may stage (the launch takes 3 * tile_points * (nl | 1) floats of
 // dynamic shared memory; 0 runs every block from device memory); counters
 // (3 u64, zeroed by the caller once) accumulate staged_block_steps,
-// global_block_steps and staged_misses.  Returns the launch's
+// global_block_steps and staged_misses.  axis_x/axis_y (nx, ny) are the
+// rho axes, edge_x/edge_y (nx + 1, ny + 1) the boundary cell edges (each
+// pair null where uniform) and settle_ex/settle_ey the edges in f64 for
+// settlement: given only to an LTX_AXES variant.  Returns the launch's
 // cudaError_t.
 extern "C" int ltx_ext_step(
-    const float* rtab, const float* brows, const float* params,
-    const uint32_t* rngk, const float* x, const float* y, const float* z,
-    const float* dob, const float* age, const int* pid, const int* status,
-    const int* spoly, const float* salt, const float* temp,
-    float* x_out, float* y_out, float* z_out, float* age_out, int* st_out,
-    int* hitl_out, int* hitb_out, int* spoly_out, float* salt_out,
-    float* temp_out, const double* settle_d, const int* settle_i, int n,
-    int nx, int ny, int us, int ws, int nl, int aks0, int salt0,
-    int vtransform, int n_int, int n_iter, int open_exits, int s_max,
-    int n_poly, int vmax_poly, int cmax_poly, int n_hole, int vmax_hole,
-    int cmax_hole, const float* curv_xy, const int* curv_seed, int curv_mx,
-    int curv_my, float curv_rx0, float curv_ry0, float curv_inv_rdx,
-    float curv_inv_rdy, float curv_tol2, int tile_points,
-    unsigned long long* counters, void* stream) {
+    const float* rtab, const pos_t* brows, const float* params,
+    const double* dparams, const uint32_t* rngk, const pos_t* x,
+    const pos_t* y, const pos_t* z, const pos_t* dob, const pos_t* age,
+    const int* pid, const int* status, const int* spoly, const pos_t* salt,
+    const pos_t* temp, pos_t* x_out, pos_t* y_out, pos_t* z_out,
+    pos_t* age_out, int* st_out, int* hitl_out, int* hitb_out,
+    int* spoly_out, pos_t* salt_out, pos_t* temp_out,
+    const double* settle_d, const int* settle_i, int n, int nx, int ny,
+    int us, int ws, int nl, int aks0, int salt0, int vtransform, int n_int,
+    int n_iter, int open_exits, int s_max, int n_poly, int vmax_poly,
+    int cmax_poly, int n_hole, int vmax_hole, int cmax_hole,
+    const pos_t* curv_xy, const int* curv_seed, int curv_mx, int curv_my,
+    double curv_rx0, double curv_ry0, double curv_inv_rdx,
+    double curv_inv_rdy, double curv_tol2, int tile_points,
+    unsigned long long* counters, const pos_t* axis_x, const pos_t* axis_y,
+    const pos_t* edge_x, const pos_t* edge_y, const double* settle_ex,
+    const double* settle_ey, void* stream) {
   if (us > MAX_LEVELS || ws > MAX_LEVELS) return (int)cudaErrorInvalidValue;
   const int nv = 2 * us + ws + 2;
   const int after_aks = aks0 >= 0 ? nv + ws : nv;
@@ -1095,6 +1154,11 @@ extern "C" int ltx_ext_step(
       || (LTX_SETTLE && n_poly > 0 && (!settle_d || !settle_i))
       || (LTX_CURV != 0) != (curv_xy != nullptr)
       || (LTX_CURV && (!curv_seed || curv_mx < 1 || curv_my < 1))
+      || (LTX_POS64 != 0) != (dparams != nullptr)
+      || (!LTX_AXES && (axis_x || axis_y || edge_x || edge_y || settle_ex
+                        || settle_ey))
+      || (!axis_x) != (!axis_y) || (!edge_x) != (!edge_y)
+      || (!settle_ex) != (!settle_ey)
       || tile_points < 0 || !counters)
     return (int)cudaErrorInvalidValue;      // lane offsets, tables
   if (n <= 0) return 0;
@@ -1102,6 +1166,9 @@ extern "C" int ltx_ext_step(
   a.rtab = rtab;
   a.brows = brows;
   a.par = params;
+#if LTX_POS64
+  a.dpar = dparams;
+#endif
   a.rngk = rngk;
   a.nx = nx;
   a.ny = ny;
@@ -1134,9 +1201,11 @@ extern "C" int ltx_ext_step(
             hi, hi ? hi + n_hole : nullptr, hi ? hi + 2 * n_hole : nullptr,
             n_hole, vmax_hole, cmax_hole};
   const long long ms = (long long)curv_mx * curv_my;
-  Curv cv = {reinterpret_cast<const float2*>(curv_xy), curv_seed,
+  Curv cv = {reinterpret_cast<const pos2_t*>(curv_xy), curv_seed,
              curv_seed ? curv_seed + ms : nullptr, curv_mx, curv_my,
-             curv_rx0, curv_ry0, curv_inv_rdx, curv_inv_rdy, curv_tol2};
+             (pos_t)curv_rx0, (pos_t)curv_ry0, (pos_t)curv_inv_rdx,
+             (pos_t)curv_inv_rdy, (pos_t)curv_tol2};
+  Axes ax = {axis_x, axis_y, edge_x, edge_y, settle_ex, settle_ey};
   Stage sp = {counters, tile_points, nl | 1, tile_points * (nl | 1)};
   const size_t smem = 3 * (size_t)sp.ts * sizeof(float);
   cudaError_t e = allow_smem(smem);
@@ -1145,6 +1214,6 @@ extern "C" int ltx_ext_step(
   kernel_fn<<<blocks, LTX_BLOCK, smem, (cudaStream_t)stream>>>(
       a, sg, cv, sp, n, x, y, z, dob, age, pid, status, spoly, salt, temp,
       x_out, y_out, z_out, age_out, st_out, hitl_out, hitb_out, spoly_out,
-      salt_out, temp_out);
+      salt_out, temp_out, ax);
   return (int)cudaGetLastError();
 }

@@ -17,23 +17,29 @@ whole batch:
 The kernel is compiled once per combination of the options it covers
 (``kernel_variant``: horizontal turbulence, vertical turbulence constant
 or on the Aks profile, behavior type, mortality, settlement, salt
-sampling, a curvilinear grid), so each configuration runs only its own
-lanes.  On a curvilinear grid it also reads the grid's inverse map
-(``curv_tables``: the f32 rho xy rows, the int32 seed raster and its
-scalars).  It reads the
-raw record table ``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (the nv value
-lanes, then the ws Aks lanes and the us salt + us temp lanes where the
-table has them, at the offsets ``lane_offsets`` finds), the boundary
-cell rows (Ny*Nx, 8 + 8*s_max) f32, the habitat and hole polygons
-(``settle_tables``: f64 vertices, candidate rows per cell), the
-per-step Threefry keys (``rng_keys_array``) and a small f32 params
-vector: the head scalars below, the s/Cs ladders, the quadratic time
-weights of every (internal step, RK4 stage), computed on the host in
-float64 (as ``ltjax.kernels.ext_step.finish_params`` does under x64) and
-rounded to f32, and for behavior type 3 the surface irradiance of every
-internal step.  Head scalars that the plain version computes in the
-particles' dtype (turbulence scales, sinking, swim ramp) are computed
-here the same way, in float32.
+sampling, a curvilinear grid, float64 positions, searched axes), so each
+configuration runs only its own lanes.  The particles' float columns
+are float32 or float64 (``dtype_pos``): float64 takes the LTX_POS64
+build, which keeps the particle state in float64 where the plain version
+does (no column is cast).  On a curvilinear grid it also reads the
+grid's inverse map (``curv_tables``: the rho xy rows in the positions'
+dtype, the int32 seed raster and its scalars); on a rectilinear grid
+whose rho axes or cell edges are not uniform, those axes
+(``axes_tables``, the LTX_AXES build, which searches them).  It reads
+the raw record table ``PackedRecords.tab`` (3, Ny*Nx, nl) f32 (the nv
+value lanes, then the ws Aks lanes and the us salt + us temp lanes where
+the table has them, at the offsets ``lane_offsets`` finds), the boundary
+cell rows (Ny*Nx, 8 + 8*s_max) in the positions' dtype, the habitat and
+hole polygons (``settle_tables``: f64 vertices, candidate rows per
+cell), the per-step Threefry keys (``rng_keys_array``) and a small f32
+params vector: the head scalars below, the s/Cs ladders, the quadratic
+time weights of every (internal step, RK4 stage), computed on the host
+in float64 (as ``ltjax.kernels.ext_step.finish_params`` does under x64)
+and rounded to f32, and for behavior type 3 the surface irradiance of
+every internal step.  Head scalars that the plain version computes in
+the particles' dtype (turbulence scales, sinking, swim ramp) are
+computed here the same way, in float32; with float64 positions the
+same vector is also passed in float64 (``params_static(..., dtype)``).
 """
 
 from __future__ import annotations
@@ -63,11 +69,14 @@ VTURB_OFF, VTURB_CONST, VTURB_AKS = 0, 1, 2
 SWIM_TYPES = (1, 2, 3, 4, 5)   # behaviors drawing BEHAVE/MORTALITY words
 
 
-def kernel_variant(cfg, curv: bool = False) -> dict:
+def kernel_variant(cfg, curv: bool = False, pos64: bool = False,
+                   axes: bool = False) -> dict:
     """The compile-time options of the kernel for a configuration on a
-    rectilinear grid, or (``curv``) a curvilinear one (the -D flags of
-    csrc/ext_step.cu).  Settlement, salt sampling and the curvilinear map
-    appear only when on, so the variants without them build from the
+    rectilinear grid, or (``curv``) a curvilinear one, with float32 or
+    (``pos64``) float64 positions, on uniform or (``axes``) searched
+    rectilinear axes (the -D flags of csrc/ext_step.cu).  Settlement,
+    salt sampling, the curvilinear map, float64 positions and searched
+    axes appear only when on, so the variants without them build from the
     same flags as before they existed."""
     vt = (VTURB_OFF if not cfg.VTurbOn
           else VTURB_AKS if cfg.readAks else VTURB_CONST)
@@ -80,7 +89,22 @@ def kernel_variant(cfg, curv: bool = False) -> dict:
         out["LTX_SALT"] = 1
     if curv:
         out["LTX_CURV"] = 1
+    if pos64:
+        out["LTX_POS64"] = 1
+    if axes:
+        out["LTX_AXES"] = 1
     return out
+
+
+def variant_of(ctx, cfg, dtype) -> dict:
+    """The kernel variant that runs ``cfg`` on ``ctx``'s grid with
+    positions of ``dtype``: searched axes where the rectilinear grid's
+    rho axes (grid.uniform) or its boundary cell edges (bounds.uniform)
+    are not uniform."""
+    g, b = ctx.grid, ctx.bounds
+    curv = g.curv is not None
+    return kernel_variant(cfg, curv=curv, pos64=dtype == torch.float64,
+                          axes=not curv and not (g.uniform and b.uniform))
 
 
 def uses_rng(cfg) -> bool:
@@ -108,9 +132,12 @@ def lane_offsets(nl: int, us: int, ws: int):
     return layouts[nl]
 
 
-def params_static(ctx, cfg) -> np.ndarray:
-    """Head scalars + s/Cs ladders (f32), once per context and options."""
-    key = ("ext_step_params", float(cfg.z0), float(cfg.idt),
+def params_static(ctx, cfg, dtype=np.float32) -> np.ndarray:
+    """Head scalars + s/Cs ladders in ``dtype`` (float32, or float64 for
+    the LTX_POS64 build), computed as the plain version computes them in
+    the particles' dtype; once per context and options."""
+    key = ("ext_step_params", np.dtype(dtype).name, float(cfg.z0),
+           float(cfg.idt),
            float(cfg.tension_sigma), tuple(kernel_variant(cfg).items()),
            float(cfg.ConstantHTurb), float(cfg.ConstantVTurb),
            float(cfg.sink), float(cfg.deadage), float(cfg.swimstart),
@@ -120,13 +147,14 @@ def params_static(ctx, cfg) -> np.ndarray:
     if key in ctx.cache:
         return ctx.cache[key]
     g, b = ctx.grid, ctx.bounds
-    f32 = np.float32
+    f32 = np.dtype(dtype).type
+    tdt = torch.float64 if f32 is np.float64 else torch.float32
     xr = g.x_rho.cpu().numpy().astype(f32)
     yr = g.y_rho.cpu().numpy().astype(f32)
     bx0, bdx, by0, bdy, bx1, by1 = b.edges
     head = np.zeros(P_HEAD, f32)
     head[P_X0] = xr[0]
-    head[P_DX] = xr[1] - xr[0]          # f32 arithmetic, as grid.locate
+    head[P_DX] = xr[1] - xr[0]          # in dtype, as grid.locate
     head[P_Y0] = yr[0]
     head[P_DY] = yr[1] - yr[0]
     head[[P_BX0, P_BDX, P_BY0, P_BDY, P_BX1, P_BY1]] = (bx0, bdx, by0, bdy,
@@ -135,11 +163,11 @@ def params_static(ctx, cfg) -> np.ndarray:
     head[P_Z0M] = cfg.z0
     head[P_IDT] = cfg.idt
     head[P_SIGMA] = cfg.tension_sigma
-    # as physics.turb computes them in float32
-    idt_t = torch.tensor(float(cfg.idt), dtype=torch.float32)
+    # as physics.turb computes them in the particles' dtype
+    idt_t = torch.tensor(float(cfg.idt), dtype=tdt)
     head[P_HSCALE] = torch.sqrt(2.0 * float(cfg.ConstantHTurb) * idt_t)
     head[P_VCONST] = torch.sqrt(
-        2.0 * torch.tensor(float(cfg.ConstantVTurb), dtype=torch.float32)
+        2.0 * torch.tensor(float(cfg.ConstantVTurb), dtype=tdt)
         * idt_t / (1.0 / 3.0))
     head[P_SINK] = cfg.sink
     head[P_DEADAGE] = cfg.deadage
@@ -165,18 +193,21 @@ def finish_params(static: np.ndarray, t0: float, times, idt: float,
     """Append the start time and the polintd weights of every internal
     step's 3 stage times (t, t + idt/2, t + idt): 9 per step.  ``dvm``
     (BehaveParams) appends the surface irradiance of every internal step
-    (behavior type 3), computed as the plain version computes it."""
+    (behavior type 3), computed as the plain version computes it.  In
+    static's dtype (the kernel reads the weights from the float32 vector
+    only)."""
+    dtype = static.dtype
+    tdt = torch.float64 if dtype == np.float64 else torch.float32
     head = static.copy()
     head[P_T0] = t0
     coef = [polintd_coefs(times, t0 + i * idt + off)
             for i in range(n_int) for off in (0.0, 0.5 * idt, idt)]
     parts = [head, np.asarray(coef, np.float64).reshape(-1)
-             .astype(np.float32)]
+             .astype(np.float32).astype(dtype)]
     if dvm is not None:
-        t_i = torch.tensor([t0 + i * idt for i in range(n_int)],
-                           dtype=torch.float32)
-        parts.append(bh.surface_irradiance(t_i, dvm, torch.float32)
-                     .numpy().astype(np.float32))
+        t_i = torch.tensor([t0 + i * idt for i in range(n_int)], dtype=tdt)
+        parts.append(bh.surface_irradiance(t_i, dvm, tdt).numpy()
+                     .astype(dtype))
     return np.concatenate(parts)
 
 
@@ -199,31 +230,62 @@ def rng_keys_array(seed, ext_idx: int, n_int: int,
     return torch.stack([s0, s1], dim=-1).reshape(-1).numpy().astype(np.uint32)
 
 
-def boundary_rows_table(ctx) -> torch.Tensor:
-    """(Ny*Nx, 8 + 8*s_max) f32 boundary cell rows, once per context."""
-    if "brows" not in ctx.cache:
-        ctx.cache["brows"] = ctx.bounds.cell_rows.to(torch.float32
-                                                     ).contiguous()
-    return ctx.cache["brows"]
+def boundary_rows_table(ctx, dtype=torch.float32) -> torch.Tensor:
+    """(Ny*Nx, 8 + 8*s_max) boundary cell rows in the positions' dtype
+    (reflect's), once per context and dtype."""
+    key = ("brows", dtype)
+    if key not in ctx.cache:
+        ctx.cache[key] = ctx.bounds.cell_rows.to(dtype).contiguous()
+    return ctx.cache[key]
 
 
-def curv_tables(ctx):
-    """The curvilinear map as the kernel reads it, once per context: the
-    (Ny*Nx, 2) f32 rho xy rows, the int32 seed raster (seed_i then
-    seed_j, each (My, Mx) flat), (Mx, My), and the host floats (rx0, ry0,
-    inv_rdx, inv_rdy, curv_tol2) that the launch rounds to f32."""
-    if "curv" in ctx.cache:
-        return ctx.cache["curv"]
-    cm, b = ctx.grid.curv, ctx.bounds
+def curv_map(cm, dtype=torch.float32):
+    """A CurvMap as both kernels read it (csrc/curv.cuh): the (Ny*Nx, 2)
+    rho xy rows in the positions' dtype, the int32 seed raster (seed_i
+    then seed_j, each (My, Mx) flat), (Mx, My), and the host floats (rx0,
+    ry0, inv_rdx, inv_rdy) that the kernels take in that dtype."""
+    my, mx = cm.seed_i.shape
+    return (cm.xy_flat.to(dtype).contiguous(),
+            torch.cat([cm.seed_i.reshape(-1), cm.seed_j.reshape(-1)]
+                      ).to(torch.int32).contiguous(), (mx, my),
+            (cm.rx0, cm.ry0, cm.inv_rdx, cm.inv_rdy))
+
+
+def curv_tables(ctx, dtype=torch.float32):
+    """The curvilinear map as this kernel reads it, once per context and
+    dtype: ``curv_map``'s tables, the host floats followed by the
+    boundaries' curv_tol2."""
+    key = ("curv", dtype)
+    if key in ctx.cache:
+        return ctx.cache[key]
+    b = ctx.bounds
     if b.curv is None or b.curv_tol2 is None:
         raise ValueError("ext_step_fused: a curvilinear grid needs "
                          "curvilinear boundaries (build_boundaries_curv)")
-    my, mx = cm.seed_i.shape
-    out = (cm.xy_flat.to(torch.float32).contiguous(),
-           torch.cat([cm.seed_i.reshape(-1), cm.seed_j.reshape(-1)]
-                     ).to(torch.int32).contiguous(), (mx, my),
-           (cm.rx0, cm.ry0, cm.inv_rdx, cm.inv_rdy, b.curv_tol2))
-    ctx.cache["curv"] = out
+    xy, seeds, size, scal = curv_map(ctx.grid.curv, dtype)
+    out = (xy, seeds, size, scal + (b.curv_tol2,))
+    ctx.cache[key] = out
+    return out
+
+
+def axes_tables(ctx, dtype=torch.float32):
+    """The searched axes of the LTX_AXES build, once per context and
+    dtype: the rho axes (x_rho, y_rho) where the grid is not uniform, the
+    boundary cell edges in the positions' dtype (boundary.cell_of's) and
+    in float64 (settlement's) where they are not; each pair None where
+    uniform (the kernel then locates arithmetically)."""
+    key = ("axes", dtype)
+    if key in ctx.cache:
+        return ctx.cache[key]
+    g, b = ctx.grid, ctx.bounds
+
+    def pair(u, v, dt):
+        return (u.to(dt).contiguous(), v.to(dt).contiguous())
+
+    out = (None if g.uniform else pair(g.x_rho, g.y_rho, dtype),
+           None if b.uniform else pair(b.x_edges, b.y_edges, dtype),
+           None if b.uniform else pair(b.x_edges, b.y_edges, torch.float64))
+    ctx.cache[key] = out
     return out
 
 
@@ -351,10 +413,10 @@ def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
     return p
 
 
-_C_ARGTYPES = ([ctypes.c_void_p] * 26 + [ctypes.c_int] * 19
+_C_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 19
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
-               + [ctypes.c_float] * 5 + [ctypes.c_int, ctypes.c_void_p,
-                                          ctypes.c_void_p])
+               + [ctypes.c_double] * 5 + [ctypes.c_int]
+               + [ctypes.c_void_p] * 8)
 COUNTERS = ("staged_block_steps", "global_block_steps", "staged_misses")
 
 
@@ -412,9 +474,9 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     ``seed`` (default cfg.seed) key the random draws.
 
     CPU tensors take ``ext_step_reference``; CUDA tensors launch the
-    kernel (f32 positions; a uniform rectilinear or a curvilinear grid)
-    or raise.  Stochastic mortality raises on both: the kernel draws no
-    DEATH words."""
+    kernel (float32 or float64 positions, any grid) or raise.
+    Stochastic mortality raises on both: the kernel draws no DEATH
+    words."""
     if cfg.mortality and cfg.stochastic_mortality:
         # its DEATH draw is not in the kernel's key layout (step.mode_flags)
         raise ValueError("ext_step_fused: stochastic_mortality takes the "
@@ -429,11 +491,11 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     n, us, ws = p.n, g.us, g.ws
     bh.check_ported(bh.BehaveParams(behavior=cfg.Behavior))
     curv = g.curv is not None
-    if not curv and not (g.uniform and b.uniform):
-        raise NotImplementedError("ext_step_fused: the CUDA kernel locates "
-                                  "rectilinear cells arithmetically; grid "
-                                  "not uniform")
-    variant = kernel_variant(cfg, curv=curv)
+    pdt = p.x.dtype
+    if pdt not in (torch.float32, torch.float64):
+        raise ValueError(f"ext_step_fused: positions must be float32 or "
+                         f"float64, got {pdt}")
+    variant = variant_of(ctx, cfg, pdt)
     # the Visser lanes read the Aks lanes; sampling and behaviors 4/5
     # the salt (and temp) lanes
     nl = prec.tab.shape[-1]
@@ -451,7 +513,7 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     if float(cfg.tension_sigma) < 0:
         raise NotImplementedError("ext_step_fused: adaptive tension")
     for k in ("x", "y", "z", "dob", "age", "salt", "temp"):
-        _check_col(k, getattr(p, k), n, torch.float32, dev)
+        _check_col(k, getattr(p, k), n, pdt, dev)
     for k in ("status", "pid", "settle_poly"):
         _check_col(k, getattr(p, k), n, torch.int32, dev)
     tab = prec.tab
@@ -462,16 +524,20 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                          f"contiguous (3, {g.ny * g.nx}, {nl}) float32 "
                          f"tensor on {dev}, got {tuple(tab.shape)} "
                          f"{tab.dtype} on {tab.device}")
-    brows = boundary_rows_table(ctx)
+    brows = boundary_rows_table(ctx, pdt)
     if brows.device != dev:
         raise ValueError("ext_step_fused: boundaries on another device")
     settle = settle_tables(ctx) if cfg.settlementon else None
     if settle is not None and settle[0].device != dev:
         raise ValueError("ext_step_fused: polygons on another device")
     cxy, cseed, (c_mx, c_my), c_scal = (
-        curv_tables(ctx) if curv else (None, None, (0, 0), (0.0,) * 5))
+        curv_tables(ctx, pdt) if curv else (None, None, (0, 0), (0.0,) * 5))
     if curv and cxy.device != dev:
         raise ValueError("ext_step_fused: curvilinear map on another device")
+    axes = ((None,) * 3 if "LTX_AXES" not in variant
+            else axes_tables(ctx, pdt))
+    if any(a is not None and a[0].device != dev for a in axes):
+        raise ValueError("ext_step_fused: grid axes on another device")
     n_int = cfg.internal_steps
     idt = float(cfg.idt)
     if n == 0:
@@ -484,6 +550,9 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     par = torch.from_numpy(finish_params(params_static(ctx, cfg), t0,
                                          prec.times, idt, n_int, dvm)
                            ).to(dev)
+    dpar = (torch.from_numpy(finish_params(
+        params_static(ctx, cfg, np.float64), t0, prec.times, idt, n_int,
+        dvm)).to(dev) if pdt == torch.float64 else None)
     rngk = None
     if uses_rng(cfg):
         keys = rng_keys_array(seed, ext_idx, n_int,
@@ -506,8 +575,10 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         return t.data_ptr() if t is not None else None
 
     stream = torch.cuda.current_stream(dev).cuda_stream
+    ax_ptrs = [ptr(t) for pair in axes for t in (pair or (None, None))]
     rc = _lib(variant)(
-        tab.data_ptr(), brows.data_ptr(), par.data_ptr(), ptr(rngk),
+        tab.data_ptr(), brows.data_ptr(), par.data_ptr(), ptr(dpar),
+        ptr(rngk),
         p.x.data_ptr(), p.y.data_ptr(), p.z.data_ptr(), p.dob.data_ptr(),
         p.age.data_ptr(), p.pid.data_ptr(), p.status.data_ptr(),
         p.settle_poly.data_ptr(), p.salt.data_ptr(), p.temp.data_ptr(),
@@ -517,7 +588,7 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
         nl, aks0, salt0, g.vtransform, n_int, int(cfg.reflect_iters),
         int(bool(cfg.OpenOceanBoundary)), b.s_max, n_p, v_p, c_p, n_h, v_h,
         c_h, ptr(cxy), ptr(cseed), c_mx, c_my, *c_scal, tile_points(nl),
-        _counters(dev).data_ptr(), stream)
+        _counters(dev).data_ptr(), *ax_ptrs, stream)
     if rc != 0:
         raise RuntimeError(f"ext_step kernel launch failed: CUDA error {rc}")
     ext_step_fused.launches += 1

@@ -11,15 +11,19 @@ every particle from the three stage tables (t, t + idt/2, t + idt) of
   ``packed.rk4_displacement_collapsed`` (and, with ``stage1``, the stage-1
   currents of ``packed.find_currents_collapsed``);
 * on CUDA tensors it launches ``csrc/rk4_step.cu`` (one thread per
-  particle) and counts the launch in ``rk4_displacement_fused.launches``;
-  a failed build or launch raises.
+  particle) in the variant of the grid and the positions' dtype
+  (``kernel_variant``) and counts the launch in
+  ``rk4_displacement_fused.launches`` and, per variant, in
+  ``.variant_launches``; a failed build or launch raises.
 
-The kernel reads the stage tables (Ny*Nx, nv) f32 and a small f32 params
-vector: x0, dx, y0, dy of the uniform rho axes (dx and dy in f32
-arithmetic, as ``grid.locate``), hc, z0m, sigma, then the s/Cs ladders
-(s_rho, Cs_r, s_w, Cs_w).  It has no window, no out-of-window flag and no
-exact patch: no particle can miss a window when the kernel gathers from
-device memory.  Uniform rectilinear grids and a static tension only.
+The kernel reads the stage tables (Ny*Nx, nv) f32 and a small params
+vector in the positions' dtype (float32 or float64): x0, dx, y0, dy of
+the rho axes (dx and dy in that dtype's arithmetic, as ``grid.locate``),
+hc, z0m, sigma, then the s/Cs ladders (s_rho, Cs_r, s_w, Cs_w); on a
+curvilinear grid the inverse map (``ext_step.curv_tables``), on rho axes
+that are not uniform the axes themselves (searched).  It has no window,
+no out-of-window flag and no exact patch: no particle can miss a window
+when the kernel gathers from device memory.  A static tension only.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import numpy as np
 import torch
 
 from .. import packed as pk
-from . import build
+from . import build, ext_step
 
 MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
 
@@ -40,18 +44,38 @@ Q_X0, Q_DX, Q_Y0, Q_DY, Q_HC, Q_Z0M, Q_SIGMA = range(7)
 Q_HEAD = 7
 
 _C_ARGTYPES = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 6
-               + [ctypes.c_float, ctypes.c_void_p])
+               + [ctypes.c_double] + [ctypes.c_void_p] * 2
+               + [ctypes.c_int] * 2 + [ctypes.c_double] * 4
+               + [ctypes.c_void_p] * 3)
 
 
-def params_array(grid, sigma: float, z0m: float) -> torch.Tensor:
-    """The kernel's f32 params vector (host), counterpart of
-    ``gather_interp._params_array`` in this kernel's own layout."""
-    f32 = np.float32
+def kernel_variant(grid, dtype=torch.float32) -> dict:
+    """The compile-time options of csrc/rk4_step.cu for a grid and the
+    positions' dtype: LTX_CURV on a curvilinear grid, LTX_AXES on
+    rectilinear rho axes that are not uniform, LTX_POS64 for float64
+    positions; each only when on (the rectilinear float32 build is
+    ``rk4_step`` as before)."""
+    out = {}
+    if grid.curv is not None:
+        out["LTX_CURV"] = 1
+    elif not grid.uniform:
+        out["LTX_AXES"] = 1
+    if dtype == torch.float64:
+        out["LTX_POS64"] = 1
+    return out
+
+
+def params_array(grid, sigma: float, z0m: float,
+                 dtype=np.float32) -> torch.Tensor:
+    """The kernel's params vector (host) in the positions' dtype,
+    counterpart of ``gather_interp._params_array`` in this kernel's own
+    layout."""
+    f32 = np.dtype(dtype).type
     xr = grid.x_rho.cpu().numpy().astype(f32)
     yr = grid.y_rho.cpu().numpy().astype(f32)
     head = np.zeros(Q_HEAD, f32)
     head[Q_X0] = xr[0]
-    head[Q_DX] = xr[1] - xr[0]          # f32 arithmetic, as grid.locate
+    head[Q_DX] = xr[1] - xr[0]          # in dtype, as grid.locate
     head[Q_Y0] = yr[0]
     head[Q_DY] = yr[1] - yr[0]
     head[Q_HC] = grid.hc
@@ -62,8 +86,8 @@ def params_array(grid, sigma: float, z0m: float) -> torch.Tensor:
     return torch.from_numpy(np.concatenate([head] + lad))
 
 
-def _lib():
-    fn = build.load("rk4_step").ltx_rk4_step
+def _lib(variant: dict):
+    fn = build.load("rk4_step", variant).ltx_rk4_step
     if fn.argtypes is None:
         fn.argtypes = _C_ARGTYPES
         fn.restype = ctypes.c_int
@@ -113,34 +137,34 @@ def rk4_displacement_fused(grid, vtabs, x, y, z, sigma: float, z0m: float,
     stage-1 currents (u1, v1).
 
     CPU tensors take the plain version; CUDA tensors launch the kernel
-    (f32, uniform rectilinear grid, sigma >= 0) or raise."""
+    (float32 or float64 positions, float32 tables, any grid, sigma >= 0)
+    or raise."""
     dev = x.device
     if dev.type not in ("cpu", "cuda"):
         raise ValueError(f"rk4_displacement_fused: unsupported device {dev}")
     _check(grid, vtabs, x, y, z)
     if dev.type == "cpu":
         return _plain(grid, vtabs, x, y, z, sigma, z0m, idt, stage1)
-    if x.dtype != torch.float32 or vtabs[0].full.dtype != torch.float32:
+    if (x.dtype not in (torch.float32, torch.float64)
+            or vtabs[0].full.dtype != torch.float32):
         raise ValueError("rk4_displacement_fused: the CUDA kernel takes "
-                         f"float32 positions and tables, got {x.dtype} and "
-                         f"{vtabs[0].full.dtype}")
-    if grid.curv is not None or not grid.uniform:
-        raise NotImplementedError("rk4_displacement_fused: the CUDA kernel "
-                                  "locates cells on uniform rectilinear "
-                                  "axes only")
+                         "float32 or float64 positions and float32 tables, "
+                         f"got {x.dtype} and {vtabs[0].full.dtype}")
     if float(sigma) < 0:
         raise NotImplementedError("rk4_displacement_fused: adaptive tension")
     us, ws = grid.us, grid.ws
     if us > MAX_LEVELS or ws > MAX_LEVELS:
         raise ValueError(f"rk4_displacement_fused: {us}/{ws} levels exceed "
                          f"MAX_LEVELS={MAX_LEVELS}")
-    key = (id(grid), float(sigma), float(z0m))
+    variant = kernel_variant(grid, x.dtype)
+    npdt = np.float64 if x.dtype == torch.float64 else np.float32
+    key = (id(grid), float(sigma), float(z0m), x.dtype)
     hit = _params_cache.get(key)
     if hit is None or hit[0]() is not grid:
-        hit = (weakref.ref(grid),
-               params_array(grid, float(sigma), float(z0m)).to(dev))
+        hit = (weakref.ref(grid), _device_tables(grid, float(sigma),
+                                                 float(z0m), npdt, dev))
         _params_cache[key] = hit
-    par = hit[1]
+    par, cxy, cseed, (c_mx, c_my), c_scal, axes = hit[1]
     n = x.shape[0]
     out = [torch.empty_like(x) for _ in range(5 if stage1 else 3)]
     if n == 0:
@@ -148,15 +172,44 @@ def rk4_displacement_fused(grid, vtabs, x, y, z, sigma: float, z0m: float,
     u1, v1 = ((out[3].data_ptr(), out[4].data_ptr()) if stage1
               else (None, None))
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib()(*(vt.full.data_ptr() for vt in vtabs), par.data_ptr(),
-                x.data_ptr(), y.data_ptr(), z.data_ptr(), out[0].data_ptr(),
-                out[1].data_ptr(), out[2].data_ptr(), u1, v1, n, grid.nx,
-                grid.ny, us, ws, grid.vtransform, float(idt), stream)
+    rc = _lib(variant)(
+        *(vt.full.data_ptr() for vt in vtabs), par.data_ptr(), x.data_ptr(),
+        y.data_ptr(), z.data_ptr(), out[0].data_ptr(), out[1].data_ptr(),
+        out[2].data_ptr(), u1, v1, n, grid.nx, grid.ny, us, ws,
+        grid.vtransform, float(idt), _ptr(cxy), _ptr(cseed), c_mx, c_my,
+        *c_scal, *(_ptr(a) for a in axes), stream)
     if rc != 0:
         raise RuntimeError(f"rk4_step kernel launch failed: CUDA error {rc}")
     rk4_displacement_fused.launches += 1
+    tag = build.tag("rk4_step", variant)
+    rk4_displacement_fused.variant_launches[tag] = (
+        rk4_displacement_fused.variant_launches.get(tag, 0) + 1)
     return tuple(out)
 
 
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
+
+
+def _device_tables(grid, sigma, z0m, npdt, dev):
+    """What the kernel reads besides the stage tables and the positions,
+    on the device: the params vector, the curvilinear map (xy rows in the
+    positions' dtype, the seed raster, its size and host scalars) and the
+    searched rho axes (x_rho, y_rho), each None where the grid has none."""
+    tdt = torch.float64 if npdt is np.float64 else torch.float32
+    par = params_array(grid, sigma, z0m, npdt).to(dev)
+    cxy = cseed = None
+    size, scal = (0, 0), (0.0,) * 4
+    if grid.curv is not None:
+        cxy, cseed, size, scal = ext_step.curv_map(grid.curv, tdt)
+        cxy, cseed = cxy.to(dev), cseed.to(dev)
+    axes = (None, None)
+    if grid.curv is None and not grid.uniform:
+        axes = (grid.x_rho.to(device=dev, dtype=tdt).contiguous(),
+                grid.y_rho.to(device=dev, dtype=tdt).contiguous())
+    return par, cxy, cseed, size, scal, axes
+
+
 rk4_displacement_fused.launches = 0     # every launch
-_params_cache = {}   # (id(grid), sigma, z0m) -> (weakref, device params)
+rk4_displacement_fused.variant_launches = {}   # launches per variant
+_params_cache = {}   # (id(grid), sigma, z0m, dtype) -> (weakref, tables)

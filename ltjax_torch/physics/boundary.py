@@ -395,6 +395,34 @@ def reflect(bounds: Boundaries, x0, y0, x1, y1, open_exits: bool,
     return px1, py1, hit_land, exited, stuck
 
 
+def dump_boundaries(bounds: Boundaries, outpath: str,
+                    to_lonlat=None) -> None:
+    """The ``BoundaryBLNs`` dumps (LTRANS's output_xyBounds /
+    output_llBounds, as ltjax.physics.boundary.dump_boundaries writes
+    them): ``xyBounds.csv``, one row per segment with its endpoints in
+    metres and its kind, and with ``to_lonlat(x, y) -> (lon, lat)``
+    ``llBounds.csv``, the same in degrees."""
+    import os
+
+    os.makedirs(outpath, exist_ok=True)
+    a = bounds.seg_a.cpu().numpy()
+    b = bounds.seg_b.cpu().numpy()
+    kind = bounds.seg_kind.cpu().numpy()
+    with open(os.path.join(outpath, "xyBounds.csv"), "w") as f:
+        f.write("ax,ay,bx,by,kind\n")
+        for s in range(a.shape[0]):
+            f.write(f"{a[s, 0]:.3f},{a[s, 1]:.3f},{b[s, 0]:.3f},"
+                    f"{b[s, 1]:.3f},{'OPEN' if kind[s] else 'LAND'}\n")
+    if to_lonlat is not None:
+        alon, alat = to_lonlat(a[:, 0], a[:, 1])
+        blon, blat = to_lonlat(b[:, 0], b[:, 1])
+        with open(os.path.join(outpath, "llBounds.csv"), "w") as f:
+            f.write("alon,alat,blon,blat,kind\n")
+            for s in range(a.shape[0]):
+                f.write(f"{alon[s]:.8f},{alat[s]:.8f},{blon[s]:.8f},"
+                        f"{blat[s]:.8f},{'OPEN' if kind[s] else 'LAND'}\n")
+
+
 def reflect_vertical(z, zeta_p, h_p):
     """Surface/bottom specular reflection, then clamp to the column.
     Returns (z', hit_surface, hit_bottom)."""

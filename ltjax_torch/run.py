@@ -3,14 +3,21 @@
 Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
 
     python -m ltjax_torch.run path/to/LTRANS.data [--device cpu|cuda]
+        [--resume]
 
 The namelist is the reference's own ``LTRANS.data`` (read by
 ``ltjax_torch.config``, the port's copy of ``ltjax.config``).  The run
-takes the CUDA kernel path on the GPU (``dtype_pos = "float32"``
-required there), and refuses to start without one unless asked for the
-CPU (``--device cpu``), where it takes the plain PyTorch path.  The grid
-may be rectilinear or curvilinear (a ROMS file whose lon/lat vary along
-both axes).  The first stdout line is a JSON object naming the path
+takes the CUDA kernel path on the GPU, in the positions' dtype
+(``dtype_pos``, float64 unless the namelist says otherwise), and
+refuses to start without one unless asked for the CPU (``--device
+cpu``), where it takes the plain PyTorch path.  The grid may be
+rectilinear (uniform or stretched axes) or curvilinear (a ROMS file
+whose lon/lat vary along both axes).  ``checkpoint_every`` saves the
+particles every that many external steps (``ltjax_torch.checkpoint``,
+ltjax's npz format, in ``checkpoint_dir``); ``--resume`` restarts from
+the newest one (or from the parfile when there is none), with the field
+series re-primed where it stood.  ``BoundaryBLNs`` writes the boundary
+segments (``xyBounds.csv``, ``llBounds.csv``) to ``outpath``.  The first stdout line is a JSON object naming the path
 taken ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step":
 the per-internal-step kernel of the "per_step" route, which stochastic
 mortality takes; "plain" on the CPU), the route, the grid kind and the
@@ -38,6 +45,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from . import checkpoint as ckpt
 from . import convert
 from . import state as st
 from .config import Config, config_from_namelist
@@ -204,21 +212,46 @@ def run(cfg: Config, resume: bool = False, device=None,
     t0 = time.perf_counter()
     grid = load_grid(cfg, device)
     ctx = build_context(cfg, grid)
-    check_supported(cfg, ctx, resume=resume)
+    check_supported(cfg, ctx)
     if cfg.BoundaryBLNs:
-        raise NotImplementedError("BoundaryBLNs: not ported yet")
+        bd.dump_boundaries(
+            ctx.bounds, cfg.outpath,
+            to_lonlat=lambda x, y: (
+                convert.x2lon(x, y, cfg.lonmin, cfg.latmin,
+                              cfg.Earth_Radius, cfg.SphericalProjection),
+                convert.y2lat(y, cfg.latmin, cfg.Earth_Radius,
+                              cfg.SphericalProjection)))
     series = RomsSeries(cfg, paths=series_paths)
     if cfg.WriteParfile and cfg.parfile:
         os.makedirs(cfg.outpath, exist_ok=True)
         shutil.copyfile(cfg.parfile,
                         os.path.join(cfg.outpath, "parfile_echo.csv"))
-    particles = init_particles_from_parfile(cfg, device)
+    start_ext = 0
+    global_rec = 0
+    resumed_extra = None
+    path = ckpt.latest(cfg.checkpoint_dir) if resume else None
+    if path:
+        particles, start_ext, global_rec, resumed_extra = ckpt.load(
+            path, device)
+        pos = getattr(torch, cfg.dtype_pos)
+        particles = particles.replace(**{
+            k: getattr(particles, k).to(pos)
+            for k in ("x", "y", "z", "dob", "age", "salt", "temp")})
+        series.seek(global_rec - 3)       # re-prime the 3-record window
+    else:
+        particles = init_particles_from_parfile(cfg, device)
 
     # --- prime the record window (initHydro) -----------------------------
     window: List[dict] = [series.next_record() for _ in range(3)]
-    global_rec = 3
-    win_start = 0
-    t_base = window[0]["time"]
+    if resumed_extra is None:
+        global_rec += 3
+        t_base = window[0]["time"]
+    else:
+        # global_rec already counts the re-primed records; field times
+        # stay on the original run clock
+        t_base = resumed_extra.get(
+            "t_base", window[0]["time"] - (global_rec - 3) * cfg.dt)
+    win_start = global_rec - 3
     timing.add("hydro_init", time.perf_counter() - t0)
 
     n_fuse = max(1, cfg.ext_fuse)
@@ -239,13 +272,17 @@ def run(cfg: Config, resume: bool = False, device=None,
     field_dtype = getattr(torch, cfg.dtype_field)
     n_ext = cfg.external_steps
     out_every = cfg.output_every_ext
-    writer.snapshot(0.0, particles)
+    if not resume:
+        writer.snapshot(0.0, particles)
     exhausted = False
     try:
-        ext = 0
+        ext = start_ext
         while ext < n_ext:
-            # --- chunk size: never straddle an output point ---------------
+            # --- chunk size: never straddle an output or checkpoint ------
             E = min(n_fuse, n_ext - ext, out_every - (ext % out_every))
+            if cfg.checkpoint_every:
+                E = min(E, cfg.checkpoint_every
+                        - (ext % cfg.checkpoint_every))
 
             # --- updateHydro: extend the window to record ext+E+1 --------
             tw = time.perf_counter()
@@ -288,6 +325,11 @@ def run(cfg: Config, resume: bool = False, device=None,
                 to = time.perf_counter()
                 writer.snapshot(t_ext + E * cfg.dt, particles)
                 timing.add("output", time.perf_counter() - to)
+            if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
+                ckpt.save(os.path.join(cfg.checkpoint_dir,
+                                       f"ckpt_{ext}.npz"),
+                          particles, ext, global_rec,
+                          extra={"t_base": float(t_base)})
             log = {"ext": ext - E, "n_fused": E, "sim_t": t_ext + E * cfg.dt,
                    "steps_per_s": particles.n * cfg.internal_steps * E
                    / step_s}
@@ -304,7 +346,9 @@ def run(cfg: Config, resume: bool = False, device=None,
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m ltjax_torch.run")
     ap.add_argument("namelist", help="the run's LTRANS.data")
-    ap.add_argument("--resume", action="store_true")
+    ap.add_argument("--resume", action="store_true",
+                    help="restart from the newest checkpoint in "
+                    "checkpoint_dir")
     ap.add_argument("--device", choices=("cuda", "cpu"), default=None,
                     help="default cuda; cpu takes the plain PyTorch path")
     args = ap.parse_args(sys.argv[1:] if argv is None else argv)

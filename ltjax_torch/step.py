@@ -26,10 +26,10 @@ Random draws are keyed by (seed, step index, substream, particle id)
 step e is ``e * internal_steps + i``, as in ltjax.
 
 ``check_supported`` raises ``NotImplementedError`` for every option
-outside the ported slice (non-uniform rectilinear grids on CUDA,
-stochastic mortality on a curvilinear grid on CUDA, sharding,
-checkpoints): they are not silently dropped.  Curvilinear grids run on
-both devices.
+outside the ported slice (adaptive tension, sharding, depth-banded
+sorts): they are not silently dropped.  Every grid (uniform or
+stretched rectilinear, curvilinear) and both position dtypes run on both
+devices, on both routes.
 """
 
 from __future__ import annotations
@@ -82,29 +82,15 @@ def mode_flags(ctx: StepContext, cfg) -> str:
     return "ext_step"
 
 
-def check_supported(cfg, ctx: StepContext, resume: bool = False) -> None:
+def check_supported(cfg, ctx: StepContext) -> None:
     """Raise NotImplementedError naming the first option outside the
     ported slice."""
     unsupported = [
         ("tension_sigma", cfg.tension_sigma < 0),
         ("mesh_particles*mesh_tiles",
          cfg.mesh_particles * cfg.mesh_tiles > 1),
-        ("checkpoint_every", bool(cfg.checkpoint_every)),
-        ("--resume", resume),
         ("sort_depth_bands", cfg.sort_depth_bands > 1),
     ]
-    if ctx.grid.device.type == "cuda":
-        unsupported += [
-            ("non-uniform grid on CUDA", ctx.grid.curv is None
-             and not (ctx.grid.uniform and ctx.bounds.uniform)),
-            ("dtype_pos other than float32 on CUDA",
-             cfg.dtype_pos != "float32"),
-            # the per-step kernel locates rectilinear cells only; ltjax
-            # runs this case on its fit-then-blend packed scheme
-            ("stochastic_mortality on a curvilinear grid on CUDA",
-             ctx.grid.curv is not None
-             and mode_flags(ctx, cfg) == "per_step"),
-        ]
     for name, bad in unsupported:
         if bad:
             raise NotImplementedError(f"{name}: not ported to ltjax_torch yet")

@@ -147,12 +147,25 @@ def halocline_fields(grid: Grid, t: float = 0.0):
             np.ascontiguousarray(np.moveaxis(temp, -1, 0)))
 
 
+def stretched_axis(n: int, length: float, ratio: float) -> np.ndarray:
+    """n points from 0 to ``length`` whose spacing grows by ``ratio``
+    from one cell to the next (1: uniform, np.linspace)."""
+    if ratio == 1.0:
+        return np.linspace(0.0, length, n)
+    d = ratio ** np.arange(n - 1, dtype=np.float64)
+    return np.concatenate([[0.0], np.cumsum(d)]) * (length / d.sum())
+
+
 def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
                          h0=50.0, omega=1e-4, shear_a=0.0, ramp_b=0.0,
                          vtransform=1, theta_s=0.0, dtype=torch.float64,
                          device="cpu", mask=None, parabolic_aks=False,
-                         halocline=False, hc=None) -> SolidBodyCase:
-    """Solid-body rotation about the domain centre on a uniform grid.
+                         halocline=False, hc=None,
+                         stretch=1.0) -> SolidBodyCase:
+    """Solid-body rotation about the domain centre on a uniform grid, or
+    (``stretch`` != 1) on rho axes whose spacing grows geometrically by
+    that ratio per cell (``stretched_axis``): the velocity does not depend
+    on the grid, so ``analytic`` is the truth on either.
 
     hc = h0 (the default) and Cs = s (theta_s = 0) make the Vtransform-1
     levels z = h*s exactly; theta_s > 0 stretches the ladder, and with
@@ -161,8 +174,8 @@ def make_solid_body_case(nx=41, ny=41, us=10, lx=100e3, ly=100e3,
     bench.py's turb-variant Aks profile (``parabolic_aks``) instead of
     zeros, and ``halocline`` salt and temperature
     (``halocline_fields``)."""
-    x_rho = np.linspace(0.0, lx, nx)
-    y_rho = np.linspace(0.0, ly, ny)
+    x_rho = stretched_axis(nx, lx, stretch)
+    y_rho = stretched_axis(ny, ly, stretch)
     h = np.full((ny, nx), h0)
     if mask is None:
         mask = np.ones((ny, nx), np.int32)

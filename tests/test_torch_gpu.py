@@ -73,19 +73,20 @@ def gpu():
 
 
 def _case(device, vtransform=1, theta_s=0.0, sigma=0.0, n=4096,
-          omega=1e-4, hc=None):
+          omega=1e-4, hc=None, dtype=torch.float32, stretch=1.0):
     mask = np.ones((41, 41), np.int32)
-    mask[19:22, 30:33] = 0        # x 75-80 km, y 47.5-52.5 km
+    mask[19:22, 30:33] = 0        # x 75-80 km, y 47.5-52.5 km (uniform)
     c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
                                    h0=50.0, omega=omega, shear_a=0.004,
                                    vtransform=vtransform, theta_s=theta_s,
-                                   dtype=torch.float32, device=device,
-                                   mask=mask, hc=hc)
+                                   dtype=dtype, device=device,
+                                   mask=mask, hc=hc, stretch=stretch)
     g = c.grid
     ctx = StepContext(grid=g, bounds=bd.build_boundaries(
         mask, g.x_rho.cpu().numpy(), g.y_rho.cpu().numpy(), device=device))
     cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
-                 OpenOceanBoundary=True, dtype_pos="float32",
+                 OpenOceanBoundary=True,
+                 dtype_pos=str(dtype).replace("torch.", ""),
                  reflect_iters=2, TrackCollisions=True,
                  tension_sigma=sigma)
     rng = np.random.default_rng(9)
@@ -103,7 +104,7 @@ def _case(device, vtransform=1, theta_s=0.0, sigma=0.0, n=4096,
                         rng.uniform(-49.0, -1.0, n - 2 * k)])
     p = st.init_particles(x, y, rng.permutation(z),
                           dob=rng.choice([0.0, 900.0], n),
-                          dtype=torch.float32, device=device)
+                          dtype=dtype, device=device)
     p, _ = _sort(g, p)
     return c, ctx, cfg, p
 
@@ -584,3 +585,208 @@ def test_staged_kernel_paths_match_plain(gpu, path):
     _path_counter(kx.counts(), path)
     assert float((q.x - p.x).abs().max()) > 100.0
     assert float((q.status == st.ACTIVE).float().mean()) > 0.9
+
+
+# ---- the builds for LTRANS v2b run files: float64 positions (LTX_POS64),
+# searched axes (LTX_AXES) and K2 on a curvilinear grid (LTX_CURV) -------
+
+F64 = torch.float64
+# stretched: spacing x1.01 a cell (rho axes and cell edges searched);
+# stretched-grid: x(1 + 5e-7) a cell, non-uniform at grid.py's 1e-9 but
+# uniform at the edges' 1e-4 (rho axes searched, edges arithmetic)
+GEOMETRY = {"uniform": 1.0, "stretched": 1.01, "stretched-grid": 1 + 5e-7}
+K1_NEW = pytest.mark.parametrize("dtype,geometry", [
+    (F64, "uniform"), (F64, "stretched"), (torch.float32, "stretched"),
+    (torch.float32, "stretched-grid"), (F64, "stretched-grid"),
+    (F64, "curv")], ids=["f64", "f64-stretched", "f32-stretched",
+                         "f32-stretched-grid", "f64-stretched-grid",
+                         "f64-curv"])
+
+
+def _new_case(device, dtype, geometry, **kw):
+    if geometry == "curv":
+        c, ctx, cfg, p = _curv_case(device, **kw)
+        if dtype == F64:
+            c = synth.make_curv_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                     h0=50.0, omega=kw.get("omega", 1e-4),
+                                     amp=0.03, mask=c.grid.mask_rho.cpu()
+                                     .numpy(), dtype=F64, device=device)
+            g = c.grid
+            ctx = StepContext(grid=g, bounds=bd.build_boundaries_curv(
+                g.mask_rho.cpu().numpy(), c.x2d, c.y2d, g.curv,
+                device=device))
+            cfg = replace(cfg, dtype_pos="float64")
+            p = p.replace(**{k: getattr(p, k).to(F64) for k in
+                             ("x", "y", "z", "dob", "age", "salt", "temp")})
+        return c, ctx, cfg, p
+    return _case(device, dtype=dtype, stretch=GEOMETRY[geometry], **kw)
+
+
+@pytest.mark.gpu
+@K1_NEW
+def test_new_kernel_variants_match_plain(gpu, dtype, geometry):
+    """K1 in its LTX_POS64 / LTX_AXES builds against the plain version in
+    the same dtype: one external step (whole-step tolerances)."""
+    from ltjax_torch.kernels import build
+    c, ctx, cfg, p = _new_case(gpu, dtype, geometry)
+    g = c.grid
+    assert g.uniform == (geometry == "uniform")
+    assert ctx.bounds.uniform == (geometry != "stretched")
+    rec = pk.build_packed_records(
+        g, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    kx.reset_launches()
+    out = kx.ext_step_fused(ctx, cfg, p, rec, 0.0)
+    ref = kx.ext_step_reference(ctx, cfg, p, rec, 0.0)
+    torch.cuda.synchronize()
+    v = kx.variant_of(ctx, cfg, dtype)
+    assert ("LTX_POS64" in v) == (dtype == F64)
+    assert ("LTX_AXES" in v) == (geometry.startswith("stretched"))
+    assert kx.ext_step_fused.variant_launches == {build.tag("ext_step", v): 1}
+    assert out.x.dtype == dtype
+    _compare(out, ref, p.n)
+    assert ref.hit_land.sum() > 0
+    assert (ref.status == st.OUT_OF_DOMAIN).sum() > 0
+
+
+F64_LANES = ["turb-aks", "dead-over-error", "behavior3", "behavior4",
+             "behavior7", "salt", "settle"]
+
+
+@pytest.fixture(scope="module")
+def f64_lane_builds():
+    """The float64, searched-axes builds of F64_LANES, built together (one
+    nvcc each) before their tests run."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the kernel has no CPU mode")
+    from ltjax_torch.kernels import build
+    build.prebuild([("ext_step", kx.kernel_variant(
+        Config(numpar=1, us=6, ws=7, **BEH, **LANES[name]), pos64=True,
+        axes=True)) for name in F64_LANES])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", F64_LANES)
+def test_f64_kernel_lanes_match_plain_stepwise(gpu, f64_lane_builds, name):
+    """The float64 build's lanes (Visser, DVM, the 4/5 cue, TST, salt
+    sampling, settlement), internal step by internal step from the plain
+    float64 trajectory's state, on the stretched grid (searched axes):
+    horizontal 0.05 m, vertical 1e-3 m, equal statuses."""
+    c, ctx, cfg, p = _case(gpu, omega=1e-5, dtype=F64, stretch=1.01)
+    c.parabolic_aks = True
+    c.halocline = True
+    cfg1 = replace(cfg, dt=cfg.idt, **BEH, **LANES[name])
+    if cfg1.settlementon:
+        habitat, holes = _polygons()
+        xe = ctx.bounds.x_edges.cpu().numpy()
+        ye = ctx.bounds.y_edges.cpu().numpy()
+        ctx.polys = stl.build_polygons(habitat, xe, ye, device=gpu)
+        ctx.holes = stl.build_polygons(holes, xe, ye, device=gpu)
+    rng = np.random.default_rng(10)
+    age = rng.uniform(0.0, 3 * 86400.0, p.n)
+    p = p.replace(age=torch.tensor(age, dtype=F64, device=gpu),
+                  dob=torch.tensor(-age, dtype=F64, device=gpu),
+                  pid=torch.tensor(rng.permutation(p.n), dtype=torch.int32,
+                                   device=gpu))
+    t0 = 9 * 3600.0
+    fs = synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=t0 + 900.0, dt=1800.0), seed=12)
+    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg1.VTurbOn,
+                                  with_scalars=cfg1.needs_salt_fields())
+    q = p
+    kx.reset_launches()
+    for i in range(4):
+        t = t0 + i * float(cfg1.idt)
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                ext_idx=i)
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t, fields=fs, seed=5,
+                                    ext_idx=i)
+        torch.cuda.synchronize()
+        assert (out.status != ref.status).sum() == 0
+        assert (out.settle_poly != ref.settle_poly).sum() == 0
+        for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3), ("age", 1e-3),
+                       ("salt", 1e-3), ("temp", 1e-3)):
+            np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
+                                       getattr(ref, k).cpu().numpy(),
+                                       rtol=0, atol=tol)
+        q = ref
+    tags = list(kx.ext_step_fused.variant_launches)
+    assert len(tags) == 1 and "a1" in tags[0] and "p1" in tags[0], tags
+    if cfg1.mortality:
+        assert (q.status == st.DEAD).sum() > 0
+    if cfg1.SaltTempOn:
+        assert float(q.salt.max() - q.salt.min()) > 1.0
+    if cfg1.settlementon:
+        assert (q.status == st.SETTLED).sum() > 0
+
+
+K2_NEW = pytest.mark.parametrize("dtype,geometry", [
+    (F64, "uniform"), (torch.float32, "stretched"), (F64, "stretched"),
+    (torch.float32, "curv"), (F64, "curv")],
+    ids=["f64", "f32-stretched", "f64-stretched", "f32-curv", "f64-curv"])
+
+
+@pytest.mark.gpu
+@K2_NEW
+def test_new_rk4_variants_match_plain(gpu, dtype, geometry):
+    """K2 in its LTX_POS64 / LTX_AXES / LTX_CURV builds against its plain
+    version on one internal step with a random w and zeta (per-step
+    tolerances: 0.05 m, 1e-3 m, the stage-1 currents to 0.05 m / idt)."""
+    c, ctx, cfg, p = _new_case(gpu, dtype, geometry, omega=1e-5)
+    rec = pk.build_packed_records(c.grid, synth.with_vertical_motion(
+        synth.fieldset_for(c, t_center=900.0, dt=1800.0), seed=11))
+    idt = float(cfg.idt)
+    tabs = pk.stage_value_tables(c.grid, rec, 450.0, idt)
+    kr.rk4_displacement_fused.variant_launches = {}
+    out = kr.rk4_displacement_fused(c.grid, tabs, p.x, p.y, p.z, 0.0,
+                                    cfg.z0, idt, stage1=True)
+    from ltjax_torch.kernels import build
+    assert kr.rk4_displacement_fused.variant_launches == {
+        build.tag("rk4_step", kr.kernel_variant(c.grid, dtype)): 1}
+    ref = pk.rk4_displacement_collapsed(c.grid, tabs, p.x, p.y, p.z, 0.0,
+                                        cfg.z0, idt)
+    cur = pk.find_currents_collapsed(c.grid, tabs[0], p.x, p.y, p.z, 0.0,
+                                     cfg.z0)[:2]
+    for a, b, tol in zip(out, ref + cur, (0.05, 0.05, 1e-3, 0.05 / idt,
+                                          0.05 / idt)):
+        assert a.dtype == dtype
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+    assert float(ref[2].abs().max()) > 0.1          # w moved them
+
+
+@pytest.mark.gpu
+def test_f64_kernel_carries_sub_ulp_motion(gpu):
+    """A slow uniform flow (1e-5 m/s, 1.2 mm an internal step) moves a
+    particle near x = 2e5 m by less than half a float32 ulp there
+    (0.0156 m) each step: the float64 build accumulates the 30 steps'
+    3.6 cm to within 1e-6 m of the plain float64 path, the float32 build's
+    particle does not move."""
+    outs = {}
+    for dtype in (torch.float32, F64):
+        c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=400e3,
+                                       ly=400e3, h0=50.0, omega=0.0,
+                                       dtype=dtype, device=gpu)
+        g = c.grid
+        ctx = StepContext(grid=g, bounds=bd.build_boundaries(
+            g.mask_rho.cpu().numpy(), g.x_rho.cpu().numpy(),
+            g.y_rho.cpu().numpy(), device=gpu))
+        fs = synth.fieldset_for(c, t_center=1800.0, dt=3600.0)
+        fs.u[:] = 1e-5
+        rec = pk.build_packed_records(g, fs)
+        cfg = Config(numpar=8, dt=3600, idt=120, us=6, ws=7,
+                     OpenOceanBoundary=True,
+                     dtype_pos=str(dtype).replace("torch.", ""))
+        x = 2e5 + np.arange(8) * 0.37
+        p = st.init_particles(x, np.full(8, 2e5), np.full(8, -20.0),
+                              dtype=dtype, device=gpu)
+        out = kx.ext_step_fused(ctx, cfg, p, rec, 0.0)
+        ref = kx.ext_step_reference(ctx, cfg, p, rec, 0.0)
+        torch.cuda.synchronize()
+        outs[dtype] = (p, out, ref)
+    p, out, ref = outs[torch.float32]
+    assert torch.equal(out.x, p.x)
+    p, out, ref = outs[F64]
+    moved = (out.x - p.x).cpu().numpy()
+    np.testing.assert_allclose(moved, 0.036, rtol=1e-3)
+    np.testing.assert_allclose(out.x.cpu().numpy(), ref.x.cpu().numpy(),
+                               rtol=0, atol=1e-6)

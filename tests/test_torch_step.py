@@ -211,9 +211,7 @@ def test_ext_step_kernel_refuses_stochastic_mortality():
 UNSUPPORTED = [
     ("tension_sigma", dict(tension_sigma=-1.0)),
     ("mesh_particles", dict(mesh_particles=2)),
-    ("checkpoint_every", dict(checkpoint_every=4)),
     ("sort_depth_bands", dict(sort_depth_bands=2)),
-    ("--resume", dict()),
 ]
 
 
@@ -228,30 +226,33 @@ def _ctx():
                          ids=[u[0] for u in UNSUPPORTED])
 def test_unsupported_option_raises(name, kw):
     with pytest.raises(NotImplementedError, match=name):
-        if name == "--resume":
-            tstep.check_supported(_cfg(us=4, ws=5), _ctx(), resume=True)
         tstep.make_fused_external_steps(_ctx(), _cfg(us=4, ws=5, **kw), 1)
 
 
 def test_cuda_only_restrictions(monkeypatch):
-    """On CUDA the kernel needs f32 positions on a uniform grid: both are
-    refused up front (checked here by presenting the grid as on CUDA)."""
+    """On CUDA the kernels take float64 positions, stretched (searched)
+    axes and, on the per-step route, curvilinear grids, as on the CPU:
+    none of them is refused (checked by presenting the grid as on CUDA),
+    while adaptive tension, sharding and depth bands still raise there."""
     ctx = _ctx()
     monkeypatch.setattr(type(ctx.grid), "device",
                         property(lambda self: torch.device("cuda")))
-    with pytest.raises(NotImplementedError, match="dtype_pos"):
-        tstep.check_supported(_cfg(us=4, ws=5, dtype_pos="float64"), ctx)
-    curved = dataclasses.replace(ctx, grid=dataclasses.replace(
+    tstep.check_supported(_cfg(us=4, ws=5, dtype_pos="float64"), ctx)
+    stretched = dataclasses.replace(ctx, grid=dataclasses.replace(
         ctx.grid, uniform=False))
-    with pytest.raises(NotImplementedError, match="uniform grid"):
-        tstep.check_supported(_cfg(us=4, ws=5), curved)
+    tstep.check_supported(_cfg(us=4, ws=5), stretched)
+    tstep.check_supported(_cfg(us=4, ws=5, checkpoint_every=2), ctx)
     tstep.check_supported(_cfg(us=4, ws=5), ctx)       # the slice itself
+    for name, kw in UNSUPPORTED:
+        with pytest.raises(NotImplementedError, match=name):
+            tstep.check_supported(_cfg(us=4, ws=5, **kw), stretched)
 
 
 def test_stochastic_mortality_on_curvilinear_cuda_refused(monkeypatch):
-    """The per-step kernel locates rectilinear cells only: stochastic
-    mortality on a curvilinear grid is refused on CUDA (checked here by
-    presenting the grid as on CUDA) and runs on the CPU."""
+    """No longer refused: the per-step kernel locates curvilinear cells
+    through the inverse map (its LTX_CURV build), so stochastic mortality
+    on a curvilinear grid is accepted on CUDA (checked by presenting the
+    grid as on CUDA) as on the CPU."""
     c = synth.make_curv_case(nx=9, ny=9, us=4, lx=8e3, ly=8e3, h0=20.0,
                              dtype=torch.float32)
     g = c.grid
@@ -261,9 +262,8 @@ def test_stochastic_mortality_on_curvilinear_cuda_refused(monkeypatch):
     tstep.check_supported(stochastic, ctx)              # CPU: the plain path
     monkeypatch.setattr(type(ctx.grid), "device",
                         property(lambda self: torch.device("cuda")))
-    with pytest.raises(NotImplementedError,
-                       match="stochastic_mortality on a curvilinear grid"):
-        tstep.check_supported(stochastic, ctx)
+    assert tstep.mode_flags(ctx, stochastic) == "per_step"
+    tstep.check_supported(stochastic, ctx)
     tstep.check_supported(_cfg(us=4, ws=5, mortality=True), ctx)
 
 
@@ -528,3 +528,101 @@ def test_settlement_and_salt_step_matches_ltjax_collapsed(name):
                                      0.0)
         cue = dsdz.abs() >= cfg.Sgradient
         assert 0 < int(cue.sum()) < p.n
+
+
+# rho axes spaced x1.02 a cell (rho axes and cell edges not uniform), or
+# x(1 + 5e-7) (rho axes not uniform at grid.py's 1e-9, edges uniform at
+# boundary.py's 1e-4)
+STRETCH = {"stretched": 1.02, "stretched-grid": 1 + 5e-7}
+STRETCH_STEP = [("turb", "stretched"), ("turb", "stretched-grid"),
+                ("settle", "stretched")]
+
+
+def _stretched_case(ratio):
+    """_f64_case's inputs on the port's stretched solid-body grid
+    (``synth.make_solid_body_case(stretch=ratio)``), as both packages take
+    them (float64)."""
+    from ltjax.fields import FieldSet as JFieldSet
+    from ltjax.grid import make_grid as j_make_grid
+    mask = np.ones((21, 21), np.int32)
+    mask[9:12, 12:15] = 0
+    c = synth.make_solid_body_case(nx=21, ny=21, us=6, lx=50e3, ly=50e3,
+                                   h0=40.0, omega=1e-4, dtype=torch.float64,
+                                   mask=mask, stretch=ratio)
+    g = c.grid
+    x, y = g.x_rho.numpy(), g.y_rho.numpy()
+    grid = j_make_grid(x, y, g.h.numpy(), mask, g.s_rho.numpy(),
+                       g.Cs_r.numpy(), g.s_w.numpy(), g.Cs_w.numpy(), g.hc,
+                       g.vtransform, dtype=jnp.float64)
+    tfs = synth.fieldset_for(c, t_center=1800.0, dt=3600.0,
+                             dtype=torch.float64)
+    rng = np.random.default_rng(6)
+    z_w = 40.0 * g.s_w.numpy()
+    K = 1e-4 + 4e-3 * (1.0 - (2.0 * z_w / 40.0 + 1.0) ** 2)
+    fs = JFieldSet(**{k: jnp.asarray(getattr(tfs, k).numpy())
+                      for k in JFieldSet._fields})
+    fs = fs._replace(
+        aks=jnp.asarray(K * (1.0 + 0.3 * rng.uniform(-1, 1, fs.aks.shape))),
+        zeta=jnp.asarray(0.3 * rng.standard_normal(fs.zeta.shape)),
+        w=jnp.asarray(rng.uniform(-2e-3, 2e-3, fs.w.shape)))
+    bounds = jbd.build_boundaries(mask, x, y)
+    n = 256
+    px = np.concatenate([rng.uniform(2e3, 48e3, n // 2),
+                         rng.uniform(28e3, 37e3, n - n // 2)])
+    py = np.concatenate([rng.uniform(2e3, 48e3, n // 2),
+                         rng.uniform(21e3, 29e3, n - n // 2)])
+    pz = -rng.uniform(0.1, 39.9, n)
+    p = jst.init_particles(px, py, pz, dtype=jnp.float64)
+    p = p._replace(dob=jnp.asarray(rng.choice([0.0, 300.0], n)),
+                   age=jnp.asarray(rng.uniform(0.0, 3 * 86400.0, n)),
+                   pid=jnp.asarray(rng.permutation(n).astype(np.int32)))
+    return grid, fs, bounds, p
+
+
+@pytest.mark.parametrize("name,geometry", STRETCH_STEP,
+                         ids=[f"{a}-{b}" for a, b in STRETCH_STEP])
+def test_stretched_grid_f64_matches_ltjax_collapsed(name, geometry):
+    """The plain float64 path on stretched rectilinear axes (searched
+    locate, searched or arithmetic cell edges) against ltjax's collapsed
+    ``internal_step`` in x64: three chained steps to 1e-6 m, statuses,
+    settle_poly and collision counts equal."""
+    grid, fs, bounds, p = _stretched_case(STRETCH[geometry])
+    assert not bool(grid.uniform)
+    assert bool(bounds.uniform) == (geometry == "stretched-grid")
+    cfg = Config(numpar=p.n, dt=1800, idt=300, us=6, ws=7,
+                 OpenOceanBoundary=True, dtype_pos="float64",
+                 reflect_iters=2, TrackCollisions=True,
+                 **{**BEH, **(SLICE_STEP if name == "turb"
+                              else SETTLE_STEP)[name]})
+    jpol = jhol = None
+    if cfg.settlementon:
+        habitat, holes = _polygons()
+        xe, ye = np.asarray(bounds.x_edges), np.asarray(bounds.y_edges)
+        jpol = jstl.build_polygons(habitat, xe, ye)
+        jhol = jstl.build_polygons(holes, xe, ye)
+    jctx = JContext(grid=grid, bounds=bounds, polys=jpol, holes=jhol)
+    jprec = jpk.build_packed_records(grid, fs)
+    ctx = tstep.StepContext(
+        grid=interop.grid_from_numpy(_np(grid)),
+        bounds=interop.boundaries_from_numpy(_np(bounds)),
+        polys=jpol and interop.polygons_from_numpy(_np(jpol)),
+        holes=jhol and interop.polygons_from_numpy(_np(jhol)))
+    assert not ctx.grid.uniform
+    tfs = interop.fieldset_from_numpy(_np(fs))
+    prec = tpk.build_packed_records(ctx.grid, tfs)
+    pj = p
+    pt = interop.particles_from_numpy(_np(p))
+    for i in range(3):
+        t = i * 300.0
+        pj = j_internal_step(jctx, cfg, jr.key(9), pj, fs, t, 40 + i,
+                             jprec, mode="collapsed")
+        pt = tstep.internal_step(ctx, cfg, 9, pt, tfs, t, 40 + i, prec)
+        out = interop.particles_to_numpy(pt)
+        for k in ("status", "settle_poly", "hit_land", "hit_bottom"):
+            np.testing.assert_array_equal(out[k], np.asarray(getattr(pj, k)))
+        for k in ("x", "y", "z", "age"):
+            np.testing.assert_allclose(out[k], np.asarray(getattr(pj, k)),
+                                       rtol=0, atol=1e-6)
+    assert out["hit_land"].sum() > 0
+    if cfg.settlementon:
+        assert (out["status"] == jst.SETTLED).sum() > 0

@@ -1,16 +1,20 @@
 #!/usr/bin/env python3
-"""Compare the machine code of the whole-step kernel in two checkouts.
+"""Compare the machine code of the kernels in two checkouts.
 
     python3 tools/ptxas_ab.py DIR_A DIR_B
 
-Run from the root of a checkout of the port (it reads the variant list
+Run from the root of a checkout of the port (it reads the library list
 of this checkout's chip_smoke.py): compiles DIR_A's and DIR_B's
-ltjax_torch/kernels/csrc/ext_step.cu in every variant that chip_smoke.py
-builds, with the flags of ltjax_torch/kernels/build.py (a cubin in place
-of the shared library; all nvcc processes started together), and prints
-one JSON line: per variant each tree's ptxas report (registers, stack,
-spills) and the sha256 of its SASS (cuobjdump -sass), and whether both
-are equal.  Needs the CUDA toolkit (nvcc, cuobjdump).
+ltjax_torch/kernels/csrc/ext_step.cu and rk4_step.cu in every variant
+that chip_smoke.py builds and both trees know (variants with a macro in
+NEW_MACROS are skipped: an older tree ignores it), with the flags of
+ltjax_torch/kernels/build.py (a cubin in place of the shared library;
+all nvcc processes started together), and prints one JSON line: per
+library each tree's ptxas report (registers, stack, spills), the
+sha256 of its SASS (cuobjdump -sass) and of the SASS without the
+kernel's mangled name (``code``: the instructions alone), and whether
+each is equal.  Needs
+the CUDA toolkit (nvcc, cuobjdump).
 """
 
 import hashlib
@@ -26,7 +30,8 @@ sys.path.insert(0, os.getcwd())
 import chip_smoke as cs  # noqa: E402
 from ltjax_torch.kernels import build  # noqa: E402
 
-CU = os.path.join("ltjax_torch", "kernels", "csrc", "ext_step.cu")
+CSRC = os.path.join("ltjax_torch", "kernels", "csrc")
+NEW_MACROS = {"LTX_POS64", "LTX_AXES"}
 
 
 def _flags():
@@ -46,16 +51,19 @@ def _flags():
 def main(dir_a: str, dir_b: str) -> None:
     nvcc = build._nvcc()
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
-    variants = [v for name, v in cs.kernel_targets() if name == "ext_step"]
+    targets = [(name, v) for name, v in cs.kernel_targets()
+               if not set(v or {}) & NEW_MACROS
+               and not (name == "rk4_step" and v)]
     tmp = tempfile.mkdtemp(prefix="ptxas_ab_")
     jobs = {}
     for label, root in (("a", dir_a), ("b", dir_b)):
-        for v in variants:
-            key = (build.tag("ext_step", v), label)
+        for name, v in targets:
+            key = (build.tag(name, v), label)
             cubin = os.path.join(tmp, f"{key[0]}-{label}.cubin")
-            defs = [f"-D{k}={x}" for k, x in sorted(v.items())]
+            defs = [f"-D{k}={x}" for k, x in sorted((v or {}).items())]
             jobs[key] = (cubin, subprocess.Popen(
-                [nvcc, *_flags(), *defs, "-o", cubin, os.path.join(root, CU)],
+                [nvcc, *_flags(), *defs, "-o", cubin,
+                 os.path.join(root, CSRC, name + ".cu")],
                 stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     res = {}
     for (tag, label), (cubin, proc) in jobs.items():
@@ -73,18 +81,28 @@ def main(dir_a: str, dir_b: str) -> None:
                                                "code version", "host",
                                                "compile_size", "producer",
                                                "identifier")))
+        # and without the kernel's mangled name, which spells out its
+        # parameter list (a parameter added at the end renames it)
+        code = "\n".join(ln for ln in body.splitlines()
+                         if "Function :" not in ln)
         res.setdefault(tag, {})[label] = {
             "ptxas": ptxas,
             "sass_sha256": (hashlib.sha256(body.encode()).hexdigest()
+                            if sass.returncode == 0 else None),
+            "code_sha256": (hashlib.sha256(code.encode()).hexdigest()
                             if sass.returncode == 0 else None)}
     for tag, r in res.items():
         r["ptxas_equal"] = r["a"]["ptxas"] == r["b"]["ptxas"]
         r["sass_equal"] = (r["a"]["sass_sha256"] is not None
                            and r["a"]["sass_sha256"] == r["b"]["sass_sha256"])
+        r["code_equal"] = (r["a"]["code_sha256"] is not None
+                           and r["a"]["code_sha256"] == r["b"]["code_sha256"])
     print(json.dumps({"variants": len(res),
                       "all_ptxas_equal": all(r["ptxas_equal"]
                                              for r in res.values()),
                       "all_sass_equal": all(r["sass_equal"]
+                                            for r in res.values()),
+                      "all_code_equal": all(r["code_equal"]
                                             for r in res.values()),
                       "per_variant": res}))
 
