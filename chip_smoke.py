@@ -7,7 +7,7 @@
 
 Builds the variants of the external-step CUDA kernel and the per-step
 RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs nine phases and fails (non-zero exit, no final
+together), then runs ten phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -89,7 +89,24 @@ line) if any of them fails:
    CLI on run files without a dtype_pos key: the float64 path against
    the closed form, BoundaryBLNs, checkpoint_every = 2 and --resume
    (final particles equal to the uninterrupted run's), and a stochastic
-   run on the per-step route in float64.
+   run on the per-step route in float64;
+10. the native route (fast_interp = False, or adaptive tension
+   tension_sigma < 0: the reference's interpolation order as PyTorch
+   ops, no kernel) and the CLI's record prefetch and diagnostic
+   switches: (a) the route on the card against the same route on the
+   CPU in float64, per internal step, on phase 1's particles and grid
+   with a random w and zeta (sigma 0, adaptive, turbulence, stochastic
+   mortality; 1e-6 m, 1e-9 m, equal statuses), and its displacement
+   minus the collapsed route's; (b) the route at full width, phase 2's
+   main-path case in float64 (1M particles, 2 x 30 steps) with
+   fast_interp off and with sigma -1, against the circles and K1's
+   float64 route, its rate, peak memory and per-internal-step device
+   and wall ms, sorted and not, and the sort's time; (c) the CLI with each option
+   (LTJAX_DEBUG_NANS on in one) and a run that leaves an
+   LTJAX_PROFILE_DIR trace; (d) 1M particles through the CLI on a
+   production-size series (800x600x25 where the disk takes it) with
+   prefetch on and off, bit-equal, the read/compute/stall split per
+   chunk.
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -2372,6 +2389,407 @@ def phase9_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
     return res
 
 
+# phase 10: the native route (fast_interp = False, adaptive tension) and
+# the CLI's prefetch and diagnostic switches
+TOL_NATIVE_H = 1e-6    # m, float64 native route on the card vs the CPU
+TOL_NATIVE_V = 1e-9    # m, per internal step from the same state
+NATIVE_RUNS = {
+    "sigma0": dict(fast_interp=False),
+    "adaptive": dict(tension_sigma=-1.0),
+    "turb": dict(fast_interp=False, HTurbOn=True, ConstantHTurb=1.0,
+                 VTurbOn=True, readAks=True),
+    # bench.py's behavior cell with stochastic mortality, dying within the
+    # steps compared (a 1-hour death age)
+    "stochastic": dict(STOCHASTIC, fast_interp=False, deadage=3600.0),
+}
+NATIVE_OPTIONS = {"fast_interp_off": dict(fast_interp=False),
+                  "adaptive": dict(tension_sigma=-1.0)}
+# 10d's series: a production-size grid, else the largest the disk takes
+PREFETCH_GRIDS = ((800, 600), (400, 300), (200, 150))
+
+
+def phase10(torch, device):
+    """The native route and the CLI's switches (phase10a-d)."""
+    t0 = time.perf_counter()
+    out = {"a": phase10a(torch, device)}
+    out["b"] = phase10b(torch, device)
+    log({"phase": "10ab", "wall_seconds": time.perf_counter() - t0})
+    out["c"] = phase10c(torch, device)
+    out["d"] = phase10d(torch, device)
+    return out
+
+
+def phase10a(torch, device, n=65536, nx=200, us=20, steps=1):
+    """The native route on the card against the same route on the CPU, in
+    float64: phase 1's particles and grid (land block, open rim), its
+    slow rotation with a seeded random w and zeta (with_vertical_motion,
+    where the native and collapsed schemes differ) and the parabolic Aks
+    profile; per internal step from the CPU's state (as lanes_stepwise),
+    ``steps`` steps each of sigma 0, adaptive tension (sigma -1),
+    turbulence and stochastic mortality: |dx|, |dy| <= TOL_NATIVE_H,
+    |dz| <= TOL_NATIVE_V, no status mismatch, the route's tensors on the
+    card.  Then the native route's displacement minus the collapsed
+    route's over one internal step (printed, no gate).  The CPU side
+    takes most of the time: one step each keeps 10a and 10b within
+    ~150 s."""
+    from dataclasses import replace
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.step import _sort, internal_step, mode_flags
+    cpu = torch.device("cpu")
+    f64 = torch.float64
+
+    def setup(dev):
+        case = bench_case(torch, dev, nx=nx, ny=nx, us=us, omega=5e-6,
+                          parabolic_aks=True, dtype=f64)
+        fs = synth.with_vertical_motion(synth.fieldset_for(
+            case, t_center=0.0, dt=3600.0, device=dev), seed=3)
+        return case, context(case), fs
+
+    case, ctx, fs = setup(device)
+    _, ctx_c, fs_c = setup(cpu)
+    x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
+    z = near_surface_and_bottom(n, case.h0, seed=4)
+    p = st.init_particles(x, y, z, dtype=f64, device=device)
+    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+    p, _ = _sort(case.grid, p)
+    out = {}
+    for name, kw in NATIVE_RUNS.items():
+        cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64",
+                       TrackCollisions=True, **kw)
+        assert mode_flags(ctx, cfg) == "native", name
+        idt = float(cfg.idt)
+        res = {"phase": f"10a-{name}", "n": n, "steps": steps,
+               "max_abs_dx": 0.0, "max_abs_dy": 0.0, "max_abs_dz": 0.0,
+               "status_mismatch": 0, "hit_land_mismatch": 0,
+               "hit_bottom_mismatch": 0}
+        q = p
+        for i in range(steps):
+            a = internal_step(ctx, cfg, 5, q, fs, i * idt, i, mode="native")
+            b = internal_step(ctx_c, cfg, 5, q.to(cpu), fs_c, i * idt, i,
+                              mode="native")
+            assert a.x.device.type == device.type and a.x.dtype == f64
+            same = (a.status.cpu() == b.status).numpy()
+            for k in ("x", "y", "z"):
+                d = (getattr(a, k).cpu() - getattr(b, k)).abs().numpy()
+                res["max_abs_d" + k] = max(res["max_abs_d" + k],
+                                           float(d[same].max(initial=0.0)))
+            res["status_mismatch"] += int((~same).sum())
+            for k in ("hit_land", "hit_bottom"):
+                res[k + "_mismatch"] += int(
+                    (getattr(a, k).cpu() != getattr(b, k)).sum())
+            q = b.to(device)
+        res["status_counts"] = np.bincount(q.status.cpu().numpy(),
+                                           minlength=6).tolist()
+        res["hit_land"] = int(q.hit_land.sum())
+        res["hit_bottom"] = int(q.hit_bottom.sum())
+        res["max_vertical_move_m"] = float((q.z - p.z).abs().max())
+        log(res)
+        assert max(res["max_abs_dx"], res["max_abs_dy"]) <= TOL_NATIVE_H, res
+        assert res["max_abs_dz"] <= TOL_NATIVE_V, res
+        assert res["status_mismatch"] == 0, res
+        assert res["max_vertical_move_m"] > 0.1, res
+        if name == "stochastic":
+            assert res["status_counts"][st.DEAD] > 0, res
+        out[name] = res
+    cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64")
+    a = internal_step(ctx, replace(cfg, fast_interp=False), 5, p, fs, 0.0,
+                      0, mode="native")
+    b = internal_step(ctx, cfg, 5, p, fs, 0.0, 0,
+                      pk.build_packed_records(case.grid, fs),
+                      mode="collapsed")
+    out["native_minus_collapsed"] = {
+        "phase": "10a-native-minus-collapsed", "internal_steps": 1,
+        **{"max_abs_d" + k: float((getattr(a, k) - getattr(b, k)).abs()
+                                  .max()) for k in ("x", "y", "z")}}
+    log(out["native_minus_collapsed"])
+    return out
+
+
+def native_steps(torch, ctx, cfg, p, fields, steps):
+    """``steps`` internal steps of the native route from p (records
+    0..2, t = 0)."""
+    from ltjax_torch.step import internal_step
+    for i in range(steps):
+        p = internal_step(ctx, cfg, cfg.seed, p, fields, i * float(cfg.idt),
+                          i, mode="native")
+    return p
+
+
+def native_profile(torch, ctx, cfg, p, fields, steps):
+    """Wall and device ms per internal step of the native route: a warm
+    run timed on the host clock (synchronized), then one under
+    torch.profiler for the device time (all CUDA events) and its count
+    of device kernels; idle share 1 - device / wall (profiled run)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    native_steps(torch, ctx, cfg, p, fields, 1)
+    sync(torch, p.x.device)
+    t0 = time.perf_counter()
+    native_steps(torch, ctx, cfg, p, fields, steps)
+    sync(torch, p.x.device)
+    wall = 1e3 * (time.perf_counter() - t0)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        native_steps(torch, ctx, cfg, p, fields, steps)
+        sync(torch, p.x.device)
+        wall_prof = 1e3 * (time.perf_counter() - t0)
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    dev_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    by_name = {}
+    for e in ev:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
+    log({"native_profile_top_kernels_ms_per_step": [
+        (k[:90], v / 1e3 / steps) for k, v in top]})
+    return {"internal_steps": steps, "wall_ms_per_step": wall / steps,
+            "wall_ms_per_step_profiled": wall_prof / steps,
+            "device_ms_per_step": dev_ms / steps,
+            "device_ops_per_step": len(ev) / steps,
+            "idle_share": 1.0 - dev_ms / wall_prof if wall_prof else None}
+
+
+def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=2,
+             prof_steps=4):
+    """The native route at full width: phase 2's main-path case (the
+    200x200x20 bench grid, 1M particles) in float64, n_ext external
+    steps x 30 internal steps through make_fused_external_steps with
+    fast_interp off, then with tension_sigma = -1: no kernel launched,
+    the circles within TOL_ANALYTIC, and against K1's float64 route
+    (the collapsed scheme, which coincides with the native one here:
+    zeta constant, fields linear in x and y) within the whole-step
+    gates; particle-steps/s, the peak of device memory, and per internal
+    step the wall and device ms (native_profile) on the Hilbert-sorted
+    batch, the sort's own time, and the wall ms unsorted."""
+    from dataclasses import replace
+    from ltjax_torch import state as st, synth
+    from ltjax_torch.step import _sort, fieldset_slice, summary_counts
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      dtype=torch.float64)
+    ctx = context(case)
+    cfg0 = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64")
+    dt = float(cfg0.dt)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=torch.float64, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    pk1, sec_k1, launches_k1, _ = fused_cell(torch, ctx, cfg0, p0, fsR,
+                                              n_ext, warm=False)
+    xa, ya, _ = case.analytic(x0, y0, z0, n_ext * dt)
+    out = {"k1": {"seconds": sec_k1, "launches": launches_k1}}
+    for name, kw in NATIVE_OPTIONS.items():
+        cfg = replace(cfg0, **kw)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = (torch.cuda.memory_allocated()
+                  if device.type == "cuda" else 0)
+        p, sec, launches, _ = fused_cell(torch, ctx, cfg, p0, fsR, n_ext,
+                                         warm=False)
+        peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else 0)
+        counts = summary_counts(p)
+        err = np.hypot(p.x.cpu().numpy() - xa, p.y.cpu().numpy() - ya)
+        steps = n * cfg.internal_steps * n_ext
+        r = {"phase": f"10b-{name}", "n": n, "ext_steps": n_ext,
+             "internal_steps": cfg.internal_steps, "launches": launches,
+             "seconds": sec, "particle_steps_per_s": steps / sec,
+             "k1_seconds": sec_k1, "memory_before_gb": before / 1e9,
+             "peak_memory_gb": peak / 1e9,
+             "max_err_vs_analytic_m": float(err.max()), "counts": counts,
+             "vs_k1": compare(f"10b-{name}", p0, p, pk1)}
+        log(r)
+        assert launches == {}, r
+        assert p.x.dtype == torch.float64, r
+        assert counts["error"] == 0 and counts["active"] == n, r
+        assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, r
+        check(r["vs_k1"], n)
+        out[name] = r
+    # per internal step at 1M on the Hilbert-sorted batch (the route's
+    # order), the sort's own time, and the same steps unsorted
+    f3 = fieldset_slice(fsR, 0)
+    cfg = replace(cfg0, fast_interp=False)
+    sync(torch, device)
+    t0 = time.perf_counter()
+    ps, _ = _sort(case.grid, p0)
+    sync(torch, device)
+    prof = {"sort_ms": 1e3 * (time.perf_counter() - t0),
+            "sorted": native_profile(torch, ctx, cfg, ps, f3, prof_steps)}
+    t0 = time.perf_counter()
+    native_steps(torch, ctx, cfg, p0, f3, prof_steps)
+    sync(torch, device)
+    prof["unsorted_wall_ms_per_step"] = (
+        1e3 * (time.perf_counter() - t0) / prof_steps)
+    out["profile"] = prof
+    log({"phase": "10b-per-internal-step", "n": n, **prof})
+    return out
+
+
+def phase10c(torch, device, n=10_000, nx=60, us=10, n_ext=4):
+    """The CLI on the native route: phase 3's planar run (float32
+    positions) with fast_interp = False, then with tension_sigma = -1
+    and LTJAX_DEBUG_NANS on: the startup line says route "native", path
+    "cuda_native"; no ERROR; within TOL_ANALYTIC_CLI of the closed form.
+    Then a short run (2 external steps of 6 internal steps, one chunk
+    each) with LTJAX_PROFILE_DIR and LTJAX_PROFILE_STEPS = 1:2, which
+    leaves a trace file of external step 1."""
+    import shutil
+    import tempfile
+    from ltjax_torch import run, synth
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    x0 = rng.uniform(15e3, 45e3, n)
+    y0 = rng.uniform(15e3, 45e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    xa, ya, _ = case.analytic(x0, y0, z0, n_ext * 3600.0)
+    want = "cuda_native" if device.type == "cuda" else "plain"
+    out = {}
+    for name, kw in NATIVE_OPTIONS.items():
+        work = os.path.join(ROOT, "build", f"chip_smoke10_{name}")
+        shutil.rmtree(work, ignore_errors=True)
+        nml = synth.write_run_files(case, work, x0, y0, z0, n_ext=n_ext,
+                                    dt=3600, idt=120, iprint=3600 * n_ext,
+                                    ext_fuse=n_ext, dtype_pos="float32", **kw)
+        if name == "adaptive":
+            os.environ["LTJAX_DEBUG_NANS"] = "1"
+        try:
+            t0 = time.perf_counter()
+            lines = run_cli(run, nml)
+            sec = time.perf_counter() - t0
+        finally:
+            os.environ.pop("LTJAX_DEBUG_NANS", None)
+        start = lines[0]
+        rows = np.loadtxt(os.path.join(work, "out", "run1.csv"),
+                          delimiter=",")
+        last = rows[rows[:, 0] == rows[:, 0].max()]
+        last = last[np.argsort(last[:, 1])]
+        err = np.hypot(last[:, 2] - xa, last[:, 3] - ya)
+        r = {"phase": f"10c-{name}", "n": n, "route": start["route"],
+             "path": start["path"], "lanes": start["lanes"],
+             "dtype_pos": start["dtype_pos"], "counts": lines[-1],
+             "seconds": sec, "max_err_vs_analytic_m": float(err.max())}
+        log(r)
+        assert start["route"] == "native" and start["path"] == want, r
+        assert ("adaptive_tension" in start["lanes"]) == (name == "adaptive")
+        assert lines[-1]["error"] == 0 and last.shape[0] == n, r
+        assert err.max() < TOL_ANALYTIC_CLI, r
+        out[name] = r
+    work = os.path.join(ROOT, "build", "chip_smoke10_profile")
+    shutil.rmtree(work, ignore_errors=True)
+    trace_dir = tempfile.mkdtemp(prefix="ltjax_trace_")
+    nml = synth.write_run_files(case, work, x0[:1000], y0[:1000], z0[:1000],
+                                n_ext=2, dt=3600, idt=600, iprint=7200,
+                                ext_fuse=1, dtype_pos="float32",
+                                fast_interp=False)
+    os.environ.update(LTJAX_PROFILE_DIR=trace_dir, LTJAX_PROFILE_STEPS="1:2")
+    try:
+        run_cli(run, nml)
+        files = sorted(os.listdir(trace_dir))
+        size = sum(os.path.getsize(os.path.join(trace_dir, f))
+                   for f in files)
+        with open(os.path.join(trace_dir, files[0])) as f:
+            n_events = len(json.load(f)["traceEvents"])
+    finally:
+        for k in ("LTJAX_PROFILE_DIR", "LTJAX_PROFILE_STEPS"):
+            os.environ.pop(k, None)
+        shutil.rmtree(trace_dir, ignore_errors=True)
+    out["profile"] = {"phase": "10c-profile", "files": files,
+                      "bytes": size, "trace_events": n_events}
+    log(out["profile"])
+    assert files == ["trace_ext1-2.json"] and n_events > 0, out["profile"]
+    return out
+
+
+def phase10d(torch, device, n=1_000_000, us=25, n_ext=8, fuse=2,
+             grids=PREFETCH_GRIDS):
+    """Prefetch on a production-size series: n_ext + 3 records of a
+    solid-body case on the first grid of ``grids`` whose records fit on
+    the disk (800x600x25: ~200 MB a record in float32) written with
+    synth.write_run_files under a temporary directory (deleted at the
+    end); n particles through the CLI's run() on the ext_step route
+    (float32, chunks of ``fuse`` external steps, output at the start and
+    the end only), with prefetch on, then off: the final particles
+    bit-equal; per chunk the record-read and compute seconds, the
+    prefetcher's wait and particle-steps/s."""
+    import shutil
+    import tempfile
+    from dataclasses import replace
+    from ltjax_torch import run, state as st, synth
+    from ltjax_torch.config import config_from_namelist
+    from ltjax_torch.kernels import ext_step as kx
+    work = tempfile.mkdtemp(prefix="ltjax_prefetch_")
+    try:
+        n_rec = n_ext + 3
+        free = shutil.disk_usage(work).free
+        for nx, ny in grids:
+            rec_bytes = 4 * (us * ny * (nx - 1) + us * (ny - 1) * nx
+                             + 2 * (us + 1) * ny * nx + ny * nx)
+            if n_rec * rec_bytes * 1.2 + 100 * n < free:
+                break
+        else:
+            raise AssertionError(f"10d: no grid fits {free} bytes of disk")
+        case = synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=nx * 500.0,
+                                          ly=ny * 500.0, h0=50.0,
+                                          omega=1e-5, dtype=torch.float64)
+        rng = np.random.default_rng(10)
+        x0 = rng.uniform(0.2, 0.8, n) * nx * 500.0
+        y0 = rng.uniform(0.2, 0.8, n) * ny * 500.0
+        z0 = rng.uniform(-40.0, -5.0, n)
+        t0 = time.perf_counter()
+        nml = synth.write_run_files(case, work, x0, y0, z0, n_ext=n_ext,
+                                    dt=3600, idt=120, iprint=3600 * n_ext,
+                                    ext_fuse=fuse, dtype_pos="float32",
+                                    extra_records=1)
+        write_s = time.perf_counter() - t0
+        res = {"phase": "10d", "n": n, "grid": [nx, ny, us],
+               "record_mb": rec_bytes / 1e6, "records": n_rec,
+               "disk_free_gb": free / 1e9, "write_seconds": write_s,
+               "ext_steps": n_ext, "chunk": fuse}
+        finals = {}
+        for on in (True, False):
+            cfg = replace(config_from_namelist(nml), prefetch=on)
+            kx.reset_launches()
+            buf = io.StringIO()
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(buf):
+                finals[on] = run.run(cfg, device=device)
+            sec = time.perf_counter() - t0
+            lines = [json.loads(ln) for ln in buf.getvalue().splitlines()
+                     if ln.startswith("{")]
+            chunks, stall = [], 0.0
+            for ln in lines[1:]:
+                chunks.append({"ext": ln["ext"],
+                               "hydro_read": ln["hydro_read_s"],
+                               "compute": ln["compute_s"],
+                               "stall_s": ln["stall_s"] - stall,
+                               "steps_per_s": ln["steps_per_s"]})
+                stall = ln["stall_s"]
+            key = "prefetch_on" if on else "prefetch_off"
+            res[key] = {"path": lines[0]["path"], "route": lines[0]["route"],
+                        "seconds": sec, "chunks": chunks,
+                        "launches": kx.ext_step_fused.launches,
+                        "counts": {k: lines[-1][k] for k in
+                                   ("active", "out_of_domain", "error")}}
+            log({"phase": "10d", key: res[key]})
+            if device.type == "cuda":
+                assert lines[0]["path"] == "cuda_ext_step", res[key]
+                assert res[key]["launches"] == n_ext, res[key]
+        res["bit_equal"] = {k: bool(torch.equal(getattr(finals[True], k),
+                                                getattr(finals[False], k)))
+                            for k in st.FIELDS}
+        log({k: res[k] for k in res if k not in ("prefetch_on",
+                                                  "prefetch_off")})
+        assert all(res["bit_equal"].values()), res["bit_equal"]
+        assert res["prefetch_on"]["counts"]["error"] == 0, res
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
@@ -2509,7 +2927,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,3,4,5,6,7,8,9 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,10 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -2544,7 +2962,8 @@ def main(argv=None):
               6: lambda: phase6(torch, device),
               7: lambda: phase7(torch, device),
               8: lambda: phase8(torch, device),
-              9: lambda: phase9(torch, device)}
+              9: lambda: phase9(torch, device),
+              10: lambda: phase10(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:

@@ -29,7 +29,10 @@ class FieldSet:
 
 
 def _klast(a, dtype, device):
-    """(R, K, eta, xi) -> (R, eta, xi, K), materialized contiguous."""
+    """(R, K, eta, xi) -> (R, eta, xi, K), materialized contiguous (a
+    tensor is moved on its device, then to ``device``)."""
+    if isinstance(a, torch.Tensor):
+        return a.movedim(1, -1).to(dtype).contiguous().to(device)
     a = np.ascontiguousarray(np.moveaxis(np.asarray(a), 1, -1))
     return torch.as_tensor(a, dtype=dtype, device=device)
 
@@ -48,7 +51,9 @@ def make_fieldset(zeta, u, v, w, aks, times, salt=None, temp=None,
         return _klast(a, dtype, device)
 
     return FieldSet(
-        zeta=torch.as_tensor(np.asarray(zeta), dtype=dtype, device=device),
+        zeta=torch.as_tensor(zeta if isinstance(zeta, torch.Tensor)
+                             else np.asarray(zeta), dtype=dtype,
+                             device=device),
         u=u, v=_klast(v, dtype, device), w=w,
         aks=_klast(aks, dtype, device), salt=scalar(salt),
         temp=scalar(temp), times=torch.as_tensor(np.array(times,
@@ -59,9 +64,14 @@ def stack_records(recs, t_base, dtype=torch.float32, device="cpu",
                   with_salt_temp: bool = False) -> FieldSet:
     """R-record FieldSet window from record dicts as produced by
     ``ltjax_torch.io.roms.RomsSeries.next_record`` (ROMS ([K,] eta, xi)
-    layout, host numpy).  Record e's time is ``rec['time'] - t_base``;
-    ``with_salt_temp`` stacks the records' salt and temp."""
+    layout, host numpy, or tensors on the device as
+    ``io.prefetch.Prefetcher`` hands them over; a window may mix both).
+    Record e's time is ``rec['time'] - t_base``; ``with_salt_temp``
+    stacks the records' salt and temp."""
     def pile(key):
+        if any(isinstance(r[key], torch.Tensor) for r in recs):
+            return torch.stack([torch.as_tensor(r[key], device=device)
+                                for r in recs])
         return np.stack([np.asarray(r[key]) for r in recs])
 
     times = np.asarray([float(r["time"]) - float(t_base) for r in recs])

@@ -269,18 +269,34 @@ def locate(coords: torch.Tensor, x: torch.Tensor, uniform: bool = False):
     return i.to(torch.int32), f
 
 
+def logical_cells(grid: Grid, x, y):
+    """(ti, tj, i, j, fx, fy) on a curvilinear grid: the inverse map's
+    logical coordinates, the rho cells (int32) and their fractions."""
+    ti, tj = logical_coords(grid, x, y)
+    i = torch.floor(ti).clamp(0.0, grid.nx - 2.0)
+    j = torch.floor(tj).clamp(0.0, grid.ny - 2.0)
+    return (ti, tj, i.to(torch.int32), j.to(torch.int32),
+            (ti - i).clamp(0.0, 1.0), (tj - j).clamp(0.0, 1.0))
+
+
 def locate_rho_ij(grid: Grid, x, y):
     """(i, j, fx, fy) on the rho-point lattice: per-axis ``locate`` on a
     rectilinear grid, the inverse map on a curvilinear one."""
     if grid.curv is not None:
-        ti, tj = logical_coords(grid, x, y)
-        i = torch.floor(ti).clamp(0.0, grid.nx - 2.0)
-        j = torch.floor(tj).clamp(0.0, grid.ny - 2.0)
-        return (i.to(torch.int32), j.to(torch.int32),
-                (ti - i).clamp(0.0, 1.0), (tj - j).clamp(0.0, 1.0))
+        return logical_cells(grid, x, y)[2:]
     i, fx = locate(grid.x_rho, x, grid.uniform)
     j, fy = locate(grid.y_rho, y, grid.uniform)
     return i, j, fx, fy
+
+
+def stag_from_logical(t, n: int):
+    """Staggered-lattice index (int32) and fraction from a continuous rho
+    logical coordinate: u (or v) points sit at rho + 0.5 along their
+    axis, so the staggered cell coordinate is t - 0.5 on an (n-1)-point
+    lattice."""
+    ts = t - 0.5
+    i = torch.floor(ts).clamp(0.0, n - 3.0)
+    return i.to(torch.int32), (ts - i).clamp(0.0, 1.0)
 
 
 def affine_ladders(grid: Grid):

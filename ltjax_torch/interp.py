@@ -1,16 +1,20 @@
 """Horizontal bilinear + quadratic-in-time interpolation (counterpart of
-``ltjax.interp``, rectilinear grids).
+``ltjax.interp``).
 
 The main path interpolates inside ``ltjax_torch.packed`` and the CUDA
-kernel; ``interp2d``/``interp_columns`` serve the per-record field reads
-of the turbulence operator (``physics.turb.vturb``).
+kernels; ``interp2d``/``interp_columns`` serve the per-record field reads
+of the PyTorch lanes (``physics.turb.vturb``, the salinity cue, scalar
+sampling) and of the native route (``physics.advect.find_currents``),
+which locates its particles on the staggered u, v and rho lattices with
+``locate_uvr``.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .grid import Grid, locate_rho_ij
+from .grid import (Grid, locate, locate_rho_ij, logical_cells,
+                   stag_from_logical)
 
 
 def bilinear_weights(fx, fy):
@@ -58,6 +62,42 @@ def interp_columns(field, i, j, fx, fy):
 def locate_rho(grid: Grid, x, y):
     """(i, j, fx, fy) on the rho-point lattice."""
     return locate_rho_ij(grid, x, y)
+
+
+def locate_u(grid: Grid, x, y):
+    """(i, j, fx, fy) on the u-point lattice."""
+    if grid.curv is not None:
+        ti, _, _, j, _, fy = logical_cells(grid, x, y)
+        i, fx = stag_from_logical(ti, grid.nx)
+        return i, j, fx, fy
+    i, fx = locate(grid.x_u, x, grid.uniform)
+    j, fy = locate(grid.y_rho, y, grid.uniform)
+    return i, j, fx, fy
+
+
+def locate_v(grid: Grid, x, y):
+    """(i, j, fx, fy) on the v-point lattice."""
+    if grid.curv is not None:
+        _, tj, i, _, fx, _ = logical_cells(grid, x, y)
+        j, fy = stag_from_logical(tj, grid.ny)
+        return i, j, fx, fy
+    i, fx = locate(grid.x_rho, x, grid.uniform)
+    j, fy = locate(grid.y_v, y, grid.uniform)
+    return i, j, fx, fy
+
+
+def locate_uvr(grid: Grid, x, y):
+    """The u, v and rho locations of particles, with one inverse-map
+    solve on a curvilinear grid (find_currents calls this per RK4
+    stage)."""
+    if grid.curv is not None:
+        ti, tj, ir, jr, fxr, fyr = logical_cells(grid, x, y)
+        iu, fxu = stag_from_logical(ti, grid.nx)
+        jv, fyv = stag_from_logical(tj, grid.ny)
+        return ((iu, jr, fxu, fyr), (ir, jv, fxr, fyv),
+                (ir, jr, fxr, fyr))
+    return (locate_u(grid, x, y), locate_v(grid, x, y),
+            locate_rho(grid, x, y))
 
 
 def polintd_coefs(times, t):

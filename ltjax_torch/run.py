@@ -7,29 +7,45 @@ Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
 
 The namelist is the reference's own ``LTRANS.data`` (read by
 ``ltjax_torch.config``, the port's copy of ``ltjax.config``).  The run
-takes the CUDA kernel path on the GPU, in the positions' dtype
-(``dtype_pos``, float64 unless the namelist says otherwise), and
-refuses to start without one unless asked for the CPU (``--device
-cpu``), where it takes the plain PyTorch path.  The grid may be
-rectilinear (uniform or stretched axes) or curvilinear (a ROMS file
-whose lon/lat vary along both axes).  ``checkpoint_every`` saves the
-particles every that many external steps (``ltjax_torch.checkpoint``,
-ltjax's npz format, in ``checkpoint_dir``); ``--resume`` restarts from
-the newest one (or from the parfile when there is none), with the field
-series re-primed where it stood.  ``BoundaryBLNs`` writes the boundary
-segments (``xyBounds.csv``, ``llBounds.csv``) to ``outpath``.  The first stdout line is a JSON object naming the path
-taken ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step":
-the per-internal-step kernel of the "per_step" route, which stochastic
-mortality takes; "plain" on the CPU), the route, the grid kind and the
-enabled physics lanes, then
-one JSON line per chunk of external steps with status counts and
-particle-steps/s.  Random streams are keyed
+takes the CUDA path on the GPU, in the positions' dtype (``dtype_pos``,
+float64 unless the namelist says otherwise), and refuses to start
+without one unless asked for the CPU (``--device cpu``), where it takes
+the plain PyTorch path.  The grid may be rectilinear (uniform or
+stretched axes) or curvilinear (a ROMS file whose lon/lat vary along
+both axes).  ``checkpoint_every`` saves the particles every that many
+external steps (``ltjax_torch.checkpoint``, ltjax's npz format, in
+``checkpoint_dir``); ``--resume`` restarts from the newest one (or from
+the parfile when there is none), with the field series re-primed where
+it stood.  ``BoundaryBLNs`` writes the boundary segments
+(``xyBounds.csv``, ``llBounds.csv``) to ``outpath``.  With ``prefetch``
+(the default) a worker thread reads the next records, and on the GPU
+copies them to the device, while a chunk runs (``io.prefetch``).
+
+The first stdout line is a JSON object naming the path taken
+("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step": the
+per-internal-step kernel of the "per_step" route, which stochastic
+mortality takes; "cuda_native": the native route's PyTorch ops on the
+card, which ``fast_interp = False`` and adaptive tension take; "plain"
+on the CPU), the route, the grid kind and the enabled lanes, then one
+JSON line per chunk of external steps with status counts,
+particle-steps/s, the chunk's record-read and compute seconds and the
+prefetcher's cumulative wait (``stall_s``).  Random streams are keyed
 by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
 see ``ltjax_torch.rng``), and vertical turbulence with ``readAks`` reads
 the series' AKs.  Settlement reads the habitat (and hole) polygon CSVs;
 SaltTempOn and behaviors 4/5 read the series' salt and temp.  History
 files must be NetCDF3 unless ``h5py`` is installed
 (``ltjax_torch.io.nc``).
+
+Diagnostic switches (environment variables, ltjax's names):
+
+* ``LTJAX_PROFILE_DIR=/path``: a ``torch.profiler`` trace (CPU and, on
+  the GPU, CUDA activity) of the chunks that start at external steps
+  [start, stop), ``LTJAX_PROFILE_STEPS=start:stop`` (default ``1:3``),
+  written there as a Chrome trace file;
+* ``LTJAX_DEBUG_NANS=1``: after each chunk, check x, y, z (and salt and
+  temp under SaltTempOn) of the released particles, and raise
+  RuntimeError naming the external step and the count of NaNs.
 """
 
 from __future__ import annotations
@@ -51,6 +67,7 @@ from . import state as st
 from .config import Config, config_from_namelist
 from .fields import stack_records
 from .grid import Grid, make_curv_grid, make_grid
+from .io.prefetch import Prefetcher
 from .io.roms import (RomsGridData, RomsSeries, _coord_2d, is_rectilinear,
                       read_grid)
 from .out.writer import TrajectoryWriter
@@ -162,10 +179,12 @@ def init_particles_from_parfile(cfg: Config, device) -> st.Particles:
 
 
 def enabled_lanes(cfg: Config) -> List[str]:
-    """The physics a run takes besides advection, as named in the
-    startup line: hturb, vturb_aks / vturb_const, behavior<type>,
+    """The physics a run takes, as named in the startup line: advection,
+    adaptive_tension, hturb, vturb_aks / vturb_const, behavior<type>,
     mortality, settlement, salt_temp."""
     lanes = ["advection"]
+    if cfg.tension_sigma < 0:
+        lanes.append("adaptive_tension")
     if cfg.HTurbOn:
         lanes.append("hturb")
     if cfg.VTurbOn:
@@ -192,6 +211,56 @@ class Timing:
 
     def summary(self):
         return dict(sorted(self.acc.items()))
+
+
+class Profiler:
+    """``LTJAX_PROFILE_DIR``: a torch.profiler trace of the chunks that
+    start at external steps [start, stop) (``LTJAX_PROFILE_STEPS``,
+    default 1:3), exported as ``trace_ext<start>-<stop>.json``."""
+
+    def __init__(self, device: torch.device):
+        self.dir = os.environ.get("LTJAX_PROFILE_DIR")
+        a, _, b = os.environ.get("LTJAX_PROFILE_STEPS", "1:3").partition(":")
+        self.start, self.stop = int(a), int(b or (int(a) + 2))
+        self.device = device
+        self.prof = None
+
+    def tick(self, ext: int):
+        if not self.dir:
+            return
+        if self.prof is None and self.start <= ext < self.stop:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.__enter__()
+        elif self.prof is not None and ext >= self.stop:
+            self.close()
+
+    def close(self):
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.__exit__(None, None, None)
+        os.makedirs(self.dir, exist_ok=True)
+        self.prof.export_chrome_trace(os.path.join(
+            self.dir, f"trace_ext{self.start}-{self.stop}.json"))
+        self.prof = None
+
+
+def check_nans(cfg: Config, p: st.Particles, ext: int):
+    """``LTJAX_DEBUG_NANS``: raise if a released particle's x, y, z (or
+    salt, temp under SaltTempOn) is NaN after the chunk ending at
+    external step ``ext``."""
+    keys = ("x", "y", "z") + (("salt", "temp") if cfg.SaltTempOn else ())
+    bad = torch.zeros_like(p.status, dtype=torch.bool)
+    for k in keys:
+        bad |= torch.isnan(getattr(p, k))
+    n_bad = int((bad & (p.status != st.NOT_RELEASED)).sum())
+    if n_bad:
+        raise RuntimeError(f"LTJAX_DEBUG_NANS: {n_bad} released particles "
+                           f"have NaN state after external step {ext}")
 
 
 def run(cfg: Config, resume: bool = False, device=None,
@@ -258,7 +327,8 @@ def run(cfg: Config, resume: bool = False, device=None,
     route = mode_flags(ctx, cfg)
     print(json.dumps({
         "path": ("plain" if device.type != "cuda" else
-                 "cuda_rk4_step" if route == "per_step" else "cuda_ext_step"),
+                 {"per_step": "cuda_rk4_step", "native": "cuda_native",
+                  "ext_step": "cuda_ext_step"}[route]),
         "route": route,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
@@ -274,6 +344,10 @@ def run(cfg: Config, resume: bool = False, device=None,
     out_every = cfg.output_every_ext
     if not resume:
         writer.snapshot(0.0, particles)
+    prefetch = (Prefetcher(series.next_record, depth=max(2, n_fuse + 1),
+                           device=device) if cfg.prefetch else None)
+    profiler = Profiler(device)
+    debug_nans = bool(os.environ.get("LTJAX_DEBUG_NANS"))
     exhausted = False
     try:
         ext = start_ext
@@ -287,7 +361,7 @@ def run(cfg: Config, resume: bool = False, device=None,
             # --- updateHydro: extend the window to record ext+E+1 --------
             tw = time.perf_counter()
             while global_rec - 1 < ext + E + 1 and not exhausted:
-                rec = series.next_record()
+                rec = prefetch.next() if prefetch else series.next_record()
                 if rec is None:
                     exhausted = True
                     break
@@ -304,9 +378,11 @@ def run(cfg: Config, resume: bool = False, device=None,
                 win_start += 1
             fsW = stack_records(window[:E + 2], t_base, field_dtype, device,
                                 with_salt_temp=cfg.needs_salt_fields())
-            timing.add("hydro_read", time.perf_counter() - tw)
+            read_s = time.perf_counter() - tw
+            timing.add("hydro_read", read_s)
 
             # --- compute E external steps --------------------------------
+            profiler.tick(ext)
             tc = time.perf_counter()
             t_ext = float(ext * cfg.dt)
             if E not in fused_cache:
@@ -316,6 +392,8 @@ def run(cfg: Config, resume: bool = False, device=None,
             step_s = time.perf_counter() - tc
             timing.add("compute", step_s)
             ext += E
+            if debug_nans:
+                check_nans(cfg, particles, ext - 1)
             if cfg.ErrorFlag == 0 and counts["error"] > 0:
                 raise RuntimeError(
                     f"{counts['error']} particles hit location/"
@@ -332,10 +410,14 @@ def run(cfg: Config, resume: bool = False, device=None,
                           extra={"t_base": float(t_base)})
             log = {"ext": ext - E, "n_fused": E, "sim_t": t_ext + E * cfg.dt,
                    "steps_per_s": particles.n * cfg.internal_steps * E
-                   / step_s}
+                   / step_s, "hydro_read_s": read_s, "compute_s": step_s,
+                   "stall_s": prefetch.stall_s if prefetch else 0.0}
             log.update(counts)
             print(json.dumps(log), flush=True)
     finally:
+        profiler.close()
+        if prefetch:
+            prefetch.close()
         writer.close()
         series.close()
     if cfg.WriteModelTiming:

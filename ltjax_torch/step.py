@@ -1,35 +1,39 @@
 """The time-stepping core (counterpart of ``ltjax.step``).
 
 Per internal step each particle is released at its date of birth,
-advected by RK4 through ``find_currents`` (collapsed scheme), kicked by
-horizontal and vertical turbulence and by its behavior, reflected at
-coastlines / exited through open boundaries, reflected at the surface
-and bottom, its status updated (mortality, then settlement on habitat
-polygons), and salt and temperature sampled at its new position
-(reference ``run_Internal_Timestep``/``update_particles``).
+advected by RK4 through ``find_currents``, kicked by horizontal and
+vertical turbulence and by its behavior, reflected at coastlines /
+exited through open boundaries, reflected at the surface and bottom, its
+status updated (mortality, then settlement on habitat polygons), and
+salt and temperature sampled at its new position (reference
+``run_Internal_Timestep``/``update_particles``).
 
-An external step takes one of two routes (``mode_flags``, as ltjax's):
+An external step takes one of three routes (``mode_flags``, as ltjax's):
 
 * ``"ext_step"``: ``cfg.internal_steps`` internal steps in one launch of
   the whole-external-step CUDA kernel on CUDA tensors
   (``kernels.ext_step.ext_step_fused``), or its plain version on CPU
-  tensors;
+  tensors (collapsed scheme: time first, then one fit);
 * ``"per_step"`` (stochastic mortality, whose DEATH draw the
   whole-step kernel does not make): ``cfg.internal_steps`` calls of
   ``internal_step(mode="kernel")``, each taking its RK4 displacement
   from the per-internal-step CUDA kernel
   (``kernels.rk4_step.rk4_displacement_fused``, or its plain version on
-  CPU tensors) and the rest from the PyTorch lanes below.
+  CPU tensors) and the rest from the PyTorch lanes below;
+* ``"native"`` (``fast_interp = False``, or adaptive tension
+  ``tension_sigma < 0``; it takes precedence over ``"per_step"``):
+  ``cfg.internal_steps`` calls of ``internal_step(mode="native")``, the
+  reference's interpolation order (``physics.advect``: per record fit,
+  then time) as PyTorch ops on the positions' device, no kernel.
 
 Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
 step e is ``e * internal_steps + i``, as in ltjax.
 
-``check_supported`` raises ``NotImplementedError`` for every option
-outside the ported slice (adaptive tension, sharding, depth-banded
-sorts): they are not silently dropped.  Every grid (uniform or
-stretched rectilinear, curvilinear) and both position dtypes run on both
-devices, on both routes.
+``check_supported`` raises ``NotImplementedError`` for the options
+outside the port (sharding, depth-banded sorts): they are not silently
+dropped.  Every grid (uniform or stretched rectilinear, curvilinear) and
+both position dtypes run on both devices, on every route.
 """
 
 from __future__ import annotations
@@ -50,7 +54,8 @@ from .physics import behavior as bh
 from .physics import boundary as bd
 from .physics import settlement as stl
 from .physics import turb as tb
-from .physics.advect import sample_scalar
+from .physics.advect import (AdvectParams, find_currents, host_time,
+                             rk4_displacement, sample_scalar, zeta_h_at)
 
 
 @dataclass
@@ -74,9 +79,13 @@ def summary_counts(p: st.Particles) -> dict:
 
 def mode_flags(ctx: StepContext, cfg) -> str:
     """The route of a configuration's external steps (counterpart of
-    ltjax.step.mode_flags): "per_step" for stochastic mortality, whose
-    DEATH draw is not in the whole-step kernel's key layout, else
+    ltjax.step.mode_flags): "native" for the reference's interpolation
+    order (fast_interp off) or adaptive tension, which varies per
+    interval and particle; "per_step" for stochastic mortality, whose
+    DEATH draw is not in the whole-step kernel's key layout; else
     "ext_step"."""
+    if not cfg.fast_interp or cfg.tension_sigma < 0:
+        return "native"
     if cfg.mortality and cfg.stochastic_mortality:
         return "per_step"
     return "ext_step"
@@ -86,7 +95,6 @@ def check_supported(cfg, ctx: StepContext) -> None:
     """Raise NotImplementedError naming the first option outside the
     ported slice."""
     unsupported = [
-        ("tension_sigma", cfg.tension_sigma < 0),
         ("mesh_particles*mesh_tiles",
          cfg.mesh_particles * cfg.mesh_tiles > 1),
         ("sort_depth_bands", cfg.sort_depth_bands > 1),
@@ -115,22 +123,26 @@ def make_params(cfg):
 
 def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
                   fields: FieldSet, t: float, step_idx: int,
-                  prec: pk.PackedRecords,
+                  prec: Optional[pk.PackedRecords] = None,
                   mode: str = "collapsed") -> st.Particles:
-    """One internal timestep for the whole batch, collapsed scheme (the
-    plain version of the CUDA kernel's per-thread step).  ``fields`` is
-    the 3-record window (vertical turbulence reads its Aks), ``prec`` its
+    """One internal timestep for the whole batch.  ``fields`` is the
+    3-record window (vertical turbulence reads its Aks), ``prec`` its
     packed records; ``step_idx`` keys the random draws.  Settlement tests
     the reflected position against ``ctx.polys``/``ctx.holes``; SaltTempOn
     samples ``fields.salt``/``.temp`` at the new position at t + idt for
     every particle active at the step's start.
 
     ``mode``: "collapsed" computes the RK4 displacement (and behavior 7's
-    stage-1 currents) in PyTorch; "kernel" takes both from
-    ``kernels.rk4_step.rk4_displacement_fused`` (the CUDA kernel on CUDA
-    tensors, the same PyTorch code on CPU tensors)."""
-    if mode not in ("collapsed", "kernel"):
+    stage-1 currents) in PyTorch on the collapsed scheme (the plain
+    version of the CUDA kernels' per-thread step); "kernel" takes both
+    from ``kernels.rk4_step.rk4_displacement_fused`` (the CUDA kernel on
+    CUDA tensors, the same PyTorch code on CPU tensors); "native" takes
+    advection, the free surface and behavior 7's currents from
+    ``physics.advect`` straight off ``fields`` (the reference's order,
+    ltjax's ``prec=None``; ``prec`` is not read)."""
+    if mode not in ("collapsed", "kernel", "native"):
         raise ValueError(f"internal_step: mode {mode!r}")
+    native = mode == "native"
     grid, bounds = ctx.grid, ctx.bounds
     turb, beh = make_params(cfg)
     dtype = p.x.dtype
@@ -139,7 +151,14 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     # scalars filled in on the device (a host copy would wait for it)
     idt_t = torch.full((), idt, dtype=dtype, device=dev)
     tt = torch.full((), t, dtype=dtype, device=dev)
-    tabs = pk.stage_value_tables(grid, prec, t, idt)
+    # t and t + idt in the particles' dtype, on the host (polintd's
+    # weights are host scalars)
+    t0_h = host_time(t, dtype)
+    t1_h = float(torch.tensor(t, dtype=dtype) + idt)
+    if native:
+        adv = AdvectParams(sigma=cfg.tension_sigma, z0=cfg.z0, idt=idt)
+    else:
+        tabs = pk.stage_value_tables(grid, prec, t, idt)
 
     # --- release (DOB reached) & masks ---------------------------------
     release = (p.status == st.NOT_RELEASED) & (tt >= p.dob)
@@ -149,7 +168,10 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
 
     # --- advection ------------------------------------------------------
     stage1 = None
-    if mode == "kernel":
+    if native:
+        dx, dy, dz = rk4_displacement(grid, fields, p.x, p.y, p.z, t0_h,
+                                      adv)
+    elif mode == "kernel":
         res = kr.rk4_displacement_fused(
             grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
             stage1=cfg.Behavior == 7)
@@ -172,8 +194,13 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     # --- behavior (free surface, depth and currents at stage 1) ----------
     dies = torch.zeros_like(active)
     if cfg.Behavior != 0 or cfg.mortality:
-        zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
-        if cfg.Behavior == 7:
+        if native:
+            zeta_p, h_p = zeta_h_at(grid, fields, p.x, p.y, t0_h)
+        else:
+            zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
+        if cfg.Behavior == 7 and native:
+            cur = find_currents(grid, fields, p.x, p.y, p.z, t0_h, adv)[:2]
+        elif cfg.Behavior == 7:
             cur = stage1 or pk.find_currents_collapsed(
                 grid, tabs[0], p.x, p.y, p.z, cfg.tension_sigma, cfg.z0)[:2]
         else:
@@ -191,7 +218,10 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
         open_exits=cfg.OpenOceanBoundary, n_iter=cfg.reflect_iters)
 
     # --- vertical reflection at the new column (t + idt) ----------------
-    zeta1, h1 = pk.zeta_h_packed(grid, tabs[2], xr, yr)
+    if native:
+        zeta1, h1 = zeta_h_at(grid, fields, xr, yr, t1_h)
+    else:
+        zeta1, h1 = pk.zeta_h_packed(grid, tabs[2], xr, yr)
     zr, _, hit_bot = bd.reflect_vertical(p.z + dz, zeta1, h1)
 
     # --- settlement (habitat polygons at the reflected position) ---------
@@ -228,12 +258,9 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
         settle_poly=torch.where((new_status == st.SETTLED)
                                 & (p.settle_poly < 0), spid, p.settle_poly))
     if cfg.SaltTempOn:
-        # t + idt in the particles' dtype, on the host (polintd's weights
-        # are host scalars)
-        t1 = float(torch.tensor(t, dtype=dtype) + idt)
         out = out.replace(**{
             k: torch.where(active, sample_scalar(
-                grid, fields, getattr(fields, k), new_x, new_y, new_z, t1,
+                grid, fields, getattr(fields, k), new_x, new_y, new_z, t1_h,
                 cfg.tension_sigma), getattr(p, k)) for k in ("salt", "temp")})
     if cfg.TrackCollisions:
         out = out.replace(
@@ -264,17 +291,19 @@ def fieldset_slice(fs: FieldSet, e: int, r: int = 3) -> FieldSet:
 
 
 def per_step_external(ctx: StepContext, cfg, p: st.Particles,
-                      prec: pk.PackedRecords, t0: float, fields: FieldSet,
-                      ext_idx: int, seed=None) -> st.Particles:
-    """One external step on the per-step route: ``cfg.internal_steps``
-    calls of ``internal_step(mode="kernel")``, internal step i with step
+                      prec: Optional[pk.PackedRecords], t0: float,
+                      fields: FieldSet, ext_idx: int, seed=None,
+                      mode: str = "kernel") -> st.Particles:
+    """One external step of ``cfg.internal_steps`` calls of
+    ``internal_step(mode=mode)`` ("kernel": the per-step route; "native":
+    the native route, which reads no ``prec``), internal step i with step
     index ext_idx * internal_steps + i (ltjax's per-step scan)."""
     seed = cfg.seed if seed is None else seed
     idt = float(cfg.idt)
     n_int = cfg.internal_steps
     for i in range(n_int):
         p = internal_step(ctx, cfg, seed, p, fields, t0 + i * idt,
-                          int(ext_idx) * n_int + i, prec, mode="kernel")
+                          int(ext_idx) * n_int + i, prec, mode=mode)
     return p
 
 
@@ -283,10 +312,13 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     field window: external step e uses records [e, e+1, e+2], the same
     values as n_fuse calls on the rotating triple buffer (reference
     ``updateHydro``).  The batch is Hilbert-sorted every
-    ``cfg.ext_sort_every`` external steps and returned in storage order.
-    ``cfg.seed`` keys the random streams.  Each external step takes the
-    route of ``mode_flags``: one whole-step kernel launch, or
-    ``per_step_external``.
+    ``cfg.ext_sort_every`` external steps and returned in storage order
+    (on every route: the native route's internal steps measured faster
+    on a sorted batch, by more than the sort costs; PERF.md).  ``cfg.seed``
+    keys the random streams.  Each external step takes the route of
+    ``mode_flags``: one whole-step kernel launch, or
+    ``per_step_external`` (the per-step route; the native route, which
+    builds no packed records).
 
     Returns ``fused(p, fsR, t0, ext_idx0) -> p'``; external step e of the
     call has index ext_idx0 + e."""
@@ -294,30 +326,35 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     grid = ctx.grid
     dt = float(cfg.dt)
     se = max(1, cfg.ext_sort_every)
-    per_step = mode_flags(ctx, cfg) == "per_step"
+    route = mode_flags(ctx, cfg)
     # the whole-step kernel reads the Aks and salt/temp lanes of the
-    # record table; the per-step lanes read the FieldSet
-    with_aks = bool(cfg.VTurbOn and cfg.readAks) and not per_step
-    with_scalars = cfg.needs_salt_fields() and not per_step
+    # record table; the PyTorch lanes read the FieldSet
+    with_aks = bool(cfg.VTurbOn and cfg.readAks) and route == "ext_step"
+    with_scalars = cfg.needs_salt_fields() and route == "ext_step"
 
     def fused(p: st.Particles, fsR: FieldSet, t0: float,
               ext_idx0: int = 0) -> st.Particles:
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"fused step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = pk.build_packed_records(grid, fsR, with_aks=with_aks,
-                                           with_scalars=with_scalars)
+        prec_all = (None if route == "native" else pk.build_packed_records(
+            grid, fsR, with_aks=with_aks, with_scalars=with_scalars))
         cum = torch.arange(p.n, device=p.x.device)
         for e in range(n_fuse):
             if e % se == 0:
                 p, perm = _sort(grid, p)
                 cum = cum[perm]
+            t_e, f3, ext = (float(t0) + e * dt, fieldset_slice(fsR, e),
+                            int(ext_idx0) + e)
+            if route == "native":
+                p = per_step_external(ctx, cfg, p, None, t_e, f3, ext,
+                                      mode="native")
+                continue
             prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
                                      times=prec_all.times[e:e + 3])
-            step = per_step_external if per_step else kx.ext_step_fused
-            p = step(ctx, cfg, p, prec3, float(t0) + e * dt,
-                     fields=fieldset_slice(fsR, e),
-                     ext_idx=int(ext_idx0) + e)
+            step = (per_step_external if route == "per_step"
+                    else kx.ext_step_fused)
+            p = step(ctx, cfg, p, prec3, t_e, fields=f3, ext_idx=ext)
         return sp.unsort(p, cum)
 
     return fused

@@ -429,9 +429,11 @@ def _write_polygons(path: str, polys, lonlat=None) -> None:
 def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
                     n_ext: int, dt: int, idt: int, habitat=None, holes=None,
                     geographic: bool = False, lonmin: float = 0.0,
-                    latmin: float = 0.0, **params) -> str:
+                    latmin: float = 0.0, extra_records: int = 0,
+                    **params) -> str:
     """Write a complete run of ``case`` (rectilinear or curvilinear): the
-    ROMS grid + history series (n_ext + 2 records at t = 0, dt, ...), a
+    ROMS grid + history series (n_ext + 2 + ``extra_records`` records at
+    t = 0, dt, ...), a
     parfile of the particles (x, y, z) released at t = 0, and an
     ``LTRANS.data`` namelist; extra namelist ``params`` override the
     defaults.  Planar, or with ``geographic`` lon/lat files and parfile
@@ -442,7 +444,8 @@ def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
     (``habitatfile``, ``holesExist``/``holefile``).  Returns the namelist
     path (``python -m ltjax.run`` and ``ltjax_torch.run`` both read
     it)."""
-    write_roms_files(case, out_dir, n_records=n_ext + 2, dt=float(dt),
+    write_roms_files(case, out_dir, n_records=n_ext + 2 + extra_records,
+                     dt=float(dt),
                      geographic=geographic, lonmin=lonmin, latmin=latmin)
     parfile = os.path.join(out_dir, "parfile.csv")
     x = np.asarray(x, np.float64)

@@ -10,8 +10,10 @@ cubic spline).  Knots may differ per batch element.  Interval form
   gs(u,B) = (sinh(u*B)/sinh(u) - B) / u^2     -> (B^3-B)/6   as u->0
   ds(u,B) = (1 - u*cosh(u*B)/sinh(u)) / u^2   -> 1/6 - B^2/2 as u->0
 
-Small-u branches use series accurate to O(u^6).  Static sigma >= 0 only:
-adaptive tension (``ltjax.tension.adaptive_sigma``) is not ported yet.
+Small-u branches use series accurate to O(u^6).  A negative tension
+asks for the adaptive per-interval choice (``adaptive_sigma``, the
+native route's ``tension_sigma < 0``); passed straight to ``fit`` or
+``evaluate`` it takes the small-u series at |sigma|, as ltjax's does.
 """
 
 from __future__ import annotations
@@ -161,3 +163,32 @@ def evaluate_deriv(xk, yk, z2, sigma, x):
     B2 = (x - x0) / h
     B1 = 1.0 - B2
     return (y1 - y0) / h + h * (s0 * _ds(u, B1) - s1 * _ds(u, B2))
+
+
+def adaptive_sigma(xk, yk, sigma_max=15.0):
+    """Per-interval tension (..., n-1), a SIGS-like choice (counterpart
+    of ``ltjax.tension.adaptive_sigma``): fit the natural cubic spline,
+    take its knot derivatives at both ends of each interval, and where
+    they leave the Fritsch-Carlson monotonicity band 0 <= d/slope <= 3,
+    raise the tension by three times the violation, clipped to
+    [0, sigma_max]."""
+    z2 = fit(xk, yk, 0.0)
+    h = xk[..., 1:] - xk[..., :-1]
+    dy = (yk[..., 1:] - yk[..., :-1]) / h
+    d_left = dy - z2[..., :-1] * h / 3.0 - z2[..., 1:] * h / 6.0
+    d_right = dy + z2[..., 1:] * h / 3.0 + z2[..., :-1] * h / 6.0
+    eps = _as(1e-30, h)
+    slope = torch.where(dy.abs() < eps, eps, dy)
+    a = d_left / slope
+    b = d_right / slope
+    viol = torch.maximum(torch.maximum(-a, a - 3.0),
+                         torch.maximum(-b, b - 3.0))
+    return torch.clamp(3.0 * torch.clamp(viol, min=0.0), 0.0, sigma_max)
+
+
+def fit_eval(xk, yk, sigma, x):
+    """Fit, then evaluate at x; a negative Python sigma is adaptive."""
+    if isinstance(sigma, (int, float)) and sigma < 0:
+        sigma = adaptive_sigma(xk, yk)
+    z2 = fit(xk, yk, sigma)
+    return evaluate(xk, yk, z2, sigma, x)

@@ -790,3 +790,88 @@ def test_f64_kernel_carries_sub_ulp_motion(gpu):
     np.testing.assert_allclose(moved, 0.036, rtol=1e-3)
     np.testing.assert_allclose(out.x.cpu().numpy(), ref.x.cpu().numpy(),
                                rtol=0, atol=1e-6)
+
+
+NATIVE_GPU = pytest.mark.parametrize("dtype,geometry,sigma", [
+    (F64, "uniform", 0.0), (F64, "uniform", -1.0),
+    (F64, "stretched", -1.0), (F64, "curv", 0.0),
+    (torch.float32, "stretched", 0.0), (torch.float32, "curv", -1.0)],
+    ids=["sigma0", "adaptive", "stretched-adaptive", "curv",
+         "f32-stretched", "f32-curv-adaptive"])
+
+
+@pytest.mark.gpu
+@NATIVE_GPU
+def test_native_route_on_gpu_matches_cpu(gpu, dtype, geometry, sigma):
+    """The native route (fast_interp off or adaptive tension: PyTorch ops,
+    no kernel) on the card against the same route on the CPU, one
+    external step (4 internal steps) of a random w and zeta with
+    turbulence: float64 1e-6 m horizontally, 1e-9 m vertically, statuses
+    equal (round-off of the devices' transcendentals); float32 the
+    whole-step tolerances of _compare (an ulp of exp or log may flip a
+    reflection); its tensors stay on the card and neither kernel
+    launches."""
+    outs = {}
+    for dev in (gpu, torch.device("cpu")):
+        c, ctx, cfg, p = _new_case(dev, dtype, geometry, omega=1e-5)
+        cfg = replace(cfg, fast_interp=False, tension_sigma=sigma,
+                      HTurbOn=True, ConstantHTurb=1.0)
+        fs = synth.with_vertical_motion(synth.fieldset_for(
+            c, t_center=900.0, dt=1800.0), seed=3, w_amp=2e-3)
+        kx.reset_launches()
+        kr.rk4_displacement_fused.launches = 0
+        out = make_fused_external_steps(ctx, cfg, 1)(p, fs, 0.0, 0)
+        assert out.x.device.type == dev.type and out.x.dtype == dtype
+        assert kx.ext_step_fused.launches == 0
+        assert kr.rk4_displacement_fused.launches == 0
+        outs[dev.type] = out
+    a, b = outs["cuda"].to(torch.device("cpu")), outs["cpu"]
+    if dtype == torch.float32:
+        _compare(a, b, p.n)
+    else:
+        assert torch.equal(a.status, b.status)
+        for k, tol in (("x", 1e-6), ("y", 1e-6), ("z", 1e-9)):
+            np.testing.assert_allclose(getattr(a, k).numpy(),
+                                       getattr(b, k).numpy(), rtol=0,
+                                       atol=tol)
+    assert (b.z - p.z.cpu()).abs().max() > 0.1
+
+
+@pytest.mark.gpu
+def test_cli_prefetch_bit_equal_on_gpu(gpu, tmp_path):
+    """The CLI on the card with prefetch on (records copied to the card on
+    a side stream) and off: final particles equal in every column; the
+    prefetcher hands over CUDA tensors equal to the records read."""
+    import contextlib
+    import io
+    from ltjax_torch import run
+    from ltjax_torch.config import config_from_namelist
+    from ltjax_torch.io.prefetch import Prefetcher
+    from ltjax_torch.io.roms import RomsSeries
+    c = synth.make_solid_body_case(nx=31, ny=31, us=6, lx=30e3, ly=30e3,
+                                   h0=40.0, omega=1e-4, dtype=F64,
+                                   parabolic_aks=True)
+    rng = np.random.default_rng(4)
+    n = 2000
+    nml = synth.write_run_files(
+        c, str(tmp_path), rng.uniform(8e3, 22e3, n),
+        rng.uniform(8e3, 22e3, n), rng.uniform(-35.0, -3.0, n), n_ext=6,
+        dt=1800, idt=450, iprint=6 * 1800, ext_fuse=2, HTurbOn=True,
+        ConstantHTurb=1.0, VTurbOn=True, readAks=True)
+    cfg = config_from_namelist(nml)
+    finals = {}
+    for on in (True, False):
+        with contextlib.redirect_stdout(io.StringIO()):
+            finals[on] = run.run(replace(cfg, prefetch=on), device="cuda")
+    for k in st.FIELDS:
+        assert torch.equal(getattr(finals[True], k),
+                           getattr(finals[False], k)), k
+    want = RomsSeries(cfg)
+    pf = Prefetcher(RomsSeries(cfg).next_record, depth=3, device=gpu)
+    for _ in range(4):
+        rec, ref = pf.next(), want.next_record()
+        assert rec["u"].device.type == "cuda" and rec["time"] == ref["time"]
+        for k in ("zeta", "u", "v", "w", "aks"):
+            assert torch.equal(rec[k].cpu(), torch.from_numpy(ref[k]))
+    pf.close()
+    want.close()

@@ -182,12 +182,20 @@ MODES = [
     (dict(Behavior=4, readSalt=True, SaltTempOn=True, settlementon=True,
           holesExist=True, mortality=True, stochastic_mortality=True),
      "per_step"),
+    (dict(fast_interp=False), "native"),
+    (dict(tension_sigma=-1.0), "native"),
+    # the native route takes precedence over the per-step route, as in
+    # ltjax (its stochastic mortality runs in the native scan)
+    (dict(fast_interp=False, mortality=True, stochastic_mortality=True),
+     "native"),
 ]
 
 
 @pytest.mark.parametrize("kw,route", MODES,
                          ids=["advection", "mortality", "stochastic-off",
-                              "stochastic", "oyster-stochastic"])
+                              "stochastic", "oyster-stochastic",
+                              "fast-interp-off", "adaptive-tension",
+                              "native-stochastic"])
 def test_mode_flags_routes_stochastic_mortality(kw, route):
     assert tstep.mode_flags(_ctx(), _cfg(us=4, ws=5, **kw)) == route
 
@@ -209,7 +217,6 @@ def test_ext_step_kernel_refuses_stochastic_mortality():
 
 
 UNSUPPORTED = [
-    ("tension_sigma", dict(tension_sigma=-1.0)),
     ("mesh_particles", dict(mesh_particles=2)),
     ("sort_depth_bands", dict(sort_depth_bands=2)),
 ]
@@ -233,7 +240,8 @@ def test_cuda_only_restrictions(monkeypatch):
     """On CUDA the kernels take float64 positions, stretched (searched)
     axes and, on the per-step route, curvilinear grids, as on the CPU:
     none of them is refused (checked by presenting the grid as on CUDA),
-    while adaptive tension, sharding and depth bands still raise there."""
+    nor are the native route and adaptive tension, while sharding and
+    depth bands still raise there."""
     ctx = _ctx()
     monkeypatch.setattr(type(ctx.grid), "device",
                         property(lambda self: torch.device("cuda")))
@@ -243,6 +251,8 @@ def test_cuda_only_restrictions(monkeypatch):
     tstep.check_supported(_cfg(us=4, ws=5), stretched)
     tstep.check_supported(_cfg(us=4, ws=5, checkpoint_every=2), ctx)
     tstep.check_supported(_cfg(us=4, ws=5), ctx)       # the slice itself
+    tstep.check_supported(_cfg(us=4, ws=5, tension_sigma=-1.0), stretched)
+    tstep.check_supported(_cfg(us=4, ws=5, fast_interp=False), stretched)
     for name, kw in UNSUPPORTED:
         with pytest.raises(NotImplementedError, match=name):
             tstep.check_supported(_cfg(us=4, ws=5, **kw), stretched)
@@ -276,7 +286,8 @@ SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
     dict(Behavior=4, readSalt=True, SaltTempOn=True, settlementon=True,
          holesExist=True, HTurbOn=True, VTurbOn=True, readAks=True,
          mortality=True),
-    dict(Behavior=6, mortality=True, stochastic_mortality=True)]
+    dict(Behavior=6, mortality=True, stochastic_mortality=True),
+    dict(fast_interp=False), dict(tension_sigma=-1.0)]
 
 
 @pytest.mark.parametrize("kw", SLICE, ids=lambda kw: "-".join(
