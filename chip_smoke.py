@@ -7,7 +7,7 @@
 
 Builds the variants of the external-step CUDA kernel and the per-step
 RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs ten phases and fails (non-zero exit, no final
+together), then runs eleven phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -98,7 +98,7 @@ line) if any of them fails:
    with a random w and zeta (sigma 0, adaptive, turbulence, stochastic
    mortality; 1e-6 m, 1e-9 m, equal statuses), and its displacement
    minus the collapsed route's; (b) the route at full width, phase 2's
-   main-path case in float64 (1M particles, 2 x 30 steps) with
+   main-path case in float64 (1M particles, 1 x 30 steps) with
    fast_interp off and with sigma -1, against the circles and K1's
    float64 route, its rate, peak memory and per-internal-step device
    and wall ms, sorted and not, and the sort's time; (c) the CLI with each option
@@ -106,7 +106,23 @@ line) if any of them fails:
    LTJAX_PROFILE_DIR trace; (d) 1M particles through the CLI on a
    production-size series (800x600x25 where the disk takes it) with
    prefetch on and off, bit-equal, the read/compute/stall split per
-   chunk.
+   chunk;
+11. sharded runs (ltjax_torch.shard, dist, run.run_sharded; the LTX_TILE
+   builds of both kernels, which locate on the whole grid's axes and move
+   into a tile's strip) and the native NetCDF reader: (a) K1 (float32,
+   float64, stretched axes) and K2 on tile 1 of phase 1's grid cut into 4
+   strips, against their plain versions, EMPTY slots bit-unchanged; (b)
+   phase 2's case in float64 (1M, 4 external steps in chunks of 2) on
+   the meshes (1, 4) and (2, 2), 4 gloo ranks sharing the card, against
+   the single rank's K1 route, migrations counted, then stochastic
+   mortality on the per-step route (K2 per tile): the same DEAD pids;
+   (c) phase 3's CLI run through run.run(..., backend="gloo") on 2 x 2
+   ranks: the single rank's CSV, resumes on (2, 2) and (1, 4); (d)
+   BASELINE.json config 5 at size: 10M particles on an 800x600x25 series
+   on 4 tiles, each rank reading its strip, against the single rank, the
+   per-rank read / compute / stall split, and the native reader's MB/s
+   against scipy's; (e) NCCL, one rank per card, where there are two
+   cards or more.
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -379,8 +395,10 @@ def kernel_vs_plain(torch, phase, ctx, cfg, p, prec, reps, plain_reps):
                                                         0.0), reps)
         plain_ms = cuda_time(torch, lambda: kx.ext_step_reference(
             ctx, cfg, p, prec, 0.0), plain_reps)
+    s_ref = ref.status.cpu().numpy()
     res.update({
-        "status_counts_plain": np.bincount(ref.status.cpu().numpy(),
+        # EMPTY slots of a tile (status -1) are no status
+        "status_counts_plain": np.bincount(s_ref[s_ref >= 0],
                                            minlength=6).tolist(),
         "hit_land_plain": int(ref.hit_land.sum()),
         "hit_bottom_plain": int(ref.hit_bottom.sum()),
@@ -2549,7 +2567,7 @@ def native_profile(torch, ctx, cfg, p, fields, steps):
             "idle_share": 1.0 - dev_ms / wall_prof if wall_prof else None}
 
 
-def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=2,
+def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=1,
              prof_steps=4):
     """The native route at full width: phase 2's main-path case (the
     200x200x20 bench grid, 1M particles) in float64, n_ext external
@@ -2790,6 +2808,498 @@ def phase10d(torch, device, n=1_000_000, us=25, n_ext=8, fuse=2,
         shutil.rmtree(work, ignore_errors=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 11: sharded runs (ltjax_torch.shard, dist, run.run_sharded) and the
+# native NetCDF reader
+# ---------------------------------------------------------------------------
+
+TOL_TILE = 1e-3        # m, a tiled run against the single rank (bit-equal
+                       # expected: the tiles locate on the whole grid's axes)
+
+
+def capture_fd(fn):
+    """fn() with file descriptor 1 sent to a file (spawned ranks write
+    their lines there): (its result, the JSON lines written)."""
+    import tempfile
+    sys.stdout.flush()
+    saved = os.dup(1)
+    with tempfile.TemporaryFile("w+") as f:
+        os.dup2(f.fileno(), 1)
+        try:
+            res = fn()
+        finally:
+            sys.stdout.flush()
+            os.dup2(saved, 1)
+            os.close(saved)
+        f.seek(0)
+        text = f.read()
+    lines = []
+    for ln in text.splitlines():
+        log(f"[run] {ln}")
+        if ln.startswith("{"):
+            lines.append(json.loads(ln))
+    return res, lines
+
+
+def tiled_vs_single(torch, name, single, tiled):
+    """A tiled run's particles (pid order, on the CPU) against the single
+    rank's: pids, statuses and hit_land equal, positions bit-equal or
+    within TOL_TILE."""
+    order = torch.argsort(single.pid.cpu())
+    ref = {k: getattr(single, k).cpu()[order] for k in
+           ("pid", "status", "hit_land", "x", "y", "z")}
+    got = {k: getattr(tiled, k).cpu() for k in ref}
+    res = {"phase": name, "n": int(tiled.n)}
+    for k in ("pid", "status", "hit_land"):
+        res[k + "_equal"] = bool(torch.equal(got[k], ref[k]))
+    for k in ("x", "y", "z"):
+        d = (got[k].double() - ref[k].double()).abs()
+        res["max_abs_d" + k] = float(d.max())
+    res["positions_bit_equal"] = all(
+        torch.equal(got[k], ref[k]) for k in ("x", "y", "z"))
+    log(res)
+    assert res["pid_equal"] and res["status_equal"] and res[
+        "hit_land_equal"], res
+    assert max(res["max_abs_dx"], res["max_abs_dy"],
+               res["max_abs_dz"]) <= TOL_TILE, res
+    return res
+
+
+def phase11(torch, device):
+    """Sharded runs on the card and the native reader (phase11a-e)."""
+    t0 = time.perf_counter()
+    out = {"a": phase11a(torch, device)}
+    out["b"] = phase11b(torch, device)
+    out["c"] = phase11c(torch, device)
+    out["d"] = phase11d(torch, device)
+    out["e"] = phase11e(torch, device)
+    out["phase_wall_seconds"] = time.perf_counter() - t0
+    log({"phase": 11, "phase_wall_seconds": out["phase_wall_seconds"]})
+    return out
+
+
+def strip_particles(case, n, ylo, yhi, seed):
+    """n water particles of phase 1's grid with y in [ylo, yhi]."""
+    xs, ys = [], []
+    while sum(len(a) for a in xs) < n:
+        x, y, _ = water_particles(case, 4 * n, 2e3, 198e3, seed=seed)
+        keep = (y >= ylo) & (y <= yhi)
+        xs.append(x[keep])
+        ys.append(y[keep])
+        seed += 1
+    return np.concatenate(xs)[:n], np.concatenate(ys)[:n]
+
+
+def phase11a(torch, device, n=65536, nx=200, us=20):
+    """K1 and K2 on a tile: phase 1's grid (land block, open rim) cut into
+    4 strips with the halo of halo_rows_needed, tile 1's strip (LTX_TILE
+    builds): 65,536 particles of the strip, halo rows included, one in 16
+    slots EMPTY; K1 (advection: float32, float64, and float32 on phase
+    9c's stretched axes) one external step against its plain version
+    (PERF.md section 2's gates), every EMPTY slot bit-unchanged; K2 on
+    the float32 strip with a random w against its plain version."""
+    from ltjax_torch import packed as pk, shard, state as st, synth
+    from ltjax_torch.kernels import build, ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import _sort
+    f32, f64 = torch.float32, torch.float64
+    out = {}
+    for name, dtype, axes in (("11a-f32", f32, 1.0), ("11a-f64", f64, 1.0),
+                              ("11a-axes", f32, AXES_STRETCH)):
+        case = bench_case(torch, device, nx=nx, ny=nx, us=us, dtype=dtype,
+                          axes=axes)
+        ctx = context(case)
+        cfg = make_cfg(n, us=us, ws=us + 1, TrackCollisions=True,
+                       dtype_pos=dtype_name(dtype))
+        y_ax = case.grid.y_rho.cpu().numpy()
+        # the bench case's fastest water: 5e-5 rad/s at the corner
+        halo = shard.halo_rows_needed(5e-5 * 100e3 * np.sqrt(2.0),
+                                      float(cfg.dt),
+                                      float(np.diff(y_ax).min()))
+        spec = shard.make_spec(cfg, nx, 4 * n, 1, 4, halo=halo)
+        tiled = shard.build_tiled_static(case.grid, spec)
+        tctx = shard.tile_context(ctx, spec, tiled, 1)
+        g = tctx.grid
+        fs = shard.strip_fieldset(synth.fieldset_for(
+            case, t_center=0.0, dt=3600.0, device=device), spec, 1, nx)
+        prec = pk.build_packed_records(g, fs)
+        ys = g.y_rho.cpu().numpy()
+        x, y = strip_particles(case, n, ys[1], ys[-2], seed=11)
+        z = near_surface_and_bottom(n, case.h0, seed=4)
+        p = st.init_particles(x, y, z, dtype=dtype, device=device)
+        empty = torch.arange(n, device=device) % 16 == 5
+        p = p.replace(
+            status=torch.where(empty, shard.EMPTY, st.ACTIVE).to(torch.int32),
+            pid=torch.where(empty, -1, p.pid).to(torch.int32))
+        p, _ = _sort(g, p)
+        kx.reset_launches()
+        r = kernel_vs_plain(torch, name, tctx, cfg, p, prec, 3, 1)
+        tag = build.tag("ext_step", kx.variant_of(tctx, cfg, dtype))
+        out_k = kx.ext_step_fused(tctx, cfg, p, prec, 0.0)
+        m = p.status == shard.EMPTY
+        edges = tiled.tile_edges
+        r.update({"variant": tag, "halo": halo, "strip_rows": spec.ny_ext,
+                  "bound": kernel_bound(cfg, tctx, prec, p, out_k),
+                  "launches": kx.ext_step_fused.launches,
+                  "empty_slots": int(m.sum()),
+                  "empty_bit_unchanged": all(
+                      bool(torch.equal(getattr(out_k, k)[m],
+                                       getattr(p, k)[m]))
+                      for k in st.FIELDS),
+                  "in_halo_rows": int(((y < edges[1]) | (y >= edges[2]))
+                                      .sum())})
+        log({k: r[k] for k in ("phase", "variant", "halo", "strip_rows",
+                               "bound", "launches", "empty_slots",
+                               "empty_bit_unchanged", "in_halo_rows")})
+        if device.type == "cuda":
+            assert "t1" in tag and r["launches"] >= 2, r
+        assert r["empty_bit_unchanged"] and r["empty_slots"] > 0, r
+        assert r["in_halo_rows"] > 0 and r["hit_land_plain"] > 0, r
+        out[name] = r
+        if name == "11a-f32":
+            slow = bench_case(torch, device, nx=nx, ny=nx, us=us,
+                              omega=5e-6)
+            fv = shard.strip_fieldset(synth.with_vertical_motion(
+                synth.fieldset_for(slow, t_center=0.0, dt=3600.0,
+                                   device=device), seed=3), spec, 1, nx)
+            kr.rk4_displacement_fused.launches = 0
+            out["11a-rk4"] = rk4_vs_plain(
+                torch, "11a-rk4", g, pk.stage_value_tables(
+                    g, pk.build_packed_records(g, fv), 600.0,
+                    float(cfg.idt)), p, cfg, reps=3, plain_reps=1)
+            out["11a-rk4"]["launches"] = kr.rk4_displacement_fused.launches
+            out["11a-rk4"]["bound"] = rk4_bound(g, n)
+            log({"phase": "11a-rk4", "bound": out["11a-rk4"]["bound"]})
+            if device.type == "cuda":
+                assert out["11a-rk4"]["launches"] > 0
+    return out
+
+
+def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
+    """The tiled main path at full width: phase 2's case (1M particles,
+    200x200x20 solid body) in float64, 4 external steps in fused chunks
+    of 2 on the (dp, tile) meshes (1, 4) and (2, 2), 4 gloo ranks sharing
+    the card (shard.run_tiled_steps), against the single rank's K1 route
+    from the same state (11b's gates); then stochastic mortality (the
+    per-step route, K2 per tile) for 2 external steps on (1, 4) against
+    the single rank's per-step route: the same DEAD pids.  Migrations and
+    particle-steps/s (not a gain: the ranks share one card)."""
+    from ltjax_torch import shard, state as st, synth
+    from ltjax_torch.step import make_fused_external_steps
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      dtype=torch.float64)
+    ctx = context(case)
+    cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64")
+    dt = float(cfg.dt)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=torch.float64, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    # the particles' fastest water: 5e-5 rad/s at 85 km from the centre
+    halo = shard.halo_rows_needed(5e-5 * 60e3 * np.sqrt(2.0), dt,
+                                  float(np.diff(
+                                      case.grid.y_rho.cpu().numpy()).min()))
+
+    def single(c, steps):
+        fused = make_fused_external_steps(ctx, c, n_fuse)
+        p = p0
+        for e0 in range(0, steps, n_fuse):
+            p = fused(p, synth.fieldset_window(
+                case, -dt / 2 + e0 * dt, dt, n_fuse + 2, device=device),
+                e0 * dt, e0)
+        sync(torch, device)
+        return p
+
+    ref = single(cfg, n_ext)
+    cfg_s = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64", **STOCHASTIC)
+    ref_s = single(cfg_s, 2)
+    out = {"halo": halo}
+    for ndp, ntiles in ((1, 4), (2, 2)):
+        # the particles fill the middle 60% of the rows: 3x slack
+        spec = shard.make_spec(cfg, nx, n, ndp, ntiles, halo=halo,
+                               slack=3.0)
+        cases = [shard.TiledCase(ctx, cfg, p0, fsR, n_ext, spec, n_fuse)]
+        if (ndp, ntiles) == (1, 4):
+            cases.append(shard.TiledCase(ctx, cfg_s, p0, fsR, 2, spec,
+                                         n_fuse))
+        t0 = time.perf_counter()
+        res = shard.run_tiled_steps(cases, device=device, backend="gloo")
+        wall = time.perf_counter() - t0
+        key = f"11b-{ndp}x{ntiles}"
+        got, ranks = res[0]
+        r = tiled_vs_single(torch, key, ref, got)
+        sec = max(q["seconds"] for q in ranks)
+        r.update({"mesh": [ndp, ntiles], "halo": halo, "cap": spec.cap,
+                  "wall_seconds_with_spawn": wall,
+                  "migrated": sum(q["sent"] for q in ranks),
+                  "drops": sum(q["drops"] for q in ranks),
+                  "k1_launches": [q["launches"] for q in ranks],
+                  "rank_seconds": [q["seconds"] for q in ranks],
+                  "peak_memory_bytes": [q["peak_memory_bytes"]
+                                        for q in ranks],
+                  "particle_steps_per_s": n * cfg.internal_steps * n_ext
+                  / sec})
+        log({k: v for k, v in r.items() if not k.startswith("max_abs")})
+        assert r["drops"] == 0 and r["migrated"] > 0, r
+        if device.type == "cuda":
+            assert all(k == n_ext for k in r["k1_launches"]), r
+        out[key] = r
+        if len(res) > 1:
+            got_s, ranks_s = res[1]
+            rs = tiled_vs_single(torch, key + "-stochastic", ref_s, got_s)
+            dead_t = set(got_s.pid[got_s.status == st.DEAD].tolist())
+            dead_1 = set(ref_s.pid[ref_s.status == st.DEAD].cpu().tolist())
+            rs.update({"dead": len(dead_1), "dead_equal": dead_t == dead_1,
+                       "k2_launches": [q["rk4_launches"] for q in ranks_s],
+                       "k1_launches": [q["launches"] for q in ranks_s],
+                       "migrated": sum(q["sent"] for q in ranks_s)})
+            log({k: v for k, v in rs.items() if not k.startswith("max_abs")})
+            assert rs["dead_equal"] and rs["dead"] > 0, rs
+            if device.type == "cuda":
+                assert all(k == 2 * cfg.internal_steps
+                           for k in rs["k2_launches"]), rs
+                assert not any(rs["k1_launches"]), rs
+            out[key + "-stochastic"] = rs
+    return out
+
+
+def phase11c(torch, device, n=10_000, nx=60, us=10, n_ext=4):
+    """The CLI: phase 3's planar run (float32) through run.run(...,
+    backend="gloo") with 2 x 2 ranks on the card and checkpoints every 2
+    external steps: its CSV equals the single rank's, and a --resume after
+    deleting the last checkpoints, on the same mesh and on (1, 4), gives
+    the uninterrupted run's particles; the startup line names the
+    backend, the ranks and the reader."""
+    import dataclasses
+    import filecmp
+    import shutil
+    from ltjax_torch import run, shard, synth
+    from ltjax_torch.config import config_from_namelist
+    work = os.path.join(ROOT, "build", "chip_smoke_11c")
+    shutil.rmtree(work, ignore_errors=True)
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    x0 = rng.uniform(15e3, 45e3, n)
+    y0 = rng.uniform(15e3, 45e3, n)
+    z0 = rng.uniform(-40.0, -5.0, n)
+    dy = 60e3 / (nx - 1)
+    nml = synth.write_run_files(
+        case, work, x0, y0, z0, n_ext=n_ext, dt=3600, idt=120,
+        iprint=3600, ext_fuse=2, dtype_pos="float32", checkpoint_every=2,
+        halo_rows=shard.halo_rows_needed(5e-5 * 30e3 * np.sqrt(2.0),
+                                         3600.0, dy),
+        migrate_capacity=3.0)   # the particles fill the middle half
+    base = config_from_namelist(nml)
+
+    def cfg(name, **kw):
+        return dataclasses.replace(base, outpath=f"{work}/{name}",
+                                   checkpoint_dir=f"{work}/ck_{name}", **kw)
+
+    mesh = dict(mesh_particles=2, mesh_tiles=2)
+    p1, lines1 = capture_fd(lambda: run.run(cfg("one"), device=device))
+    p4, lines4 = capture_fd(lambda: run.run(cfg("four", **mesh),
+                                            device=device, backend="gloo"))
+    start = lines4[0]
+    res = {"phase": "11c", "n": n, "start": {k: start.get(k) for k in (
+        "path", "backend", "ranks", "cards", "reader", "mesh", "halo")},
+           "csv_equal": filecmp.cmp(f"{work}/one/run1.csv",
+                                    f"{work}/four/run1.csv", shallow=False),
+           "migrated": sum(ln.get("migrated", 0) for ln in lines4),
+           "launches": [ln["kernel_launches"] for ln in lines4
+                        if ln.get("event") == "rank_done"]}
+    order = torch.argsort(p1.pid)
+    res["final_equal"] = all(bool(torch.equal(getattr(p4, k).cpu(),
+                                              getattr(p1, k)[order].cpu()))
+                             for k in ("pid", "status", "x", "y", "z"))
+    for name, m in (("resume_2x2", mesh),
+                    ("resume_1x4", dict(mesh_particles=1, mesh_tiles=4))):
+        ck = f"{work}/ck_{name}"
+        shutil.copytree(f"{work}/ck_four", ck)
+        for f in os.listdir(ck):
+            if f.startswith(f"ckpt_{n_ext}_"):
+                os.remove(os.path.join(ck, f))
+        pr, _ = capture_fd(lambda: run.run(
+            dataclasses.replace(cfg(name, **m), checkpoint_dir=ck),
+            resume=True, device=device, backend="gloo"))
+        res[name + "_equal"] = all(bool(torch.equal(getattr(pr, k),
+                                                    getattr(p4, k)))
+                                   for k in ("pid", "status", "x", "y", "z",
+                                             "age"))
+    log(res)
+    assert res["start"]["backend"] == "gloo" and res["start"]["ranks"] == 4
+    assert res["start"]["reader"] == "native", res
+    assert res["csv_equal"] and res["final_equal"], res
+    assert res["resume_2x2_equal"] and res["resume_1x4_equal"], res
+    assert res["migrated"] > 0, res
+    if device.type == "cuda":
+        assert res["start"]["path"] == "cuda_ext_step", res
+        assert all(sum(v.values()) > 0 for v in res["launches"]), res
+    return res
+
+
+def reader_rate(path, reps=2):
+    """The native reader against scipy's netcdf_file (mmap) on the same
+    record (zeta, u, v, w and AKs of record 1), in turn, each ``reps``
+    times in one process: the seconds to open the file (its header) and
+    to read the record from the open file, MB/s of the read; the arrays
+    bit-equal."""
+    from scipy.io import netcdf_file
+    from ltjax_torch.native import NativeCDF
+    names = ("zeta", "u", "v", "w", "AKs")
+    out = {k: [] for k in ("native_open_s", "native_read_s", "scipy_open_s",
+                           "scipy_read_s")}
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        f = NativeCDF(path)
+        t1 = time.perf_counter()
+        a = {k: f.read(k, 1, dtype="float32") for k in names}
+        t2 = time.perf_counter()
+        f.close()
+        out["native_open_s"].append(t1 - t0)
+        out["native_read_s"].append(t2 - t1)
+        t0 = time.perf_counter()
+        f = netcdf_file(path, "r", mmap=True)
+        t1 = time.perf_counter()
+        b = {k: np.array(f.variables[k][1], np.float32) for k in names}
+        t2 = time.perf_counter()
+        f.close()
+        out["scipy_open_s"].append(t1 - t0)
+        out["scipy_read_s"].append(t2 - t1)
+    mb = sum(v.nbytes for v in a.values()) / 1e6
+    out.update({"record_mb": mb,
+                "native_mb_per_s": [mb / s for s in out["native_read_s"]],
+                "scipy_mb_per_s": [mb / s for s in out["scipy_read_s"]],
+                "bit_equal": all(np.array_equal(a[k], b[k])
+                                 for k in names)})
+    return out
+
+
+def phase11d(torch, device, n=10_000_000, nx=800, ny=600, us=25, n_ext=4,
+             fuse=2, ntiles=4):
+    """BASELINE.json config 5 at size on one card: 10M particles on an
+    800x600x25 solid-body series (written as 10d writes it, deleted at
+    the end), mesh_tiles = 4 gloo ranks each reading its strip with the
+    native reader, 4 external steps in chunks of 2 (float32, no output),
+    against the single rank's run of the same particles (11b's gates);
+    per rank and chunk the read, compute and stall seconds and the
+    migrated particles, the total particle-steps/s and each rank's peak
+    device memory; and the native reader's MB/s against scipy's on the
+    same record."""
+    import dataclasses
+    import shutil
+    import tempfile
+    from ltjax_torch import run, shard, synth
+    from ltjax_torch.config import config_from_namelist
+    work = tempfile.mkdtemp(prefix="ltjax_11d_")
+    try:
+        case = synth.make_solid_body_case(nx=nx, ny=ny, us=us, lx=nx * 500.0,
+                                          ly=ny * 500.0, h0=50.0,
+                                          omega=1e-5, dtype=torch.float64)
+        rng = np.random.default_rng(10)
+        x0 = rng.uniform(0.2, 0.8, n) * nx * 500.0
+        y0 = rng.uniform(0.2, 0.8, n) * ny * 500.0
+        z0 = rng.uniform(-40.0, -5.0, n)
+        t0 = time.perf_counter()
+        # 1e-5 rad/s at the domain's corner, 3600 s, 500 m rows
+        halo = shard.halo_rows_needed(
+            1e-5 * 0.5 * np.hypot(nx, ny) * 500.0, 3600.0, 500.0)
+        nml = synth.write_run_files(case, work, x0, y0, z0, n_ext=n_ext,
+                                    dt=3600, idt=120, iprint=3600 * n_ext,
+                                    ext_fuse=fuse, dtype_pos="float32",
+                                    extra_records=1, writeCSV=False,
+                                    halo_rows=halo, migrate_capacity=3.0)
+        write_s = time.perf_counter() - t0
+        base = config_from_namelist(nml)
+        res = {"phase": "11d", "n": n, "grid": [nx, ny, us], "halo": halo,
+               "ranks": ntiles, "write_seconds": write_s,
+               "reader": reader_rate(os.path.join(
+                   work, "ocean_his_0001.nc"))}
+        log({"phase": "11d", "reader": res["reader"]})
+        assert res["reader"]["bit_equal"], res["reader"]
+        t0 = time.perf_counter()
+        p1, lines1 = capture_fd(lambda: run.run(base, device=device))
+        res["single"] = {"seconds": time.perf_counter() - t0, "chunks": [
+            {k: ln[k] for k in ("ext", "hydro_read_s", "compute_s",
+                                "stall_s", "steps_per_s")}
+            for ln in lines1[1:] if "ext" in ln]}
+        p1 = p1.to("cpu")
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p4, lines4 = capture_fd(lambda: run.run(
+            dataclasses.replace(base, mesh_tiles=ntiles), device=device,
+            backend="gloo"))
+        res["tiled_seconds"] = time.perf_counter() - t0
+        chunks = [ln for ln in lines4 if "ext" in ln and "rank" in ln]
+        res["ranks_chunks"] = [
+            {k: ln[k] for k in ("rank", "ext", "hydro_read_s", "compute_s",
+                                "stall_s", "migrated")} for ln in chunks]
+        done = [ln for ln in lines4 if ln.get("event") == "rank_done"]
+        res["peak_memory_bytes"] = {ln["rank"]: ln.get("peak_memory_bytes")
+                                    for ln in done}
+        res["launches"] = {ln["rank"]: ln["kernel_launches"] for ln in done}
+        compute = {}
+        for ln in chunks:
+            compute[ln["rank"]] = compute.get(ln["rank"], 0.0) + ln[
+                "compute_s"]
+        res["particle_steps_per_s"] = (n * base.internal_steps * n_ext
+                                       / max(compute.values()))
+        res["start"] = lines4[0]
+        res["compare"] = tiled_vs_single(torch, "11d", p1, p4)
+        res["migrated"] = sum(ln["migrated"] for ln in chunks)
+        res["drops"] = max(ln["migration_drops"] for ln in chunks)
+        log({k: v for k, v in res.items() if k not in ("compare",)})
+        assert res["start"]["reader"] == "native", res["start"]
+        assert res["migrated"] > 0 and res["drops"] == 0, res
+        if device.type == "cuda":
+            assert all(sum(v.values()) == n_ext
+                       for v in res["launches"].values()), res["launches"]
+        return res
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+
+
+def phase11e(torch, device):
+    """11b's advection case over NCCL, one rank per card, where the
+    machine has two cards or more (world: up to 4 tiles)."""
+    cards = torch.cuda.device_count() if device.type == "cuda" else 0
+    if cards < 2:
+        res = {"phase": "11e", "ran": False, "cards": cards}
+        log(res)
+        return res
+    from ltjax_torch import shard, state as st, synth
+    from ltjax_torch.step import make_fused_external_steps
+    n, nx, us, n_ext = 1_000_000, 200, 20, 2
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      dtype=torch.float64)
+    ctx = context(case)
+    cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64")
+    dt = float(cfg.dt)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2, device=device)
+    rng = np.random.default_rng(0)
+    p0 = st.init_particles(rng.uniform(40e3, 160e3, n),
+                           rng.uniform(40e3, 160e3, n),
+                           rng.uniform(-40.0, -5.0, n), dtype=torch.float64,
+                           device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    ref = make_fused_external_steps(ctx, cfg, n_ext)(p0, fsR, 0.0, 0)
+    world = min(4, cards)
+    spec = shard.make_spec(cfg, nx, n, 1, world, halo=17, slack=3.0)
+    (got, ranks), = shard.run_tiled_steps(
+        [shard.TiledCase(ctx, cfg, p0, fsR, n_ext, spec, n_fuse=n_ext)],
+        device=device, backend="nccl")
+    res = tiled_vs_single(torch, "11e", ref, got)
+    res.update({"ran": True, "cards": cards, "ranks": world,
+                "migrated": sum(q["sent"] for q in ranks)})
+    log(res)
+    assert res["migrated"] > 0
+    return res
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
@@ -2889,12 +3399,17 @@ def kernel_targets():
         for kw in [{}, *CURV_LANES.values()]] + [
         kx.kernel_variant(make_cfg(1), pos64=True),
         kx.kernel_variant(make_cfg(1), axes=True),
-        kx.kernel_variant(make_cfg(1), pos64=True, axes=True)]
+        kx.kernel_variant(make_cfg(1), pos64=True, axes=True)] + [
+        # phase 11's tiles
+        kx.kernel_variant(make_cfg(1), tile=True),
+        kx.kernel_variant(make_cfg(1), pos64=True, tile=True),
+        kx.kernel_variant(make_cfg(1), axes=True, tile=True)]
     return [("ext_step", v) for v in variants] + [
         ("rk4_step", v or None) for v in (
             {}, {"LTX_POS64": 1}, {"LTX_AXES": 1},
             {"LTX_AXES": 1, "LTX_POS64": 1}, {"LTX_CURV": 1},
-            {"LTX_CURV": 1, "LTX_POS64": 1})]
+            {"LTX_CURV": 1, "LTX_POS64": 1}, {"LTX_TILE": 1},
+            {"LTX_POS64": 1, "LTX_TILE": 1})]
 
 
 def staging_report(targets, us=20, ws=21):
@@ -2927,7 +3442,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,10 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,11 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -2963,7 +3478,8 @@ def main(argv=None):
               7: lambda: phase7(torch, device),
               8: lambda: phase8(torch, device),
               9: lambda: phase9(torch, device),
-              10: lambda: phase10(torch, device)}
+              10: lambda: phase10(torch, device),
+              11: lambda: phase11(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:

@@ -9,6 +9,11 @@ clock's origin).  The format is ltjax's, so a checkpoint of either
 package resumes in the other.  The random streams are counter-based on
 (seed, step, substream, pid), so a resumed run draws what the unsplit
 run draws.
+
+Each rank of a sharded run saves its own slot block (EMPTY slots
+included) as ``ckpt_<ext>_h<rank:03d>.npz``, with the mesh (ndp, ntiles)
+in ``extra``; ``latest_sharded`` finds the newest complete set (or a
+single run's file).
 """
 
 from __future__ import annotations
@@ -16,6 +21,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
+import re
 import tempfile
 from typing import Optional, Tuple
 
@@ -75,3 +81,42 @@ def latest(ckpt_dir: str, tag: str = "") -> Optional[str]:
         return None
     cands.sort()
     return os.path.join(ckpt_dir, cands[-1][1])
+
+
+_NAME = re.compile(r"ckpt_(\d+)(?:_h(\d+))?\.npz$")
+
+
+def read_meta(path: str) -> dict:
+    """The meta object of a checkpoint (without reading its columns)."""
+    with np.load(path) as z:
+        return json.loads(bytes(z["meta"]).decode())
+
+
+def rank_tag(rank: int) -> str:
+    return f"_h{rank:03d}"
+
+
+def latest_sharded(ckpt_dir: str):
+    """(ext, paths, mesh) of the newest checkpoint that a sharded run can
+    resume from: a single run's ``ckpt_<ext>.npz`` (mesh None), or the
+    complete set of a sharded run's per-rank files (mesh (ndp, ntiles)
+    from their meta; paths in rank order); None if there is none."""
+    if not os.path.isdir(ckpt_dir):
+        return None
+    found = {}
+    for f in os.listdir(ckpt_dir):
+        m = _NAME.fullmatch(f)
+        if m:
+            rank = None if m.group(2) is None else int(m.group(2))
+            found.setdefault(int(m.group(1)), {})[rank] = os.path.join(
+                ckpt_dir, f)
+    for ext in sorted(found, reverse=True):
+        by_rank = found[ext]
+        if None in by_rank:
+            return ext, [by_rank[None]], None
+        if 0 in by_rank:
+            mesh = tuple(read_meta(by_rank[0])["extra"]["mesh"])
+            n = mesh[0] * mesh[1]
+            if all(r in by_rank for r in range(n)):
+                return ext, [by_rank[r] for r in range(n)], mesh
+    return None

@@ -33,6 +33,21 @@ class CurvMap:
 
 
 @dataclass
+class TileRows:
+    """Where the strip of a tile of a sharded run (``ltjax_torch.shard``)
+    lies in the whole grid: its first row (the halo's; negative for the
+    first tile), the whole grid's rows and y axes, and the (clipped) whole
+    grid's row of each strip row.  Cells are located on the whole grid's
+    axes, the arithmetic of an unsharded run, then moved into the strip
+    (``locate_y``; the kernels' LTX_TILE builds)."""
+    row0: int
+    ny: int
+    y_rho: torch.Tensor     # (ny,) the whole grid's rho axis
+    y_v: torch.Tensor       # (ny-1,)
+    rows: torch.Tensor      # (strip rows,) int64
+
+
+@dataclass
 class Grid:
     """Static grid tensors; axes are (eta, xi) = (y, x).  On a
     curvilinear grid (``curv`` set) the 1-D axes are the middle row and
@@ -53,6 +68,7 @@ class Grid:
     vtransform: int         # 1 or 2
     uniform: bool = False   # all axes exactly uniform (arithmetic locate)
     curv: Optional[CurvMap] = None   # curvilinear inverse map
+    tile: Optional[TileRows] = None  # the strip of a sharded run's tile
 
     @property
     def nx(self) -> int:
@@ -269,6 +285,19 @@ def locate(coords: torch.Tensor, x: torch.Tensor, uniform: bool = False):
     return i.to(torch.int32), f
 
 
+def locate_y(grid: Grid, y: torch.Tensor, v: bool = False):
+    """``locate`` along eta on the rho axis (or, ``v``, the v axis).  On
+    a tile's strip: on the whole grid's axis, then moved into the strip's
+    rows (clamped to them: only a particle that left the strip and its
+    halo is moved)."""
+    t = grid.tile
+    if t is None:
+        return locate(grid.y_v if v else grid.y_rho, y, grid.uniform)
+    j, f = locate(t.y_v if v else t.y_rho, y, grid.uniform)
+    n = (grid.y_v if v else grid.y_rho).shape[0]
+    return (j - t.row0).clamp(0, n - 2), f
+
+
 def logical_cells(grid: Grid, x, y):
     """(ti, tj, i, j, fx, fy) on a curvilinear grid: the inverse map's
     logical coordinates, the rho cells (int32) and their fractions."""
@@ -285,7 +314,7 @@ def locate_rho_ij(grid: Grid, x, y):
     if grid.curv is not None:
         return logical_cells(grid, x, y)[2:]
     i, fx = locate(grid.x_rho, x, grid.uniform)
-    j, fy = locate(grid.y_rho, y, grid.uniform)
+    j, fy = locate_y(grid, y)
     return i, j, fx, fy
 
 

@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from .grid import (Grid, locate, locate_rho_ij, logical_cells,
+from .grid import (Grid, locate, locate_rho_ij, locate_y, logical_cells,
                    stag_from_logical)
 
 
@@ -71,7 +71,7 @@ def locate_u(grid: Grid, x, y):
         i, fx = stag_from_logical(ti, grid.nx)
         return i, j, fx, fy
     i, fx = locate(grid.x_u, x, grid.uniform)
-    j, fy = locate(grid.y_rho, y, grid.uniform)
+    j, fy = locate_y(grid, y)
     return i, j, fx, fy
 
 
@@ -82,7 +82,7 @@ def locate_v(grid: Grid, x, y):
         j, fy = stag_from_logical(tj, grid.ny)
         return i, j, fx, fy
     i, fx = locate(grid.x_rho, x, grid.uniform)
-    j, fy = locate(grid.y_v, y, grid.uniform)
+    j, fy = locate_y(grid, y, v=True)
     return i, j, fx, fy
 
 

@@ -12,9 +12,10 @@ Host-side NumPy only (the step driver moves records to the device).
 The port's own copy of ``ltjax.io.roms``: ``RomsGridData``, ``read_grid``
 (uniform levels synthesized by ``ltjax_torch.grid.uniform_sigma_levels``
 where the files have none), ``RomsSeries``, ``_coord_2d`` and
-``is_rectilinear`` (without ltjax's per-host row slices and
-``seek``, which the port does not use yet); the port's
-``run.grid_from_roms`` builds its Grid.
+``is_rectilinear``; ``RomsSeries(eta_slice=)`` reads only a range of
+eta rows of every record (the ranks of a sharded run), ``seek``
+re-positions it (resume); the port's ``run.grid_from_roms`` builds its
+Grid.
 One difference: a series reads salt and temp whenever
 ``cfg.needs_salt_fields()`` (sampling on, or a salinity-cued behavior
 4/5), and fills a field it does not read with its constant.
@@ -175,9 +176,15 @@ class RomsSeries:
     field, advancing across file boundaries (updateHydro semantics).
     """
 
-    def __init__(self, cfg: Config, paths: Optional[List[str]] = None):
+    def __init__(self, cfg: Config, paths: Optional[List[str]] = None,
+                 eta_slice: Optional[tuple] = None):
+        """``eta_slice``: optional (lo, hi) rho-row range, read from every
+        record instead of the whole eta axis (each rank of a sharded run
+        reads its strip).  Fields on the shorter v axis clamp the range
+        to their own extent."""
         self.cfg = cfg
         self._explicit_paths = paths
+        self.eta_slice = eta_slice
         self.file_idx = 0      # index into the series
         self.rec_idx = 0       # record within current file
         self._nc: Optional[NCFile] = None
@@ -204,7 +211,13 @@ class RomsSeries:
                     const: float, shape_like: Optional[np.ndarray]):
         name = self._names.get(key)
         if read_flag and name:
-            return self._nc.read(name, rec, dtype="float32")
+            es = self.eta_slice
+            if es is not None:
+                # clamp to the variable's eta extent (v is one row
+                # shorter than rho)
+                ny_var = self._nc.dims(name)[-2]
+                es = (min(es[0], ny_var), min(es[1], ny_var))
+            return self._nc.read(name, rec, dtype="float32", eta_slice=es)
         if shape_like is not None:
             return np.full(shape_like.shape, const, np.float32)
         return None
@@ -264,6 +277,15 @@ class RomsSeries:
         tdim = max(1, self.cfg.tdim)
         self._open(global_record // tdim)
         self.rec_idx = global_record % tdim
+
+    @property
+    def reader(self) -> str:
+        """The kind of reader of the current file ("native", "cdf" or
+        "hdf"; io.nc.NCFile.kind), opening the first file if none is
+        open."""
+        if self._nc is None:
+            self._open(0)
+        return self._nc.kind
 
     def close(self):
         if self._nc is not None:

@@ -24,8 +24,9 @@
 //
 // Variants.  The options are compile-time macros (LTX_HTURB, LTX_VTURB
 // 0 off / 1 constant / 2 Aks, LTX_BEHAVIOR, LTX_MORTALITY, LTX_SETTLE,
-// LTX_SALT, LTX_CURV, LTX_POS64, LTX_AXES; the wrapper builds one library
-// per combination), so each configuration carries only its own lanes;
+// LTX_SALT, LTX_CURV, LTX_POS64, LTX_AXES, LTX_TILE; the wrapper builds
+// one library per combination), so each configuration carries only its
+// own lanes;
 // with all of them 0 the kernel is the advection kernel alone.
 // LTX_POS64 (dtype_pos = "float64") makes the particle state pos_t =
 // double (find_currents.cuh): cell location, the RK4 sums, turbulence,
@@ -39,7 +40,14 @@
 // cell edges (boundary.cell_of, settlement), each where it is not
 // uniform: the two are tested with different tolerances (1e-9 and
 // 1e-4), so the kernel takes each pair or its absence at run time
-// (Axes, a kernel argument of its own).
+// (Axes, a kernel argument of its own).  LTX_TILE runs one tile of a
+// sharded run (ltjax_torch.shard): the record table, boundary rows and
+// polygon candidates are the strip's (ny rows), and every cell location
+// (rho stencil, boundary cell, settlement cell) runs on the whole grid's
+// axes, origins and rows (P_NYG; searched axes the whole grid's), then
+// moves P_ROW0 rows into the strip (find_currents.cuh to_strip): the
+// arithmetic of an unsharded run, so a tile steps its particles bit for
+// bit as the whole grid does.
 //
 // Design.  One thread per particle, LTX_BLOCK = 128 threads a block, one
 // launch per external step; the n_int internal steps run inside the
@@ -159,6 +167,9 @@
 #ifndef LTX_AXES
 #define LTX_AXES 0
 #endif
+#ifndef LTX_TILE
+#define LTX_TILE 0
+#endif
 
 #include "find_currents.cuh"
 #include "curv.cuh"
@@ -174,6 +185,8 @@ enum {
   P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF,   // swim ramp
   P_KP, P_THRESH, P_HSWIM, P_SWIMDEPTH,             // DVM, TST
   P_PEDIAGE, P_SGRAD,                  // settlement age, 4/5 cue
+  P_ROW0, P_NYG,                       // LTX_TILE: the strip's first row,
+                                       // the whole grid's rows
   P_HEAD = 32                          // then s_rho, Cs_r, s_w, Cs_w,
                                        // then 9 polintd weights per step,
                                        // then (type 3) E0 per step
@@ -372,6 +385,17 @@ __device__ __forceinline__ Stencil locate(const Args& a, const Curv& cv,
                                           int& i, int& j) {
 #if LTX_CURV
   return locate_curv(cv, a.nx, a.ny, a.nl, x, y, i, j);
+#elif LTX_TILE
+  // on the whole grid's axes (ax.yr is the whole grid's), into the strip
+  const pos_t* par = ppar(a);
+  const int ny_g = (int)par[P_NYG], row0 = (int)par[P_ROW0];
+#if LTX_AXES
+  if (ax.xr)
+    return to_strip(locate_searched(ax.xr, ax.yr, a.nx, ny_g, a.nl, x, y,
+                                    i, j), a.nx, a.ny, a.nl, row0, i, j);
+#endif
+  return to_strip(locate_rect(par, a.nx, ny_g, a.nl, x, y, i, j), a.nx,
+                  a.ny, a.nl, row0, i, j);
 #else
 #if LTX_AXES
   if (ax.xr)
@@ -500,7 +524,11 @@ __device__ __forceinline__ const pos_t* cell_row(const Args& a,
 #if LTX_AXES
   if (ax.xe) {
     i = search_right(ax.xe, a.nx + 1, x) - 1;
+#if LTX_TILE
+    j = search_right(ax.ye, (int)par[P_NYG] + 1, y) - 1;
+#else
     j = search_right(ax.ye, a.ny + 1, y) - 1;
+#endif
   } else
 #endif
   {
@@ -508,7 +536,13 @@ __device__ __forceinline__ const pos_t* cell_row(const Args& a,
     j = (int)m_floor((y - par[P_BY0]) / par[P_BDY]);
   }
   i = min(max(i, 0), a.nx - 1);
+#if LTX_TILE
+  // the whole grid's boundary cell (ax.ye its edges), into the strip
+  j = min(max(min(max(j, 0), (int)par[P_NYG] - 1) - (int)par[P_ROW0], 0),
+          a.ny - 1);
+#else
   j = min(max(j, 0), a.ny - 1);
+#endif
 #endif
   return a.brows + ((long long)j * a.nx + i) * a.bl;
 }
@@ -644,22 +678,33 @@ __device__ bool in_polygon(const PolySet& s, int k, double px, double py) {
 // id of the first candidate habitat polygon of the point's cell that
 // contains it, unless a candidate hole does; -1 otherwise.  The cell is
 // searched on the f64 edges where they are not uniform (LTX_AXES).
+#if LTX_TILE
+// (on a tile: the whole grid's cell of ny_b rows, then row0 rows into the
+// strip's candidate rows)
+__device__ int settle_id(const Settle& sg, const Axes& ax, int nx, int ny,
+                         pos_t x, pos_t y, int ny_b, int row0) {
+#else
 __device__ int settle_id(const Settle& sg, const Axes& ax, int nx, int ny,
                          pos_t x, pos_t y) {
+  const int ny_b = ny;
+#endif
   const double px = (double)x, py = (double)y;
   int i, j;
 #if LTX_AXES
   if (ax.sxe) {
     i = min(max(search_right(ax.sxe, nx + 1, px) - 1, 0), nx - 1);
-    j = min(max(search_right(ax.sye, ny + 1, py) - 1, 0), ny - 1);
+    j = min(max(search_right(ax.sye, ny_b + 1, py) - 1, 0), ny_b - 1);
   } else
 #endif
   {
     i = (int)fmin(fmax(floor((px - sg.edge[0]) / sg.edge[1]), 0.0),
                   (double)(nx - 1));
     j = (int)fmin(fmax(floor((py - sg.edge[2]) / sg.edge[3]), 0.0),
-                  (double)(ny - 1));
+                  (double)(ny_b - 1));
   }
+#if LTX_TILE
+  j = min(max(j - row0, 0), ny - 1);      // into the strip's rows
+#endif
   const long long cell = (long long)j * nx + i;
   int id = -1;
   const int* c = sg.poly.cands + cell * sg.poly.cmax;
@@ -1042,7 +1087,12 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     if constexpr (SETTLE) {
       if (st == ACTIVE && sg.poly.n > 0
           && age_pre + idt >= par[P_PEDIAGE]) {
+#if LTX_TILE
+        int id = settle_id(sg, ax, a.nx, a.ny, x, y, (int)ppar(a)[P_NYG],
+                           (int)ppar(a)[P_ROW0]);
+#else
         int id = settle_id(sg, ax, a.nx, a.ny, x, y);
+#endif
         if (id >= 0) {
           st = SETTLED;
           if (spoly < 0) spoly = id;

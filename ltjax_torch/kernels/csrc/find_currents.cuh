@@ -207,6 +207,22 @@ __device__ __forceinline__ Stencil locate_searched(const pos_t* xr,
   return s;
 }
 
+#if LTX_TILE
+// a tile of a sharded run (LTX_TILE): a stencil located on the whole
+// grid's rows (locate_rect / locate_searched with the whole grid's axes,
+// the arithmetic of an unsharded run, so that a tile steps its particles
+// as the whole grid does) moved row0 rows into the strip's tables of ny
+// rows; the clamp keeps a particle that left the strip and its halo
+// inside the tables
+__device__ __forceinline__ Stencil to_strip(Stencil s, int nx, int ny,
+                                            int stride, int row0, int i,
+                                            int& j) {
+  j = min(max(j - row0, 0), ny - 2);
+  s.r00 = ((long long)j * nx + i) * stride;
+  return s;
+}
+#endif
+
 // s-level depth of knot (s, cs) in a column with surface zeta, depth h
 template <class P>
 __device__ __forceinline__ P knot_depth(P hc, int vt, P s, P cs, P zeta,

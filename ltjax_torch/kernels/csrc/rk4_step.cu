@@ -26,7 +26,10 @@
 // that are not uniform (grid.locate(..., uniform=False)); LTX_POS64 takes
 // float64 positions (dtype_pos = "float64"): cell location, the knots, the
 // log layer and the RK4 sums in float64, the blend and the fits in
-// float32, as packed.rk4_displacement_collapsed casts them.
+// float32, as packed.rk4_displacement_collapsed casts them; LTX_TILE
+// runs a tile of a sharded run (ltjax_torch.shard): the tables are the
+// strip's, and each stage locates on the whole grid's axes and moves into
+// the strip (find_currents.cuh to_strip).
 //
 // The staged corner source of find_currents.cuh (a block's box of the
 // three tables in shared memory) was measured on this kernel and lost: 2.15-2.26 ms a launch at 1M
@@ -52,6 +55,9 @@
 #endif
 #ifndef LTX_AXES
 #define LTX_AXES 0
+#endif
+#ifndef LTX_TILE
+#define LTX_TILE 0
 #endif
 
 #include "find_currents.cuh"
@@ -86,6 +92,17 @@ __device__ __forceinline__ Rows locate_rows(const Grid& g, const Curv& cv,
   int i, j;
 #if LTX_CURV
   const Stencil c = locate_curv(cv, g.nx, g.ny, g.nv, x, y, i, j);
+#elif LTX_TILE
+  // a tile of a sharded run: on the whole grid's axes (ny_g rows; ax.yr
+  // the whole grid's), row0 rows into the strip's tables (the two values
+  // after the ladders)
+  const pos_t* tl = g.par + Q_HEAD + 2 * (g.us + g.ws);
+  const int row0 = (int)tl[0], ny_g = (int)tl[1];
+  const Stencil c = to_strip(
+      (LTX_AXES && ax.xr)
+          ? locate_searched(ax.xr, ax.yr, g.nx, ny_g, g.nv, x, y, i, j)
+          : locate_rect(g.par, g.nx, ny_g, g.nv, x, y, i, j),
+      g.nx, g.ny, g.nv, row0, i, j);
 #elif LTX_AXES
   const Stencil c = ax.xr ? locate_searched(ax.xr, ax.yr, g.nx, g.ny, g.nv,
                                             x, y, i, j)
@@ -183,7 +200,9 @@ rk4_step_kernel(Grid g, const float* __restrict__ t1,
 // stage-1 currents.  curv_* is the inverse curvilinear map, given exactly
 // to an LTX_CURV variant (curv.cuh; curv_seed the seed_i then the seed_j
 // raster, each curv_my x curv_mx); axis_x/axis_y the rho axes (nx, ny),
-// given only to an LTX_AXES variant, null where the grid is uniform.
+// given only to an LTX_AXES variant, null where the grid is uniform (on
+// an LTX_TILE variant the whole grid's y axis, and params ends with the
+// strip's first row and the whole grid's rows).
 // Returns the launch's cudaError_t.
 extern "C" int ltx_rk4_step(const float* t1, const float* t2,
                             const float* t4, const pos_t* params,

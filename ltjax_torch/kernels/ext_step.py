@@ -62,7 +62,7 @@ MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
 (P_X0, P_DX, P_Y0, P_DY, P_BX0, P_BDX, P_BY0, P_BDY, P_BX1, P_BY1, P_HC,
  P_Z0M, P_T0, P_IDT, P_SIGMA, P_HSCALE, P_VCONST, P_SINK, P_DEADAGE,
  P_SWIMSTART, P_SWIMDEN, P_SWIMSLOW, P_SWIMDIFF, P_KP, P_THRESH, P_HSWIM,
- P_SWIMDEPTH, P_PEDIAGE, P_SGRAD) = range(29)
+ P_SWIMDEPTH, P_PEDIAGE, P_SGRAD, P_ROW0, P_NYG) = range(31)
 P_HEAD = 32
 
 VTURB_OFF, VTURB_CONST, VTURB_AKS = 0, 1, 2
@@ -70,14 +70,15 @@ SWIM_TYPES = (1, 2, 3, 4, 5)   # behaviors drawing BEHAVE/MORTALITY words
 
 
 def kernel_variant(cfg, curv: bool = False, pos64: bool = False,
-                   axes: bool = False) -> dict:
+                   axes: bool = False, tile: bool = False) -> dict:
     """The compile-time options of the kernel for a configuration on a
     rectilinear grid, or (``curv``) a curvilinear one, with float32 or
     (``pos64``) float64 positions, on uniform or (``axes``) searched
-    rectilinear axes (the -D flags of csrc/ext_step.cu).  Settlement,
-    salt sampling, the curvilinear map, float64 positions and searched
-    axes appear only when on, so the variants without them build from the
-    same flags as before they existed."""
+    rectilinear axes, on a whole grid or (``tile``) a tile's strip of a
+    sharded run (the -D flags of csrc/ext_step.cu).  Settlement, salt
+    sampling, the curvilinear map, float64 positions, searched axes and
+    tiles appear only when on, so the variants without them build from
+    the same flags as before they existed."""
     vt = (VTURB_OFF if not cfg.VTurbOn
           else VTURB_AKS if cfg.readAks else VTURB_CONST)
     out = {"LTX_HTURB": int(bool(cfg.HTurbOn)), "LTX_VTURB": vt,
@@ -93,6 +94,8 @@ def kernel_variant(cfg, curv: bool = False, pos64: bool = False,
         out["LTX_POS64"] = 1
     if axes:
         out["LTX_AXES"] = 1
+    if tile:
+        out["LTX_TILE"] = 1
     return out
 
 
@@ -100,11 +103,12 @@ def variant_of(ctx, cfg, dtype) -> dict:
     """The kernel variant that runs ``cfg`` on ``ctx``'s grid with
     positions of ``dtype``: searched axes where the rectilinear grid's
     rho axes (grid.uniform) or its boundary cell edges (bounds.uniform)
-    are not uniform."""
+    are not uniform; the tile build on a tile's strip (grid.tile)."""
     g, b = ctx.grid, ctx.bounds
     curv = g.curv is not None
     return kernel_variant(cfg, curv=curv, pos64=dtype == torch.float64,
-                          axes=not curv and not (g.uniform and b.uniform))
+                          axes=not curv and not (g.uniform and b.uniform),
+                          tile=g.tile is not None)
 
 
 def uses_rng(cfg) -> bool:
@@ -150,13 +154,18 @@ def params_static(ctx, cfg, dtype=np.float32) -> np.ndarray:
     f32 = np.dtype(dtype).type
     tdt = torch.float64 if f32 is np.float64 else torch.float32
     xr = g.x_rho.cpu().numpy().astype(f32)
-    yr = g.y_rho.cpu().numpy().astype(f32)
+    # a tile locates on the whole grid's y axis (LTX_TILE)
+    yr = (g.y_rho if g.tile is None else g.tile.y_rho).cpu().numpy().astype(
+        f32)
     bx0, bdx, by0, bdy, bx1, by1 = b.edges
     head = np.zeros(P_HEAD, f32)
     head[P_X0] = xr[0]
     head[P_DX] = xr[1] - xr[0]          # in dtype, as grid.locate
     head[P_Y0] = yr[0]
     head[P_DY] = yr[1] - yr[0]
+    if g.tile is not None:
+        head[P_ROW0] = g.tile.row0
+        head[P_NYG] = g.tile.ny
     head[[P_BX0, P_BDX, P_BY0, P_BDY, P_BX1, P_BY1]] = (bx0, bdx, by0, bdy,
                                                        bx1, by1)
     head[P_HC] = g.hc
@@ -232,10 +241,18 @@ def rng_keys_array(seed, ext_idx: int, n_int: int,
 
 def boundary_rows_table(ctx, dtype=torch.float32) -> torch.Tensor:
     """(Ny*Nx, 8 + 8*s_max) boundary cell rows in the positions' dtype
-    (reflect's), once per context and dtype."""
+    (reflect's), once per context and dtype; on a tile of a sharded run
+    the rows of its strip (``grid.tile.rows``, clipped row indices: rim
+    tiles edge-replicate)."""
     key = ("brows", dtype)
     if key not in ctx.cache:
-        ctx.cache[key] = ctx.bounds.cell_rows.to(dtype).contiguous()
+        rows = ctx.bounds.cell_rows
+        tile = ctx.grid.tile
+        if tile is not None:
+            ny, nx = ctx.bounds.water.shape
+            rows = rows.view(ny, nx, -1)[tile.rows].reshape(
+                -1, rows.shape[1])
+        ctx.cache[key] = rows.to(dtype).contiguous()
     return ctx.cache[key]
 
 
@@ -282,7 +299,9 @@ def axes_tables(ctx, dtype=torch.float32):
     def pair(u, v, dt):
         return (u.to(dt).contiguous(), v.to(dt).contiguous())
 
-    out = (None if g.uniform else pair(g.x_rho, g.y_rho, dtype),
+    # a tile searches the whole grid's axes (LTX_TILE)
+    yr = g.y_rho if g.tile is None else g.tile.y_rho
+    out = (None if g.uniform else pair(g.x_rho, yr, dtype),
            None if b.uniform else pair(b.x_edges, b.y_edges, dtype),
            None if b.uniform else pair(b.x_edges, b.y_edges, torch.float64))
     ctx.cache[key] = out
@@ -303,6 +322,7 @@ def settle_tables(ctx):
     ny, nx = ctx.bounds.water.shape
     dev = ctx.grid.device
     x0, dx, y0, dy, _, _ = ctx.bounds.edges
+    tile = ctx.grid.tile
     dbl = [torch.tensor([x0, dx, y0, dy], dtype=torch.float64)]
     ints, dims = [], []
     for ps in (ctx.polys, ctx.holes):
@@ -312,9 +332,11 @@ def settle_tables(ctx):
         if tuple(ps.cell_cands.shape[:2]) != (ny, nx):
             raise ValueError("settle_tables: candidate rows must cover the "
                              f"({ny}, {nx}) cell lattice")
+        cands = ps.cell_cands.cpu()
+        if tile is not None:
+            cands = cands[tile.rows.cpu()]       # the strip's rows
         dbl += [ps.verts_x.cpu().reshape(-1), ps.verts_y.cpu().reshape(-1)]
-        ints += [ps.nverts.cpu(), ps.poly_id.cpu(),
-                 ps.cell_cands.cpu().reshape(-1)]
+        ints += [ps.nverts.cpu(), ps.poly_id.cpu(), cands.reshape(-1)]
         dims.append((ps.n_polys, ps.verts_x.shape[1],
                      ps.cell_cands.shape[2]))
     out = (torch.cat([d.to(torch.float64) for d in dbl]).to(dev),

@@ -53,8 +53,9 @@ def kernel_variant(grid, dtype=torch.float32) -> dict:
     """The compile-time options of csrc/rk4_step.cu for a grid and the
     positions' dtype: LTX_CURV on a curvilinear grid, LTX_AXES on
     rectilinear rho axes that are not uniform, LTX_POS64 for float64
-    positions; each only when on (the rectilinear float32 build is
-    ``rk4_step`` as before)."""
+    positions, LTX_TILE on a tile's strip of a sharded run (grid.tile);
+    each only when on (the rectilinear float32 build is ``rk4_step`` as
+    before)."""
     out = {}
     if grid.curv is not None:
         out["LTX_CURV"] = 1
@@ -62,6 +63,8 @@ def kernel_variant(grid, dtype=torch.float32) -> dict:
         out["LTX_AXES"] = 1
     if dtype == torch.float64:
         out["LTX_POS64"] = 1
+    if grid.tile is not None:
+        out["LTX_TILE"] = 1
     return out
 
 
@@ -69,10 +72,13 @@ def params_array(grid, sigma: float, z0m: float,
                  dtype=np.float32) -> torch.Tensor:
     """The kernel's params vector (host) in the positions' dtype,
     counterpart of ``gather_interp._params_array`` in this kernel's own
-    layout."""
+    layout; on a tile's strip (LTX_TILE) the whole grid's y origin and
+    spacing, and after the ladders the strip's first row and the whole
+    grid's rows."""
     f32 = np.dtype(dtype).type
+    t = grid.tile
     xr = grid.x_rho.cpu().numpy().astype(f32)
-    yr = grid.y_rho.cpu().numpy().astype(f32)
+    yr = (grid.y_rho if t is None else t.y_rho).cpu().numpy().astype(f32)
     head = np.zeros(Q_HEAD, f32)
     head[Q_X0] = xr[0]
     head[Q_DX] = xr[1] - xr[0]          # in dtype, as grid.locate
@@ -81,8 +87,10 @@ def params_array(grid, sigma: float, z0m: float,
     head[Q_HC] = grid.hc
     head[Q_Z0M] = z0m
     head[Q_SIGMA] = sigma
-    lad = [t.cpu().numpy().astype(f32) for t in (grid.s_rho, grid.Cs_r,
+    lad = [a.cpu().numpy().astype(f32) for a in (grid.s_rho, grid.Cs_r,
                                                   grid.s_w, grid.Cs_w)]
+    if t is not None:
+        lad.append(np.array([t.row0, t.ny], f32))
     return torch.from_numpy(np.concatenate([head] + lad))
 
 
@@ -205,8 +213,9 @@ def _device_tables(grid, sigma, z0m, npdt, dev):
         cxy, cseed = cxy.to(dev), cseed.to(dev)
     axes = (None, None)
     if grid.curv is None and not grid.uniform:
+        yr = grid.y_rho if grid.tile is None else grid.tile.y_rho
         axes = (grid.x_rho.to(device=dev, dtype=tdt).contiguous(),
-                grid.y_rho.to(device=dev, dtype=tdt).contiguous())
+                yr.to(device=dev, dtype=tdt).contiguous())
     return par, cxy, cseed, size, scal, axes
 
 

@@ -57,9 +57,14 @@ def _collocate_u(u):
 
 
 def _collocate_v(v, ny: int):
-    """(..., Ny-1, Nx, K) v-grid -> (..., Ny, Nx, K) rho-collocated."""
-    assert v.shape[-3] == ny - 1, (v.shape, ny)
+    """(..., Ny-1, Nx, K) v-grid -> (..., Ny, Nx, K) rho-collocated.  A
+    tile of a sharded run carries Ny v rows (row j between rho rows j and
+    j+1, as ltjax's tiles do): its first row is taken as it is."""
     mid = 0.5 * (v[..., 1:, :, :] + v[..., :-1, :, :])
+    if v.shape[-3] == ny:
+        return torch.cat([v[..., :1, :, :], mid], dim=-3)
+    if v.shape[-3] != ny - 1:
+        raise ValueError(f"v has {v.shape[-3]} eta rows, the grid {ny}")
     return torch.cat([v[..., :1, :, :], mid, v[..., -1:, :, :]], dim=-3)
 
 

@@ -37,6 +37,25 @@ SaltTempOn and behaviors 4/5 read the series' salt and temp.  History
 files must be NetCDF3 unless ``h5py`` is installed
 (``ltjax_torch.io.nc``).
 
+Sharded runs (``mesh_particles * mesh_tiles > 1``, ``run_sharded``, the
+counterpart of ltjax's): one process per rank of the (dp, tile) mesh
+(``ltjax_torch.dist``: under ``torchrun`` each process is a rank, else
+the run spawns its ranks), NCCL with one rank per card on CUDA, gloo on
+the CPU; the function-level ``run(cfg, device="cuda", backend="gloo")``
+may place several ranks on one card.  Each rank reads its eta strip
+with the halo (``RomsSeries(eta_slice=)``), steps its tile on the
+route of one device and migrates particles after each external step
+(``ltjax_torch.shard``); the ranks decide the ErrorFlag halt together.
+Rank 0 prints the startup line (with ``backend``, ``ranks``, ``cards``);
+every rank prints its chunk lines (``rank``, its own read, compute and
+stall seconds and migrated particles, the counts and migration drops
+summed over the ranks) and a last line with its kernel launches and
+peak device memory.  CSV output is gathered to rank 0 in pid order;
+NetCDF-only runs write one shard file per rank, merged by rank 0 at the
+end (``out.writer.merge_shards``).  Checkpoints are per rank
+(``ckpt_<ext>_h<rank>.npz``); ``--resume`` restores each rank's slots on
+the same mesh and re-scatters the particles onto another.
+
 Diagnostic switches (environment variables, ltjax's names):
 
 * ``LTJAX_PROFILE_DIR=/path``: a ``torch.profiler`` trace (CPU and, on
@@ -264,10 +283,13 @@ def check_nans(cfg: Config, p: st.Particles, ext: int):
 
 
 def run(cfg: Config, resume: bool = False, device=None,
-        series_paths: Optional[List[str]] = None) -> st.Particles:
-    """Run the configured simulation; returns the final particles.  The
-    run takes the CUDA device unless ``device`` names another; without
-    one it raises rather than fall back to the CPU."""
+        series_paths: Optional[List[str]] = None,
+        backend: Optional[str] = None) -> st.Particles:
+    """Run the configured simulation; returns the final particles (a
+    sharded run: see ``run_sharded``).  The run takes the CUDA device
+    unless ``device`` names another; without one it raises rather than
+    fall back to the CPU.  ``backend`` ("nccl" or "gloo") is the process
+    group of a sharded run (default: NCCL on CUDA, gloo on the CPU)."""
     cfg.validate()
     if device is None:
         if not torch.cuda.is_available():
@@ -277,6 +299,12 @@ def run(cfg: Config, resume: bool = False, device=None,
                 "run(cfg, device='cpu'))")
         device = "cuda"
     device = torch.device(device)
+    if cfg.mesh_particles * cfg.mesh_tiles > 1:
+        return run_sharded(cfg, resume=resume, device=device,
+                           series_paths=series_paths, backend=backend)
+    if backend is not None:
+        raise ValueError("run: backend applies to sharded runs "
+                         "(mesh_particles * mesh_tiles > 1)")
     timing = Timing()
     t0 = time.perf_counter()
     grid = load_grid(cfg, device)
@@ -335,7 +363,8 @@ def run(cfg: Config, resume: bool = False, device=None,
         "uniform": bool(grid.uniform),
         "curvilinear": grid.curv is not None, "numpar": particles.n,
         "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse,
-        "lanes": enabled_lanes(cfg), "seed": cfg.seed}), flush=True)
+        "lanes": enabled_lanes(cfg), "seed": cfg.seed,
+        "reader": series.reader}), flush=True)
 
     writer = TrajectoryWriter(cfg)
     fused_cache = {}
@@ -423,6 +452,333 @@ def run(cfg: Config, resume: bool = False, device=None,
     if cfg.WriteModelTiming:
         print(json.dumps({"timing": timing.summary()}))
     return particles
+
+def _emit(obj) -> None:
+    """One JSON line in one write (the ranks share stdout)."""
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+COUNT_KEYS = ("not_released", "active", "settled", "dead", "out_of_domain",
+              "error")
+
+
+def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
+    """The (source, variant) pairs of the kernels that ``cfg`` runs on
+    ``grid`` (for ``kernels.build.prebuild``; ``tile``: on the tiles of a
+    sharded run): K1 on the ext_step route, K2 on the per-step route,
+    none on the native route."""
+    from .kernels import ext_step as kx, rk4_step as kr
+    from .physics.boundary import _cell_edges
+    from .grid import _is_uniform
+    route = mode_flags(None, cfg)
+    dtype = getattr(torch, cfg.dtype_pos)
+    if route == "per_step":
+        v = kr.kernel_variant(grid, dtype)
+        if tile:
+            v["LTX_TILE"] = 1
+        return [("rk4_step", v or None)]
+    if route == "native":
+        return []
+    curv = grid.curv is not None
+    edges_uniform = all(_is_uniform(_cell_edges(a.cpu().numpy()), 1e-4)
+                        for a in (grid.x_rho, grid.y_rho))
+    return [("ext_step", kx.kernel_variant(
+        cfg, curv=curv, pos64=dtype == torch.float64,
+        axes=not curv and not (grid.uniform and edges_uniform),
+        tile=tile))]
+
+
+def run_sharded(cfg: Config, resume: bool = False, device="cpu",
+                series_paths: Optional[List[str]] = None,
+                backend: Optional[str] = None) -> st.Particles:
+    """A sharded run (counterpart of ``ltjax.run.run_sharded``):
+    ``mesh_particles * mesh_tiles`` ranks, one process each.
+
+    Under a launcher that sets RANK and WORLD_SIZE (``torchrun``; both or
+    neither, WORLD_SIZE equal to the mesh), this process runs its rank and
+    returns its slot block (EMPTY slots included).  Otherwise the run
+    builds the kernels and the reader once, spawns the ranks on a free
+    localhost port, and returns the particles of every rank in pid order
+    on ``device``.  ``backend``: "nccl" (CUDA, one card per rank; the
+    default there) or "gloo" (the CPU's; on CUDA several ranks may share
+    a card)."""
+    from . import dist, native, shard
+    from .kernels import build
+    device = torch.device(device)
+    world = cfg.mesh_particles * cfg.mesh_tiles
+    backend = backend or ("nccl" if device.type == "cuda" else "gloo")
+    if backend not in ("nccl", "gloo"):
+        raise ValueError(f"sharded run: backend {backend!r} (nccl or gloo)")
+    if backend == "nccl" and device.type != "cuda":
+        raise ValueError("sharded run: NCCL needs CUDA devices; the CPU "
+                         "takes gloo")
+    env = dist.launch_env()
+    if env is not None:
+        rank, w, local = env
+        if w != world:
+            raise RuntimeError(
+                f"sharded run: WORLD_SIZE={w}, but mesh_particles * "
+                f"mesh_tiles = {cfg.mesh_particles} * {cfg.mesh_tiles} = "
+                f"{world}")
+        return _rank_run(rank, w, "env://", cfg, resume, str(device),
+                         series_paths, backend, local)["particles"]
+    if device.type == "cuda":
+        count = torch.cuda.device_count()
+        if backend == "nccl" and count < world:
+            raise RuntimeError(f"sharded run: NCCL takes one card per rank: "
+                               f"{world} ranks, {count} cards")
+    native.get_lib()              # built once here, not once per rank
+    grid = load_grid(cfg, "cpu")
+    if grid.curv is not None and cfg.mesh_tiles > 1:
+        check_supported(cfg, StepContext(grid=grid, bounds=None))
+    if device.type == "cuda":
+        # one nvcc per kernel, not one per rank; rectilinear grids are tiled
+        build.prebuild(kernel_targets(cfg, grid, tile=grid.curv is None))
+    results = dist.launch(_rank_run, world,
+                          (cfg, resume, str(device), series_paths, backend))
+    return shard.gather_particles(
+        [r["particles"] for r in results]).to(device)
+
+
+def _resume_block(found, spec, edges, me, cfg: Config, device):
+    """(block, ext, global_record, extra) of this rank from the newest
+    checkpoint (``checkpoint.latest_sharded``): its own file on the same
+    mesh, else the saved particles (every rank's, or a single run's)
+    re-scattered onto this mesh."""
+    from . import shard
+    _, paths, mesh = found
+    if mesh == (spec.ndp, spec.ntiles):
+        p, ext, grec, extra = ckpt.load(paths[me.rank])
+    else:
+        loaded = [ckpt.load(path) for path in paths]
+        p = shard.scatter_block(shard.gather_particles(
+            [q[0] for q in loaded]), spec, edges, me.dp, me.tile)
+        ext, grec, extra = loaded[0][1:]
+    pos = getattr(torch, cfg.dtype_pos)
+    p = p.replace(**{k: getattr(p, k).to(pos) for k in shard.FLOATS})
+    return p.to(device), ext, grec, extra
+
+
+def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
+              resume: bool, device: str, series_paths, backend: str,
+              local_rank: Optional[int] = None) -> dict:
+    """One rank of a sharded run: join the process group, read this
+    tile's strip, step and migrate chunk by chunk (run()'s loop), write
+    its output and checkpoints.  Returns {"particles": its final slot
+    block on the CPU}."""
+    from . import dist, shard
+    from .kernels import ext_step as kx, rk4_step as kr
+    from .out.writer import merge_shards
+    ndp, ntiles = cfg.mesh_particles, cfg.mesh_tiles
+    dev = dist.rank_device(device, backend,
+                           rank if local_rank is None else local_rank, world)
+    me = dist.init(rank, world, ndp, ntiles, backend, dev, init_method)
+    timing = Timing()
+    t0 = time.perf_counter()
+    grid = load_grid(cfg, dev)
+    ctx = build_context(cfg, grid)
+    check_supported(cfg, ctx)
+    if rank == 0 and cfg.BoundaryBLNs:
+        bd.dump_boundaries(
+            ctx.bounds, cfg.outpath,
+            to_lonlat=lambda x, y: (
+                convert.x2lon(x, y, cfg.lonmin, cfg.latmin,
+                              cfg.Earth_Radius, cfg.SphericalProjection),
+                convert.y2lat(y, cfg.latmin, cfg.Earth_Radius,
+                              cfg.SphericalProjection)))
+    curv = grid.curv is not None
+    spec = shard.make_spec(cfg, grid.ny, cfg.numpar, ndp, ntiles,
+                           halo=0 if curv else cfg.halo_rows,
+                           slack=cfg.migrate_capacity)
+    if curv:                  # every rank holds the whole grid
+        tctx, edges, eta = ctx, np.array([-np.inf, np.inf]), None
+
+        def strip(rec):
+            return rec
+    else:
+        tiled = shard.build_tiled_static(grid, spec)
+        tctx, edges = (shard.tile_context(ctx, spec, tiled, me.tile),
+                       tiled.tile_edges)
+        eta = shard.strip_rows(spec, me.tile, grid.ny)
+
+        def strip(rec):
+            return shard.strip_record(rec, spec, me.tile, grid.ny, eta[0])
+    series = RomsSeries(cfg, paths=series_paths, eta_slice=eta)
+    if rank == 0 and cfg.WriteParfile and cfg.parfile:
+        os.makedirs(cfg.outpath, exist_ok=True)
+        shutil.copyfile(cfg.parfile,
+                        os.path.join(cfg.outpath, "parfile_echo.csv"))
+    start_ext = global_rec = 0
+    resumed_extra = None
+    found = ckpt.latest_sharded(cfg.checkpoint_dir) if resume else None
+    if found:
+        p, start_ext, global_rec, resumed_extra = _resume_block(
+            found, spec, edges, me, cfg, dev)
+        series.seek(global_rec - 3)
+    else:
+        p = shard.scatter_block(init_particles_from_parfile(cfg, "cpu"),
+                                spec, edges, me.dp, me.tile).to(dev)
+
+    window: List[dict] = [strip(series.next_record()) for _ in range(3)]
+    if resumed_extra is None:
+        global_rec += 3
+        t_base = window[0]["time"]
+    else:
+        t_base = resumed_extra.get(
+            "t_base", window[0]["time"] - (global_rec - 3) * cfg.dt)
+    win_start = global_rec - 3
+    timing.add("hydro_init", time.perf_counter() - t0)
+
+    n_fuse = max(1, cfg.ext_fuse)
+    route = mode_flags(ctx, cfg)
+    if rank == 0:
+        _emit({
+            "path": ("plain" if dev.type != "cuda" else
+                     {"per_step": "cuda_rk4_step", "native": "cuda_native",
+                      "ext_step": "cuda_ext_step"}[route]),
+            "route": route,
+            "device": (torch.cuda.get_device_name(dev)
+                       if dev.type == "cuda" else "cpu"),
+            "uniform": bool(grid.uniform), "curvilinear": curv,
+            "numpar": cfg.numpar, "dtype_pos": cfg.dtype_pos,
+            "n_fuse": n_fuse, "lanes": enabled_lanes(cfg), "seed": cfg.seed,
+            "reader": series.reader, "backend": backend, "ranks": world,
+            "cards": (min(world, torch.cuda.device_count())
+                      if dev.type == "cuda" else 0),
+            "mesh": [ndp, ntiles], "halo": spec.halo, "cap": spec.cap,
+            "mig_cap": spec.mig_cap})
+
+    stream_shard = cfg.writeNC and not cfg.writeCSV
+    writer = (TrajectoryWriter(cfg, shard_tag=ckpt.rank_tag(rank))
+              if stream_shard else TrajectoryWriter(cfg) if rank == 0
+              else None)
+
+    def snapshot(t):
+        # NetCDF only: this rank's slots into its shard file; else the
+        # whole batch, gathered to rank 0 in pid order
+        if stream_shard:
+            writer.snapshot(t, p)
+        elif cfg.writeCSV or cfg.writeNC:
+            parts = me.gather_rows(shard.pack_rows(p))
+            if rank == 0:
+                writer.snapshot(t, shard.gather_particles(
+                    [shard.unpack_rows(r, p.x.dtype) for r in parts]))
+
+    steppers = {}
+    field_dtype = getattr(torch, cfg.dtype_field)
+    n_ext, out_every = cfg.external_steps, cfg.output_every_ext
+    if not resume:
+        snapshot(0.0)
+    prefetch = (Prefetcher(lambda: strip(series.next_record()),
+                           depth=max(2, n_fuse + 1), device=dev)
+                if cfg.prefetch else None)
+    profiler = Profiler(dev)
+    if rank:
+        profiler.dir = None             # one trace, rank 0's
+    debug_nans = bool(os.environ.get("LTJAX_DEBUG_NANS"))
+    exhausted = False
+    try:
+        ext = start_ext
+        while ext < n_ext:
+            E = min(n_fuse, n_ext - ext, out_every - (ext % out_every))
+            if cfg.checkpoint_every:
+                E = min(E, cfg.checkpoint_every
+                        - (ext % cfg.checkpoint_every))
+            tw = time.perf_counter()
+            while global_rec - 1 < ext + E + 1 and not exhausted:
+                rec = (prefetch.next() if prefetch
+                       else strip(series.next_record()))
+                if rec is None:
+                    exhausted = True
+                    break
+                window.append(rec)
+                global_rec += 1
+            if exhausted:
+                E = min(E, global_rec - 2 - ext)
+                if E < 1:
+                    if rank == 0:
+                        _emit({"event": "series_exhausted", "ext": ext})
+                    break
+            while win_start < ext:
+                window.pop(0)
+                win_start += 1
+            fsW = stack_records(window[:E + 2], t_base, field_dtype, dev,
+                                with_salt_temp=cfg.needs_salt_fields())
+            read_s = time.perf_counter() - tw
+            timing.add("hydro_read", read_s)
+
+            profiler.tick(ext)
+            tc = time.perf_counter()
+            t_ext = float(ext * cfg.dt)
+            if E not in steppers:
+                steppers[E] = shard.make_tiled_steps(
+                    tctx, cfg, spec, me.tile, edges, E, me.exchange)
+            p, drops, sent = steppers[E](p, fsW, t_ext, ext)
+            local = summary_counts(p)               # waits for the device
+            step_s = time.perf_counter() - tc
+            timing.add("compute", step_s)
+            ext += E
+            if debug_nans:
+                check_nans(cfg, p, ext - 1)
+            # the halt is decided on the counts of every rank, so that
+            # all ranks raise together
+            tot = me.sum([local[k] for k in COUNT_KEYS]
+                         + [int(drops), int(sent)])
+            counts = dict(zip(COUNT_KEYS, tot))
+            if cfg.ErrorFlag == 0 and (counts["error"] > 0 or tot[-2] > 0):
+                raise RuntimeError(
+                    f"{counts['error']} errored particles / {tot[-2]} "
+                    f"migration overflows at ext step {ext - 1} "
+                    f"(ErrorFlag=0 halts; raise migrate_capacity or set "
+                    f"ErrorFlag>0 to continue)")
+            if ext % out_every == 0:
+                to = time.perf_counter()
+                snapshot(t_ext + E * cfg.dt)
+                timing.add("output", time.perf_counter() - to)
+            if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
+                ckpt.save(os.path.join(cfg.checkpoint_dir,
+                                       f"ckpt_{ext}{ckpt.rank_tag(rank)}"
+                                       ".npz"),
+                          p, ext, global_rec,
+                          extra={"t_base": float(t_base),
+                                 "mesh": [ndp, ntiles]})
+            log = {"rank": rank, "ext": ext - E, "n_fused": E,
+                   "sim_t": t_ext + E * cfg.dt,
+                   "steps_per_s": cfg.numpar * cfg.internal_steps * E
+                   / step_s, "hydro_read_s": read_s, "compute_s": step_s,
+                   "stall_s": prefetch.stall_s if prefetch else 0.0,
+                   "migrated": int(sent), "migration_drops": tot[-2]}
+            log.update(counts)
+            _emit(log)
+    finally:
+        profiler.close()
+        if prefetch:
+            prefetch.close()
+        if writer:
+            writer.close()
+        series.close()
+    if stream_shard:
+        # fold the ranks' shard files into the single-run layout
+        me.barrier()
+        if rank == 0:
+            paths = [os.path.join(cfg.outpath, cfg.NCOutFile
+                                  + ckpt.rank_tag(r) + ".nc")
+                     for r in range(world)]
+            merge_shards(paths, os.path.join(cfg.outpath,
+                                             cfg.NCOutFile + ".nc"))
+            for path in paths:
+                os.remove(path)
+        me.barrier()
+    done = {"rank": rank, "event": "rank_done", "cap": spec.cap,
+            "kernel_launches": {**kx.ext_step_fused.variant_launches,
+                                **kr.rk4_displacement_fused.variant_launches}}
+    if dev.type == "cuda":
+        done["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
+    if cfg.WriteModelTiming:
+        done["timing"] = timing.summary()
+    _emit(done)
+    return {"particles": p.to("cpu")}
 
 
 def main(argv=None):

@@ -40,10 +40,12 @@ def hilbert_key(i, j, bits: int = 15):
 def sort_by_cell(p: st.Particles, i, j):
     """Hilbert-sort the state by cell index; returns (p_sorted, perm).
 
-    Frozen particles (settled / dead / out of domain / errored) sort
-    after all live ones, so they do not dilute the live blocks."""
+    Frozen particles (settled / dead / out of domain / errored) and the
+    EMPTY slots of a sharded run's buffers (status -1) sort after all
+    live ones, so they do not dilute the live blocks."""
     key = hilbert_key(i, j).to(torch.int64)          # < 2^30
-    key = key + (p.status >= st.SETTLED).to(torch.int64) * (1 << 30)
+    parked = (p.status >= st.SETTLED) | (p.status < 0)
+    key = key + parked.to(torch.int64) * (1 << 30)
     perm = torch.argsort(key, stable=True)
     return p.take(perm), perm
 

@@ -30,10 +30,12 @@ Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
 step e is ``e * internal_steps + i``, as in ltjax.
 
-``check_supported`` raises ``NotImplementedError`` for the options
-outside the port (sharding, depth-banded sorts): they are not silently
-dropped.  Every grid (uniform or stretched rectilinear, curvilinear) and
-both position dtypes run on both devices, on every route.
+``check_supported`` raises ``NotImplementedError`` for the depth-banded
+sort, which the port does not have, and for domain tiles on a
+curvilinear grid: they are not silently dropped.  Every grid (uniform or
+stretched rectilinear, curvilinear) and both position dtypes run on both
+devices, on every route; sharded runs (``ltjax_torch.shard``) take the
+same routes per tile (``route_step``).
 """
 
 from __future__ import annotations
@@ -47,7 +49,7 @@ from . import packed as pk
 from . import spatial as sp
 from . import state as st
 from .fields import FieldSet
-from .grid import Grid, locate, logical_coords
+from .grid import Grid, locate, locate_y, logical_coords
 from .kernels import ext_step as kx
 from .kernels import rk4_step as kr
 from .physics import behavior as bh
@@ -60,7 +62,10 @@ from .physics.advect import (AdvectParams, find_currents, host_time,
 
 @dataclass
 class StepContext:
-    """Static per-run data of the stepper (plus derived kernel tables)."""
+    """Static per-run data of the stepper (plus derived kernel tables).
+    On a tile of a sharded run (``shard.tile_context``) ``grid`` is the
+    tile's strip (``grid.tile`` says where it lies in the whole grid),
+    while ``bounds`` and the polygons stay those of the whole grid."""
     grid: Grid
     bounds: bd.Boundaries
     polys: Optional[stl.Polygons] = None   # habitat polygons (settlement)
@@ -69,12 +74,16 @@ class StepContext:
 
 
 def summary_counts(p: st.Particles) -> dict:
-    """Per-status particle counts (one host sync for all six)."""
-    c = torch.bincount(p.status.long().clamp(0, st.ERROR),
-                       minlength=6).tolist()
-    return {"not_released": c[st.NOT_RELEASED], "active": c[st.ACTIVE],
-            "settled": c[st.SETTLED], "dead": c[st.DEAD],
-            "out_of_domain": c[st.OUT_OF_DOMAIN], "error": c[st.ERROR]}
+    """Per-status particle counts (one host sync for all six), each status
+    counted by equality as ltjax counts it: the EMPTY slots of a sharded
+    run's buffers (status -1) count as nothing."""
+    c = torch.bincount((p.status.long() + 1).clamp(min=0),
+                       minlength=st.ERROR + 2).tolist()
+    return {"not_released": c[st.NOT_RELEASED + 1],
+            "active": c[st.ACTIVE + 1], "settled": c[st.SETTLED + 1],
+            "dead": c[st.DEAD + 1],
+            "out_of_domain": c[st.OUT_OF_DOMAIN + 1],
+            "error": c[st.ERROR + 1]}
 
 
 def mode_flags(ctx: StepContext, cfg) -> str:
@@ -92,16 +101,19 @@ def mode_flags(ctx: StepContext, cfg) -> str:
 
 
 def check_supported(cfg, ctx: StepContext) -> None:
-    """Raise NotImplementedError naming the first option outside the
-    ported slice."""
-    unsupported = [
-        ("mesh_particles*mesh_tiles",
-         cfg.mesh_particles * cfg.mesh_tiles > 1),
-        ("sort_depth_bands", cfg.sort_depth_bands > 1),
-    ]
-    for name, bad in unsupported:
-        if bad:
-            raise NotImplementedError(f"{name}: not ported to ltjax_torch yet")
+    """Raise NotImplementedError for the depth-banded sort (not ported),
+    and for domain tiles on a curvilinear grid (ltjax's message: eta
+    strips assume rectilinear rows)."""
+    if cfg.sort_depth_bands > 1:
+        raise NotImplementedError("sort_depth_bands: not ported to "
+                                  "ltjax_torch")
+    if ctx.grid.curv is not None and cfg.mesh_tiles > 1:
+        raise NotImplementedError(
+            "curvilinear grids shard over the PARTICLE axis only "
+            "(mesh_particles = N, mesh_tiles = 1): eta-strip domain "
+            "tiles assume rectilinear row slicing.  Particle data "
+            "parallelism covers the multi-chip scaling need — "
+            "particles are independent given the (replicated) fields.")
 
 
 def make_params(cfg):
@@ -279,7 +291,7 @@ def _sort(grid: Grid, p: st.Particles):
         cj = torch.floor(tj).clamp(0, grid.ny - 1).to(torch.int32)
     else:
         ci, _ = locate(grid.x_rho, p.x, grid.uniform)
-        cj, _ = locate(grid.y_rho, p.y, grid.uniform)
+        cj, _ = locate_y(grid, p.y)
     return sp.sort_by_cell(p, ci, cj)
 
 
@@ -307,6 +319,37 @@ def per_step_external(ctx: StepContext, cfg, p: st.Particles,
     return p
 
 
+def packed_window(ctx: StepContext, cfg, route: str, fsR: FieldSet):
+    """The packed records of a record window for ``route`` (None on the
+    native route, which reads the FieldSet): the whole-step kernel reads
+    the Aks and salt/temp lanes of the record table, the PyTorch lanes
+    the FieldSet."""
+    if route == "native":
+        return None
+    ext = route == "ext_step"
+    return pk.build_packed_records(
+        ctx.grid, fsR, with_aks=bool(cfg.VTurbOn and cfg.readAks) and ext,
+        with_scalars=cfg.needs_salt_fields() and ext)
+
+
+def route_step(ctx: StepContext, cfg, route: str, p: st.Particles,
+               prec_all: Optional[pk.PackedRecords], fsR: FieldSet, e: int,
+               t0: float, ext_idx0: int) -> st.Particles:
+    """External step e of a record window on ``route``: records [e, e+1,
+    e+2], start time t0 + e * dt, index ext_idx0 + e; one whole-step
+    kernel launch or ``per_step_external``."""
+    t_e, f3, ext = (float(t0) + e * float(cfg.dt), fieldset_slice(fsR, e),
+                    int(ext_idx0) + e)
+    if route == "native":
+        return per_step_external(ctx, cfg, p, None, t_e, f3, ext,
+                                 mode="native")
+    prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
+                             times=prec_all.times[e:e + 3])
+    step = (per_step_external if route == "per_step"
+            else kx.ext_step_fused)
+    return step(ctx, cfg, p, prec3, t_e, fields=f3, ext_idx=ext)
+
+
 def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     """``n_fuse`` consecutive external steps over an (n_fuse + 2)-record
     field window: external step e uses records [e, e+1, e+2], the same
@@ -316,7 +359,7 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     (on every route: the native route's internal steps measured faster
     on a sorted batch, by more than the sort costs; PERF.md).  ``cfg.seed``
     keys the random streams.  Each external step takes the route of
-    ``mode_flags``: one whole-step kernel launch, or
+    ``mode_flags`` (``route_step``): one whole-step kernel launch, or
     ``per_step_external`` (the per-step route; the native route, which
     builds no packed records).
 
@@ -324,37 +367,22 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     call has index ext_idx0 + e."""
     check_supported(cfg, ctx)
     grid = ctx.grid
-    dt = float(cfg.dt)
     se = max(1, cfg.ext_sort_every)
     route = mode_flags(ctx, cfg)
-    # the whole-step kernel reads the Aks and salt/temp lanes of the
-    # record table; the PyTorch lanes read the FieldSet
-    with_aks = bool(cfg.VTurbOn and cfg.readAks) and route == "ext_step"
-    with_scalars = cfg.needs_salt_fields() and route == "ext_step"
 
     def fused(p: st.Particles, fsR: FieldSet, t0: float,
               ext_idx0: int = 0) -> st.Particles:
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"fused step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = (None if route == "native" else pk.build_packed_records(
-            grid, fsR, with_aks=with_aks, with_scalars=with_scalars))
+        prec_all = packed_window(ctx, cfg, route, fsR)
         cum = torch.arange(p.n, device=p.x.device)
         for e in range(n_fuse):
             if e % se == 0:
                 p, perm = _sort(grid, p)
                 cum = cum[perm]
-            t_e, f3, ext = (float(t0) + e * dt, fieldset_slice(fsR, e),
-                            int(ext_idx0) + e)
-            if route == "native":
-                p = per_step_external(ctx, cfg, p, None, t_e, f3, ext,
-                                      mode="native")
-                continue
-            prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
-                                     times=prec_all.times[e:e + 3])
-            step = (per_step_external if route == "per_step"
-                    else kx.ext_step_fused)
-            p = step(ctx, cfg, p, prec3, t_e, fields=f3, ext_idx=ext)
+            p = route_step(ctx, cfg, route, p, prec_all, fsR, e, t0,
+                           ext_idx0)
         return sp.unsort(p, cum)
 
     return fused

@@ -875,3 +875,113 @@ def test_cli_prefetch_bit_equal_on_gpu(gpu, tmp_path):
             assert torch.equal(rec[k].cpu(), torch.from_numpy(ref[k]))
     pf.close()
     want.close()
+
+
+def _strip_case(device, dtype, n=8192, ntiles=3, tile=1):
+    """Tile ``tile`` of _case's grid cut into ``ntiles`` strips (halo of
+    shard.halo_rows_needed for omega 1e-4 at the domain's corner, 30 min):
+    the tile's context and record table, and n of _case's particles moved
+    into the strip (its halo rows included), one in 8 slots EMPTY."""
+    from ltjax_torch import shard
+    c, ctx, cfg, p = _case(device, n=n, dtype=dtype)
+    halo = shard.halo_rows_needed(1e-4 * 71e3, 1800.0, 2.5e3)
+    spec = shard.make_spec(cfg, 41, n, 1, ntiles, halo=halo)
+    tctx = shard.tile_context(ctx, spec, shard.build_tiled_static(ctx.grid,
+                                                                  spec), tile)
+    fs = shard.strip_fieldset(synth.fieldset_for(c, t_center=900.0,
+                                                 dt=1800.0), spec, tile, 41)
+    ys = tctx.grid.y_rho
+    y = ys[1] + (p.y - p.y.min()) / (p.y.max() - p.y.min()) * (ys[-2] - ys[1])
+    empty = torch.arange(n, device=device) % 8 == 3
+    q = p.replace(y=y.to(dtype), status=torch.where(
+        empty, shard.EMPTY, p.status).to(torch.int32))
+    q, _ = _sort(tctx.grid, q)
+    return c, tctx, cfg, q, pk.build_packed_records(tctx.grid, fs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+def test_kernels_on_a_strip_match_plain(gpu, dtype):
+    """K1 and K2 in their LTX_TILE builds on a tile's strip with EMPTY
+    slots, against their plain versions (K1: one external step, the
+    tolerances above; K2: one internal step, 0.05 m / 1e-3 m); EMPTY
+    slots come back bit-unchanged."""
+    from ltjax_torch import shard
+    from ltjax_torch.kernels import build
+    c, tctx, cfg, p, prec = _strip_case(gpu, dtype)
+    kx.reset_launches()
+    out = kx.ext_step_fused(tctx, cfg, p, prec, 0.0)
+    ref = kx.ext_step_reference(tctx, cfg, p, prec, 0.0)
+    tag = build.tag("ext_step", kx.variant_of(tctx, cfg, dtype))
+    assert "t1" in tag and kx.ext_step_fused.variant_launches == {tag: 1}
+    _compare(out, ref, p.n)
+    m = p.status == shard.EMPTY
+    assert m.sum() > 0
+    for k in st.FIELDS:
+        assert torch.equal(getattr(out, k)[m], getattr(p, k)[m]), k
+    idt = float(cfg.idt)
+    tabs = pk.stage_value_tables(tctx.grid, prec, 450.0, idt)
+    d = kr.rk4_displacement_fused(tctx.grid, tabs, p.x, p.y, p.z, 0.0,
+                                  cfg.z0, idt)
+    assert "LTX_TILE" in kr.kernel_variant(tctx.grid, dtype)
+    r = pk.rk4_displacement_collapsed(tctx.grid, tabs, p.x, p.y, p.z, 0.0,
+                                      cfg.z0, idt)
+    for a, b, tol in zip(d, r, (0.05, 0.05, 1e-3)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(), rtol=0,
+                                   atol=tol)
+
+
+@pytest.mark.gpu
+def test_two_gloo_ranks_on_the_card_match_one_rank(gpu):
+    """2 tiles, 2 gloo ranks sharing the card, against one rank's K1
+    route: 65,536 float64 particles, 2 external steps in one chunk, the
+    same particles bit for bit (the tiles locate on the whole grid's
+    axes), particles migrated, one launch per rank and external step."""
+    from ltjax_torch import shard
+    c, ctx, cfg, p = _case(gpu, n=65536, dtype=F64)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 4, device=gpu)
+    ref = make_fused_external_steps(ctx, cfg, 2)(p, fsR, 0.0, 0)
+    halo = shard.halo_rows_needed(1e-4 * 71e3, 1800.0, 2.5e3)
+    spec = shard.make_spec(cfg, 41, p.n, 1, 2, halo=halo, slack=2.0)
+    (got, ranks), = shard.run_tiled_steps(
+        [shard.TiledCase(ctx, cfg, p, fsR, 2, spec, n_fuse=2)],
+        device="cuda", backend="gloo")
+    order = torch.argsort(ref.pid.cpu())
+    for k in st.FIELDS:
+        assert torch.equal(getattr(got, k), getattr(ref, k).cpu()[order]), k
+    assert [r["launches"] for r in ranks] == [2, 2]
+    assert sum(r["sent"] for r in ranks) > 0
+    assert sum(r["drops"] for r in ranks) == 0
+
+
+@pytest.mark.gpu
+def test_native_strip_reads_feed_the_prefetcher_on_gpu(gpu, tmp_path):
+    """A rank's strip reads through the native reader, handed to the card
+    by the prefetcher: the strip of the whole records, bit for bit."""
+    from ltjax_torch import shard
+    from ltjax_torch.config import Config
+    from ltjax_torch.io.prefetch import Prefetcher
+    from ltjax_torch.io.roms import RomsSeries
+    c = synth.make_solid_body_case(nx=21, ny=25, us=5, lx=20e3, ly=24e3,
+                                   parabolic_aks=True)
+    _, paths = synth.write_roms_files(c, str(tmp_path), n_records=5,
+                                      dt=1800.0, records_per_file=2)
+    cfg = Config(us=5, ws=6, readAks=True)
+    spec = shard.make_spec(cfg, 25, 100, 1, 3, halo=3)
+    a, b = shard.strip_rows(spec, 2, 25)
+    strip = RomsSeries(cfg, paths=paths, eta_slice=(a, b))
+    assert strip.reader == "native"
+    pf = Prefetcher(lambda: shard.strip_record(strip.next_record(), spec, 2,
+                                               25, a), depth=3, device=gpu)
+    whole = RomsSeries(cfg, paths=paths)
+    idx_r = shard.strip_index(spec, 2, 25)
+    idx_v = shard.strip_index(spec, 2, 24)
+    for _ in range(5):
+        rec, ref = pf.next(), whole.next_record()
+        assert rec["u"].device.type == "cuda" and rec["time"] == ref["time"]
+        for k in ("zeta", "u", "v", "w", "aks"):
+            want = np.take(ref[k], idx_v if k == "v" else idx_r, axis=-2)
+            assert torch.equal(rec[k].cpu(), torch.from_numpy(want)), k
+    pf.close()
+    strip.close()
+    whole.close()

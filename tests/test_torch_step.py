@@ -217,7 +217,6 @@ def test_ext_step_kernel_refuses_stochastic_mortality():
 
 
 UNSUPPORTED = [
-    ("mesh_particles", dict(mesh_particles=2)),
     ("sort_depth_bands", dict(sort_depth_bands=2)),
 ]
 
@@ -240,8 +239,8 @@ def test_cuda_only_restrictions(monkeypatch):
     """On CUDA the kernels take float64 positions, stretched (searched)
     axes and, on the per-step route, curvilinear grids, as on the CPU:
     none of them is refused (checked by presenting the grid as on CUDA),
-    nor are the native route and adaptive tension, while sharding and
-    depth bands still raise there."""
+    nor are the native route, adaptive tension and sharding, while depth
+    bands still raise there."""
     ctx = _ctx()
     monkeypatch.setattr(type(ctx.grid), "device",
                         property(lambda self: torch.device("cuda")))
@@ -253,6 +252,8 @@ def test_cuda_only_restrictions(monkeypatch):
     tstep.check_supported(_cfg(us=4, ws=5), ctx)       # the slice itself
     tstep.check_supported(_cfg(us=4, ws=5, tension_sigma=-1.0), stretched)
     tstep.check_supported(_cfg(us=4, ws=5, fast_interp=False), stretched)
+    tstep.check_supported(_cfg(us=4, ws=5, mesh_particles=2, mesh_tiles=2),
+                          stretched)
     for name, kw in UNSUPPORTED:
         with pytest.raises(NotImplementedError, match=name):
             tstep.check_supported(_cfg(us=4, ws=5, **kw), stretched)

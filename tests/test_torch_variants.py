@@ -82,7 +82,7 @@ def test_new_whole_step_tags():
 def test_rk4_tags_and_library_name():
     """K2's rectilinear float32 build keeps the tag and the library name
     prefix ``rk4_step-<hash>.so`` it had before it had variants."""
-    assert build._macros("rk4_step") == ("CURV", "POS64", "AXES")
+    assert build._macros("rk4_step") == ("CURV", "POS64", "AXES", "TILE")
     uni = synth.make_solid_body_case(nx=9, ny=9, us=4,
                                      dtype=torch.float32).grid
     streched = synth.make_solid_body_case(nx=9, ny=9, us=4, stretch=1.05,
@@ -100,6 +100,15 @@ def test_rk4_tags_and_library_name():
         (curv, torch.float32), (curv, f64))}
     assert got == {"rk4_step-p1", "rk4_step-a1", "rk4_step-a1p1",
                    "rk4_step-c1", "rk4_step-c1p1"}
+    # a tile's strip of a sharded run (ltjax_torch.shard)
+    from ltjax_torch import shard
+    spec = shard.make_spec(Config(), 9, 10, 1, 2, halo=1)
+    bounds = bd.build_boundaries(uni.mask_rho.numpy(), uni.x_rho.numpy(),
+                                 uni.y_rho.numpy())
+    ctx = shard.tile_context(StepContext(grid=uni, bounds=bounds), spec,
+                             shard.build_tiled_static(uni, spec), 1)
+    assert build.tag("rk4_step", kr.kernel_variant(ctx.grid, f64)) == (
+        "rk4_step-p1t1")
 
 
 def _ctx(stretch, dtype=torch.float64):
