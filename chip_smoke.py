@@ -7,7 +7,7 @@
 
 Builds the variants of the external-step CUDA kernel and the per-step
 RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs eleven phases and fails (non-zero exit, no final
+together), then runs twelve phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -122,7 +122,21 @@ line) if any of them fails:
    on 4 tiles, each rank reading its strip, against the single rank, the
    per-rank read / compute / stall split, and the native reader's MB/s
    against scipy's; (e) NCCL, one rank per card, where there are two
-   cards or more.
+   cards or more;
+12. the depth-banded Hilbert sort (sort_depth_bands, sort_band_height,
+   sort_band_log) on a population under vertical shear (phase 2's grid,
+   the rotation rate 1 + 0.01 z, particles uniform from -49 m to -1 m,
+   no w and no turbulence, so each keeps its height and its band): (a)
+   at 65,536 the banded fused call against the unbanded one, every
+   column bit for bit: K1 in float32 and float64, the per-step route
+   with stochastic mortality, and 2 gloo tiles on the card against the
+   single unbanded rank; (b) K1 at 1M and 4M particles, 16 x 30 steps,
+   unbanded and in four band settings, sorted every 2 and every
+   external step: particle-steps/s, K1's and the sort's ms per external
+   step, the staging counters and the staged share, the closed form;
+   (c) phase 4's turb cell at 1M unbanded and with 3 bands; (d) the
+   entry point with 3 bands on the ext_step, per-step and native routes
+   and on 2 gloo tiles: the unbanded run's CSV.
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -3300,6 +3314,372 @@ def phase11e(torch, device):
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the depth-banded Hilbert sort on a sheared population
+# ---------------------------------------------------------------------------
+
+SHEAR_A = 0.01    # phase 12: rotation rate 1 + 0.01 z (half at the bed)
+# phase 12b's sort settings: none, equal slabs, log2 bands
+BAND_SETTINGS = {
+    "none": {},
+    "2x25m": dict(sort_depth_bands=2, sort_band_height=25.0),
+    "3x16m": dict(sort_depth_bands=3, sort_band_height=16.0),
+    "6x8m": dict(sort_depth_bands=6, sort_band_height=8.0),
+    "log4x4m": dict(sort_depth_bands=4, sort_band_height=4.0,
+                    sort_band_log=True),
+}
+
+
+def sheared_case(torch, device, dtype=None, nx=200, us=20):
+    """Phase 2's grid (200x200x20, h0 50 m, solid body omega 5e-5) with a
+    vertical shear, the rotation rate 1 + 0.01 z: no w and no
+    turbulence, so every particle keeps its height and its band."""
+    from ltjax_torch import synth
+    return synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=200e3,
+                                      ly=200e3, h0=50.0, omega=5e-5,
+                                      shear_a=SHEAR_A,
+                                      dtype=dtype or torch.float32,
+                                      device=device)
+
+
+def sheared_particles(torch, device, n, dtype, seed=0):
+    """n active particles on phase 2's patch (40-160 km), uniform in depth
+    from -49 m to -1 m: (particles, x0, y0, z0)."""
+    from ltjax_torch import state as st
+    rng = np.random.default_rng(seed)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = rng.uniform(-49.0, -1.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=dtype, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    return p0, x0, y0, z0
+
+
+@contextlib.contextmanager
+def timed_k1_and_sort(torch):
+    """CUDA events around every external step (``step.route_step``: on
+    the ext_step route one launch of K1 on views of the record table) and
+    every Hilbert sort of make_fused_external_steps in the block: yields
+    {"k1": [...], "sort": [...]} of (start, end) event pairs."""
+    from ltjax_torch import step
+    events = {"k1": [], "sort": []}
+
+    def timed(fn, key):
+        def call(*a, **kw):
+            pair = (torch.cuda.Event(enable_timing=True),
+                    torch.cuda.Event(enable_timing=True))
+            pair[0].record()
+            out = fn(*a, **kw)
+            pair[1].record()
+            events[key].append(pair)
+            return out
+        return call
+
+    k1, srt = step.route_step, step._sort
+    step.route_step, step._sort = timed(k1, "k1"), timed(srt, "sort")
+    try:
+        yield events
+    finally:
+        step.route_step, step._sort = k1, srt
+
+
+def elapsed_ms(pairs):
+    return sum(a.elapsed_time(b) for a, b in pairs)
+
+
+def banded_cell(torch, device, name, ctx, cfg, p0, fsR, n_fuse, calls):
+    """``calls`` calls of make_fused_external_steps (the first cold, after
+    a call on 128 particles), every count set to 0 just before each: the
+    particles of the last call, each call's particle-steps/s, and of the
+    last call K1's and the sort's ms per external step, K1's launches and
+    the staging counters."""
+    from ltjax_torch.kernels import ext_step as kx
+    from ltjax_torch.step import make_fused_external_steps
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    fused(p0.take(torch.arange(128, device=device)), fsR, 0.0, 0)
+    rates = []
+    for _ in range(calls):
+        sync(torch, device)
+        kx.reset_launches()
+        with timed_k1_and_sort(torch) as ev:
+            t0 = time.perf_counter()
+            p = fused(p0, fsR, 0.0, 0)
+            sync(torch, device)
+            sec = time.perf_counter() - t0
+        rates.append(p0.n * cfg.internal_steps * n_fuse / sec)
+    staging = kx.counts()
+    return p, {"phase": name, "n": p0.n, "ext_steps": n_fuse,
+               "ext_sort_every": cfg.ext_sort_every,
+               "launches": kx.ext_step_fused.launches,
+               "particle_steps_per_s": rates,
+               "k1_ms_per_ext_step": elapsed_ms(ev["k1"]) / n_fuse,
+               "sort_ms_per_ext_step": elapsed_ms(ev["sort"]) / n_fuse,
+               "sorts": len(ev["sort"]), "staging": staging,
+               "staged_share": staged_share(staging)}
+
+
+def phase12(torch, device):
+    """The depth-banded sort (phase12a-d)."""
+    t0 = time.perf_counter()
+    out = {"a": phase12a(torch, device), "b": phase12b(torch, device),
+           "c": phase12c(torch, device), "d": phase12d(torch, device)}
+    out["phase_wall_seconds"] = time.perf_counter() - t0
+    log({"phase": 12, "phase_wall_seconds": out["phase_wall_seconds"]})
+    return out
+
+
+def bit_equal(torch, name, got, want, **extra):
+    """Every column of two runs' particles (pid order) bit for bit."""
+    from ltjax_torch import state as st
+    og = torch.argsort(got.pid.cpu())
+    ow = torch.argsort(want.pid.cpu())
+    res = {"phase": name, "n": int(got.n), **extra,
+           "unequal_columns": [k for k in st.FIELDS if not torch.equal(
+               getattr(got, k).cpu()[og], getattr(want, k).cpu()[ow])]}
+    log(res)
+    assert not res["unequal_columns"], res
+    return res
+
+
+def phase12a(torch, device, n=65536, n_ext=2):
+    """Banded against unbanded, bit for bit, at 65,536 particles on the
+    sheared case: K1 in float32 and float64 (3 bands of 16 m and 4 log
+    bands, sorted every step), the per-step route with stochastic
+    mortality (the same DEAD pids), and 2 gloo tiles (1, 2) on the card
+    with bands against the single unbanded rank."""
+    from dataclasses import replace
+    from ltjax_torch import shard, state as st, synth
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import _sort, make_fused_external_steps
+    out = {}
+    dt = 3600.0
+    for dtype in (torch.float32, torch.float64):
+        case = sheared_case(torch, device, dtype=dtype)
+        ctx = context(case)
+        fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2,
+                                    device=device)
+        p0 = sheared_particles(torch, device, n, dtype)[0]
+        plain = make_cfg(n, dtype_pos=dtype_name(dtype), ext_sort_every=1)
+        runs = {"none": plain,
+                "3x16m": replace(plain, **BAND_SETTINGS["3x16m"]),
+                "log4x4m": replace(plain, **BAND_SETTINGS["log4x4m"])}
+        if dtype == torch.float32:
+            runs["per_step-none"] = replace(plain, **dict(
+                STOCHASTIC, deadage=3600.0))
+            runs["per_step-3x16m"] = replace(runs["per_step-none"],
+                                             **BAND_SETTINGS["3x16m"])
+        got, launches = {}, {}
+        for key, cfg in runs.items():
+            kx.reset_launches()
+            kr.rk4_displacement_fused.launches = 0
+            got[key] = make_fused_external_steps(ctx, cfg, n_ext)(
+                p0, fsR, 0.0, 0)
+            sync(torch, device)
+            launches[key] = [kx.ext_step_fused.launches,
+                             kr.rk4_displacement_fused.launches]
+        tag = dtype_name(dtype)
+        for key in ("3x16m", "log4x4m", "per_step-3x16m"):
+            if key not in runs:
+                continue
+            base = "per_step-none" if key.startswith("per_step") else "none"
+            reordered = not torch.equal(_sort(case.grid, p0, runs[key])[1],
+                                        _sort(case.grid, p0, runs[base])[1])
+            dead = int((got[key].status == st.DEAD).sum())
+            r = bit_equal(torch, f"12a-{tag}-{key}", got[key], got[base],
+                          launches=launches[key], reordered=reordered,
+                          dead=dead)
+            assert reordered, r
+            if device.type == "cuda":
+                assert r["launches"] == ([0, n_ext * plain.internal_steps]
+                                         if base.startswith("per_step")
+                                         else [n_ext, 0]), r
+            if key.startswith("per_step"):
+                assert dead > 0.5 * n, r
+            out[f"{tag}-{key}"] = r
+    # 2 gloo tiles sharing the card, banded, against the unbanded rank
+    case = sheared_case(torch, device)
+    ctx = context(case)
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2, device=device)
+    p0 = sheared_particles(torch, device, n, torch.float32)[0]
+    plain = make_cfg(n)
+    banded = replace(plain, **BAND_SETTINGS["3x16m"])
+    ref = make_fused_external_steps(ctx, plain, n_ext)(p0, fsR, 0.0, 0)
+    # the fastest water: 5e-5 rad/s at 85 km from the centre, 1 km rows
+    halo = shard.halo_rows_needed(5e-5 * 60e3 * np.sqrt(2.0), dt, 1e3)
+    spec = shard.make_spec(banded, 200, n, 1, 2, halo=halo, slack=3.0)
+    (got, ranks), = shard.run_tiled_steps(
+        [shard.TiledCase(ctx, banded, p0, fsR, n_ext, spec, n_fuse=n_ext)],
+        device=device, backend="gloo")
+    r = bit_equal(torch, "12a-tiles-1x2-3x16m", got, ref,
+                  launches=[q["launches"] for q in ranks],
+                  migrated=sum(q["sent"] for q in ranks),
+                  drops=sum(q["drops"] for q in ranks))
+    assert r["drops"] == 0 and r["migrated"] > 0, r
+    if device.type == "cuda":
+        assert r["launches"] == [n_ext, n_ext], r
+    out["tiles"] = r
+    return out
+
+
+def phase12b(torch, device, sizes=((1_000_000, 2), (4_000_000, 1)),
+             n_fuse=16, sort_every=(2, 1), nx=200, us=20):
+    """K1 on the sheared population at full width: 16 x 30 steps through
+    make_fused_external_steps at 1M (about 70 particles a cell) and 4M
+    (about 280), for each of BAND_SETTINGS with ext_sort_every 2 and 1:
+    particle-steps/s of each call (1M: a cold call and a warm one; 4M:
+    the cold call only), K1's and the sort's ms per external step, the
+    staging counters and the staged share, and the distance from the
+    closed form of the particles between the outer rho levels (the
+    closed form knows no bottom log layer and no extrapolation above the
+    top level), held to phase 2's tolerance."""
+    from dataclasses import replace
+    from ltjax_torch import synth
+    from ltjax_torch.step import summary_counts
+    case = sheared_case(torch, device, nx=nx, us=us)
+    ctx = context(case)
+    dt = 3600.0
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    z_rho = (50.0 * case.grid.s_rho).cpu().numpy()
+    out = {}
+    for n, calls in sizes:
+        p0, x0, y0, z0 = sheared_particles(torch, device, n, torch.float32)
+        xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
+        inner = (z0 > z_rho.min()) & (z0 < z_rho.max())
+        for se in sort_every:
+            for bands, kw in BAND_SETTINGS.items():
+                cfg = replace(make_cfg(n, us=us, ws=us + 1,
+                                       ext_sort_every=se), **kw)
+                key = f"12b-{n / 1e6:g}M-{bands}-every{se}"
+                p, res = banded_cell(torch, device, key, ctx, cfg, p0, fsR,
+                                     n_fuse, calls)
+                err = np.hypot(p.x.cpu().numpy() - xa,
+                               p.y.cpu().numpy() - ya)
+                counts = summary_counts(p)
+                res.update({"bands": bands,
+                            "max_err_vs_analytic_m": float(err[inner].max()),
+                            "max_err_outside_rho_levels_m": float(
+                                err[~inner].max()),
+                            "outside_rho_levels": int((~inner).sum()),
+                            "counts": counts})
+                log(res)
+                if device.type == "cuda":
+                    assert res["launches"] == n_fuse, res
+                assert counts["active"] == n, res
+                assert np.isfinite(err).all(), res
+                assert res["max_err_vs_analytic_m"] < TOL_ANALYTIC, res
+                out[key] = res
+        del p0, p
+    log({"phase": "12b-table", "columns": [
+        "cell", "particle_steps_per_s (last call)", "k1_ms_per_ext_step",
+        "staged_share", "staged_misses", "sort_ms_per_ext_step"],
+        "rows": [[k, r["particle_steps_per_s"][-1], r["k1_ms_per_ext_step"],
+                  r["staged_share"], r["staging"]["staged_misses"],
+                  r["sort_ms_per_ext_step"]] for k, r in out.items()]})
+    return out
+
+
+def phase12c(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
+    """Phase 4's turb cell (Visser on the parabolic Aks: band membership
+    is transient) at 1M, unbanded and with 3 bands of 16 m, a cold call
+    and a warm one each: the numbers of 12b (no closed form)."""
+    from dataclasses import replace
+    from ltjax_torch import state as st, synth
+    from ltjax_torch.step import summary_counts
+    case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                      parabolic_aks=True)
+    ctx = context(case)
+    dt = 3600.0
+    fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
+    rng = np.random.default_rng(0)
+    x0 = rng.uniform(40e3, 160e3, n)
+    y0 = rng.uniform(40e3, 160e3, n)
+    z0 = np.random.default_rng(1).uniform(-40.0, -5.0, n)
+    p0 = st.init_particles(x0, y0, z0, dtype=torch.float32, device=device)
+    p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+    out = {}
+    for bands in ("none", "3x16m"):
+        cfg = replace(make_cfg(n, us=us, ws=us + 1, **LARVAL["turb"]),
+                      **BAND_SETTINGS[bands])
+        p, res = banded_cell(torch, device, f"12c-turb-{bands}", ctx, cfg,
+                             p0, fsR, n_fuse, 2)
+        res["counts"] = summary_counts(p)
+        res["bands"] = bands
+        log(res)
+        if device.type == "cuda":
+            assert res["launches"] == n_fuse, res
+        assert res["counts"]["active"] == n, res
+        assert all(bool(torch.isfinite(getattr(p, k)).all())
+                   for k in ("x", "y", "z")), res
+        out[bands] = res
+    return out
+
+
+def phase12d(torch, device, n=10_000, nx=60, us=10, n_ext=2):
+    """The entry point with sort_depth_bands = 3 (16 m, sorted every
+    step) on a sheared planar series (float32): ltjax_torch.run.run on the
+    ext_step, per-step (stochastic mortality) and native routes writes
+    the unbanded run's CSV byte for byte, and so does a (1, 2) mesh of
+    gloo ranks on the card; each startup line names its route's path."""
+    import dataclasses
+    import filecmp
+    import shutil
+    from ltjax_torch import run, shard, synth
+    from ltjax_torch.config import config_from_namelist
+    work = os.path.join(ROOT, "build", "chip_smoke_12d")
+    shutil.rmtree(work, ignore_errors=True)
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5, shear_a=SHEAR_A,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(5)
+    nml = synth.write_run_files(
+        case, work, rng.uniform(15e3, 45e3, n), rng.uniform(15e3, 45e3, n),
+        rng.uniform(-49.0, -1.0, n), n_ext=n_ext, dt=3600, idt=120,
+        iprint=3600, ext_fuse=n_ext, ext_sort_every=1, dtype_pos="float32",
+        halo_rows=shard.halo_rows_needed(5e-5 * 30e3 * np.sqrt(2.0),
+                                         3600.0, 60e3 / (nx - 1)),
+        migrate_capacity=3.0)
+    base = config_from_namelist(nml)
+    routes = {"ext_step": ({}, "cuda_ext_step"),
+              "per_step": (dict(STOCHASTIC, deadage=3600.0),
+                           "cuda_rk4_step"),
+              "native": (dict(fast_interp=False), "cuda_native")}
+    out = {}
+    for route, (kw, path) in routes.items():
+        csv = {}
+        for bands in (1, 3):
+            name = f"{route}-{bands}"
+            cfg = dataclasses.replace(base, outpath=f"{work}/{name}",
+                                      sort_depth_bands=bands,
+                                      sort_band_height=16.0, **kw)
+            _, lines = capture_fd(lambda: run.run(cfg, device=device))
+            csv[bands] = f"{work}/{name}/run1.csv"
+            if bands == 3:
+                start = lines[0]
+        if route == "ext_step":
+            cfg = dataclasses.replace(cfg, outpath=f"{work}/mesh-3",
+                                      mesh_particles=1, mesh_tiles=2)
+            _, lines = capture_fd(lambda: run.run(cfg, device=device,
+                                                  backend="gloo"))
+            mesh = {"start": {k: lines[0].get(k) for k in (
+                "path", "route", "ranks")}, "csv_equal": filecmp.cmp(
+                csv[1], f"{work}/mesh-3/run1.csv", shallow=False)}
+        r = {"phase": f"12d-{route}", "n": n, "path": start.get("path"),
+             "route": start.get("route"),
+             "csv_equal": filecmp.cmp(csv[1], csv[3], shallow=False)}
+        log(r)
+        assert r["csv_equal"] and r["route"] == route, r
+        if device.type == "cuda":
+            assert r["path"] == path, r
+        out[route] = r
+    r = {"phase": "12d-mesh-1x2", **mesh}
+    log(r)
+    assert r["csv_equal"] and r["start"]["ranks"] == 2, r
+    if device.type == "cuda":
+        assert r["start"]["path"] == "cuda_ext_step", r
+    out["mesh"] = r
+    return out
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
@@ -3442,7 +3822,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,11 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,12 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -3479,7 +3859,8 @@ def main(argv=None):
               8: lambda: phase8(torch, device),
               9: lambda: phase9(torch, device),
               10: lambda: phase10(torch, device),
-              11: lambda: phase11(torch, device)}
+              11: lambda: phase11(torch, device),
+              12: lambda: phase12(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:

@@ -223,26 +223,17 @@ class Config:
     sort_depth_bands: int = 1     # >1: band the Hilbert sort by height
                                   #   above the seabed (band-major key,
                                   #   bands of sort_band_height metres,
-                                  #   top band open-ended).  For runs
-                                  #   with a PERSISTENT depth-stratified
-                                  #   shear population (standing stock
-                                  #   in the bottom log layer under a
-                                  #   moving water column): stable band
-                                  #   membership keeps blocks velocity-
-                                  #   coherent (host window sim: 2 bands
-                                  #   cut mean misses 4.7% -> 1.0% at
-                                  #   120 particles/cell).  NOT a fix
-                                  #   for a sinking front TRANSITING the
-                                  #   layer: transit bands are thin and
-                                  #   transient, and splitting density
-                                  #   makes Hilbert runs ragged — on-
-                                  #   chip transit tests overflow the
-                                  #   patch EARLIER with banding at
-                                  #   <=100 particles/cell.  Transit
-                                  #   runs should raise patch capacity
-                                  #   instead (oob_frac=16 absorbs the
-                                  #   whole front; see BASELINE.md).
-                                  #   1 = off (default); max 6
+                                  #   top band open-ended; 1 = off, max
+                                  #   6).  Reorders the batch only: a
+                                  #   banded run equals an unbanded one
+                                  #   bit for bit.  On the H100 it lets
+                                  #   more blocks stage their corners
+                                  #   where each band stays dense under
+                                  #   a persistent vertical shear (4M
+                                  #   particles, 280 a cell: K1 -12%),
+                                  #   and costs where it thins them
+                                  #   (1M: up to +8%; turbulence:
+                                  #   +18%), PERF.md
     sort_band_height: float = 4.0 # metres above bottom per sort band
     sort_band_log: bool = False   # log2-spaced bands instead of equal
                                   #   slabs: boundaries at

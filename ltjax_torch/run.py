@@ -530,8 +530,7 @@ def run_sharded(cfg: Config, resume: bool = False, device="cpu",
                                f"{world} ranks, {count} cards")
     native.get_lib()              # built once here, not once per rank
     grid = load_grid(cfg, "cpu")
-    if grid.curv is not None and cfg.mesh_tiles > 1:
-        check_supported(cfg, StepContext(grid=grid, bounds=None))
+    check_supported(cfg, StepContext(grid=grid, bounds=None))
     if device.type == "cuda":
         # one nvcc per kernel, not one per rank; rectilinear grids are tiled
         build.prebuild(kernel_targets(cfg, grid, tile=grid.curv is None))

@@ -373,11 +373,12 @@ def make_tiled_steps(tctx: StepContext, cfg: Config, spec: TileSpec,
                      tile: int, tile_edges, n_fuse: int, exchange=None):
     """``n_fuse`` external steps of one tile over an (n_fuse + 2)-record
     window of its strip (ltjax's ``make_tiled_step`` body for one rank):
-    each external step Hilbert-sorts the slots, takes the route of
-    ``step.mode_flags`` (``step.route_step``: K1, the per-step route or
-    the native route, on the tile's context), restores the slot order and
-    migrates (``exchange``: the all_to_all of the data-parallel row; not
-    used with one tile, where nothing leaves).
+    each external step Hilbert-sorts the slots (banded by
+    ``cfg.sort_depth_bands`` on the strip's rows and ``h``), takes the
+    route of ``step.mode_flags`` (``step.route_step``: K1, the per-step
+    route or the native route, on the tile's context), restores the slot
+    order and migrates (``exchange``: the all_to_all of the data-parallel
+    row; not used with one tile, where nothing leaves).
 
     Returns ``fused(p, fsR, t0, ext_idx0) -> (p', drops, sent)`` with the
     drop and sent counts of the call (int64 device scalars)."""
@@ -397,7 +398,7 @@ def make_tiled_steps(tctx: StepContext, cfg: Config, spec: TileSpec,
         drops = torch.zeros((), dtype=torch.int64, device=dev)
         sent = torch.zeros((), dtype=torch.int64, device=dev)
         for e in range(n_fuse):
-            p, perm = _sort(grid, p)
+            p, perm = _sort(grid, p, cfg)
             p = route_step(tctx, cfg, route, p, prec_all, fsR, e, t0,
                            ext_idx0)
             p = sp.unsort(p, perm)

@@ -37,15 +37,29 @@ def hilbert_key(i, j, bits: int = 15):
     return d.to(torch.int32)
 
 
-def sort_by_cell(p: st.Particles, i, j):
+def sort_by_cell(p: st.Particles, i, j, depth_band=None, n_bands: int = 1):
     """Hilbert-sort the state by cell index; returns (p_sorted, perm).
 
     Frozen particles (settled / dead / out of domain / errored) and the
     EMPTY slots of a sharded run's buffers (status -1) sort after all
-    live ones, so they do not dilute the live blocks."""
-    key = hilbert_key(i, j).to(torch.int64)          # < 2^30
+    live ones, so they do not dilute the live blocks.
+
+    ``depth_band`` (int array, clipped to ``[0, n_bands - 1]``,
+    ``n_bands`` in 1..6): the band is the major key, Hilbert order (14
+    bits) within each band, parked particles band 7, as
+    ``ltjax.spatial.sort_by_cell``; ``step._sort_band`` makes the bands
+    (``cfg.sort_depth_bands``)."""
     parked = (p.status >= st.SETTLED) | (p.status < 0)
-    key = key + parked.to(torch.int64) * (1 << 30)
+    if depth_band is None:
+        key = hilbert_key(i, j).to(torch.int64)          # < 2^30
+        key = key + parked.to(torch.int64) * (1 << 30)
+    else:
+        nb = int(n_bands)
+        if not 1 <= nb <= 6:
+            raise ValueError("n_bands must be in [1, 6] (int32 key room)")
+        band = depth_band.to(torch.int64).clamp(0, nb - 1)
+        band = torch.where(parked, 7, band)
+        key = hilbert_key(i, j, bits=14).to(torch.int64) + (band << 28)
     perm = torch.argsort(key, stable=True)
     return p.take(perm), perm
 

@@ -30,12 +30,15 @@ Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
 step e is ``e * internal_steps + i``, as in ltjax.
 
-``check_supported`` raises ``NotImplementedError`` for the depth-banded
-sort, which the port does not have, and for domain tiles on a
-curvilinear grid: they are not silently dropped.  Every grid (uniform or
-stretched rectilinear, curvilinear) and both position dtypes run on both
-devices, on every route; sharded runs (``ltjax_torch.shard``) take the
-same routes per tile (``route_step``).
+Every route Hilbert-sorts the batch on its cells, optionally banded by
+height above the seabed (``cfg.sort_depth_bands``, ``_sort_band``); the
+order changes no particle's result, only which particles share a block
+of the kernels' threads.  ``check_supported`` raises
+``NotImplementedError`` for domain tiles on a curvilinear grid (not
+silently dropped) and ``ValueError`` for more than 6 depth bands.  Every
+grid (uniform or stretched rectilinear, curvilinear) and both position
+dtypes run on both devices, on every route; sharded runs
+(``ltjax_torch.shard``) take the same routes per tile (``route_step``).
 """
 
 from __future__ import annotations
@@ -101,12 +104,13 @@ def mode_flags(ctx: StepContext, cfg) -> str:
 
 
 def check_supported(cfg, ctx: StepContext) -> None:
-    """Raise NotImplementedError for the depth-banded sort (not ported),
-    and for domain tiles on a curvilinear grid (ltjax's message: eta
-    strips assume rectilinear rows)."""
-    if cfg.sort_depth_bands > 1:
-        raise NotImplementedError("sort_depth_bands: not ported to "
-                                  "ltjax_torch")
+    """Raise ValueError for more than 6 depth bands of the sort (ltjax's
+    message: the banded key's room), and NotImplementedError for domain
+    tiles on a curvilinear grid (ltjax's message: eta strips assume
+    rectilinear rows)."""
+    if cfg.sort_depth_bands > 6:
+        raise ValueError(f"sort_depth_bands = {cfg.sort_depth_bands}: "
+                         "n_bands must be in [1, 6] (int32 key room)")
     if ctx.grid.curv is not None and cfg.mesh_tiles > 1:
         raise NotImplementedError(
             "curvilinear grids shard over the PARTICLE axis only "
@@ -282,17 +286,46 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     return out
 
 
-def _sort(grid: Grid, p: st.Particles):
-    """Hilbert-sort the batch on its rho cells (logical cells floor(ti),
-    floor(tj) on a curvilinear grid)."""
+def _sort_band(cfg, grid: Grid, p: st.Particles, ci, cj):
+    """Depth-band ids of the Hilbert sort (ltjax.step._sort_band), or None
+    when banding is off: ``cfg.sort_band_height``-metre slabs of height
+    above the seabed at the particle's rho cell (ci, cj), or with
+    ``cfg.sort_band_log`` log2 bands with boundaries at sort_band_height
+    * 2^k.  On a tile's strip, cj is a strip row and ``grid.h`` the
+    strip's."""
+    if cfg.sort_depth_bands <= 1:
+        return None
+    hab = p.z + grid.h[cj.long(), ci.long()]      # height above bottom [m]
+    if cfg.sort_band_log:
+        return torch.floor(torch.log2(hab.clamp(min=1e-3)
+                                      / cfg.sort_band_height)
+                           ).to(torch.int32) + 1
+    return torch.floor(hab / cfg.sort_band_height).to(torch.int32)
+
+
+def _sort_cells(grid: Grid, p: st.Particles):
+    """The rho cells (ci, cj) the sort keys on: per-axis ``locate`` (on a
+    tile's strip, strip rows), or on a curvilinear grid the logical cells
+    floor(ti), floor(tj)."""
     if grid.curv is not None:
         ti, tj = logical_coords(grid, p.x, p.y)
         ci = torch.floor(ti).clamp(0, grid.nx - 1).to(torch.int32)
         cj = torch.floor(tj).clamp(0, grid.ny - 1).to(torch.int32)
-    else:
-        ci, _ = locate(grid.x_rho, p.x, grid.uniform)
-        cj, _ = locate_y(grid, p.y)
-    return sp.sort_by_cell(p, ci, cj)
+        return ci, cj
+    ci, _ = locate(grid.x_rho, p.x, grid.uniform)
+    cj, _ = locate_y(grid, p.y)
+    return ci, cj
+
+
+def _sort(grid: Grid, p: st.Particles, cfg=None):
+    """Hilbert-sort the batch on its rho cells (``_sort_cells``), banded
+    by ``cfg``'s depth bands when it has them."""
+    ci, cj = _sort_cells(grid, p)
+    band = None if cfg is None else _sort_band(cfg, grid, p, ci, cj)
+    if band is None:
+        return sp.sort_by_cell(p, ci, cj)
+    return sp.sort_by_cell(p, ci, cj, depth_band=band,
+                           n_bands=cfg.sort_depth_bands)
 
 
 def fieldset_slice(fs: FieldSet, e: int, r: int = 3) -> FieldSet:
@@ -355,8 +388,9 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     field window: external step e uses records [e, e+1, e+2], the same
     values as n_fuse calls on the rotating triple buffer (reference
     ``updateHydro``).  The batch is Hilbert-sorted every
-    ``cfg.ext_sort_every`` external steps and returned in storage order
-    (on every route: the native route's internal steps measured faster
+    ``cfg.ext_sort_every`` external steps (banded by
+    ``cfg.sort_depth_bands``) and returned in storage order (on every
+    route: the native route's internal steps measured faster
     on a sorted batch, by more than the sort costs; PERF.md).  ``cfg.seed``
     keys the random streams.  Each external step takes the route of
     ``mode_flags`` (``route_step``): one whole-step kernel launch, or
@@ -379,7 +413,7 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
         cum = torch.arange(p.n, device=p.x.device)
         for e in range(n_fuse):
             if e % se == 0:
-                p, perm = _sort(grid, p)
+                p, perm = _sort(grid, p, cfg)
                 cum = cum[perm]
             p = route_step(ctx, cfg, route, p, prec_all, fsR, e, t0,
                            ext_idx0)

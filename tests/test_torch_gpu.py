@@ -41,6 +41,10 @@ with a random w and zeta: horizontal 0.05 m, vertical 1e-3 m, the
 stage-1 currents to 0.05 m / idt.  The per-step route (stochastic
 mortality) launches it once per internal step and never calls the plain
 version.
+
+The depth-banded Hilbert sort (``sort_depth_bands``) reorders the batch
+and nothing else: banded runs on the ext_step and per-step routes, and
+on two gloo tiles, equal the unbanded runs bit for bit.
 """
 from dataclasses import replace
 
@@ -985,3 +989,57 @@ def test_native_strip_reads_feed_the_prefetcher_on_gpu(gpu, tmp_path):
     pf.close()
     strip.close()
     whole.close()
+
+
+BANDED_ROUTES = {
+    "ext_step": dict(HTurbOn=True, ConstantHTurb=1.0),
+    "per_step": dict(Behavior=6, sink=1e-3, mortality=True,
+                     stochastic_mortality=True, deadage=3600.0),
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("route", list(BANDED_ROUTES))
+def test_banded_sort_bit_equal_on_gpu(gpu, route):
+    """The depth-banded sort on the card: 65,536 particles, 2 external
+    steps through make_fused_external_steps, 3 bands of 16 m, sorted every
+    step, against the unbanded run, every column bit for bit (the same
+    DEAD pids on the per-step route); the kernel of the route launched."""
+    c, ctx, cfg, p = _case(gpu, n=65536)
+    plain = replace(cfg, ext_sort_every=1, **BANDED_ROUTES[route])
+    banded = replace(plain, sort_depth_bands=3, sort_band_height=16.0)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 4, device=gpu)
+    want = make_fused_external_steps(ctx, plain, 2)(p, fsR, 0.0, 0)
+    kx.reset_launches()
+    n0 = kr.rk4_displacement_fused.launches
+    got = make_fused_external_steps(ctx, banded, 2)(p, fsR, 0.0, 0)
+    for k in st.FIELDS:
+        assert torch.equal(getattr(got, k), getattr(want, k)), k
+    if route == "per_step":
+        assert (kr.rk4_displacement_fused.launches - n0
+                == 2 * cfg.internal_steps)
+        assert (got.status == st.DEAD).sum() > 1000
+    else:
+        assert kx.ext_step_fused.launches == 2
+
+
+@pytest.mark.gpu
+def test_banded_tiles_on_the_card_match_one_unbanded_rank(gpu):
+    """2 tiles, 2 gloo ranks sharing the card, 3 depth bands of 16 m,
+    against one rank's unbanded K1 route: 65,536 float64 particles, 2
+    external steps, bit for bit, one launch per rank and step."""
+    from ltjax_torch import shard
+    c, ctx, cfg, p = _case(gpu, n=65536, dtype=F64)
+    banded = replace(cfg, sort_depth_bands=3, sort_band_height=16.0)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 4, device=gpu)
+    ref = make_fused_external_steps(ctx, cfg, 2)(p, fsR, 0.0, 0)
+    halo = shard.halo_rows_needed(1e-4 * 71e3, 1800.0, 2.5e3)
+    spec = shard.make_spec(banded, 41, p.n, 1, 2, halo=halo, slack=2.0)
+    (got, ranks), = shard.run_tiled_steps(
+        [shard.TiledCase(ctx, banded, p, fsR, 2, spec, n_fuse=2)],
+        device="cuda", backend="gloo")
+    order = torch.argsort(ref.pid.cpu())
+    for k in st.FIELDS:
+        assert torch.equal(getattr(got, k), getattr(ref, k).cpu()[order]), k
+    assert [r["launches"] for r in ranks] == [2, 2]
+    assert sum(r["drops"] for r in ranks) == 0

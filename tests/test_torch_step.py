@@ -3,7 +3,7 @@ ltjax.step.make_fused_external_steps, ``internal_step`` with turbulence,
 behaviors, mortality, settlement and salt sampling vs ltjax's
 collapsed-mode ``internal_step``, the per-step route of stochastic
 mortality (``mode_flags``, ``internal_step(mode="kernel")``), and the
-options outside the slice.
+options ``check_supported`` accepts.
 
 Setup of the fused comparison: tests/test_kernel.py's fused multi-step
 case (41x41 grid, us = 6, 256 particles, a 4-record window, n_fuse = 2)
@@ -216,11 +216,6 @@ def test_ext_step_kernel_refuses_stochastic_mortality():
         kx.ext_step_fused(ctx, cfg, p, prec, 0.0, fields=fs)
 
 
-UNSUPPORTED = [
-    ("sort_depth_bands", dict(sort_depth_bands=2)),
-]
-
-
 def _ctx():
     g = synth.make_solid_body_case(nx=9, ny=9, us=4,
                                    dtype=torch.float32).grid
@@ -228,19 +223,12 @@ def _ctx():
         g.mask_rho.numpy(), g.x_rho.numpy(), g.y_rho.numpy()))
 
 
-@pytest.mark.parametrize("name,kw", UNSUPPORTED,
-                         ids=[u[0] for u in UNSUPPORTED])
-def test_unsupported_option_raises(name, kw):
-    with pytest.raises(NotImplementedError, match=name):
-        tstep.make_fused_external_steps(_ctx(), _cfg(us=4, ws=5, **kw), 1)
-
-
 def test_cuda_only_restrictions(monkeypatch):
     """On CUDA the kernels take float64 positions, stretched (searched)
     axes and, on the per-step route, curvilinear grids, as on the CPU:
     none of them is refused (checked by presenting the grid as on CUDA),
-    nor are the native route, adaptive tension and sharding, while depth
-    bands still raise there."""
+    nor are the native route, adaptive tension, sharding and the
+    depth-banded sort (up to 6 bands, equal or log2 slabs)."""
     ctx = _ctx()
     monkeypatch.setattr(type(ctx.grid), "device",
                         property(lambda self: torch.device("cuda")))
@@ -254,9 +242,11 @@ def test_cuda_only_restrictions(monkeypatch):
     tstep.check_supported(_cfg(us=4, ws=5, fast_interp=False), stretched)
     tstep.check_supported(_cfg(us=4, ws=5, mesh_particles=2, mesh_tiles=2),
                           stretched)
-    for name, kw in UNSUPPORTED:
-        with pytest.raises(NotImplementedError, match=name):
-            tstep.check_supported(_cfg(us=4, ws=5, **kw), stretched)
+    for kw in (dict(sort_depth_bands=2),
+               dict(sort_depth_bands=6, sort_band_log=True),
+               dict(sort_depth_bands=3, mesh_particles=2, mesh_tiles=2)):
+        tstep.check_supported(_cfg(us=4, ws=5, **kw), ctx)
+        tstep.check_supported(_cfg(us=4, ws=5, **kw), stretched)
 
 
 def test_stochastic_mortality_on_curvilinear_cuda_refused(monkeypatch):
@@ -288,7 +278,9 @@ SLICE = [dict(HTurbOn=True), dict(VTurbOn=True, readAks=True),
          holesExist=True, HTurbOn=True, VTurbOn=True, readAks=True,
          mortality=True),
     dict(Behavior=6, mortality=True, stochastic_mortality=True),
-    dict(fast_interp=False), dict(tension_sigma=-1.0)]
+    dict(fast_interp=False), dict(tension_sigma=-1.0),
+    dict(sort_depth_bands=3, sort_band_height=8.0),
+    dict(sort_depth_bands=4, sort_band_log=True)]
 
 
 @pytest.mark.parametrize("kw", SLICE, ids=lambda kw: "-".join(
