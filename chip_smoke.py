@@ -7,7 +7,7 @@
 
 Builds the variants of the external-step CUDA kernel and the per-step
 RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs twelve phases and fails (non-zero exit, no final
+together), then runs thirteen phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -136,7 +136,21 @@ line) if any of them fails:
    step, the staging counters and the staged share, the closed form;
    (c) phase 4's turb cell at 1M unbanded and with 3 bands; (d) the
    entry point with 3 bands on the ext_step, per-step and native routes
-   and on 2 gloo tiles: the unbanded run's CSV.
+   and on 2 gloo tiles: the unbanded run's CSV;
+13. the packed route (kernel_interp = False: ltjax's packed scheme,
+   per-column tension fits evaluated on each corner's own knots and
+   blended, as PyTorch ops, no kernel): (a) the route on the card
+   against the same route on the CPU at 65,536, one internal step from
+   the same state, float64 (1e-6 m, 1e-9 m, equal statuses and dead
+   pids) for advection, turbulence, behavior 4 with salt, behavior 7,
+   settlement and stochastic mortality on the uniform grid, some of them
+   on stretched axes and the curvilinear grid, and float32 (0.05 m,
+   1e-3 m); (b) phase 2's cell at 1M in float32 and float64 (2 x 30
+   steps): particle-steps/s, peak memory, the closed form, the gap to
+   K1's collapsed scheme on the same particles, per internal step the
+   wall and device ms, idle share and top kernels; (c) the entry point
+   on the card against the CPU (CSV), --resume (bit-equal) and 2 gloo
+   tiles on the card (the single rank's CSV).
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -2537,33 +2551,37 @@ def phase10a(torch, device, n=65536, nx=200, us=20, steps=1):
     return out
 
 
-def native_steps(torch, ctx, cfg, p, fields, steps):
-    """``steps`` internal steps of the native route from p (records
-    0..2, t = 0)."""
+def route_steps(torch, ctx, cfg, p, fields, steps, mode="native",
+                prec=None):
+    """``steps`` internal steps of internal_step(mode=mode) from p
+    (records 0..2, t = 0; ``prec`` their packed records, for the packed
+    route)."""
     from ltjax_torch.step import internal_step
     for i in range(steps):
         p = internal_step(ctx, cfg, cfg.seed, p, fields, i * float(cfg.idt),
-                          i, mode="native")
+                          i, prec, mode=mode)
     return p
 
 
-def native_profile(torch, ctx, cfg, p, fields, steps):
-    """Wall and device ms per internal step of the native route: a warm
-    run timed on the host clock (synchronized), then one under
-    torch.profiler for the device time (all CUDA events) and its count
-    of device kernels; idle share 1 - device / wall (profiled run)."""
+def route_profile(torch, ctx, cfg, p, fields, steps, mode="native",
+                  prec=None):
+    """Wall and device ms per internal step of a PyTorch route
+    (route_steps): a warm run timed on the host clock (synchronized),
+    then one under torch.profiler for the device time (all CUDA events),
+    its count of device kernels and the top device kernels; idle share 1
+    - device / wall (profiled run)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    native_steps(torch, ctx, cfg, p, fields, 1)
+    route_steps(torch, ctx, cfg, p, fields, 1, mode, prec)
     sync(torch, p.x.device)
     t0 = time.perf_counter()
-    native_steps(torch, ctx, cfg, p, fields, steps)
+    route_steps(torch, ctx, cfg, p, fields, steps, mode, prec)
     sync(torch, p.x.device)
     wall = 1e3 * (time.perf_counter() - t0)
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        native_steps(torch, ctx, cfg, p, fields, steps)
+        route_steps(torch, ctx, cfg, p, fields, steps, mode, prec)
         sync(torch, p.x.device)
         wall_prof = 1e3 * (time.perf_counter() - t0)
     ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
@@ -2571,14 +2589,15 @@ def native_profile(torch, ctx, cfg, p, fields, steps):
     by_name = {}
     for e in ev:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:12]
-    log({"native_profile_top_kernels_ms_per_step": [
-        (k[:90], v / 1e3 / steps) for k, v in top]})
+    top = [(k[:90], v / 1e3 / steps) for k, v in
+           sorted(by_name.items(), key=lambda kv: -kv[1])[:12]]
+    log({f"{mode}_profile_top_kernels_ms_per_step": top})
     return {"internal_steps": steps, "wall_ms_per_step": wall / steps,
             "wall_ms_per_step_profiled": wall_prof / steps,
             "device_ms_per_step": dev_ms / steps,
             "device_ops_per_step": len(ev) / steps,
-            "idle_share": 1.0 - dev_ms / wall_prof if wall_prof else None}
+            "idle_share": 1.0 - dev_ms / wall_prof if wall_prof else None,
+            "top5_device_ms_per_step": top[:5]}
 
 
 def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=1,
@@ -2591,7 +2610,7 @@ def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=1,
     (the collapsed scheme, which coincides with the native one here:
     zeta constant, fields linear in x and y) within the whole-step
     gates; particle-steps/s, the peak of device memory, and per internal
-    step the wall and device ms (native_profile) on the Hilbert-sorted
+    step the wall and device ms (route_profile) on the Hilbert-sorted
     batch, the sort's own time, and the wall ms unsorted."""
     from dataclasses import replace
     from ltjax_torch import state as st, synth
@@ -2648,9 +2667,9 @@ def phase10b(torch, device, n=1_000_000, nx=200, us=20, n_ext=1,
     ps, _ = _sort(case.grid, p0)
     sync(torch, device)
     prof = {"sort_ms": 1e3 * (time.perf_counter() - t0),
-            "sorted": native_profile(torch, ctx, cfg, ps, f3, prof_steps)}
+            "sorted": route_profile(torch, ctx, cfg, ps, f3, prof_steps)}
     t0 = time.perf_counter()
-    native_steps(torch, ctx, cfg, p0, f3, prof_steps)
+    route_steps(torch, ctx, cfg, p0, f3, prof_steps)
     sync(torch, device)
     prof["unsorted_wall_ms_per_step"] = (
         1e3 * (time.perf_counter() - t0) / prof_steps)
@@ -3680,6 +3699,306 @@ def phase12d(torch, device, n=10_000, nx=60, us=10, n_ext=2):
     return out
 
 
+# phase 13: the packed route (kernel_interp = False: ltjax's packed scheme,
+# per-column fits evaluated on each corner's knots and blended; PyTorch
+# ops, no kernel)
+TOL_PACKED_H = TOL_NATIVE_H      # m, float64 card vs CPU, per internal step
+TOL_PACKED_V = TOL_NATIVE_V
+TOL_PACKED_F32_H = TOL_H_STEP    # m, float32 card vs CPU, per internal step
+TOL_PACKED_F32_V = TOL_V
+PACKED_LANES = {
+    "advection": {},
+    "turb": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                 readAks=True),
+    "behavior4-salt": dict(SETTLE_SALT["salt"]),
+    "behavior7": dict(Behavior=7, mortality=True),
+    "settlement": dict(SETTLE_SALT["settle"]),
+    "stochastic": dict(STOCHASTIC, deadage=3600.0),
+}
+# the lanes held on each grid (13a): every lane on the uniform grid
+PACKED_GRIDS = {"uniform": tuple(PACKED_LANES),
+                "stretched": ("advection", "stochastic"),
+                "curvilinear": ("advection", "turb")}
+
+
+def phase13(torch, device):
+    """The packed route (phase13a-c)."""
+    return {"a": phase13a(torch, device), "b": phase13b(torch, device),
+            "c": phase13c(torch, device)}
+
+
+def phase13a(torch, device, n=65536, nx=200, us=20):
+    """The packed route on the card against the same route on the CPU, one
+    internal step from the same state: phase 1's particles (near the
+    surface and in the log layer; the uniform grid with its land block,
+    the grid on axes stretched x1.002 a cell, bench.py's curvilinear
+    grid) with a seeded random w and zeta, the parabolic Aks profile and
+    the halocline; every lane of PACKED_LANES on the uniform grid, some
+    on the others (PACKED_GRIDS).  float64 (positions, grid and fields):
+    |dx|, |dy| <= TOL_PACKED_H,
+    |dz| <= TOL_PACKED_V, equal statuses (the same dead pids), salt and
+    temp 1e-9; float32 (advection and turb, uniform): TOL_PACKED_F32_H,
+    TOL_PACKED_F32_V.  Neither kernel launches.  Then the packed route's
+    displacement minus the collapsed route's over one internal step
+    (printed, no gate)."""
+    from dataclasses import replace
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.step import _sort, internal_step, mode_flags
+    cpu = torch.device("cpu")
+    out = {}
+
+    def setup(dev, grid, dtype):
+        kw = dict(parabolic_aks=True, halocline=True, dtype=dtype)
+        if grid == "curvilinear":
+            case = curv_bench_case(torch, dev, nx=nx, ny=nx, us=us,
+                                   omega=5e-6, **kw)
+        else:
+            case = bench_case(torch, dev, nx=nx, ny=nx, us=us, omega=5e-6,
+                              axes=1.002 if grid == "stretched" else 1.0,
+                              **kw)
+        fs = synth.with_vertical_motion(synth.fieldset_for(
+            case, t_center=0.0, dt=3600.0, dtype=dtype, device=dev), seed=3)
+        return case, context(case), fs, pk.build_packed_records(case.grid,
+                                                                 fs)
+
+    runs = [(g, lane, torch.float64) for g, lanes in PACKED_GRIDS.items()
+            for lane in lanes]
+    runs += [("uniform", lane, torch.float32) for lane in ("advection",
+                                                            "turb")]
+    built = {}
+    for grid, lane, dtype in runs:
+        if (grid, dtype) not in built:
+            built[grid, dtype] = (setup(device, grid, dtype),
+                                  setup(cpu, grid, dtype)[1:])
+        (case, ctx, fs, prec), (ctx_c, fs_c, prec_c) = built[grid, dtype]
+        if grid == "curvilinear":
+            x, y, _ = curv_water_particles(case, n, seed=1)
+        else:
+            x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
+        z = near_surface_and_bottom(n, case.h0, seed=4)
+        p = st.init_particles(x, y, z, dtype=dtype, device=device)
+        p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+        p, _ = _sort(case.grid, p)
+        cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos=dtype_name(dtype),
+                       TrackCollisions=True, kernel_interp=False,
+                       **PACKED_LANES[lane])
+        if cfg.settlementon:
+            ctx, ctx_c = with_polygons(ctx), with_polygons(ctx_c)
+        assert mode_flags(ctx, cfg) == "packed", lane
+        kx.reset_launches()
+        kr.rk4_displacement_fused.launches = 0
+        a = internal_step(ctx, cfg, 5, p, fs, 0.0, 0, prec, mode="packed")
+        b = internal_step(ctx_c, cfg, 5, p.to(cpu), fs_c, 0.0, 0, prec_c,
+                          mode="packed")
+        sync(torch, device)
+        name = f"13a-{grid}-{lane}-{dtype_name(dtype)}"
+        same = (a.status.cpu() == b.status).numpy()
+        res = {"phase": name, "n": n, "launches": kx.ext_step_fused.launches
+               + kr.rk4_displacement_fused.launches,
+               "status_mismatch": int((~same).sum()),
+               "status_counts": np.bincount(b.status.numpy(),
+                                            minlength=6).tolist(),
+               "max_vertical_move_m": float((b.z - p.z.cpu()).abs().max())}
+        for k in ("x", "y", "z", "salt", "temp"):
+            d = (getattr(a, k).cpu() - getattr(b, k)).abs().numpy()
+            res["max_abs_d" + k] = float(d[same].max(initial=0.0))
+        for k in ("hit_land", "hit_bottom", "settle_poly"):
+            res[k + "_mismatch"] = int((getattr(a, k).cpu()
+                                        != getattr(b, k)).sum())
+        log(res)
+        f64 = dtype == torch.float64
+        tol_h = TOL_PACKED_H if f64 else TOL_PACKED_F32_H
+        tol_v = TOL_PACKED_V if f64 else TOL_PACKED_F32_V
+        assert a.x.device.type == device.type and a.x.dtype == dtype, res
+        assert res["launches"] == 0, res
+        assert max(res["max_abs_dx"], res["max_abs_dy"]) <= tol_h, res
+        assert res["max_abs_dz"] <= tol_v, res
+        assert max(res["max_abs_dsalt"], res["max_abs_dtemp"]) <= (
+            1e-9 if f64 else TOL_SALT), res
+        assert res["status_mismatch"] == 0, res
+        assert res["settle_poly_mismatch"] == 0, res
+        assert res["max_vertical_move_m"] > 0.1, res
+        if lane == "stochastic":
+            assert res["status_counts"][st.DEAD] > 0, res
+        if lane == "settlement":
+            assert res["status_counts"][st.SETTLED] > 0, res
+        out[name] = res
+    (case, ctx, fs, prec), _ = built["uniform", torch.float64]
+    x, y, _ = water_particles(case, n, 2e3, 198e3, seed=1)
+    p = st.init_particles(x, y, near_surface_and_bottom(n, case.h0, seed=4),
+                          dtype=torch.float64, device=device)
+    p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
+    cfg = make_cfg(n, us=us, ws=us + 1, dtype_pos="float64")
+    a = internal_step(ctx, replace(cfg, kernel_interp=False), 5, p, fs, 0.0,
+                      0, prec, mode="packed")
+    b = internal_step(ctx, cfg, 5, p, fs, 0.0, 0, prec, mode="collapsed")
+    out["packed_minus_collapsed"] = {
+        "phase": "13a-packed-minus-collapsed", "internal_steps": 1,
+        **{"max_abs_d" + k: float((getattr(a, k) - getattr(b, k)).abs()
+                                  .max()) for k in ("x", "y", "z")}}
+    log(out["packed_minus_collapsed"])
+    return out
+
+
+def phase13b(torch, device, n=1_000_000, nx=200, us=20, n_ext=2,
+             prof_steps=2):
+    """The main path's cell with kernel_interp = False: phase 2's case
+    (the 200x200x20 bench grid, 1M particles, the closed form) in float32
+    and float64, n_ext external steps x 30 internal steps through
+    make_fused_external_steps (Hilbert-sorted as the route sorts): no
+    kernel launched, particle-steps/s, the peak of device memory, the
+    closed form within TOL_ANALYTIC, and the largest gap to K1's
+    collapsed scheme on the same particles (phase 2's route, run here);
+    per internal step the wall and device ms, the idle share and the top
+    device kernels (route_profile) on the sorted batch."""
+    from dataclasses import replace
+    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch.step import _sort, fieldset_slice, summary_counts
+    out = {}
+    for dtype in (torch.float32, torch.float64):
+        name = dtype_name(dtype)
+        case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
+                          dtype=None if dtype == torch.float32 else dtype)
+        ctx = context(case)
+        cfg0 = make_cfg(n, us=us, ws=us + 1, dtype_pos=name)
+        cfg = replace(cfg0, kernel_interp=False)
+        dt = float(cfg0.dt)
+        fsR = synth.fieldset_window(case, -dt / 2, dt, n_ext + 2,
+                                    device=device)
+        rng = np.random.default_rng(0)
+        x0 = rng.uniform(40e3, 160e3, n)
+        y0 = rng.uniform(40e3, 160e3, n)
+        z0 = rng.uniform(-40.0, -5.0, n)
+        p0 = st.init_particles(x0, y0, z0, dtype=dtype, device=device)
+        p0 = p0.replace(status=torch.full_like(p0.status, st.ACTIVE))
+        pk1, sec_k1, launches_k1, _ = fused_cell(torch, ctx, cfg0, p0, fsR,
+                                                  n_ext, warm=False)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        before = (torch.cuda.memory_allocated()
+                  if device.type == "cuda" else 0)
+        p, sec, launches, _ = fused_cell(torch, ctx, cfg, p0, fsR, n_ext,
+                                         warm=False)
+        peak = (torch.cuda.max_memory_allocated()
+                if device.type == "cuda" else 0)
+        counts = summary_counts(p)
+        xa, ya, _ = case.analytic(x0, y0, z0, n_ext * dt)
+        err = np.hypot(p.x.cpu().numpy() - xa, p.y.cpu().numpy() - ya)
+        steps = n * cfg.internal_steps * n_ext
+        f3 = fieldset_slice(fsR, 0)
+        ps, _ = _sort(case.grid, p0, cfg)
+        r = {"phase": f"13b-{name}", "n": n, "ext_steps": n_ext,
+             "internal_steps": cfg.internal_steps, "launches": launches,
+             "seconds": sec, "particle_steps_per_s": steps / sec,
+             "k1_seconds": sec_k1, "k1_launches": launches_k1,
+             "k1_particle_steps_per_s": steps / sec_k1,
+             "memory_before_gb": before / 1e9, "peak_memory_gb": peak / 1e9,
+             "max_err_vs_analytic_m": float(err.max()), "counts": counts,
+             "max_gap_to_k1_h_m": float(torch.hypot(p.x - pk1.x,
+                                                    p.y - pk1.y).max()),
+             "max_gap_to_k1_v_m": float((p.z - pk1.z).abs().max()),
+             "profile": route_profile(torch, ctx, cfg, ps, f3, prof_steps,
+                                      mode="packed",
+                                      prec=pk.build_packed_records(
+                                          case.grid, f3))}
+        log(r)
+        assert launches == {}, r
+        assert p.x.dtype == dtype, r
+        assert counts["error"] == 0 and counts["active"] == n, r
+        assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, r
+        assert r["max_gap_to_k1_h_m"] < TOL_H, r
+        assert r["max_gap_to_k1_v_m"] < TOL_V, r
+        out[name] = r
+    return out
+
+
+def phase13c(torch, device, n=10_000, nx=60, us=10, n_ext=4):
+    """The entry point with kernel_interp = False on phase 3's planar
+    series (float32 positions): ltjax_torch.run.run on the card (startup
+    line: route "packed", path "cuda_packed", no kernel launched) against
+    the same run on the CPU, the final CSV rows' ids, statuses and polys
+    equal and positions within 13a's float32 gates (lon/lat, depth: the
+    CSV's 4 decimals); with checkpoint_every = 2, a run resumed from the
+    first checkpoint after the last was deleted ends with the
+    uninterrupted run's particles (every column equal); and a (1, 2)
+    mesh of gloo ranks on the card writes the single rank's CSV byte for
+    byte."""
+    import dataclasses
+    import filecmp
+    import shutil
+    from ltjax_torch import checkpoint as ckpt, run, shard, synth
+    from ltjax_torch.config import config_from_namelist
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    work = os.path.join(ROOT, "build", "chip_smoke13")
+    shutil.rmtree(work, ignore_errors=True)
+    case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
+                                      h0=50.0, omega=5e-5,
+                                      dtype=torch.float64)
+    rng = np.random.default_rng(2)
+    nml = synth.write_run_files(
+        case, work, rng.uniform(15e3, 45e3, n), rng.uniform(15e3, 45e3, n),
+        rng.uniform(-40.0, -5.0, n), n_ext=n_ext, dt=3600, idt=120,
+        iprint=3600 * n_ext, ext_fuse=2, dtype_pos="float32",
+        kernel_interp=False, checkpoint_every=2,
+        checkpoint_dir=os.path.join(work, "ckpt"),
+        halo_rows=shard.halo_rows_needed(5e-5 * 30e3 * np.sqrt(2.0),
+                                         3600.0, 60e3 / (nx - 1)),
+        migrate_capacity=3.0)
+    base = config_from_namelist(nml)
+
+    def go(name, dev, resume=False, ckpt_of=None, **kw):
+        cfg = dataclasses.replace(
+            base, outpath=f"{work}/{name}",
+            checkpoint_dir=f"{work}/{ckpt_of or name}/ckpt", **kw)
+        kx.reset_launches()
+        kr.rk4_displacement_fused.launches = 0
+        backend = "gloo" if cfg.mesh_tiles > 1 else None
+        _, lines = capture_fd(lambda: run.run(cfg, resume=resume, device=dev,
+                                              backend=backend))
+        rows = np.loadtxt(f"{work}/{name}/run1.csv", delimiter=",")
+        last = rows[rows[:, 0] == rows[:, 0].max()]
+        return (lines, last[np.argsort(last[:, 1])],
+                kx.ext_step_fused.launches
+                + kr.rk4_displacement_fused.launches)
+
+    card, card_rows, launches = go("card", device)
+    _, cpu_rows, _ = go("cpu", "cpu")
+    full = ckpt.load(f"{work}/card/ckpt/ckpt_{n_ext}.npz")
+    os.remove(f"{work}/card/ckpt/ckpt_{n_ext}.npz")
+    resumed, _, _ = go("resumed", device, resume=True, ckpt_of="card")
+    again = ckpt.load(f"{work}/card/ckpt/ckpt_{n_ext}.npz")
+    equal = {k: bool(torch.equal(getattr(full[0], k), getattr(again[0], k)))
+             for k in ("x", "y", "z", "status", "age", "dob", "pid",
+                       "settle_poly", "hit_land", "hit_bottom")}
+    mesh, _, _ = go("mesh", device, mesh_tiles=2)
+    start = card[0]
+    res = {"phase": "13c", "n": n, "path": start["path"],
+           "route": start["route"], "launches": launches,
+           "counts": card[-1],
+           "max_abs_dlonlat_m": float(np.abs(card_rows[:, 2:4]
+                                             - cpu_rows[:, 2:4]).max()),
+           "max_abs_ddepth_m": float(np.abs(card_rows[:, 4]
+                                            - cpu_rows[:, 4]).max()),
+           "ids_status_poly_equal": bool(np.array_equal(
+               card_rows[:, [1, 5, -1]], cpu_rows[:, [1, 5, -1]])),
+           "resumed_from": resumed[1]["ext"], "resumed_equal": equal,
+           "mesh_ranks": mesh[0].get("ranks"),
+           "mesh_csv_equal": filecmp.cmp(f"{work}/card/run1.csv",
+                                         f"{work}/mesh/run1.csv",
+                                         shallow=False)}
+    log(res)
+    want = "cuda_packed" if device.type == "cuda" else "plain"
+    assert start["route"] == "packed" and start["path"] == want, res
+    assert res["launches"] == 0 and res["counts"]["error"] == 0, res
+    assert res["ids_status_poly_equal"] and card_rows.shape[0] == n, res
+    assert res["max_abs_dlonlat_m"] <= TOL_PACKED_F32_H, res
+    assert res["max_abs_ddepth_m"] <= TOL_PACKED_F32_V + 1e-4, res
+    assert res["resumed_from"] == 2 and all(equal.values()), res
+    assert res["mesh_ranks"] == 2 and res["mesh_csv_equal"], res
+    return res
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
@@ -3822,7 +4141,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,12 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,13 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -3860,7 +4179,8 @@ def main(argv=None):
               9: lambda: phase9(torch, device),
               10: lambda: phase10(torch, device),
               11: lambda: phase11(torch, device),
-              12: lambda: phase12(torch, device)}
+              12: lambda: phase12(torch, device),
+              13: lambda: phase13(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:

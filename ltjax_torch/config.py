@@ -145,61 +145,43 @@ class Config:
     WriteParfile: bool = False
     BoundaryBLNs: bool = False
 
-    # --- TPU-build-only knobs (no reference analog) ----------------------
+    # --- knobs with no reference analog ---------------------------------
     dtype_pos: str = "float64"    # particle position dtype (float64, or
                                   #   float32: the GPU kernels' faster builds)
     dtype_field: str = "float32"  # field gather/interpolation dtype
     tension_sigma: float = 0.0    # uniform dimensionless spline tension;
                                   #   <0 => adaptive (SIGS-like) selection
-    fast_interp: bool = True      # packed-table interpolation path
-                                  #   (ltjax.packed): time-collapse-first
-                                  #   + per-column splines; False =>
-                                  #   reference-ordered native path
-    kernel_interp: bool = True    # fused Pallas RK4 kernel for advection
-                                  #   (ltjax.kernels.gather_interp); auto-
-                                  #   engages on TPU with f32 positions on
-                                  #   a uniform grid, else falls back to
-                                  #   the packed path
-    kernel_block: int = 0         # particles per fused-kernel block;
-                                  #   0 (default) = AUTO from particle
-                                  #   density (step.resolve_kernel_block:
-                                  #   blocks sized to cover ~41 cells —
-                                  #   1024 at the 1M-bench 25/cell,
-                                  #   floor 256 for sparse runs whose
-                                  #   blocks would otherwise span
-                                  #   several windows).  Set > 0 to
-                                  #   override
-    kernel_precision: str = "pair2"  # MXU one-hot blend scheme/precision:
-                                  #   "pair2" = pair-packed rows +
-                                  #   bf16-exact row weights, 2 passes,
-                                  #   ~2^-16 value error + fy on the
-                                  #   1/256 lattice (default: fastest
-                                  #   exact-ish mode), "hilo3" = hi/lo
-                                  #   split bilinear, 3 passes, ~1.5e-5,
-                                  #   "highest" = f32-exact (6 passes),
-                                  #   "default" = one bf16 pass (~4e-3
-                                  #   rel; fast but weight sums lose
-                                  #   exactness)
-    kernel_wy: int = 16           # fused-kernel VMEM window cells (eta)
-    kernel_wx: int = 8            # fused-kernel VMEM window cells (xi);
-                                  #   wy*wx = 128 halves the one-hot
-                                  #   blend matmul passes vs 16x16 (the
-                                  #   dominant MXU cost); the Hilbert
-                                  #   sort coarsens eta by wy//wx so
-                                  #   blocks fit the window (measured
-                                  #   0.9% window misses at 1M vs 9.6%
-                                  #   with square-sorted blocks)
-    kernel_fast_math: bool = True # kernel divides via approx-reciprocal
-                                  #   + 2 Newton steps (~1-2 ulp of an
-                                  #   exact f32 divide)
-    kernel_sfast: bool = True     # constant-ladder s-space vertical
-                                  #   spline in the fused kernels on
-                                  #   affine-ladder grids (Cs==s or
-                                  #   hc==0; grid.affine_ladders) —
-                                  #   exactly equal to the z-space
-                                  #   scheme up to f32 rounding; False
-                                  #   forces the per-particle z-space
-                                  #   path everywhere
+    fast_interp: bool = True      # time-collapse-first interpolation
+                                  #   (packed records, stage tables);
+                                  #   False => the native route, the
+                                  #   reference's order (step.mode_flags)
+    kernel_interp: bool = True    # True: the CUDA kernels wherever one
+                                  #   exists (K1, or K2 for stochastic
+                                  #   mortality: the collapsed scheme,
+                                  #   blend-then-fit, on every grid and
+                                  #   position dtype); False: the packed
+                                  #   route, ltjax's packed scheme (per-
+                                  #   column fits, eval-then-blend) as
+                                  #   PyTorch ops, which ltjax runs
+                                  #   wherever its TPU kernel does not
+    kernel_block: int = 0         # TPU only (Pallas particle block):
+                                  #   read from the run file, ignored by
+                                  #   the port (K1's block is 128)
+    kernel_precision: str = "pair2"  # TPU only (MXU one-hot blend
+                                  #   precision): read, ignored; the
+                                  #   port blends 4 corners in f32/f64
+    kernel_wy: int = 16           # TPU only (VMEM window cells, eta):
+                                  #   read, ignored (the port stages a
+                                  #   box per block, ext_step.block_boxes)
+    kernel_wx: int = 8            # TPU only (VMEM window cells, xi):
+                                  #   read, ignored; the port's Hilbert
+                                  #   key takes no aspect from them
+    kernel_fast_math: bool = True # TPU only (approx-reciprocal divides):
+                                  #   read, ignored (exact divides)
+    kernel_sfast: bool = True     # TPU only (the constant-ladder spline
+                                  #   of the fused kernels): read,
+                                  #   ignored (the port's kernels fit on
+                                  #   each particle's z-space knots)
     ext_fuse: int = 8             # external steps fused per compiled
                                   #   call on the megakernel path (the
                                   #   field window holds ext_fuse + 2
@@ -247,23 +229,10 @@ class Config:
                                   #   split once particles LIVE inside
                                   #   the layer (equal slabs only help
                                   #   during the approach)
-    oob_frac: int = 0             # exact-recompute capacity for window
-                                  #   misses = numpar // oob_frac.
-                                  #   0 (default) = AUTO: derived from
-                                  #   the config by
-                                  #   step.resolve_oob_frac — base
-                                  #   n/32 (cheap: unused patch
-                                  #   chunks are cond-skipped),
-                                  #   raised for sinking-transit
-                                  #   configs (sink*dt >= 1 m/ext)
-                                  #   and settlement rim-deferral
-                                  #   flux (BASELINE.md sizing rules).
-                                  #   Set > 0 to override.  Capacity
-                                  #   must sit clearly above the peak
-                                  #   demand — overflow freezes
-                                  #   particles as ERROR, and frozen
-                                  #   stragglers feed back into more
-                                  #   misses; see ltjax.spatial sort
+    oob_frac: int = 0             # TPU only (capacity of the exact
+                                  #   out-of-window patch): read from
+                                  #   the run file, ignored (the port's
+                                  #   kernels have no window to miss)
     reflect_iters: int = 4        # fixed boundary-reflection iteration count
     mesh_particles: int = 1       # mesh axis size: particle data-parallel
     mesh_tiles: int = 1           # mesh axis size: domain tiles (eta strips)

@@ -25,8 +25,9 @@ The first stdout line is a JSON object naming the path taken
 ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step": the
 per-internal-step kernel of the "per_step" route, which stochastic
 mortality takes; "cuda_native": the native route's PyTorch ops on the
-card, which ``fast_interp = False`` and adaptive tension take; "plain"
-on the CPU), the route, the grid kind and the enabled lanes, then one
+card, which ``fast_interp = False`` and adaptive tension take;
+"cuda_packed": the packed route's PyTorch ops on the card, which
+``kernel_interp = False`` takes; "plain" on the CPU), the route, the grid kind and the enabled lanes, then one
 JSON line per chunk of external steps with status counts,
 particle-steps/s, the chunk's record-read and compute seconds and the
 prefetcher's cumulative wait (``stall_s``).  Random streams are keyed
@@ -197,6 +198,15 @@ def init_particles_from_parfile(cfg: Config, device) -> st.Particles:
                              device=device)
 
 
+def route_path(route: str, device) -> str:
+    """The startup line's "path": the CUDA kernel or the PyTorch ops that
+    a route runs on the card, "plain" on the CPU."""
+    if torch.device(device).type != "cuda":
+        return "plain"
+    return {"ext_step": "cuda_ext_step", "per_step": "cuda_rk4_step",
+            "native": "cuda_native", "packed": "cuda_packed"}[route]
+
+
 def enabled_lanes(cfg: Config) -> List[str]:
     """The physics a run takes, as named in the startup line: advection,
     adaptive_tension, hturb, vturb_aks / vturb_const, behavior<type>,
@@ -354,9 +364,7 @@ def run(cfg: Config, resume: bool = False, device=None,
     n_fuse = max(1, cfg.ext_fuse)
     route = mode_flags(ctx, cfg)
     print(json.dumps({
-        "path": ("plain" if device.type != "cuda" else
-                 {"per_step": "cuda_rk4_step", "native": "cuda_native",
-                  "ext_step": "cuda_ext_step"}[route]),
+        "path": route_path(route, device),
         "route": route,
         "device": (torch.cuda.get_device_name(device)
                    if device.type == "cuda" else "cpu"),
@@ -467,7 +475,7 @@ def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
     """The (source, variant) pairs of the kernels that ``cfg`` runs on
     ``grid`` (for ``kernels.build.prebuild``; ``tile``: on the tiles of a
     sharded run): K1 on the ext_step route, K2 on the per-step route,
-    none on the native route."""
+    none on the native and packed routes."""
     from .kernels import ext_step as kx, rk4_step as kr
     from .physics.boundary import _cell_edges
     from .grid import _is_uniform
@@ -478,7 +486,7 @@ def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
         if tile:
             v["LTX_TILE"] = 1
         return [("rk4_step", v or None)]
-    if route == "native":
+    if route in ("native", "packed"):
         return []
     curv = grid.curv is not None
     edges_uniform = all(_is_uniform(_cell_edges(a.cpu().numpy()), 1e-4)
@@ -633,9 +641,7 @@ def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
     route = mode_flags(ctx, cfg)
     if rank == 0:
         _emit({
-            "path": ("plain" if dev.type != "cuda" else
-                     {"per_step": "cuda_rk4_step", "native": "cuda_native",
-                      "ext_step": "cuda_ext_step"}[route]),
+            "path": route_path(route, dev),
             "route": route,
             "device": (torch.cuda.get_device_name(dev)
                        if dev.type == "cuda" else "cpu"),

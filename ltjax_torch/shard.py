@@ -21,7 +21,7 @@ data-parallel row r // ntiles.
   ERROR, arrivals beyond ``cap`` are dropped, both counted.
 * A tile steps on the route that the configuration takes on one device
   (``step.mode_flags``: the whole-step kernel K1, the per-step route with
-  K2, or the native route) with a local Grid of its strip, and the whole
+  K2, the native route or the packed route) with a local Grid of its strip, and the whole
   grid's boundaries and polygons (the kernels read their strip's rows).
   Every cell is located on the whole grid's axes and then moved into the
   strip (``grid.TileRows``, ``grid.locate_y``; the kernels' LTX_TILE
@@ -375,8 +375,8 @@ def make_tiled_steps(tctx: StepContext, cfg: Config, spec: TileSpec,
     window of its strip (ltjax's ``make_tiled_step`` body for one rank):
     each external step Hilbert-sorts the slots (banded by
     ``cfg.sort_depth_bands`` on the strip's rows and ``h``), takes the
-    route of ``step.mode_flags`` (``step.route_step``: K1, the per-step
-    route or the native route, on the tile's context), restores the slot
+    route of ``step.mode_flags`` (``step.route_step``: K1, the per-step,
+    native or packed route, on the tile's context), restores the slot
     order and migrates (``exchange``: the all_to_all of the data-parallel
     row; not used with one tile, where nothing leaves).
 

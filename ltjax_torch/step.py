@@ -8,7 +8,7 @@ status updated (mortality, then settlement on habitat polygons), and
 salt and temperature sampled at its new position (reference
 ``run_Internal_Timestep``/``update_particles``).
 
-An external step takes one of three routes (``mode_flags``, as ltjax's):
+An external step takes one of four routes (``mode_flags``, as ltjax's):
 
 * ``"ext_step"``: ``cfg.internal_steps`` internal steps in one launch of
   the whole-external-step CUDA kernel on CUDA tensors
@@ -21,10 +21,19 @@ An external step takes one of three routes (``mode_flags``, as ltjax's):
   (``kernels.rk4_step.rk4_displacement_fused``, or its plain version on
   CPU tensors) and the rest from the PyTorch lanes below;
 * ``"native"`` (``fast_interp = False``, or adaptive tension
-  ``tension_sigma < 0``; it takes precedence over ``"per_step"``):
+  ``tension_sigma < 0``; it takes precedence over the others):
   ``cfg.internal_steps`` calls of ``internal_step(mode="native")``, the
   reference's interpolation order (``physics.advect``: per record fit,
-  then time) as PyTorch ops on the positions' device, no kernel.
+  then time) as PyTorch ops on the positions' device, no kernel;
+* ``"packed"`` (``kernel_interp = False``; before ``"per_step"``, so
+  stochastic mortality takes it too): ``cfg.internal_steps`` calls of
+  ``internal_step(mode="packed")``, ltjax's packed scheme (per stage a
+  tension fit per grid column, evaluated on each corner's own knots,
+  then blended: ``packed.stage_tables``, ``find_currents_packed``) as
+  PyTorch ops, no kernel.  ltjax takes this route wherever its kernel
+  does not run (off the TPU, f64 positions, stretched axes); the port
+  has kernel builds for those, so there ``kernel_interp = True`` keeps
+  the kernels and the collapsed scheme.
 
 Random draws are keyed by (seed, step index, substream, particle id)
 (``ltjax_torch.rng``); the step index of internal step i of external
@@ -93,11 +102,14 @@ def mode_flags(ctx: StepContext, cfg) -> str:
     """The route of a configuration's external steps (counterpart of
     ltjax.step.mode_flags): "native" for the reference's interpolation
     order (fast_interp off) or adaptive tension, which varies per
-    interval and particle; "per_step" for stochastic mortality, whose
+    interval and particle; "packed" for ltjax's packed scheme
+    (kernel_interp off); "per_step" for stochastic mortality, whose
     DEATH draw is not in the whole-step kernel's key layout; else
     "ext_step"."""
     if not cfg.fast_interp or cfg.tension_sigma < 0:
         return "native"
+    if not cfg.kernel_interp:
+        return "packed"
     if cfg.mortality and cfg.stochastic_mortality:
         return "per_step"
     return "ext_step"
@@ -155,8 +167,10 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     CUDA tensors, the same PyTorch code on CPU tensors); "native" takes
     advection, the free surface and behavior 7's currents from
     ``physics.advect`` straight off ``fields`` (the reference's order,
-    ltjax's ``prec=None``; ``prec`` is not read)."""
-    if mode not in ("collapsed", "kernel", "native"):
+    ltjax's ``prec=None``; ``prec`` is not read); "packed" takes them
+    from the packed scheme's stage tables (``pk.stage_tables``:
+    per-column fits, eval-then-blend), ltjax's ``mode="packed"``."""
+    if mode not in ("collapsed", "kernel", "native", "packed"):
         raise ValueError(f"internal_step: mode {mode!r}")
     native = mode == "native"
     grid, bounds = ctx.grid, ctx.bounds
@@ -173,6 +187,8 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     t1_h = float(torch.tensor(t, dtype=dtype) + idt)
     if native:
         adv = AdvectParams(sigma=cfg.tension_sigma, z0=cfg.z0, idt=idt)
+    elif mode == "packed":
+        tabs = pk.stage_tables(grid, prec, t, idt, cfg.tension_sigma)
     else:
         tabs = pk.stage_value_tables(grid, prec, t, idt)
 
@@ -193,6 +209,9 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
             stage1=cfg.Behavior == 7)
         dx, dy, dz = res[:3]
         stage1 = res[3:]
+    elif mode == "packed":
+        dx, dy, dz = pk.rk4_displacement_packed(
+            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
     else:
         dx, dy, dz = pk.rk4_displacement_collapsed(
             grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
@@ -216,6 +235,9 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
             zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
         if cfg.Behavior == 7 and native:
             cur = find_currents(grid, fields, p.x, p.y, p.z, t0_h, adv)[:2]
+        elif cfg.Behavior == 7 and mode == "packed":
+            cur = pk.find_currents_packed(grid, tabs[0], p.x, p.y, p.z,
+                                          cfg.tension_sigma, cfg.z0)[:2]
         elif cfg.Behavior == 7:
             cur = stage1 or pk.find_currents_collapsed(
                 grid, tabs[0], p.x, p.y, p.z, cfg.tension_sigma, cfg.z0)[:2]
@@ -342,7 +364,8 @@ def per_step_external(ctx: StepContext, cfg, p: st.Particles,
     """One external step of ``cfg.internal_steps`` calls of
     ``internal_step(mode=mode)`` ("kernel": the per-step route; "native":
     the native route, which reads no ``prec``), internal step i with step
-    index ext_idx * internal_steps + i (ltjax's per-step scan)."""
+    index ext_idx * internal_steps + i (ltjax's per-step scan).  "packed"
+    is the packed route."""
     seed = cfg.seed if seed is None else seed
     idt = float(cfg.idt)
     n_int = cfg.internal_steps
@@ -355,8 +378,9 @@ def per_step_external(ctx: StepContext, cfg, p: st.Particles,
 def packed_window(ctx: StepContext, cfg, route: str, fsR: FieldSet):
     """The packed records of a record window for ``route`` (None on the
     native route, which reads the FieldSet): the whole-step kernel reads
-    the Aks and salt/temp lanes of the record table, the PyTorch lanes
-    the FieldSet."""
+    the Aks and salt/temp lanes of the record table; the PyTorch lanes
+    of the other routes read the FieldSet, so their tables carry only
+    the value lanes."""
     if route == "native":
         return None
     ext = route == "ext_step"
@@ -370,17 +394,17 @@ def route_step(ctx: StepContext, cfg, route: str, p: st.Particles,
                t0: float, ext_idx0: int) -> st.Particles:
     """External step e of a record window on ``route``: records [e, e+1,
     e+2], start time t0 + e * dt, index ext_idx0 + e; one whole-step
-    kernel launch or ``per_step_external``."""
+    kernel launch or ``per_step_external`` (mode "kernel" on the per-step
+    route, else the route's own)."""
     t_e, f3, ext = (float(t0) + e * float(cfg.dt), fieldset_slice(fsR, e),
                     int(ext_idx0) + e)
-    if route == "native":
-        return per_step_external(ctx, cfg, p, None, t_e, f3, ext,
-                                 mode="native")
-    prec3 = pk.PackedRecords(tab=prec_all.tab[e:e + 3],
-                             times=prec_all.times[e:e + 3])
-    step = (per_step_external if route == "per_step"
-            else kx.ext_step_fused)
-    return step(ctx, cfg, p, prec3, t_e, fields=f3, ext_idx=ext)
+    prec3 = None if prec_all is None else pk.PackedRecords(
+        tab=prec_all.tab[e:e + 3], times=prec_all.times[e:e + 3])
+    if route == "ext_step":
+        return kx.ext_step_fused(ctx, cfg, p, prec3, t_e, fields=f3,
+                                 ext_idx=ext)
+    return per_step_external(ctx, cfg, p, prec3, t_e, f3, ext,
+                             mode="kernel" if route == "per_step" else route)
 
 
 def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
@@ -394,8 +418,8 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
     on a sorted batch, by more than the sort costs; PERF.md).  ``cfg.seed``
     keys the random streams.  Each external step takes the route of
     ``mode_flags`` (``route_step``): one whole-step kernel launch, or
-    ``per_step_external`` (the per-step route; the native route, which
-    builds no packed records).
+    ``per_step_external`` (the per-step and packed routes; the native
+    route, which builds no packed records).
 
     Returns ``fused(p, fsR, t0, ext_idx0) -> p'``; external step e of the
     call has index ext_idx0 + e."""

@@ -42,6 +42,9 @@ stage-1 currents to 0.05 m / idt.  The per-step route (stochastic
 mortality) launches it once per internal step and never calls the plain
 version.
 
+The native and packed routes (PyTorch ops, no kernel) on the card are
+held against the same routes on the CPU.
+
 The depth-banded Hilbert sort (``sort_depth_bands``) reorders the batch
 and nothing else: banded runs on the ext_step and per-step routes, and
 on two gloo tiles, equal the unbanded runs bit for bit.
@@ -839,6 +842,53 @@ def test_native_route_on_gpu_matches_cpu(gpu, dtype, geometry, sigma):
                                        getattr(b, k).numpy(), rtol=0,
                                        atol=tol)
     assert (b.z - p.z.cpu()).abs().max() > 0.1
+
+
+PACKED_GPU = pytest.mark.parametrize("dtype,geometry,lanes", [
+    (F64, "uniform", dict(HTurbOn=True, ConstantHTurb=1.0)),
+    (F64, "stretched", dict(Behavior=7, mortality=True,
+                            stochastic_mortality=True, deadage=900.0)),
+    (F64, "curv", dict(HTurbOn=True, ConstantHTurb=1.0)),
+    (torch.float32, "uniform", dict(HTurbOn=True, ConstantHTurb=1.0))],
+    ids=["f64", "f64-stretched-stochastic", "f64-curv", "f32"])
+
+
+@pytest.mark.gpu
+@PACKED_GPU
+def test_packed_route_on_gpu_matches_cpu(gpu, dtype, geometry, lanes):
+    """The packed route (kernel_interp off: per-column fits,
+    eval-then-blend, PyTorch ops) on the card against the same route on
+    the CPU, one external step (4 internal steps) of a random w and zeta:
+    float64 (positions, grid and fields: float32 tables round differently
+    on the two devices) 1e-6 m horizontally, 1e-9 m vertically, statuses
+    equal;
+    float32 the whole-step tolerances of _compare; neither kernel
+    launches."""
+    outs = {}
+    for dev in (gpu, torch.device("cpu")):
+        c, ctx, cfg, p = _new_case(dev, dtype, geometry, omega=1e-5)
+        cfg = replace(cfg, kernel_interp=False, **lanes)
+        fs = synth.with_vertical_motion(synth.fieldset_for(
+            c, t_center=900.0, dt=1800.0, dtype=dtype), seed=3, w_amp=2e-3)
+        kx.reset_launches()
+        kr.rk4_displacement_fused.launches = 0
+        out = make_fused_external_steps(ctx, cfg, 1)(p, fs, 0.0, 0)
+        assert out.x.device.type == dev.type and out.x.dtype == dtype
+        assert kx.ext_step_fused.launches == 0
+        assert kr.rk4_displacement_fused.launches == 0
+        outs[dev.type] = out
+    a, b = outs["cuda"].to(torch.device("cpu")), outs["cpu"]
+    if dtype == torch.float32:
+        _compare(a, b, p.n)
+    else:
+        assert torch.equal(a.status, b.status)
+        for k, tol in (("x", 1e-6), ("y", 1e-6), ("z", 1e-9)):
+            np.testing.assert_allclose(getattr(a, k).numpy(),
+                                       getattr(b, k).numpy(), rtol=0,
+                                       atol=tol)
+    assert (b.z - p.z.cpu()).abs().max() > 0.1
+    if cfg.stochastic_mortality:
+        assert (b.status == st.DEAD).sum() > 0
 
 
 @pytest.mark.gpu

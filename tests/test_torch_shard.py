@@ -23,9 +23,19 @@ with gloo ranks.
   external steps in float64 on the ext_step route with horizontal
   turbulence (the plain K1 on the CPU), on the per-step route
   (stochastic mortality: the same particles die), on the native route
-  and on stretched axes; a curvilinear grid on (2, 1).  Equal pids,
+  and on stretched axes; a curvilinear grid on (2, 1) (ext_step,
+  per-step and packed routes).  Equal pids,
   statuses and ``hit_land``; positions within 1e-9 m (the strips' origins
   differ from the grid's by round-off only).
+* The tiled packed route (``kernel_interp = False``) equals the port's
+  single rank bit for bit on (1, 4) and (2, 2), and matches ltjax's real
+  sharded path off the TPU, ``make_tiled_step`` without ``mega`` on the
+  CPU mesh (its ``internal_step(mode="packed")`` per tile), on the same
+  float64 inputs (a land block, random zeta and w, horizontal
+  turbulence): positions within 1e-8 m, statuses and ``hit_land``
+  equal.  ltjax's tiles locate on each strip's own origin (y0 + r0 * dy),
+  which rounds differently from the port's whole-grid axes (measured
+  3.6e-12 m; the collapsed scheme on the same inputs misses by 0.14 m).
 * The port's tiled ext_step route against ltjax's tiled megakernel
   (``make_tiled_step(..., mega=build_mega_tiled(...), interpret=True)``,
   ``kernel_precision = "highest"``; not ``pair2``, a known fault of
@@ -46,6 +56,8 @@ from ltjax import shard as jshard
 from ltjax import state as jst
 from ltjax import synth as jsynth
 from ltjax.config import Config
+from ltjax.fields import FieldSet as JFieldSet
+from ltjax.grid import make_grid as j_make_grid
 from ltjax.kernels import ext_step as jes
 from ltjax.physics import boundary as jbd
 from ltjax.step import StepContext as JContext
@@ -281,6 +293,8 @@ ROUTES = {
                                  deadage=1800.0)),
     "native": ("uniform", dict(fast_interp=False)),
     "stretched": ("stretched", dict(HTurbOn=True, ConstantHTurb=1.0)),
+    "packed": ("uniform", dict(kernel_interp=False, HTurbOn=True,
+                               ConstantHTurb=1.0)),
 }
 
 
@@ -393,7 +407,8 @@ def test_curvilinear_shards_over_particles():
     cases, refs = [], []
     for kw in (dict(HTurbOn=True, ConstantHTurb=1.0),
                dict(mortality=True, stochastic_mortality=True,
-                    deadage=1800.0)):
+                    deadage=1800.0),
+               dict(kernel_interp=False, HTurbOn=True, ConstantHTurb=1.0)):
         cfg = _cfg(**kw)
         spec = shard.make_spec(cfg, ctx.grid.ny, p0.n, 2, 1, halo=0,
                                slack=3.0)
@@ -447,3 +462,73 @@ def test_tile_strip_rows_and_fields():
         np.testing.assert_array_equal(strip["v"],
                                       whole.v[1].movedim(-1, 0).numpy())
         assert whole.v.shape[1] == spec.ny_ext
+
+
+@pytest.mark.parametrize("ndp,ntiles", [(1, 4), (2, 2)])
+def test_tiled_packed_route_bit_equal_to_single_rank(tiled_runs, ndp,
+                                                     ntiles):
+    refs, out = tiled_runs(ndp, ntiles)
+    k = list(ROUTES).index("packed")
+    got = interop.particles_to_numpy(out[k][0])
+    ref = interop.particles_to_numpy(refs[k])
+    order = np.argsort(ref["pid"], kind="stable")
+    assert sum(r["sent"] for r in out[k][1]) > 0
+    for c in tst.FIELDS:
+        np.testing.assert_array_equal(got[c], ref[c][order], err_msg=c)
+
+
+def test_tiled_packed_route_matches_ltjax_tiled_step():
+    """Three external steps of ltjax's tiled step off the megakernel
+    (``make_tiled_step`` without ``mega``, one call per external step on
+    records [e, e+1, e+2]) against the port's tiled packed route on
+    (1, 4)."""
+    mask = np.ones((33, 17), np.int32)
+    mask[15:18, 11:13] = 0
+    c = synth.make_solid_body_case(nx=17, ny=33, us=4, lx=16e3, ly=32e3,
+                                   h0=40.0, omega=1e-4, mask=mask)
+    g = c.grid
+    ctx = tstep.StepContext(grid=g, bounds=bd.build_boundaries(
+        mask, g.x_rho.numpy(), g.y_rho.numpy()))
+    fsR = synth.with_vertical_motion(synth.fieldset_window(
+        c, -900.0, 1800.0, 5, dtype=torch.float64), seed=4, w_amp=2e-3)
+    rng = np.random.default_rng(6)
+    n = 200
+    p0 = tst.init_particles(rng.uniform(2e3, 14e3, n),
+                            rng.uniform(2e3, 30e3, n),
+                            rng.uniform(-35.0, -3.0, n),
+                            dob=rng.uniform(0.0, 2000.0, n))
+    cfg = _cfg(kernel_interp=False, HTurbOn=True, ConstantHTurb=1.0)
+    jgrid = j_make_grid(g.x_rho.numpy(), g.y_rho.numpy(), g.h.numpy(), mask,
+                        g.s_rho.numpy(), g.Cs_r.numpy(), g.s_w.numpy(),
+                        g.Cs_w.numpy(), g.hc, g.vtransform,
+                        dtype=jnp.float64)
+    jctx = JContext(grid=jgrid, bounds=jbd.build_boundaries(
+        mask, g.x_rho.numpy(), g.y_rho.numpy()), polys=None, holes=None)
+    # 1e-4 rad/s at 16 km from the centre, 1800 s, 1 km rows
+    spec = jshard.make_spec(cfg, g.ny, n, 1, 4,
+                            halo=shard.halo_rows_needed(1.6, 1800.0, 1e3),
+                            slack=3.0)
+    tiled = jshard.build_tiled_static(jgrid, spec)
+    step = jshard.make_tiled_step(jctx, cfg, spec, tiled,
+                                  jshard.make_mesh(spec, jax.devices()[:4]),
+                                  jr.key(cfg.seed))
+    pj = jst.Particles(**{k: jnp.asarray(v) for k, v in
+                          interop.particles_to_numpy(p0).items()})
+    pbuf = jshard.scatter_particles(pj, spec, tiled.tile_edges)
+    for e in range(3):
+        f3 = JFieldSet(**{k: jnp.asarray(getattr(fsR, k)[e:e + 3].numpy())
+                          for k in JFieldSet._fields})
+        pbuf, drops = step(pbuf, jshard.pad_fieldset_eta(f3, spec.ny_pad),
+                           float(e * cfg.dt), e)
+        assert int(jnp.sum(drops)) == 0
+    want = _np(jshard.gather_particles(pbuf))
+    (got, ranks), = shard.run_tiled_steps([shard.TiledCase(
+        ctx, cfg, p0, fsR, 3, shard.TileSpec(*spec))])
+    got = interop.particles_to_numpy(got)
+    assert sum(r["sent"] for r in ranks) > 0
+    for k in ("pid", "status", "hit_land", "settle_poly"):
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert (got["status"] == tst.ACTIVE).sum() > 10
+    for k in ("x", "y", "z"):
+        np.testing.assert_allclose(got[k], want[k], rtol=0, atol=1e-8,
+                                   err_msg=k)
