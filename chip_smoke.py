@@ -5,9 +5,10 @@
     python3 chip_smoke.py --only 4,9 # some phases (no summary lines)
     python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
-Builds the variants of the external-step CUDA kernel and the per-step
-RK4 kernel from ltjax_torch/kernels/csrc (one nvcc each, all started
-together), then runs thirteen phases and fails (non-zero exit, no final
+Builds the variants of the external-step CUDA kernel (K1), the per-step
+RK4 kernel (K2) and the per-step lanes kernel (K3) from
+ltjax_torch/kernels/csrc (one nvcc each, all started together), then
+runs thirteen phases and fails (non-zero exit, no final
 line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -64,17 +65,18 @@ line) if any of them fails:
    the kernel against its plain version on its first launch; per-step
    checks of turbulence and of the oyster lanes on the curvilinear
    halocline at 65,536; and the CLI on a geographic curvilinear series;
-8. stochastic mortality through the per-step route (the per-internal-
-   step RK4 kernel and the PyTorch lanes): the RK4 kernel against its
-   plain version at 65,536 particles on phase 1's inputs, its random-w
-   case, the stretched ladder and the staged source's three paths;
-   bench.py's behavior cell with stochastic mortality at 1M (16 x
-   30 steps through make_fused_external_steps: 480 RK4 launches and none
-   of the whole-step kernel, timed, the staged share, the dead share
-   against 1 -
+8. stochastic mortality through the per-step route (per internal step
+   the RK4 kernel K2, then the lanes kernel K3): K2 against its plain
+   version at 65,536 particles on phase 1's inputs, its random-w case
+   and the stretched ladder; K3 against its plain version on phase 1's
+   particles for bench.py's behavior cell, the oyster lanes, behavior 7
+   and diel migration (equal statuses and DEATH decisions); bench.py's
+   behavior cell with stochastic mortality at 1M (16 x 30 steps through
+   make_fused_external_steps: 480 launches each of K2 and K3 and none of
+   the whole-step kernel, timed, the dead share against 1 -
    exp(-t/deadage), the circles), per internal step against the plain
-   route, the RK4 kernel timed at 1M and 65,536, and the internal step
-   split by the profiler; the oyster CLI run with stochastic mortality in
+   route, K2 and K3 timed at 1M and 65,536, and the internal step split
+   by the profiler; the oyster CLI run with stochastic mortality in
    chunks of 2 and 4, and its lanes per step at 65,536;
 9. the builds that let an LTRANS v2b run file start on the card:
    float64 positions (LTX_POS64), stretched rectilinear axes searched
@@ -185,6 +187,10 @@ KERNEL_SRC = "ltjax_torch/kernels/csrc/ext_step.cu"
 KERNEL_REPLACES = "ltjax/kernels/ext_step.py:1404"
 RK4_SRC = "ltjax_torch/kernels/csrc/rk4_step.cu"
 RK4_REPLACES = "ltjax/kernels/gather_interp.py:827"
+# K3: the per-step route's lanes, in ltjax the body of K1's internal step
+# (ltjax/kernels/ext_step.py:993-1359) run as XLA ops on that route
+LANES_SRC = "ltjax_torch/kernels/csrc/step_lanes.cu"
+LANES_REPLACES = "ltjax/kernels/ext_step.py:993"
 TOL_H = 0.5        # m, horizontal: f32 kernel vs plain (tests/test_kernel.py)
 TOL_V = 1e-3       # m, vertical
 MAX_MISMATCH = 1e-4   # status mismatches: at most 0.01% of particles
@@ -369,6 +375,48 @@ def cuda_time(torch, fn, reps):
     b.record()
     torch.cuda.synchronize()
     return a.elapsed_time(b) / reps
+
+
+def profiled_ms(torch, fn, reps, kernel):
+    """Mean device milliseconds of a launch of the kernels named
+    ``kernel`` over reps calls of fn() (torch.profiler's CUDA events, the
+    mean of the launches it recorded), after a warm call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+          and kernel in e.name]
+    assert ev, kernel
+    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+
+
+def profile_window(torch, fn, expect, tries=3):
+    """The CUDA events of one profiled call of fn() (after the caller's
+    warm call) and its wall milliseconds.  ``expect`` maps a kernel name to
+    the launches its wrapper counted in that call; a window in which the
+    profiler recorded fewer (CUPTI loses a kernel record now and then) is
+    profiled again, up to ``tries`` windows.  Returns (events, wall_ms,
+    windows, complete)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for window in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0)
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        complete = all(sum(name in e.name for e in ev) == n
+                       for name, n in expect.items())
+        if complete:
+            break
+    return ev, wall, window, complete
 
 
 def compare(phase, p, out, ref):
@@ -1281,7 +1329,8 @@ def axis_searches(cfg, ctx):
     return n
 
 
-def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0):
+def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0,
+                 rk4=True):
     """(f32, f64) operations of one active particle's internal step in
     the variant of cfg (integer Threefry words counted at the f32 rate);
     on a curvilinear grid plus its inverse-map solves, on searched axes
@@ -1289,11 +1338,15 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0):
     location, knots, log layer, RK4 sums, turbulence, behavior,
     reflection, the vertical bounds and the scalar fits (Visser, the 4/5
     cue, SaltTempOn) are f64, as csrc/ext_step.cu's LTX_POS64 build runs
-    them; the blend and find_currents' fits stay f32."""
+    them; the blend and find_currents' fits stay f32.  Without ``rk4``
+    the lanes alone (csrc/step_lanes.cu: no RK4 stages, the DEATH draw)."""
     stage = 10 + 2 * 31 + fit_ops(us, 2) + fit_ops(ws, 1) + 12
     ops = 4 * stage + 40 + 60 + 82 + 5          # RK4, reflect, vertical
     pos = 4 * (10 + 12 + 8 * (us + ws)) + 40 + 60 + 82 + 5
     threefry = 120
+    if not rk4:
+        ops -= 4 * stage + 40 - threefry - 4
+        pos -= 4 * (10 + 12 + 8 * (us + ws)) + 40 - 2
     if cfg.HTurbOn:
         ops += threefry + 12
         pos += 12
@@ -1318,6 +1371,7 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0):
         pos += fit_ops(us, 2)
     if curv:
         plain, resid = curv_solves(cfg)
+        plain -= 0 if rk4 else 4
         c = (plain + resid) * CURV_SOLVE_OPS + resid * CURV_RESID_OPS
         ops += c
         pos += c
@@ -1326,7 +1380,7 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0):
     return (ops - pos, pos) if pos64 else (ops, 0)
 
 
-def kernel_bound(cfg, ctx, prec, p_in, p_out):
+def kernel_bound(cfg, ctx, prec, p_in, p_out, lanes=False):
     """The least time the card could take for one external step of the
     kernel on these inputs: the larger of the bytes it must move (each
     input read once, each output written once) over the HBM rate, and
@@ -1334,11 +1388,14 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out):
     particle-step is counted only while the particle is active (mean of
     the active counts before and after, as the kernel skips the rest);
     settlement adds the f64 ray cast of each candidate edge of the
-    particle's cell, counted at these particles' positions."""
+    particle's cell, counted at these particles' positions.  ``lanes``:
+    one launch of the lanes kernel K3 instead (one internal step, no RK4
+    stages, the DEATH draw; K2's dx, dy, dz and for behavior 7 u1, v1
+    read)."""
     import torch
     from ltjax_torch import state as st
     from ltjax_torch.kernels import ext_step as kx
-    n, n_int = p_in.n, cfg.internal_steps
+    n, n_int = p_in.n, 1 if lanes else cfg.internal_steps
     act = 0.5 * (int((p_in.status == st.ACTIVE).sum())
                  + int((p_out.status == st.ACTIVE).sum())) * n_int
     pdt = p_in.x.dtype
@@ -1348,20 +1405,41 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out):
     # int32 status pid (+ settle_poly); out: the same, hit counts int32
     fcols = 5 + (2 if cfg.SaltTempOn else 0)
     icols = 2 + (1 if cfg.settlementon else 0)
-    nbytes = (prec.tab.numel() * 4
-              + kx.boundary_rows_table(ctx, pdt).numel() * item
-              + 2 * n * (item * fcols + 4 * icols))
+    brows = kx.boundary_rows_table(ctx, pdt)
     curv = ctx.grid.curv is not None
+    if lanes:
+        # what one internal step's lanes need of the tables: the corner
+        # rows of the particles' cells (zeta, h and the Aks or salt/temp
+        # lanes the variant reads, three records), the boundary rows and
+        # curvilinear map rows of those cells; K2's outputs read
+        from ltjax_torch.grid import locate_rho_ij
+        g = ctx.grid
+        i, j, _, _ = locate_rho_ij(g, p_in.x, p_in.y)
+        cells = torch.unique(j.long() * g.nx + i.long())
+        rows = torch.unique(torch.cat([cells, cells + 1, cells + g.nx,
+                                       cells + g.nx + 1]))
+        read = 2 + (g.ws if cfg.VTurbOn and cfg.readAks else 0) + (
+            2 * g.us if cfg.SaltTempOn
+            else g.us if cfg.Behavior in (4, 5) else 0)
+        nbytes = (rows.numel() * (read * 3 * 4 + (2 * item if curv else 0))
+                  + cells.numel() * brows.shape[1] * item
+                  + 2 * n * (item * fcols + 4 * icols)
+                  + n * item * (5 if cfg.Behavior == 7 else 3))
+    else:
+        nbytes = (prec.tab.numel() * 4 + brows.numel() * item
+                  + 2 * n * (item * fcols + 4 * icols))
     if curv:
         xy, seeds, _, _ = kx.curv_tables(ctx, pdt)
-        nbytes += xy.numel() * item + seeds.numel() * 4
+        nbytes += (0 if lanes else xy.numel() * item) + seeds.numel() * 4
     searches = axis_searches(cfg, ctx)
+    if lanes and ctx.grid.curv is None and not ctx.grid.uniform:
+        searches -= 2 * 4                       # the RK4 stages' cells
     if searches:
         nbytes += sum(t.numel() * t.element_size()
                       for pair in kx.axes_tables(ctx, pdt) if pair
                       for t in pair)
     o32, o64 = ops_per_step(cfg, ctx.grid.us, ctx.grid.ws, curv, pos64,
-                            searches)
+                            searches, rk4=not lanes)
     f32, f64 = act * o32, act * o64
     if cfg.settlementon and ctx.polys is not None:
         tabs = kx.settle_tables(ctx)
@@ -1834,19 +1912,91 @@ def rk4_vs_plain(torch, phase, grid, tabs, p, cfg, reps=5, plain_reps=2):
     return res
 
 
+def lanes_vs_plain(torch, phase, ctx, cfg, p, prec, fields, t, reps=5,
+                   plain_reps=2):
+    """The lanes kernel K3 against its plain version on one internal step
+    of the per-step route from p at t (step index 0): K2's displacement
+    (and stage-1 currents) of p on the step's stage tables, then both on
+    those same inputs.  Equal statuses and DEATH decisions; the particles
+    whose behavior or settlement decision flipped on round-off (a swim
+    step or more apart with equal status; lanes_stepwise) at most 0.01%,
+    the others within TOL_H_STEP, TOL_V, age 1e-3 s and TOL_SALT; per
+    launch K3's device time (``kernel_ms``: the profiler's time of its
+    kernel, mean of ``reps``), the wrapper call's (``call_ms``: CUDA
+    events around the calls, the host's preparation of each launch
+    included where it is the slower), the plain version's (CUDA events),
+    and K3's bound."""
+    from ltjax_torch import packed as pk, state as st
+    from ltjax_torch.kernels import rk4_step as kr, step_lanes as sl
+    g, idt = ctx.grid, float(cfg.idt)
+    tabs = pk.stage_value_tables(g, prec, t, idt)
+    disp = kr.rk4_displacement_fused(g, tabs, p.x, p.y, p.z,
+                                     cfg.tension_sigma, cfg.z0, idt,
+                                     stage1=cfg.Behavior == 7)
+
+    def kernel():
+        return sl.step_lanes_fused(ctx, cfg, cfg.seed, 0, p, fields, prec,
+                                   tabs, t, disp)
+
+    def plain():
+        return sl.step_lanes_reference(ctx, cfg, cfg.seed, 0, p, fields,
+                                       tabs, t, disp)
+
+    out, ref = kernel(), plain()
+    sync(torch, p.x.device)
+    flip = ((((out.x - ref.x).abs() > TOL_H_STEP)
+             | ((out.y - ref.y).abs() > TOL_H_STEP)
+             | ((out.z - ref.z).abs() > TOL_V))
+            & (out.status == ref.status))
+    keep = torch.nonzero(~flip)[:, 0]
+    res = {"phase": phase, "n": p.n,
+           **compare(phase, p.take(keep), out.take(keep), ref.take(keep)),
+           "max_abs_dage": float((out.age - ref.age)[keep].abs().max()),
+           "decision_flips": int(flip.sum()),
+           "death_decisions_equal": bool(torch.equal(
+               out.status == st.DEAD, ref.status == st.DEAD)),
+           "dead_plain": int(((ref.status == st.DEAD)
+                              & (p.status != st.DEAD)).sum()),
+           "status_mismatch_all": int((out.status != ref.status).sum())}
+    thresholds = cfg.Behavior in (1, 2, 3, 4, 5, 7) or cfg.settlementon
+    if p.x.device.type == "cuda":
+        res["kernel_ms"] = profiled_ms(torch, kernel, reps,
+                                       "step_lanes_kernel")
+        res["call_ms"] = cuda_time(torch, kernel, reps)
+        res["plain_ms"] = cuda_time(torch, plain, plain_reps)
+    res["bound"] = kernel_bound(cfg, ctx, prec, p, ref, lanes=True)
+    log(res)
+    check(res, p.n, TOL_H_STEP, strict_status=True)
+    assert res["status_mismatch_all"] == 0 and res["death_decisions_equal"]
+    assert res["max_abs_dage"] <= 1e-3, res
+    assert res["decision_flips"] <= (MAX_MISMATCH * p.n if thresholds
+                                     else 0), res
+    return res
+
+
+# phase 8a's lanes: bench.py's behavior cell with stochastic mortality
+# (the main path's), and the lanes that decide on thresholds, on phase
+# 1's particles with ages across the swim ramp
+LANES8 = {"behavior": {},
+          "oyster": {**OYSTER_CLI, **SWIM, "deadage": 3600.0},
+          "behavior7": dict(SWIM, Behavior=7, deadage=3600.0),
+          "dvm": dict(SWIM, Behavior=3, deadage=3600.0)}
+
+
 def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
            n_small=65536):
     """Stochastic mortality through the per-step route (the per-internal-
-    step RK4 kernel K2 and the PyTorch lanes): (a) K2 against its plain
+    step RK4 kernel K2 and the lanes kernel K3): (a) K2 against its plain
     version at 65,536 particles on phase 1's inputs and on its random-w
-    case; (b) bench.py's behavior cell with stochastic mortality at 1M,
-    16 x 30 steps through make_fused_external_steps (launches counted,
-    timed, dead share, circles), per internal step against the plain
-    route, K2 timed, the internal step split by the profiler; (c) the
-    oyster CLI run with stochastic mortality, and its lanes per step at
-    65,536."""
+    case, K3 against its plain version on LANES8; (b) bench.py's behavior
+    cell with stochastic mortality at 1M, 16 x 30 steps through
+    make_fused_external_steps (launches counted, timed, dead share,
+    circles), per internal step against the plain route, K2 and K3 timed,
+    the internal step split by the profiler; (c) the oyster CLI run with
+    stochastic mortality, and its lanes per step at 65,536."""
     from ltjax_torch import packed as pk, state as st, synth
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import step_lanes as sl
     from ltjax_torch.step import (_sort, fieldset_slice,
                                   make_fused_external_steps, summary_counts)
     out = {}
@@ -1882,6 +2032,33 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
                 stretched.grid, synth.with_vertical_motion(synth.fieldset_for(
                     stretched, t_center=0.0, dt=3600.0, device=device),
                     seed=3)), 600.0, idt), pa, cfg, reps=1, plain_reps=1)
+    # K3 on phase 1's particles (land block, open rim, near the surface and
+    # in the log layer) on the halocline with Aks, random w and zeta, ages
+    # across the swim ramp and the death age, at 9 h (daylight)
+    hal = bench_case(torch, device, nx=nx, ny=nx, us=us, halocline=True,
+                     parabolic_aks=True)
+    ctx8 = with_polygons(context(hal), rim=True)
+    t9 = 9 * 3600.0
+    fs9 = synth.with_vertical_motion(synth.fieldset_for(
+        hal, t_center=t9 + 1800.0, dt=3600.0, device=device), seed=3)
+    rng8 = np.random.default_rng(5)
+    age = rng8.uniform(0.0, 3 * 86400.0, n_small)
+    pl = pa.replace(age=torch.tensor(age, dtype=torch.float32,
+                                     device=device),
+                    dob=torch.tensor(-age, dtype=torch.float32,
+                                     device=device),
+                    pid=torch.tensor(rng8.permutation(n_small),
+                                     dtype=torch.int32, device=device))
+    for name, kw in LANES8.items():
+        cfg8 = make_cfg(n_small, us=us, ws=us + 1, TrackCollisions=True,
+                        **{**STOCHASTIC, **kw})
+        prec8 = pk.build_packed_records(
+            hal.grid, fs9, with_aks=cfg8.VTurbOn and cfg8.readAks,
+            with_scalars=cfg8.needs_salt_fields())
+        out["a-lanes-" + name] = lanes_vs_plain(
+            torch, "8a-lanes-" + name, ctx8 if cfg8.settlementon
+            else context(hal), cfg8, pl, prec8, fs9, t9)
+        assert out["a-lanes-" + name]["dead_plain"] > 0
 
     # (b) bench.py's behavior cell with stochastic mortality at 1M
     case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
@@ -1900,11 +2077,13 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     torch.cuda.synchronize()
     kx.reset_launches()
     kr.rk4_displacement_fused.launches = 0
+    sl.step_lanes_fused.launches = 0
     t0 = time.perf_counter()
     pb = fused(p0, fsR, 0.0, 0)
     torch.cuda.synchronize()
     sec = time.perf_counter() - t0
     launches = {"rk4_displacement_fused": kr.rk4_displacement_fused.launches,
+                "step_lanes": sl.step_lanes_fused.launches,
                 "ext_step_fused": kx.ext_step_fused.launches}
     steps = n * n_int * n_fuse
     rates = []
@@ -1928,6 +2107,7 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
           "max_sink_m": float((p0.z - pb.z).max()), "counts": counts}
     log(rb)
     assert launches == {"rk4_displacement_fused": n_fuse * n_int,
+                        "step_lanes": n_fuse * n_int,
                         "ext_step_fused": 0}, rb
     assert counts["error"] == 0 and counts["out_of_domain"] == 0, rb
     assert abs(rb["dead_share"] - p_dead) <= 5 * sd, rb
@@ -1955,6 +2135,11 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
                                        q, cfg, reps=10, plain_reps=2)
                     for size, q in (("1M", ps), (str(n_small), small))}
     rb["bound"] = rk4_bound(case.grid, n)
+    # K3 per launch on the same inputs (K2's displacement of them)
+    rb["lanes"] = {size: lanes_vs_plain(torch, f"8b-lanes-{size}", ctx, cfg,
+                                        q, prec3, f3, 0.0, reps=10,
+                                        plain_reps=2)
+                   for size, q in (("1M", ps), (str(n_small), small))}
     rb["profile"] = per_step_profile(torch, ctx, cfg, ps, prec3, f3)
     log({k: rb[k] for k in ("phase", "bound", "profile")})
     out["b"] = rb
@@ -1980,8 +2165,10 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     cfgc = make_cfg(n_small, TrackCollisions=True,
                     **{**SWIM, **OYSTER_STOCHASTIC, "deadage": 3600.0})
     rc, q = lanes_stepwise(torch, "8c-lanes", ctx, cfgc, pc,
-                           pk.build_packed_records(case.grid, fs), fs, t0,
-                           steps=5, per_step=True)
+                           pk.build_packed_records(case.grid, fs,
+                                                   with_aks=True,
+                                                   with_scalars=True),
+                           fs, t0, steps=5, per_step=True)
     counts = np.bincount(q.status.cpu().numpy(), minlength=6)
     assert counts[st.DEAD] > 0 and counts[st.SETTLED] > 0, rc
     assert float(q.salt.max() - q.salt.min()) > 1.0, rc
@@ -1992,41 +2179,55 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
 def per_step_profile(torch, ctx, cfg, p, prec, fields):
     """Where an internal step of the per-step route spends the device's
     time: torch.profiler over one warm external step (cfg.internal_steps
-    internal steps) for K2's device time (by kernel name) and all device
-    time, and over the stage-table builds of those steps alone; the
-    PyTorch lanes take the rest.  Idle share: 1 - device time / wall."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    internal steps) for K2's and K3's device time (by kernel name) and all
+    device time, and over the stage-table builds of those steps alone;
+    the rest is the route's other ops (the copies of K3's params, the
+    sort's).  Idle share: 1 - device time / wall.  The wrappers must count
+    cfg.internal_steps launches each in the profiled call; the profiler's
+    records are held to those counts (``profile_window``), and
+    ``profiler_complete`` is false if every window lost one."""
     from ltjax_torch import packed as pk
+    from ltjax_torch.kernels import rk4_step as kr, step_lanes as sl
     from ltjax_torch.step import per_step_external
     idt, n_int = float(cfg.idt), cfg.internal_steps
+    names = ("rk4_step_kernel", "step_lanes_kernel")
+    wrappers = (kr.rk4_displacement_fused, sl.step_lanes_fused)
 
-    def device_ms(fn):
-        fn()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fn()
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        k2 = [e for e in ev if "rk4_step_kernel" in e.name]
-        return (sum(e.time_range.elapsed_us() for e in ev) / 1e3,
-                sum(e.time_range.elapsed_us() for e in k2) / 1e3, len(k2),
-                wall)
+    def step():
+        per_step_external(ctx, cfg, p, prec, 0.0, fields, 0)
 
-    all_ms, k2_ms, k2_n, wall = device_ms(
-        lambda: per_step_external(ctx, cfg, p, prec, 0.0, fields, 0))
-    tab_ms, _, _, _ = device_ms(
-        lambda: [pk.stage_value_tables(ctx.grid, prec, i * idt, idt)
-                 for i in range(n_int)])
-    res = {"internal_steps": n_int, "k2_launches": k2_n,
-           "device_ms": all_ms, "k2_ms": k2_ms, "stage_tables_ms": tab_ms,
-           "lanes_ms": all_ms - k2_ms - tab_ms, "wall_ms": wall,
+    step()
+    torch.cuda.synchronize()
+    before = [w.launches for w in wrappers]
+    ev, wall, windows, complete = profile_window(
+        torch, step, dict.fromkeys(names, n_int))
+    launched = [w.launches - b for w, b in zip(wrappers, before)]
+    # every profiled window ran one external step through both wrappers
+    assert launched == [windows * n_int] * 2, (launched, windows)
+    all_ms = sum(e.time_range.elapsed_us() for e in ev) / 1e3
+    ks = [[e for e in ev if name in e.name] for name in names]
+    k2_ms, k3_ms = (sum(e.time_range.elapsed_us() for e in k) / 1e3
+                    for k in ks)
+
+    def tables():
+        for i in range(n_int):
+            pk.stage_value_tables(ctx.grid, prec, i * idt, idt)
+
+    tables()
+    torch.cuda.synchronize()
+    tab_ev, _, _, _ = profile_window(torch, tables, {})
+    tab_ms = sum(e.time_range.elapsed_us() for e in tab_ev) / 1e3
+    res = {"internal_steps": n_int, "k2_launches": len(ks[0]),
+           "k3_launches": len(ks[1]), "profiled_windows": windows,
+           "profiler_complete": complete, "device_ms": all_ms,
+           "k2_ms": k2_ms, "k3_ms": k3_ms, "stage_tables_ms": tab_ms,
+           "other_ms": all_ms - k2_ms - k3_ms - tab_ms, "wall_ms": wall,
            "idle_share": 1.0 - all_ms / wall,
-           "k2_share_of_device": k2_ms / all_ms}
-    assert k2_n == n_int, res
+           "k2_share_of_device": k2_ms / all_ms,
+           "k3_share_of_device": k3_ms / all_ms}
+    if not complete:
+        log({"warning": "the profiler lost a kernel record in every "
+                        "window; device times are short by it", **res})
     return res
 
 
@@ -2035,8 +2236,10 @@ def phase8_cli(torch, device):
     route on the card, chunks of 2 and of 4 external steps give the same
     particles, and some die."""
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import step_lanes as sl
     kx.reset_launches()
     kr.rk4_displacement_fused.launches = 0
+    sl.step_lanes_fused.launches = 0
     finals, lines = oyster_cli_runs(torch, "stochastic", OYSTER_STOCHASTIC)
     f = finals[4]
     res = {"phase": "8c", "n": f.shape[0],
@@ -2045,6 +2248,7 @@ def phase8_cli(torch, device):
            "lanes": lines[4][0]["lanes"], "counts": lines[4][-1],
            "launches": {"rk4_displacement_fused":
                         kr.rk4_displacement_fused.launches,
+                        "step_lanes": sl.step_lanes_fused.launches,
                         "ext_step_fused": kx.ext_step_fused.launches}}
     log(res)
     assert res["chunks_identical"] and np.isfinite(f).all(), res
@@ -2052,6 +2256,7 @@ def phase8_cli(torch, device):
     assert res["counts"]["dead"] > 0, res
     # both runs: 4 external steps x 30 internal steps each
     assert res["launches"] == {"rk4_displacement_fused": 2 * 4 * 30,
+                               "step_lanes": 2 * 4 * 30,
                                "ext_step_fused": 0}, res
     return res
 
@@ -2147,8 +2352,9 @@ def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True):
     """One call of make_fused_external_steps (the main path) on p0, after
     a warm call on 128 particles, with every launch count and the staging
     counters set to 0 just before it: (particles, seconds, {tag:
-    launches} of both kernels, staging counters)."""
+    launches} of the three kernels, staging counters)."""
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import step_lanes as sl
     from ltjax_torch.step import make_fused_external_steps
     fused = make_fused_external_steps(ctx, cfg, n_fuse)
     if warm:
@@ -2157,12 +2363,15 @@ def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True):
     kx.reset_launches()
     kr.rk4_displacement_fused.launches = 0
     kr.rk4_displacement_fused.variant_launches = {}
+    sl.step_lanes_fused.launches = 0
+    sl.step_lanes_fused.variant_launches = {}
     t0 = time.perf_counter()
     p = fused(p0, fsR, 0.0, 0)
     sync(torch, p0.x.device)
     sec = time.perf_counter() - t0
     launches = {**kx.ext_step_fused.variant_launches,
-                **kr.rk4_displacement_fused.variant_launches}
+                **kr.rk4_displacement_fused.variant_launches,
+                **sl.step_lanes_fused.variant_launches}
     return p, sec, launches, kx.counts()
 
 
@@ -2243,39 +2452,53 @@ def stochastic_cell(torch, device, name, case, ctx, fsR, p0, n_fuse,
                     stepwise=False):
     """The cell of ``case`` with stochastic mortality (bench.py's behavior
     cell: type-6 sinking, a 2-day death age) through the per-step route:
-    the main path at p0's size, n_fuse x 30 steps (K2 launched once per
-    internal step, K1 never), the dead share against 1 - exp(-t/deadage)
-    within 5 sd, no ERROR; with ``stepwise`` also per internal step
-    against the plain route over the first external step (0 status
-    mismatches)."""
+    the main path at p0's size, n_fuse x 30 steps (K2 and K3 launched once
+    each per internal step, K1 never), the dead share against 1 -
+    exp(-t/deadage) within 5 sd, no ERROR, warm rates; K3 against its
+    plain version on the main path's first internal step (timed at p0's
+    size); with ``stepwise`` also per internal step against the plain
+    route over the first external step (0 status mismatches)."""
     from ltjax_torch import packed as pk, state as st
     from ltjax_torch.kernels import build, rk4_step as kr
-    from ltjax_torch.step import _sort, fieldset_slice, summary_counts
+    from ltjax_torch.kernels import step_lanes as sl
+    from ltjax_torch.step import (_sort, fieldset_slice,
+                                  make_fused_external_steps, summary_counts)
     n = p0.n
     cfg = make_cfg(n, us=case.grid.us, ws=case.grid.ws,
                    dtype_pos=dtype_name(p0.x.dtype), **STOCHASTIC)
     dt, n_int = float(cfg.dt), cfg.internal_steps
     p, sec, launches, _ = fused_cell(torch, ctx, cfg, p0, fsR, n_fuse)
     tag = build.tag("rk4_step", kr.kernel_variant(case.grid, p0.x.dtype))
+    tag3 = build.tag("step_lanes", sl.kernel_variant(ctx, cfg, p0.x.dtype))
     counts = summary_counts(p)
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    rates = []
+    for _ in range(2):
+        t1 = time.perf_counter()
+        fused(p0, fsR, 0.0, 0)
+        sync(torch, device)
+        rates.append(n * n_int * n_fuse / (time.perf_counter() - t1))
     p_dead = -np.expm1(-n_fuse * dt / cfg.deadage)
     sd = np.sqrt(p_dead * (1 - p_dead) / n)
     res = {"phase": name, "n": n, "ext_steps": n_fuse,
-           "internal_steps": n_int, "variant": tag, "launches": launches,
-           "seconds": sec,
+           "internal_steps": n_int, "variant": tag, "lanes_variant": tag3,
+           "launches": launches, "seconds": sec,
            "particle_steps_per_s": n * n_int * n_fuse / sec,
+           "warm_rates": rates,
            "dead_share": counts["dead"] / n, "dead_share_expected": p_dead,
            "dead_share_sd": sd, "counts": counts}
     log(res)
     if device.type == "cuda":
-        assert launches == {tag: n_fuse * n_int}, res
+        assert launches == {tag: n_fuse * n_int, tag3: n_fuse * n_int}, res
     assert counts["error"] == 0, res
     assert abs(res["dead_share"] - p_dead) <= 5 * sd, res
+    ps, _ = _sort(case.grid, p0)
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    prec3 = pk.PackedRecords(tab=prec_all.tab[:3], times=prec_all.times[:3])
+    res["lanes"] = lanes_vs_plain(torch, name + "-lanes", ctx, cfg, ps, prec3,
+                                  fieldset_slice(fsR, 0), 0.0, reps=10,
+                                  plain_reps=1)
     if stepwise:
-        ps, _ = _sort(case.grid, p0)
-        prec_all = pk.build_packed_records(case.grid, fsR)
-        prec3 = pk.PackedRecords(tab=prec_all.tab[:3],
-                                 times=prec_all.times[:3])
         rs, _ = lanes_stepwise(torch, name, ctx, cfg, ps, prec3,
                                fieldset_slice(fsR, 0), 0.0, steps=n_int,
                                seed=cfg.seed, per_step=True)
@@ -2302,8 +2525,19 @@ def phase9(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     unmodified run files (phase9_cli)."""
     from ltjax_torch import state as st, synth
     out = {"a": phase9a(torch, device, n=n_small, nx=nx, us=us)}
-    out["b"], _ = advect_cell(torch, device, "9b", torch.float64, 1.0, n,
-                              nx, us, n_fuse, n_small)
+    out["b"], (case, ctx, fsR, p0) = advect_cell(
+        torch, device, "9b", torch.float64, 1.0, n, nx, us, n_fuse, n_small)
+    # K3's float64 build (the CLI's stochastic run, 9e) at 1M on 9b's
+    # first launch inputs
+    from ltjax_torch import packed as pk
+    from ltjax_torch.step import _sort, fieldset_slice
+    prec_all = pk.build_packed_records(case.grid, fsR)
+    out["b"]["lanes"] = lanes_vs_plain(
+        torch, "9b-lanes", ctx, make_cfg(n, us=us, ws=us + 1,
+                                         dtype_pos="float64", **STOCHASTIC),
+        _sort(case.grid, p0)[0], pk.PackedRecords(
+            tab=prec_all.tab[:3], times=prec_all.times[:3]),
+        fieldset_slice(fsR, 0), 0.0, reps=10, plain_reps=1)
     out["c"], (case, ctx, fsR, p0) = advect_cell(
         torch, device, "9c", torch.float32, AXES_STRETCH, n, nx, us, n_fuse,
         n_small)
@@ -2352,6 +2586,7 @@ def phase9_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
     import shutil
     from ltjax_torch import checkpoint as ckpt, run, synth
     from ltjax_torch.kernels import build, ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import step_lanes as sl
     work = os.path.join(ROOT, "build", "chip_smoke9")
     shutil.rmtree(work, ignore_errors=True)
     case = synth.make_solid_body_case(nx=nx, ny=nx, us=us, lx=60e3, ly=60e3,
@@ -2419,18 +2654,21 @@ def phase9_cli(torch, device, n=10_000, nx=60, us=10, n_ext=4):
                                 dt=3600, idt=120, **STOCHASTIC)
     kx.reset_launches()
     kr.rk4_displacement_fused.variant_launches = {}
+    sl.step_lanes_fused.variant_launches = {}
     lines = run_cli(run, nml)
     rs = {"phase": "9e-stochastic", "path": lines[0]["path"],
           "route": lines[0]["route"], "dtype_pos": lines[0]["dtype_pos"],
           "launches": {**kx.ext_step_fused.variant_launches,
-                       **kr.rk4_displacement_fused.variant_launches},
+                       **kr.rk4_displacement_fused.variant_launches,
+                       **sl.step_lanes_fused.variant_launches},
           "counts": lines[-1]}
     log(rs)
     assert rs["route"] == "per_step" and rs["dtype_pos"] == "float64", rs
     assert rs["counts"]["dead"] > 0 and rs["counts"]["error"] == 0, rs
     if device.type == "cuda":
         assert rs["path"] == "cuda_rk4_step", rs
-        assert rs["launches"] == {"rk4_step-p1": n_ext * 30}, rs
+        assert rs["launches"] == {"rk4_step-p1": n_ext * 30,
+                                  "step_lanes-b6h0p1v0": n_ext * 30}, rs
     res["stochastic"] = rs
     return res
 
@@ -3086,13 +3324,14 @@ def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
             dead_1 = set(ref_s.pid[ref_s.status == st.DEAD].cpu().tolist())
             rs.update({"dead": len(dead_1), "dead_equal": dead_t == dead_1,
                        "k2_launches": [q["rk4_launches"] for q in ranks_s],
+                       "k3_launches": [q["lanes_launches"] for q in ranks_s],
                        "k1_launches": [q["launches"] for q in ranks_s],
                        "migrated": sum(q["sent"] for q in ranks_s)})
             log({k: v for k, v in rs.items() if not k.startswith("max_abs")})
             assert rs["dead_equal"] and rs["dead"] > 0, rs
             if device.type == "cuda":
                 assert all(k == 2 * cfg.internal_steps
-                           for k in rs["k2_launches"]), rs
+                           for k in rs["k2_launches"] + rs["k3_launches"]), rs
                 assert not any(rs["k1_launches"]), rs
             out[key + "-stochastic"] = rs
     return out
@@ -3469,6 +3708,7 @@ def phase12a(torch, device, n=65536, n_ext=2):
     from dataclasses import replace
     from ltjax_torch import shard, state as st, synth
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import step_lanes as sl
     from ltjax_torch.step import _sort, make_fused_external_steps
     out = {}
     dt = 3600.0
@@ -3491,11 +3731,13 @@ def phase12a(torch, device, n=65536, n_ext=2):
         for key, cfg in runs.items():
             kx.reset_launches()
             kr.rk4_displacement_fused.launches = 0
+            sl.step_lanes_fused.launches = 0
             got[key] = make_fused_external_steps(ctx, cfg, n_ext)(
                 p0, fsR, 0.0, 0)
             sync(torch, device)
             launches[key] = [kx.ext_step_fused.launches,
-                             kr.rk4_displacement_fused.launches]
+                             kr.rk4_displacement_fused.launches,
+                             sl.step_lanes_fused.launches]
         tag = dtype_name(dtype)
         for key in ("3x16m", "log4x4m", "per_step-3x16m"):
             if key not in runs:
@@ -3509,9 +3751,10 @@ def phase12a(torch, device, n=65536, n_ext=2):
                           dead=dead)
             assert reordered, r
             if device.type == "cuda":
-                assert r["launches"] == ([0, n_ext * plain.internal_steps]
+                n_int = n_ext * plain.internal_steps
+                assert r["launches"] == ([0, n_int, n_int]
                                          if base.startswith("per_step")
-                                         else [n_ext, 0]), r
+                                         else [n_ext, 0, 0]), r
             if key.startswith("per_step"):
                 assert dead > 0.5 * n, r
             out[f"{tag}-{key}"] = r
@@ -4008,11 +4251,10 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     (advect-f64 in float64, advect-axes on stretched axes, curv-stochastic
     on the curvilinear grid through the per-step route): a cold call, three
     timed warm calls, then torch.profiler over one more warm call: the
-    kernel's device time, all device time, the wall time, the kernel's
-    share of device time and the idle share of the call (1 - device time
-    / wall time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    kernel's device time (K1, or on the per-step route K2, and there K3's
+    beside it), all device time, the wall time, the kernel's share of
+    device time and the idle share of the call (1 - device time / wall
+    time)."""
     from ltjax_torch import state as st, synth
     from ltjax_torch.step import make_fused_external_steps, mode_flags
     case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False,
@@ -4060,35 +4302,49 @@ def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
             torch.cuda.synchronize()
             rates.append(n * cfg.internal_steps * n_fuse
                          / (time.perf_counter() - t0))
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            fused(p0, fs_cell, 0.0, 0)
-            torch.cuda.synchronize()
-            wall = 1e3 * (time.perf_counter() - t0)
-        dev_ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        all_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
         per_step = mode_flags(ctx, cfg) == "per_step"
+        n_kern = n_fuse * (cfg.internal_steps if per_step else 1)
+        dev_ev, wall, windows, _ = profile_window(
+            torch, lambda: fused(p0, fs_cell, 0.0, 0),
+            {"rk4_step_kernel" if per_step else "ext_step_kernel": n_kern,
+             "step_lanes_kernel": n_kern if per_step else 0})
+        all_ms = sum(e.time_range.elapsed_us() for e in dev_ev) / 1e3
         kern = [e for e in dev_ev if ("rk4_step_kernel" if per_step
                                       else "ext_step_kernel") in e.name]
         kern_ms = sum(e.time_range.elapsed_us() for e in kern) / 1e3
+        lanes = [e for e in dev_ev if "step_lanes_kernel" in e.name]
         res = {"profile": name, "n": n, "ext_steps": n_fuse,
                "kernel_launches": len(kern), "kernel_device_ms": kern_ms,
+               "lanes_launches": len(lanes),
+               "lanes_device_ms": sum(e.time_range.elapsed_us()
+                                      for e in lanes) / 1e3,
                "all_device_ms": all_ms, "wall_ms": wall,
+               "profiled_windows": windows,
                "kernel_share_of_device": kern_ms / all_ms,
                "idle_share": 1.0 - all_ms / wall,
                "warm_rates": rates}
         log(res)
-        assert len(kern) == n_fuse * (cfg.internal_steps if per_step
-                                      else 1), res
+        assert len(kern) == n_kern, res
+        assert len(lanes) == (n_kern if per_step else 0), res
         out[name] = res
     return out
 
 
+def lanes_variant(kw=None, **geometry):
+    """K3's build for STOCHASTIC (updated with ``kw``) on a geometry of
+    ext_step.kernel_variant: the whole-step kernel's flags less
+    LTX_MORTALITY."""
+    from ltjax_torch.kernels import ext_step as kx
+    v = kx.kernel_variant(make_cfg(1, **{**STOCHASTIC, **(kw or {})}),
+                          **geometry)
+    del v["LTX_MORTALITY"]
+    return v
+
+
 def kernel_targets():
     """Every kernel library the phases run, as (source, variant) pairs
-    for build.prebuild: the whole-step kernel in each variant, and the
-    per-step RK4 kernel."""
+    for build.prebuild: the whole-step kernel in each variant, the
+    per-step RK4 kernel and the per-step lanes kernel."""
     from ltjax_torch.kernels import ext_step as kx
     cfgs = [make_cfg(1, **kw) for kw in [
         {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
@@ -4108,7 +4364,12 @@ def kernel_targets():
             {}, {"LTX_POS64": 1}, {"LTX_AXES": 1},
             {"LTX_AXES": 1, "LTX_POS64": 1}, {"LTX_CURV": 1},
             {"LTX_CURV": 1, "LTX_POS64": 1}, {"LTX_TILE": 1},
-            {"LTX_POS64": 1, "LTX_TILE": 1})]
+            {"LTX_POS64": 1, "LTX_TILE": 1})] + [
+        ("step_lanes", lanes_variant(kw, **geo)) for kw, geo in (
+            (None, {}), (None, {"pos64": True}), (None, {"axes": True}),
+            (None, {"curv": True}), (None, {"tile": True}),
+            (None, {"pos64": True, "tile": True}),
+            *((kw, {}) for kw in list(LANES8.values())[1:]))]
 
 
 def staging_report(targets, us=20, ws=21):
@@ -4274,6 +4535,30 @@ def main(argv=None):
             "ms": k1m["kernel_ms"], "plain_ms": k1m["plain_ms"],
             "bound_ms": r["rk4_bound"]["bound_ms"],
             "bound_by": r["rk4_bound"]["bound_by"], "library_ms": None})
+    # the per-step lanes kernel K3: launches of the main paths (8b; 9c,
+    # 9d, 9e), the errors of every comparison with its plain version, times
+    # per launch at 1M on the main paths' first internal step
+    lane_errs = errs + ("max_abs_dage",)
+    for name, main, launches, comps in (
+            ("", r8["b"]["lanes"]["1M"], r8["b"]["launches"]["step_lanes"],
+             [r8[c] for c in r8 if c.startswith("a-lanes")]
+             + list(r8["b"]["lanes"].values())),
+            ("[axes]", r9["c-stochastic"]["lanes"],
+             r9["c-stochastic"]["launches"][
+                 r9["c-stochastic"]["lanes_variant"]], []),
+            ("[curv]", r9["d"]["lanes"],
+             r9["d"]["launches"][r9["d"]["lanes_variant"]], []),
+            ("[f64]", r9["b"]["lanes"],
+             r9["e"]["stochastic"]["launches"]["step_lanes-b6h0p1v0"], [])):
+        kernels.append({
+            "name": "step_lanes_fused" + name, "route": "cuda",
+            "source": LANES_SRC, "replaces": LANES_REPLACES,
+            "launches": launches,
+            "max_abs_err": max(q[k] for q in [main, *comps]
+                               for k in lane_errs),
+            "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
+            "bound_ms": main["bound"]["bound_ms"],
+            "bound_by": main["bound"]["bound_by"], "library_ms": None})
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

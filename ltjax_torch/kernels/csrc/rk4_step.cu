@@ -98,11 +98,12 @@ __device__ __forceinline__ Rows locate_rows(const Grid& g, const Curv& cv,
   // after the ladders)
   const pos_t* tl = g.par + Q_HEAD + 2 * (g.us + g.ws);
   const int row0 = (int)tl[0], ny_g = (int)tl[1];
-  const Stencil c = to_strip(
+  // (located first: to_strip reads the i that the location writes)
+  const Stencil w =
       (LTX_AXES && ax.xr)
           ? locate_searched(ax.xr, ax.yr, g.nx, ny_g, g.nv, x, y, i, j)
-          : locate_rect(g.par, g.nx, ny_g, g.nv, x, y, i, j),
-      g.nx, g.ny, g.nv, row0, i, j);
+          : locate_rect(g.par, g.nx, ny_g, g.nv, x, y, i, j);
+  const Stencil c = to_strip(w, g.nx, g.ny, g.nv, row0, i, j);
 #elif LTX_AXES
   const Stencil c = ax.xr ? locate_searched(ax.xr, ax.yr, g.nx, g.ny, g.nv,
                                             x, y, i, j)

@@ -23,8 +23,8 @@ copies them to the device, while a chunk runs (``io.prefetch``).
 
 The first stdout line is a JSON object naming the path taken
 ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step": the
-per-internal-step kernel of the "per_step" route, which stochastic
-mortality takes; "cuda_native": the native route's PyTorch ops on the
+per-internal-step kernels of the "per_step" route, RK4 (K2) and the
+lanes (K3), which stochastic mortality takes; "cuda_native": the native route's PyTorch ops on the
 card, which ``fast_interp = False`` and adaptive tension take;
 "cuda_packed": the packed route's PyTorch ops on the card, which
 ``kernel_interp = False`` takes; "plain" on the CPU), the route, the grid kind and the enabled lanes, then one
@@ -292,6 +292,19 @@ def check_nans(cfg: Config, p: st.Particles, ext: int):
                            f"have NaN state after external step {ext}")
 
 
+def _device_or_cuda(device, call: str):
+    """``device``, or "cuda" when it is None; without a CUDA device that
+    raises, naming --device cpu and ``call``: a run takes the GPU unless
+    asked for the CPU."""
+    if device is not None:
+        return device
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "ltjax_torch.run: no CUDA device, and the run takes the GPU "
+            f"unless asked for the CPU: pass --device cpu (or {call})")
+    return "cuda"
+
+
 def run(cfg: Config, resume: bool = False, device=None,
         series_paths: Optional[List[str]] = None,
         backend: Optional[str] = None) -> st.Particles:
@@ -301,14 +314,7 @@ def run(cfg: Config, resume: bool = False, device=None,
     fall back to the CPU.  ``backend`` ("nccl" or "gloo") is the process
     group of a sharded run (default: NCCL on CUDA, gloo on the CPU)."""
     cfg.validate()
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError(
-                "ltjax_torch.run: no CUDA device, and the run takes the GPU "
-                "unless asked for the CPU: pass --device cpu (or "
-                "run(cfg, device='cpu'))")
-        device = "cuda"
-    device = torch.device(device)
+    device = torch.device(_device_or_cuda(device, "run(cfg, device='cpu')"))
     if cfg.mesh_particles * cfg.mesh_tiles > 1:
         return run_sharded(cfg, resume=resume, device=device,
                            series_paths=series_paths, backend=backend)
@@ -474,30 +480,31 @@ COUNT_KEYS = ("not_released", "active", "settled", "dead", "out_of_domain",
 def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
     """The (source, variant) pairs of the kernels that ``cfg`` runs on
     ``grid`` (for ``kernels.build.prebuild``; ``tile``: on the tiles of a
-    sharded run): K1 on the ext_step route, K2 on the per-step route,
-    none on the native and packed routes."""
+    sharded run): K1 on the ext_step route, K2 and the lanes kernel K3 on
+    the per-step route, none on the native and packed routes."""
     from .kernels import ext_step as kx, rk4_step as kr
     from .physics.boundary import _cell_edges
     from .grid import _is_uniform
     route = mode_flags(None, cfg)
-    dtype = getattr(torch, cfg.dtype_pos)
-    if route == "per_step":
-        v = kr.kernel_variant(grid, dtype)
-        if tile:
-            v["LTX_TILE"] = 1
-        return [("rk4_step", v or None)]
     if route in ("native", "packed"):
         return []
+    dtype = getattr(torch, cfg.dtype_pos)
     curv = grid.curv is not None
     edges_uniform = all(_is_uniform(_cell_edges(a.cpu().numpy()), 1e-4)
                         for a in (grid.x_rho, grid.y_rho))
-    return [("ext_step", kx.kernel_variant(
+    lanes = kx.kernel_variant(
         cfg, curv=curv, pos64=dtype == torch.float64,
-        axes=not curv and not (grid.uniform and edges_uniform),
-        tile=tile))]
+        axes=not curv and not (grid.uniform and edges_uniform), tile=tile)
+    if route == "ext_step":
+        return [("ext_step", lanes)]
+    v = kr.kernel_variant(grid, dtype)
+    if tile:
+        v["LTX_TILE"] = 1
+    del lanes["LTX_MORTALITY"]        # K3 always draws DEATH
+    return [("rk4_step", v or None), ("step_lanes", lanes)]
 
 
-def run_sharded(cfg: Config, resume: bool = False, device="cpu",
+def run_sharded(cfg: Config, resume: bool = False, device=None,
                 series_paths: Optional[List[str]] = None,
                 backend: Optional[str] = None) -> st.Particles:
     """A sharded run (counterpart of ``ltjax.run.run_sharded``):
@@ -508,12 +515,14 @@ def run_sharded(cfg: Config, resume: bool = False, device="cpu",
     returns its slot block (EMPTY slots included).  Otherwise the run
     builds the kernels and the reader once, spawns the ranks on a free
     localhost port, and returns the particles of every rank in pid order
-    on ``device``.  ``backend``: "nccl" (CUDA, one card per rank; the
-    default there) or "gloo" (the CPU's; on CUDA several ranks may share
-    a card)."""
+    on ``device``: the CUDA device unless ``device`` names another
+    (without one it raises rather than fall back to the CPU, as ``run``).
+    ``backend``: "nccl" (CUDA, one card per rank; the default there) or
+    "gloo" (the CPU's; on CUDA several ranks may share a card)."""
     from . import dist, native, shard
     from .kernels import build
-    device = torch.device(device)
+    device = torch.device(_device_or_cuda(device, "run_sharded(cfg, "
+                                          "device='cpu')"))
     world = cfg.mesh_particles * cfg.mesh_tiles
     backend = backend or ("nccl" if device.type == "cuda" else "gloo")
     if backend not in ("nccl", "gloo"):
@@ -575,7 +584,7 @@ def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
     its output and checkpoints.  Returns {"particles": its final slot
     block on the CPU}."""
     from . import dist, shard
-    from .kernels import ext_step as kx, rk4_step as kr
+    from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
     from .out.writer import merge_shards
     ndp, ntiles = cfg.mesh_particles, cfg.mesh_tiles
     dev = dist.rank_device(device, backend,
@@ -777,7 +786,8 @@ def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
         me.barrier()
     done = {"rank": rank, "event": "rank_done", "cap": spec.cap,
             "kernel_launches": {**kx.ext_step_fused.variant_launches,
-                                **kr.rk4_displacement_fused.variant_launches}}
+                                **kr.rk4_displacement_fused.variant_launches,
+                                **sl.step_lanes_fused.variant_launches}}
     if dev.type == "cuda":
         done["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
     if cfg.WriteModelTiming:

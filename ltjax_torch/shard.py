@@ -21,7 +21,7 @@ data-parallel row r // ntiles.
   ERROR, arrivals beyond ``cap`` are dropped, both counted.
 * A tile steps on the route that the configuration takes on one device
   (``step.mode_flags``: the whole-step kernel K1, the per-step route with
-  K2, the native route or the packed route) with a local Grid of its strip, and the whole
+  K2 and K3, the native route or the packed route) with a local Grid of its strip, and the whole
   grid's boundaries and polygons (the kernels read their strip's rows).
   Every cell is located on the whole grid's axes and then moved into the
   strip (``grid.TileRows``, ``grid.locate_y``; the kernels' LTX_TILE
@@ -519,7 +519,7 @@ class TiledCase(NamedTuple):
 
 
 def _tiled_case(me, case: TiledCase, dev):
-    from .kernels import ext_step as kx, rk4_step as kr
+    from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
     ctx, cfg, spec = to_device(case.ctx, dev), case.cfg, case.spec
     ny = ctx.grid.ny
     if ctx.grid.curv is not None:
@@ -535,6 +535,8 @@ def _tiled_case(me, case: TiledCase, dev):
     kx.reset_launches()
     kr.rk4_displacement_fused.launches = 0
     kr.rk4_displacement_fused.variant_launches = {}
+    sl.step_lanes_fused.launches = 0
+    sl.step_lanes_fused.variant_launches = {}
     drops = sent = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -558,8 +560,10 @@ def _tiled_case(me, case: TiledCase, dev):
     return {"particles": p.to("cpu"), "drops": drops, "sent": sent,
             "seconds": sec, "launches": kx.ext_step_fused.launches,
             "rk4_launches": kr.rk4_displacement_fused.launches,
+            "lanes_launches": sl.step_lanes_fused.launches,
             "variant_launches": {**kx.ext_step_fused.variant_launches,
-                                 **kr.rk4_displacement_fused.variant_launches},
+                                 **kr.rk4_displacement_fused.variant_launches,
+                                 **sl.step_lanes_fused.variant_launches},
             "peak_memory_bytes": (torch.cuda.max_memory_allocated(dev)
                                   if dev.type == "cuda" else 0)}
 
@@ -584,7 +588,8 @@ def run_tiled_steps(cases, device="cpu", backend: str = "gloo"):
 
     Returns, per case, (the particles in pid order on the CPU, a list per
     rank of {"drops", "sent", "seconds" (its stepping wall time, after a
-    barrier), "launches" (K1), "rk4_launches" (K2), "variant_launches",
+    barrier), "launches" (K1), "rk4_launches" (K2), "lanes_launches" (K3),
+    "variant_launches",
     "peak_memory_bytes"})."""
     spec = cases[0].spec
     if any((c.spec.ndp, c.spec.ntiles) != (spec.ndp, spec.ntiles)

@@ -17,9 +17,11 @@ An external step takes one of four routes (``mode_flags``, as ltjax's):
 * ``"per_step"`` (stochastic mortality, whose DEATH draw the
   whole-step kernel does not make): ``cfg.internal_steps`` calls of
   ``internal_step(mode="kernel")``, each taking its RK4 displacement
-  from the per-internal-step CUDA kernel
-  (``kernels.rk4_step.rk4_displacement_fused``, or its plain version on
-  CPU tensors) and the rest from the PyTorch lanes below;
+  from the per-internal-step CUDA kernel K2
+  (``kernels.rk4_step.rk4_displacement_fused``) and every lane after it
+  (release, turbulence, behavior, the DEATH draw, reflection, settlement,
+  salt) from the lanes kernel K3 (``kernels.step_lanes.step_lanes_fused``),
+  each on CPU tensors its plain version;
 * ``"native"`` (``fast_interp = False``, or adaptive tension
   ``tension_sigma < 0``; it takes precedence over the others):
   ``cfg.internal_steps`` calls of ``internal_step(mode="native")``, the
@@ -64,12 +66,13 @@ from .fields import FieldSet
 from .grid import Grid, locate, locate_y, logical_coords
 from .kernels import ext_step as kx
 from .kernels import rk4_step as kr
+from .kernels import step_lanes as sl
 from .physics import behavior as bh
 from .physics import boundary as bd
 from .physics import settlement as stl
 from .physics import turb as tb
 from .physics.advect import (AdvectParams, find_currents, host_time,
-                             rk4_displacement, sample_scalar, zeta_h_at)
+                             rk4_displacement, zeta_h_at)
 
 
 @dataclass
@@ -163,8 +166,11 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     ``mode``: "collapsed" computes the RK4 displacement (and behavior 7's
     stage-1 currents) in PyTorch on the collapsed scheme (the plain
     version of the CUDA kernels' per-thread step); "kernel" takes both
-    from ``kernels.rk4_step.rk4_displacement_fused`` (the CUDA kernel on
-    CUDA tensors, the same PyTorch code on CPU tensors); "native" takes
+    from ``kernels.rk4_step.rk4_displacement_fused`` and the lanes after
+    them from ``kernels.step_lanes.step_lanes_fused`` (the CUDA kernels K2
+    and K3 on CUDA tensors, the same PyTorch code on CPU tensors); the
+    other modes run the lanes as PyTorch ops (``step_lanes.lanes``);
+    "native" takes
     advection, the free surface and behavior 7's currents from
     ``physics.advect`` straight off ``fields`` (the reference's order,
     ltjax's ``prec=None``; ``prec`` is not read); "packed" takes them
@@ -173,18 +179,12 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     if mode not in ("collapsed", "kernel", "native", "packed"):
         raise ValueError(f"internal_step: mode {mode!r}")
     native = mode == "native"
-    grid, bounds = ctx.grid, ctx.bounds
-    turb, beh = make_params(cfg)
+    grid = ctx.grid
     dtype = p.x.dtype
-    dev = p.x.device
     idt = float(cfg.idt)
-    # scalars filled in on the device (a host copy would wait for it)
-    idt_t = torch.full((), idt, dtype=dtype, device=dev)
-    tt = torch.full((), t, dtype=dtype, device=dev)
-    # t and t + idt in the particles' dtype, on the host (polintd's
-    # weights are host scalars)
+    # t in the particles' dtype, on the host (polintd's weights are host
+    # scalars)
     t0_h = host_time(t, dtype)
-    t1_h = float(torch.tensor(t, dtype=dtype) + idt)
     if native:
         adv = AdvectParams(sigma=cfg.tension_sigma, z0=cfg.z0, idt=idt)
     elif mode == "packed":
@@ -192,120 +192,41 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     else:
         tabs = pk.stage_value_tables(grid, prec, t, idt)
 
-    # --- release (DOB reached) & masks ---------------------------------
-    release = (p.status == st.NOT_RELEASED) & (tt >= p.dob)
-    status = torch.where(release, torch.full_like(p.status, st.ACTIVE),
-                         p.status)
-    active = status == st.ACTIVE
-
-    # --- advection ------------------------------------------------------
-    stage1 = None
+    # --- advection, then the lanes ---------------------------------------
+    if mode == "kernel":
+        disp = kr.rk4_displacement_fused(
+            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
+            stage1=cfg.Behavior == 7)
+        return sl.step_lanes_fused(ctx, cfg, seed, step_idx, p, fields,
+                                   prec, tabs, t, disp)
     if native:
         dx, dy, dz = rk4_displacement(grid, fields, p.x, p.y, p.z, t0_h,
                                       adv)
-    elif mode == "kernel":
-        res = kr.rk4_displacement_fused(
-            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
-            stage1=cfg.Behavior == 7)
-        dx, dy, dz = res[:3]
-        stage1 = res[3:]
-    elif mode == "packed":
-        dx, dy, dz = pk.rk4_displacement_packed(
-            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
+        t1_h = float(torch.tensor(t, dtype=dtype) + idt)
+
+        def column(x, y, end):
+            return zeta_h_at(grid, fields, x, y, t1_h if end else t0_h)
+
+        def currents():
+            return find_currents(grid, fields, p.x, p.y, p.z, t0_h, adv)[:2]
     else:
-        dx, dy, dz = pk.rk4_displacement_collapsed(
-            grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
-
-    # --- turbulence -----------------------------------------------------
-    if cfg.HTurbOn:
-        hx, hy = tb.hturb(seed, step_idx, p.pid, idt_t, cfg.ConstantHTurb,
-                          dtype)
-        dx = dx + hx
-        dy = dy + hy
-    if cfg.VTurbOn:
-        dz = dz + tb.vturb(grid, fields, seed, step_idx, p.pid, p.x, p.y,
-                           p.z, t, turb)
-
-    # --- behavior (free surface, depth and currents at stage 1) ----------
-    dies = torch.zeros_like(active)
-    if cfg.Behavior != 0 or cfg.mortality:
-        if native:
-            zeta_p, h_p = zeta_h_at(grid, fields, p.x, p.y, t0_h)
+        if mode == "packed":
+            dx, dy, dz = pk.rk4_displacement_packed(
+                grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
+            fc = pk.find_currents_packed
         else:
-            zeta_p, h_p = pk.zeta_h_packed(grid, tabs[0], p.x, p.y)
-        if cfg.Behavior == 7 and native:
-            cur = find_currents(grid, fields, p.x, p.y, p.z, t0_h, adv)[:2]
-        elif cfg.Behavior == 7 and mode == "packed":
-            cur = pk.find_currents_packed(grid, tabs[0], p.x, p.y, p.z,
-                                          cfg.tension_sigma, cfg.z0)[:2]
-        elif cfg.Behavior == 7:
-            cur = stage1 or pk.find_currents_collapsed(
-                grid, tabs[0], p.x, p.y, p.z, cfg.tension_sigma, cfg.z0)[:2]
-        else:
-            cur = (torch.zeros_like(p.x), torch.zeros_like(p.x))
-        bx, by, bz, dies = bh.behave(grid, fields, seed, step_idx, p.pid,
-                                     p.x, p.y, p.z, tt, p.age, zeta_p, h_p,
-                                     cur, beh)
-        dx = dx + bx
-        dy = dy + by
-        dz = dz + bz
+            dx, dy, dz = pk.rk4_displacement_collapsed(
+                grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt)
+            fc = pk.find_currents_collapsed
 
-    # --- horizontal boundary reflection ---------------------------------
-    xr, yr, hits, exited, stuck = bd.reflect(
-        bounds, p.x, p.y, p.x + dx, p.y + dy,
-        open_exits=cfg.OpenOceanBoundary, n_iter=cfg.reflect_iters)
+        def column(x, y, end):
+            return pk.zeta_h_packed(grid, tabs[2 if end else 0], x, y)
 
-    # --- vertical reflection at the new column (t + idt) ----------------
-    if native:
-        zeta1, h1 = zeta_h_at(grid, fields, xr, yr, t1_h)
-    else:
-        zeta1, h1 = pk.zeta_h_packed(grid, tabs[2], xr, yr)
-    zr, _, hit_bot = bd.reflect_vertical(p.z + dz, zeta1, h1)
-
-    # --- settlement (habitat polygons at the reflected position) ---------
-    settles = torch.zeros_like(active)
-    spid = torch.full_like(p.settle_poly, -1)
-    if cfg.settlementon and ctx.polys is not None:
-        eligible = active & ((p.age + idt) >= cfg.pediage) & ~exited & ~stuck
-        settles, spid = stl.test_settlement(
-            ctx.polys, ctx.holes, bounds.x_edges, bounds.y_edges, xr, yr,
-            eligible, uniform=bounds.uniform)
-
-    # --- apply updates under the active mask -----------------------------
-    # DEAD overrides a same-step ERROR but not an exit
-    new_status = torch.where(active & exited,
-                             torch.full_like(status, st.OUT_OF_DOMAIN),
-                             status)
-    new_status = torch.where(active & stuck,
-                             torch.full_like(status, st.ERROR), new_status)
-    if cfg.mortality:
-        new_status = torch.where(active & dies & ~exited,
-                                 torch.full_like(status, st.DEAD),
-                                 new_status)
-    if cfg.settlementon:
-        new_status = torch.where(active & settles & (new_status == st.ACTIVE),
-                                 torch.full_like(status, st.SETTLED),
-                                 new_status)
-    new_x = torch.where(active, xr, p.x)
-    new_y = torch.where(active, yr, p.y)
-    new_z = torch.where(active, zr, p.z)
-    out = p.replace(
-        x=new_x, y=new_y, z=new_z,
-        age=torch.where(status >= st.ACTIVE, tt + idt - p.dob, p.age),
-        status=new_status,
-        settle_poly=torch.where((new_status == st.SETTLED)
-                                & (p.settle_poly < 0), spid, p.settle_poly))
-    if cfg.SaltTempOn:
-        out = out.replace(**{
-            k: torch.where(active, sample_scalar(
-                grid, fields, getattr(fields, k), new_x, new_y, new_z, t1_h,
-                cfg.tension_sigma), getattr(p, k)) for k in ("salt", "temp")})
-    if cfg.TrackCollisions:
-        out = out.replace(
-            hit_land=p.hit_land + torch.where(active, hits, 0).to(
-                torch.int32),
-            hit_bottom=p.hit_bottom + (active & hit_bot).to(torch.int32))
-    return out
+        def currents():
+            return fc(grid, tabs[0], p.x, p.y, p.z, cfg.tension_sigma,
+                      cfg.z0)[:2]
+    return sl.lanes(ctx, cfg, seed, step_idx, p, fields, t, dx, dy, dz,
+                    column, currents)
 
 
 def _sort_band(cfg, grid: Grid, p: st.Particles, ci, cj):
@@ -377,13 +298,14 @@ def per_step_external(ctx: StepContext, cfg, p: st.Particles,
 
 def packed_window(ctx: StepContext, cfg, route: str, fsR: FieldSet):
     """The packed records of a record window for ``route`` (None on the
-    native route, which reads the FieldSet): the whole-step kernel reads
-    the Aks and salt/temp lanes of the record table; the PyTorch lanes
-    of the other routes read the FieldSet, so their tables carry only
-    the value lanes."""
+    native route, which reads the FieldSet): the whole-step kernel K1 and
+    the per-step route's lanes kernel K3 read the Aks and salt/temp lanes
+    of the record table where their variant does; the PyTorch lanes of
+    the packed route read the FieldSet, so its tables carry only the
+    value lanes."""
     if route == "native":
         return None
-    ext = route == "ext_step"
+    ext = route in ("ext_step", "per_step")
     return pk.build_packed_records(
         ctx.grid, fsR, with_aks=bool(cfg.VTurbOn and cfg.readAks) and ext,
         with_scalars=cfg.needs_salt_fields() and ext)

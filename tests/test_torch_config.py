@@ -221,3 +221,20 @@ def test_cli_refuses_to_start_without_gpu(tmp_path):
     assert "no CUDA device" in r.stderr and "--device cpu" in r.stderr
     assert r.stdout == ""
     assert not os.path.exists(os.path.join(tmp_path, "out", "run1.csv"))
+
+
+def test_run_sharded_refuses_to_start_without_gpu(tmp_path, monkeypatch):
+    """run_sharded without a device takes the GPU, as run does: without a
+    CUDA device it raises naming device='cpu', before it spawns a rank or
+    writes a file; with device='cpu' it gets past that check."""
+    case = synth.make_solid_body_case(nx=9, ny=9, us=4, lx=8e3, ly=8e3)
+    nml = synth.write_run_files(case, str(tmp_path), [4e3], [4e3], [-5.0],
+                                n_ext=1, dt=600, idt=300, mesh_particles=2)
+    cfg = tconfig.config_from_namelist(nml)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device") as e:
+        trun.run_sharded(cfg)
+    assert "device='cpu'" in str(e.value)
+    assert not os.path.exists(os.path.join(tmp_path, "out"))
+    with pytest.raises(ValueError, match="NCCL"):
+        trun.run_sharded(cfg, device="cpu", backend="nccl")

@@ -42,6 +42,14 @@ stage-1 currents to 0.05 m / idt.  The per-step route (stochastic
 mortality) launches it once per internal step and never calls the plain
 version.
 
+The per-step lanes kernel (csrc/step_lanes.cu, K3) is held against its
+plain version at 65,536 particles on K2's displacement, internal step by
+internal step, in every variant the per-step route takes (behaviors 3,
+4, 6 and 7, turbulence on Aks, settlement, salt, a curvilinear grid,
+float64, stretched axes, a tile with EMPTY slots): 0.05 m, 1e-3 m,
+statuses and DEATH decisions equal; the per-step route launches K2 and
+K3 once each per internal step and never the plain lanes.
+
 The native and packed routes (PyTorch ops, no kernel) on the card are
 held against the same routes on the CPU.
 
@@ -1093,3 +1101,144 @@ def test_banded_tiles_on_the_card_match_one_unbanded_rank(gpu):
         assert torch.equal(getattr(got, k), getattr(ref, k).cpu()[order]), k
     assert [r["launches"] for r in ranks] == [2, 2]
     assert sum(r["drops"] for r in ranks) == 0
+
+
+# The per-step route's lanes kernel K3 (csrc/step_lanes.cu) against its
+# plain version (kernels.step_lanes.lanes) at 65,536 particles: two
+# internal steps, each from the plain trajectory's state and on K2's
+# displacement of that state.  Gates per internal step (PERF.md §2):
+# 0.05 m horizontally, 1e-3 m vertically, age, salt and temp 1e-3, equal
+# statuses and settle_poly, the DEATH decisions equal; behaviors 1-5 and
+# 7 and settlement decide on a threshold (PERF.md §2, chip_smoke.py
+# lanes_stepwise), so a particle within round-off of one may take the
+# other branch: such flips are allowed for at most 0.01% of the particles.
+STOCHASTIC = dict(mortality=True, stochastic_mortality=True,
+                  deadage=3600.0)
+K3_CASES = {
+    "advect-behavior6": ("uniform", torch.float32, dict(Behavior=6,
+                                                        sink=5e-4)),
+    "turb-aks": ("uniform", torch.float32, LANES["turb-aks"]),
+    "behavior3": ("uniform", torch.float32, dict(Behavior=3)),
+    "behavior4": ("uniform", torch.float32, LANES["behavior4"]),
+    "behavior7": ("uniform", torch.float32, dict(Behavior=7)),
+    "settle": ("uniform", torch.float32, LANES["settle"]),
+    "salt": ("uniform", torch.float32, LANES["salt"]),
+    "curv": ("curv", torch.float32, LANES["turb-aks"]),
+    "f64": ("uniform", F64, dict(LANES["behavior4"], SaltTempOn=True,
+                                 readTemp=True)),
+    "stretched": ("stretched", torch.float32, LANES["settle"]),
+    "tile": ("tile", torch.float32, dict(Behavior=6, sink=5e-4)),
+}
+
+
+def _k3_case(device, geometry, dtype, n=65536):
+    """(case, ctx, cfg, particles): _case's, _curv_case's or a tile's
+    strip (_strip_case) at n particles, ages straddling the swim ramp,
+    pids permuted."""
+    if geometry == "tile":
+        c, ctx, cfg, p, _ = _strip_case(device, dtype, n=n)
+    elif geometry == "curv":
+        c, ctx, cfg, p = _curv_case(device, n=n, omega=1e-5)
+    else:
+        c, ctx, cfg, p = _case(device, n=n, omega=1e-5, dtype=dtype,
+                               stretch=GEOMETRY[geometry])
+    rng = np.random.default_rng(10)
+    age = rng.uniform(0.0, 3 * 86400.0, p.n)
+    p = p.replace(age=torch.tensor(age, dtype=dtype, device=device),
+                  dob=torch.where(p.dob > 0, p.dob, torch.tensor(
+                      -age, dtype=dtype, device=device)),
+                  pid=torch.tensor(rng.permutation(p.n), dtype=torch.int32,
+                                   device=device))
+    return c, ctx, cfg, p
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(K3_CASES))
+def test_lanes_kernel_matches_plain(gpu, name):
+    from ltjax_torch.kernels import build
+    from ltjax_torch.kernels import step_lanes as sl
+    geometry, dtype, lanes = K3_CASES[name]
+    c, ctx, cfg, p = _k3_case(gpu, geometry, dtype)
+    c.parabolic_aks = True
+    c.halocline = True
+    cfg1 = replace(cfg, dt=cfg.idt, **{**BEH, **lanes, **STOCHASTIC})
+    if cfg1.settlementon:
+        habitat, holes = _polygons()
+        xe = ctx.bounds.x_edges.cpu().numpy()
+        ye = ctx.bounds.y_edges.cpu().numpy()
+        ctx.polys = stl.build_polygons(habitat, xe, ye, device=gpu)
+        ctx.holes = stl.build_polygons(holes, xe, ye, device=gpu)
+    g = ctx.grid                   # a tile's: its strip
+    t0 = 9 * 3600.0
+    fs = synth.fieldset_for(c, t_center=t0 + 900.0, dt=1800.0)
+    if geometry == "tile":
+        from ltjax_torch import shard
+        spec = shard.make_spec(cfg, 41, p.n, 1, 3, halo=shard.
+                               halo_rows_needed(1e-4 * 71e3, 1800.0, 2.5e3))
+        fs = shard.strip_fieldset(fs, spec, 1, 41)
+    fs = synth.with_vertical_motion(fs, seed=12)
+    prec = pk.build_packed_records(g, fs, with_aks=cfg1.VTurbOn,
+                                   with_scalars=cfg1.needs_salt_fields())
+    idt = float(cfg1.idt)
+    tag = build.tag("step_lanes", sl.kernel_variant(ctx, cfg1, dtype))
+    thresholds = cfg1.Behavior in (1, 2, 3, 4, 5, 7) or cfg1.settlementon
+    q, dead = p, 0
+    for i in range(2):
+        t = t0 + i * idt
+        tabs = pk.stage_value_tables(g, prec, t, idt)
+        disp = kr.rk4_displacement_fused(g, tabs, q.x, q.y, q.z, 0.0,
+                                         cfg1.z0, idt,
+                                         stage1=cfg1.Behavior == 7)
+        sl.step_lanes_fused.variant_launches = {}
+        out = sl.step_lanes_fused(ctx, cfg1, 5, i, q, fs, prec, tabs, t,
+                                  disp)
+        ref = sl.step_lanes_reference(ctx, cfg1, 5, i, q, fs, tabs, t,
+                                      disp)
+        torch.cuda.synchronize()
+        assert sl.step_lanes_fused.variant_launches == {tag: 1}
+        assert torch.equal(out.status, ref.status)
+        assert torch.equal(out.status == st.DEAD, ref.status == st.DEAD)
+        assert torch.equal(out.settle_poly, ref.settle_poly)
+        flip = (((out.x - ref.x).abs() > 0.05) | ((out.y - ref.y).abs() > 0.05)
+                | ((out.z - ref.z).abs() > 1e-3))
+        assert int(flip.sum()) <= (1e-4 * p.n if thresholds else 0)
+        keep = ~flip
+        for k in ("age", "salt", "temp"):
+            np.testing.assert_allclose(getattr(out, k)[keep].cpu().numpy(),
+                                       getattr(ref, k)[keep].cpu().numpy(),
+                                       rtol=0, atol=1e-3)
+        for k in ("hit_land", "hit_bottom"):
+            assert (getattr(out, k) != getattr(ref, k)).sum() <= 1e-4 * p.n
+        dead += int(((ref.status == st.DEAD) & (q.status != st.DEAD)).sum())
+        empty = q.status == -1         # a tile's EMPTY slots: unchanged
+        for k in st.FIELDS:
+            assert torch.equal(getattr(out, k)[empty],
+                               getattr(q, k)[empty]), k
+        q = ref
+    assert dead > 0
+    assert (geometry == "tile") == bool((p.status == -1).any())
+    if cfg1.SaltTempOn:
+        assert float(q.salt.max() - q.salt.min()) > 1.0
+
+
+@pytest.mark.gpu
+def test_per_step_route_launches_lanes_kernel_per_internal_step(
+        gpu, monkeypatch):
+    """Stochastic mortality on the card: K2 and K3 once per internal step,
+    never the plain lanes."""
+    from ltjax_torch.kernels import step_lanes as sl
+    calls = []
+    plain = sl.lanes
+    monkeypatch.setattr(sl, "lanes",
+                        lambda *a, **k: calls.append(1) or plain(*a, **k))
+    c, ctx, cfg, p = _case(gpu)
+    cfg = replace(cfg, Behavior=7, Hswimspeed=0.1, swimslow=1e-3,
+                  swimfast=1e-3, **STOCHASTIC)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 5)
+    n2 = kr.rk4_displacement_fused.launches
+    n3 = sl.step_lanes_fused.launches
+    out = make_fused_external_steps(ctx, cfg, 3)(p, fsR, 0.0, 0)
+    assert kr.rk4_displacement_fused.launches == n2 + 3 * cfg.internal_steps
+    assert sl.step_lanes_fused.launches == n3 + 3 * cfg.internal_steps
+    assert not calls
+    assert torch.isfinite(out.x).all() and (out.status == st.DEAD).any()

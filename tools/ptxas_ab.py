@@ -5,18 +5,22 @@
 
 Run from the root of a checkout of the port (it reads the library list
 of this checkout's chip_smoke.py): compiles DIR_A's and DIR_B's
-ltjax_torch/kernels/csrc/ext_step.cu and rk4_step.cu in every variant
-that chip_smoke.py builds and both trees know (variants with a macro in
-NEW_MACROS are skipped: an older tree ignores it), with the flags of
+ltjax_torch/kernels/csrc/*.cu in every variant that chip_smoke.py builds
+and both trees have the source of (variants with a macro in NEW_MACROS
+are skipped: an older tree ignores it), with the flags of
 ltjax_torch/kernels/build.py (a cubin in place of the shared library;
 all nvcc processes started together), and prints one JSON line: per
 library each tree's ptxas report (registers, stack, spills), the
 sha256 of its SASS (cuobjdump -sass) and of the SASS without the
 kernel's mangled name (``code``: the instructions alone), and whether
-each is equal.  Needs
+each is equal; where the code differs, how much: each tree's instruction
+count, and the instructions (and the opcodes alone, registers and
+operands dropped) that one tree has and the other lacks, counted as
+multisets (order ignored).  Needs
 the CUDA toolkit (nvcc, cuobjdump).
 """
 
+import collections
 import hashlib
 import json
 import os
@@ -31,7 +35,7 @@ import chip_smoke as cs  # noqa: E402
 from ltjax_torch.kernels import build  # noqa: E402
 
 CSRC = os.path.join("ltjax_torch", "kernels", "csrc")
-NEW_MACROS = {"LTX_POS64", "LTX_AXES"}
+NEW_MACROS = set()
 
 
 def _flags():
@@ -53,7 +57,8 @@ def main(dir_a: str, dir_b: str) -> None:
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     targets = [(name, v) for name, v in cs.kernel_targets()
                if not set(v or {}) & NEW_MACROS
-               and not (name == "rk4_step" and v)]
+               and all(os.path.exists(os.path.join(root, CSRC, name + ".cu"))
+                       for root in (dir_a, dir_b))]
     tmp = tempfile.mkdtemp(prefix="ptxas_ab_")
     jobs = {}
     for label, root in (("a", dir_a), ("b", dir_b)):
@@ -85,13 +90,25 @@ def main(dir_a: str, dir_b: str) -> None:
         # parameter list (a parameter added at the end renames it)
         code = "\n".join(ln for ln in body.splitlines()
                          if "Function :" not in ln)
+        # the instructions: "/*0040*/  IMAD R1, ... ;  /* 0x... */"
+        instr = [m.group(1).strip() for m in
+                 (re.match(r"\s*/\*[0-9a-f]{4,}\*/\s*(.*?);", ln)
+                  for ln in code.splitlines()) if m]
         res.setdefault(tag, {})[label] = {
             "ptxas": ptxas,
             "sass_sha256": (hashlib.sha256(body.encode()).hexdigest()
                             if sass.returncode == 0 else None),
             "code_sha256": (hashlib.sha256(code.encode()).hexdigest()
-                            if sass.returncode == 0 else None)}
+                            if sass.returncode == 0 else None),
+            "_instr": instr}
     for tag, r in res.items():
+        ia, ib = r["a"].pop("_instr"), r["b"].pop("_instr")
+        r["instructions"] = [len(ia), len(ib)]
+        for key, f in (("instr_diff", lambda v: v),
+                       ("opcode_diff", lambda v: v.split()[0] if v else v)):
+            ca = collections.Counter(map(f, ia))
+            cb = collections.Counter(map(f, ib))
+            r[key] = [sum((ca - cb).values()), sum((cb - ca).values())]
         r["ptxas_equal"] = r["a"]["ptxas"] == r["b"]["ptxas"]
         r["sass_equal"] = (r["a"]["sass_sha256"] is not None
                            and r["a"]["sass_sha256"] == r["b"]["sass_sha256"])
