@@ -77,7 +77,15 @@ line) if any of them fails:
    exp(-t/deadage), the circles), per internal step against the plain
    route, K2 and K3 timed at 1M and 65,536, and the internal step split
    by the profiler; the oyster CLI run with stochastic mortality in
-   chunks of 2 and 4, and its lanes per step at 65,536;
+   chunks of 2 and 4, and its lanes per step at 65,536; (d) the oyster
+   per-step cell at 1M (behavior 4, the random walk, Visser on Aks,
+   settlement with a hole, SaltTempOn and stochastic mortality at a
+   2-day death age on the halocline: 16 x 30 steps, the status counts
+   after each external step, the dead count against the hazard on the
+   active particles, timed, split by the profiler), 8a's behavior-7 and
+   diel-migration lanes on short main paths at 1M, and every build of
+   the lanes kernel timed at 1M against its plain version and its bound
+   (tools/lanes_ab.py);
 9. the builds that let an LTRANS v2b run file start on the card:
    float64 positions (LTX_POS64), stretched rectilinear axes searched
    (LTX_AXES) and the per-step kernel on a curvilinear grid (LTX_CURV):
@@ -133,8 +141,8 @@ line) if any of them fails:
    column bit for bit: K1 in float32 and float64, the per-step route
    with stochastic mortality, and 2 gloo tiles on the card against the
    single unbanded rank; (b) K1 at 1M and 4M particles, 16 x 30 steps,
-   unbanded and in four band settings, sorted every 2 and every
-   external step: particle-steps/s, K1's and the sort's ms per external
+   unbanded and in four band settings at 1M (at 4M in one: 3 x 16 m),
+   sorted every 2 and every external step: particle-steps/s, K1's and the sort's ms per external
    step, the staging counters and the staged share, the closed form;
    (c) phase 4's turb cell at 1M unbanded and with 3 bands; (d) the
    entry point with 3 bands on the ext_step, per-step and native routes
@@ -377,22 +385,65 @@ def cuda_time(torch, fn, reps):
     return a.elapsed_time(b) / reps
 
 
-def profiled_ms(torch, fn, reps, kernel):
+SPIN_CYCLES = 100_000_000     # about 50 ms at the H100's 1.98 GHz
+
+
+def queued_ms(torch, fn, reps):
+    """Mean device milliseconds of a call of fn() over reps calls queued
+    behind a spin kernel (CUDA events): the host enqueues every call while
+    the spin holds the stream, so the events time the calls' kernels back
+    to back, launch gaps included, and not the host.  Raises if the
+    enqueue outlasted half the spin."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    spin = torch.cuda.Event(enable_timing=True)
+    spin.record()
+    torch.cuda._sleep(SPIN_CYCLES)
+    a.record()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_ms = 1e3 * (time.perf_counter() - t0)
+    b.record()
+    torch.cuda.synchronize()
+    spin_ms = spin.elapsed_time(a)
+    assert enqueue_ms < spin_ms / 2, (enqueue_ms, spin_ms)
+    return a.elapsed_time(b) / reps
+
+
+def profiled_ms(torch, fn, reps, kernel, tries=3):
     """Mean device milliseconds of a launch of the kernels named
     ``kernel`` over reps calls of fn() (torch.profiler's CUDA events, the
-    mean of the launches it recorded), after a warm call."""
+    mean of the launches it recorded), after a warm call.  CUPTI loses
+    kernel records now and then, at times every record of a window: a
+    window that recorded fewer than reps launches is profiled again, up
+    to ``tries`` windows, and the fullest one is read.  If none recorded
+    a launch, the mean is ``queued_ms``'s (a warning line says so)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
-          and kernel in e.name]
-    assert ev, kernel
-    return sum(e.time_range.elapsed_us() for e in ev) / 1e3 / len(ev)
+    best = []
+    for window in range(1, tries + 1):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ev = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and kernel in e.name]
+        if len(ev) > len(best):
+            best = ev
+        if len(best) >= reps:
+            break
+    if len(best) < reps:
+        log({"warning": "profiler records short", "kernel": kernel,
+             "launches": reps, "recorded": len(best), "windows": window,
+             "ms_by": "profiler" if best else "queued_events"})
+    if not best:
+        return queued_ms(torch, fn, reps)
+    return sum(e.time_range.elapsed_us() for e in best) / 1e3 / len(best)
 
 
 def profile_window(torch, fn, expect, tries=3):
@@ -1330,7 +1381,7 @@ def axis_searches(cfg, ctx):
 
 
 def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0,
-                 rk4=True):
+                 rk4=True, lane=31):
     """(f32, f64) operations of one active particle's internal step in
     the variant of cfg (integer Threefry words counted at the f32 rate);
     on a curvilinear grid plus its inverse-map solves, on searched axes
@@ -1339,7 +1390,10 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0,
     reflection, the vertical bounds and the scalar fits (Visser, the 4/5
     cue, SaltTempOn) are f64, as csrc/ext_step.cu's LTX_POS64 build runs
     them; the blend and find_currents' fits stay f32.  Without ``rk4``
-    the lanes alone (csrc/step_lanes.cu: no RK4 stages, the DEATH draw)."""
+    the lanes alone (csrc/step_lanes.cu: no RK4 stages, the DEATH draw).
+    ``lane``: the operations of a lane read in the scalar fits (31: three
+    records collapsed and blended; 11: one collapsed table blended,
+    step_lanes.cu's aux tables)."""
     stage = 10 + 2 * 31 + fit_ops(us, 2) + fit_ops(ws, 1) + 12
     ops = 4 * stage + 40 + 60 + 82 + 5          # RK4, reflect, vertical
     pos = 4 * (10 + 12 + 8 * (us + ws)) + 40 + 60 + 82 + 5
@@ -1354,7 +1408,7 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0,
         ops += threefry + 4
         pos += 4
         if cfg.readAks:
-            v = 72 + fit_ops(ws, 1) + 2 * ws + 2 * (ws + 62 + 20)
+            v = 72 + fit_ops(ws, 1, lane) + 2 * ws + 2 * (ws + 62 + 20)
             ops += v
             pos += v
     if cfg.Behavior:
@@ -1364,11 +1418,11 @@ def ops_per_step(cfg, us, ws, curv=False, pos64=False, searches=0,
             ops += 2 * threefry + 10
             pos += 10
         if cfg.Behavior in (4, 5):
-            ops += fit_ops(us, 1)
-            pos += fit_ops(us, 1)
+            ops += fit_ops(us, 1, lane)
+            pos += fit_ops(us, 1, lane)
     if cfg.SaltTempOn:
-        ops += fit_ops(us, 2)
-        pos += fit_ops(us, 2)
+        ops += fit_ops(us, 2, lane)
+        pos += fit_ops(us, 2, lane)
     if curv:
         plain, resid = curv_solves(cfg)
         plain -= 0 if rk4 else 4
@@ -1391,7 +1445,8 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out, lanes=False):
     particle's cell, counted at these particles' positions.  ``lanes``:
     one launch of the lanes kernel K3 instead (one internal step, no RK4
     stages, the DEATH draw; K2's dx, dy, dz and for behavior 7 u1, v1
-    read)."""
+    read; its tables the step's collapsed ones: zeta and h of the stage
+    tables at t and t + idt, the aux tables' lanes)."""
     import torch
     from ltjax_torch import state as st
     from ltjax_torch.kernels import ext_step as kx
@@ -1409,19 +1464,20 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out, lanes=False):
     curv = ctx.grid.curv is not None
     if lanes:
         # what one internal step's lanes need of the tables: the corner
-        # rows of the particles' cells (zeta, h and the Aks or salt/temp
-        # lanes the variant reads, three records), the boundary rows and
-        # curvilinear map rows of those cells; K2's outputs read
+        # rows of the particles' cells (zeta and h of the stage tables at
+        # t and t + idt, the lanes of the aux tables the variant reads:
+        # Aks and salt at t, salt and temp at t + idt), the boundary rows
+        # and curvilinear map rows of those cells; K2's outputs read
         from ltjax_torch.grid import locate_rho_ij
+        from ltjax_torch.kernels import step_lanes as sl
         g = ctx.grid
         i, j, _, _ = locate_rho_ij(g, p_in.x, p_in.y)
         cells = torch.unique(j.long() * g.nx + i.long())
         rows = torch.unique(torch.cat([cells, cells + 1, cells + g.nx,
                                        cells + g.nx + 1]))
-        read = 2 + (g.ws if cfg.VTurbOn and cfg.readAks else 0) + (
-            2 * g.us if cfg.SaltTempOn
-            else g.us if cfg.Behavior in (4, 5) else 0)
-        nbytes = (rows.numel() * (read * 3 * 4 + (2 * item if curv else 0))
+        aks, cue, sample = sl.aux_reads(cfg)
+        read = 4 + g.ws * aks + g.us * cue + 2 * g.us * sample
+        nbytes = (rows.numel() * (read * 4 + (2 * item if curv else 0))
                   + cells.numel() * brows.shape[1] * item
                   + 2 * n * (item * fcols + 4 * icols)
                   + n * item * (5 if cfg.Behavior == 7 else 3))
@@ -1439,7 +1495,7 @@ def kernel_bound(cfg, ctx, prec, p_in, p_out, lanes=False):
                       for pair in kx.axes_tables(ctx, pdt) if pair
                       for t in pair)
     o32, o64 = ops_per_step(cfg, ctx.grid.us, ctx.grid.ws, curv, pos64,
-                            searches, rk4=not lanes)
+                            searches, rk4=not lanes, lane=11 if lanes else 31)
     f32, f64 = act * o32, act * o64
     if cfg.settlementon and ctx.polys is not None:
         tabs = kx.settle_tables(ctx)
@@ -1917,7 +1973,7 @@ def lanes_vs_plain(torch, phase, ctx, cfg, p, prec, fields, t, reps=5,
     """The lanes kernel K3 against its plain version on one internal step
     of the per-step route from p at t (step index 0): K2's displacement
     (and stage-1 currents) of p on the step's stage tables, then both on
-    those same inputs.  Equal statuses and DEATH decisions; the particles
+    those same inputs and the step's aux tables.  Equal statuses and DEATH decisions; the particles
     whose behavior or settlement decision flipped on round-off (a swim
     step or more apart with equal status; lanes_stepwise) at most 0.01%,
     the others within TOL_H_STEP, TOL_V, age 1e-3 s and TOL_SALT; per
@@ -1930,17 +1986,18 @@ def lanes_vs_plain(torch, phase, ctx, cfg, p, prec, fields, t, reps=5,
     from ltjax_torch.kernels import rk4_step as kr, step_lanes as sl
     g, idt = ctx.grid, float(cfg.idt)
     tabs = pk.stage_value_tables(g, prec, t, idt)
+    aux = sl.aux_tables(g, cfg, prec, t, idt)
     disp = kr.rk4_displacement_fused(g, tabs, p.x, p.y, p.z,
                                      cfg.tension_sigma, cfg.z0, idt,
                                      stage1=cfg.Behavior == 7)
 
     def kernel():
-        return sl.step_lanes_fused(ctx, cfg, cfg.seed, 0, p, fields, prec,
-                                   tabs, t, disp)
+        return sl.step_lanes_fused(ctx, cfg, cfg.seed, 0, p, fields, tabs,
+                                   aux, t, disp)
 
     def plain():
         return sl.step_lanes_reference(ctx, cfg, cfg.seed, 0, p, fields,
-                                       tabs, t, disp)
+                                       tabs, t, disp, aux)
 
     out, ref = kernel(), plain()
     sync(torch, p.x.device)
@@ -2173,16 +2230,125 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     assert counts[st.DEAD] > 0 and counts[st.SETTLED] > 0, rc
     assert float(q.salt.max() - q.salt.min()) > 1.0, rc
     out["c-lanes"] = rc
+    out["d"] = phase8d(torch, device, n=n, n_fuse=n_fuse)
     return out
+
+
+def lanes_ab():
+    """tools/lanes_ab.py of this checkout: the inputs of every K3 build's
+    main path, and their timing."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "lanes_ab", os.path.join(ROOT, "tools", "lanes_ab.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def phase8d(torch, device, n=1_000_000, n_fuse=16, n_short=2):
+    """The oyster per-step cell at 1M (tools/lanes_ab.py's "oyster"):
+    OYSTER_8D (behavior 4 on phase 2's bench grid with the halocline and
+    the parabolic Aks profile, the random walk, Visser on Aks, settlement
+    on phase 6's polygons with the hole, SaltTempOn, stochastic mortality
+    at a 2-day death age), n_fuse x 30 steps through
+    make_fused_external_steps: 480 launches each of K2 and K3 and none of
+    K1, 0 ERROR, the status counts after each external step (the same run
+    one external step a call: bit-equal to the fused call), the dead count
+    within 5 sd of the hazard on the particles active through each step,
+    warm rates, and the internal step split by the profiler; then the
+    main paths of 8a's behavior-7 and diel-migration lanes at 1M (n_short
+    x 30 steps from 9 h), and every K3 build of lanes_ab.BUILDS timed at
+    1M against its plain version."""
+    from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
+    from ltjax_torch.kernels import build, step_lanes as sl
+    from ltjax_torch.step import (_sort, fieldset_slice,
+                                  make_fused_external_steps, packed_window,
+                                  summary_counts)
+    lab = lanes_ab()
+    ctx, cfg, p0, fsR, _ = lab.cell("oyster", device, n, n_rec=n_fuse + 2)
+    dt, n_int = float(cfg.dt), cfg.internal_steps
+    tags = (build.tag("rk4_step", kr.kernel_variant(ctx.grid, p0.x.dtype)),
+            build.tag("step_lanes", sl.kernel_variant(ctx, cfg, p0.x.dtype)))
+    # one external step a call: the status counts after each
+    one = make_fused_external_steps(ctx, cfg, 1)
+    q, counts = p0, [summary_counts(p0)]
+    for e in range(n_fuse):
+        q = one(q, fieldset_slice(fsR, e), e * dt, e)
+        counts.append(summary_counts(q))
+    p, sec, launches, _ = fused_cell(torch, ctx, cfg, p0, fsR, n_fuse)
+    fused = make_fused_external_steps(ctx, cfg, n_fuse)
+    rates = []
+    for _ in range(3):
+        t1 = time.perf_counter()
+        fused(p0, fsR, 0.0, 0)
+        sync(torch, device)
+        rates.append(n * n_int * n_fuse / (time.perf_counter() - t1))
+    # deaths of step e: between p_ext of the particles active through it
+    # (active at its start less those it settled or carried out) and
+    # p_ext of those active at its start
+    p_ext = -np.expm1(-dt / cfg.deadage)
+    act = np.array([c["active"] for c in counts[:-1]], float)
+    left = np.array([(b["settled"] - a["settled"])
+                     + (b["out_of_domain"] - a["out_of_domain"])
+                     for a, b in zip(counts[:-1], counts[1:])], float)
+    lo, hi = p_ext * (act - left).sum(), p_ext * act.sum()
+    sd = float(np.sqrt((p_ext * (1 - p_ext) * act).sum()))
+    final = counts[-1]
+    res = {"phase": "8d", "n": n, "ext_steps": n_fuse,
+           "internal_steps": n_int, "variants": list(tags),
+           "launches": launches, "seconds": sec,
+           "particle_steps_per_s": n * n_int * n_fuse / sec,
+           "warm_rates": rates, "counts_by_ext_step": counts,
+           "dead_share": final["dead"] / n,
+           "dead_share_expected": [lo / n, hi / n],
+           "dead_share_sd": sd / n, "settled_share": final["settled"] / n,
+           "active_share": final["active"] / n,
+           "fused_equals_stepwise": all(
+               bool(torch.equal(getattr(p, k), getattr(q, k)))
+               for k in ("x", "y", "z", "status", "salt", "temp"))}
+    log(res)
+    if device.type == "cuda":
+        assert launches == {tags[0]: n_fuse * n_int,
+                            tags[1]: n_fuse * n_int}, res
+    assert summary_counts(p) == final and res["fused_equals_stepwise"], res
+    assert final["error"] == 0 and final["dead"] > 0, res
+    assert final["settled"] > 0, res
+    assert lo - 5 * sd <= final["dead"] <= hi + 5 * sd, res
+    assert all(bool(torch.isfinite(getattr(p, k)).all())
+               for k in ("x", "y", "z", "salt", "temp")), res
+    ps, _ = _sort(ctx.grid, p0)
+    prec3 = packed_window(ctx, cfg, "per_step", fieldset_slice(fsR, 0))
+    res["profile"] = per_step_profile(torch, ctx, cfg, ps, prec3,
+                                      fieldset_slice(fsR, 0))
+    log({k: res[k] for k in ("phase", "profile")})
+    # 8a's threshold lanes on their own main paths (cut to n_short steps)
+    res["short"] = {}
+    for name in ("b7", "b3"):
+        c8, f8, p8, fs8, t8 = lab.cell(name, device, n, n_rec=n_short + 2)
+        _, s8, l8, _ = fused_cell(torch, c8, f8, p8, fs8, n_short, t0=t8)
+        tag8 = build.tag("step_lanes", sl.kernel_variant(c8, f8, p8.x.dtype))
+        res["short"][name] = {"variant": tag8, "launches": l8,
+                              "seconds": s8}
+        if device.type == "cuda":
+            assert l8.get(tag8) == n_short * n_int, res["short"]
+            assert kx.ext_step_fused.launches == 0, res["short"]
+    res["builds"] = {name: lab.time_build(name, device, n)
+                     for name in lab.BUILDS}
+    log({"phase": "8d-builds", "short": res["short"],
+         **{name: {k: r.get(k) for k in ("variant", "kernel_ms", "call_ms",
+                                         "host_ms", "plain_ms", "bound",
+                                         "bound_share", "decision_flips")}
+            for name, r in res["builds"].items()}})
+    return res
 
 
 def per_step_profile(torch, ctx, cfg, p, prec, fields):
     """Where an internal step of the per-step route spends the device's
     time: torch.profiler over one warm external step (cfg.internal_steps
     internal steps) for K2's and K3's device time (by kernel name) and all
-    device time, and over the stage-table builds of those steps alone;
-    the rest is the route's other ops (the copies of K3's params, the
-    sort's).  Idle share: 1 - device time / wall.  The wrappers must count
+    device time, and over the table builds of those steps alone (the
+    stage value tables and K3's aux tables); the rest is the route's other
+    ops.  Idle share: 1 - device time / wall.  The wrappers must count
     cfg.internal_steps launches each in the profiled call; the profiler's
     records are held to those counts (``profile_window``), and
     ``profiler_complete`` is false if every window lost one."""
@@ -2212,6 +2378,7 @@ def per_step_profile(torch, ctx, cfg, p, prec, fields):
     def tables():
         for i in range(n_int):
             pk.stage_value_tables(ctx.grid, prec, i * idt, idt)
+            sl.aux_tables(ctx.grid, cfg, prec, i * idt, idt)
 
     tables()
     torch.cuda.synchronize()
@@ -2222,9 +2389,10 @@ def per_step_profile(torch, ctx, cfg, p, prec, fields):
            "profiler_complete": complete, "device_ms": all_ms,
            "k2_ms": k2_ms, "k3_ms": k3_ms, "stage_tables_ms": tab_ms,
            "other_ms": all_ms - k2_ms - k3_ms - tab_ms, "wall_ms": wall,
-           "idle_share": 1.0 - all_ms / wall,
-           "k2_share_of_device": k2_ms / all_ms,
-           "k3_share_of_device": k3_ms / all_ms}
+           # None where the profiler kept no device record at all
+           "idle_share": 1.0 - all_ms / wall if all_ms else None,
+           "k2_share_of_device": k2_ms / all_ms if all_ms else None,
+           "k3_share_of_device": k3_ms / all_ms if all_ms else None}
     if not complete:
         log({"warning": "the profiler lost a kernel record in every "
                         "window; device times are short by it", **res})
@@ -2348,27 +2516,27 @@ def phase9a(torch, device, n=65536, nx=200, us=20):
     return out
 
 
-def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True):
-    """One call of make_fused_external_steps (the main path) on p0, after
-    a warm call on 128 particles, with every launch count and the staging
-    counters set to 0 just before it: (particles, seconds, {tag:
+def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True, t0=0.0):
+    """One call of make_fused_external_steps (the main path) on p0 from t0,
+    after a warm call on 128 particles, with every launch count and the
+    staging counters set to 0 just before it: (particles, seconds, {tag:
     launches} of the three kernels, staging counters)."""
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
     from ltjax_torch.kernels import step_lanes as sl
     from ltjax_torch.step import make_fused_external_steps
     fused = make_fused_external_steps(ctx, cfg, n_fuse)
     if warm:
-        fused(p0.take(torch.arange(128, device=p0.x.device)), fsR, 0.0, 0)
+        fused(p0.take(torch.arange(128, device=p0.x.device)), fsR, t0, 0)
     sync(torch, p0.x.device)
     kx.reset_launches()
     kr.rk4_displacement_fused.launches = 0
     kr.rk4_displacement_fused.variant_launches = {}
     sl.step_lanes_fused.launches = 0
     sl.step_lanes_fused.variant_launches = {}
-    t0 = time.perf_counter()
-    p = fused(p0, fsR, 0.0, 0)
+    start = time.perf_counter()
+    p = fused(p0, fsR, t0, 0)
     sync(torch, p0.x.device)
-    sec = time.perf_counter() - t0
+    sec = time.perf_counter() - start
     launches = {**kx.ext_step_fused.variant_launches,
                 **kr.rk4_displacement_fused.variant_launches,
                 **sl.step_lanes_fused.variant_launches}
@@ -3783,17 +3951,20 @@ def phase12a(torch, device, n=65536, n_ext=2):
     return out
 
 
-def phase12b(torch, device, sizes=((1_000_000, 2), (4_000_000, 1)),
+def phase12b(torch, device,
+             sizes=((1_000_000, 2, tuple(BAND_SETTINGS)),
+                    (4_000_000, 1, ("none", "3x16m"))),
              n_fuse=16, sort_every=(2, 1), nx=200, us=20):
     """K1 on the sheared population at full width: 16 x 30 steps through
     make_fused_external_steps at 1M (about 70 particles a cell) and 4M
-    (about 280), for each of BAND_SETTINGS with ext_sort_every 2 and 1:
-    particle-steps/s of each call (1M: a cold call and a warm one; 4M:
-    the cold call only), K1's and the sort's ms per external step, the
-    staging counters and the staged share, and the distance from the
-    closed form of the particles between the outer rho levels (the
-    closed form knows no bottom log layer and no extrapolation above the
-    top level), held to phase 2's tolerance."""
+    (about 280), for each size's BAND_SETTINGS (1M: all of them; 4M,
+    cut for time: unbanded and 3 bands of 16 m) with ext_sort_every 2
+    and 1: particle-steps/s of each call (1M: a cold call and a warm
+    one; 4M: the cold call only), K1's and the sort's ms per external
+    step, the staging counters and the staged share, and the distance
+    from the closed form of the particles between the outer rho levels
+    (the closed form knows no bottom log layer and no extrapolation
+    above the top level), held to phase 2's tolerance."""
     from dataclasses import replace
     from ltjax_torch import synth
     from ltjax_torch.step import summary_counts
@@ -3803,12 +3974,13 @@ def phase12b(torch, device, sizes=((1_000_000, 2), (4_000_000, 1)),
     fsR = synth.fieldset_window(case, -dt / 2, dt, n_fuse + 2, device=device)
     z_rho = (50.0 * case.grid.s_rho).cpu().numpy()
     out = {}
-    for n, calls in sizes:
+    for n, calls, settings in sizes:
         p0, x0, y0, z0 = sheared_particles(torch, device, n, torch.float32)
         xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
         inner = (z0 > z_rho.min()) & (z0 < z_rho.max())
         for se in sort_every:
-            for bands, kw in BAND_SETTINGS.items():
+            for bands in settings:
+                kw = BAND_SETTINGS[bands]
                 cfg = replace(make_cfg(n, us=us, ws=us + 1,
                                        ext_sort_every=se), **kw)
                 key = f"12b-{n / 1e6:g}M-{bands}-every{se}"
@@ -4535,30 +4707,41 @@ def main(argv=None):
             "ms": k1m["kernel_ms"], "plain_ms": k1m["plain_ms"],
             "bound_ms": r["rk4_bound"]["bound_ms"],
             "bound_by": r["rk4_bound"]["bound_by"], "library_ms": None})
-    # the per-step lanes kernel K3: launches of the main paths (8b; 9c,
-    # 9d, 9e), the errors of every comparison with its plain version, times
-    # per launch at 1M on the main paths' first internal step
+    # the per-step lanes kernel K3, every build that a main path runs:
+    # its launches there (8b, 8d and 8d's short paths; 9c, 9d, 9e; 11b's
+    # tiles), the errors of every comparison with its plain version, times
+    # per launch at 1M on its main path's first internal step (8d's
+    # builds)
     lane_errs = errs + ("max_abs_dage",)
-    for name, main, launches, comps in (
-            ("", r8["b"]["lanes"]["1M"], r8["b"]["launches"]["step_lanes"],
-             [r8[c] for c in r8 if c.startswith("a-lanes")]
-             + list(r8["b"]["lanes"].values())),
-            ("[axes]", r9["c-stochastic"]["lanes"],
-             r9["c-stochastic"]["launches"][
-                 r9["c-stochastic"]["lanes_variant"]], []),
-            ("[curv]", r9["d"]["lanes"],
-             r9["d"]["launches"][r9["d"]["lanes_variant"]], []),
-            ("[f64]", r9["b"]["lanes"],
-             r9["e"]["stochastic"]["launches"]["step_lanes-b6h0p1v0"], [])):
+    r8d, r11b = r8["d"], res[11]["b"]["11b-1x4-stochastic"]
+    short = r8d["short"]
+    k3_launches = {
+        "b6": r8["b"]["launches"]["step_lanes"],
+        "oyster": r8d["launches"][r8d["variants"][1]],
+        "b7": short["b7"]["launches"][short["b7"]["variant"]],
+        "b3": short["b3"]["launches"][short["b3"]["variant"]],
+        "f64": r9["e"]["stochastic"]["launches"]["step_lanes-b6h0p1v0"],
+        "axes": r9["c-stochastic"]["launches"][
+            r9["c-stochastic"]["lanes_variant"]],
+        "curv": r9["d"]["launches"][r9["d"]["lanes_variant"]],
+        "tile-f64": sum(r11b["k3_launches"])}
+    k3_comps = {"b6": [r8[c] for c in r8 if c.startswith("a-lanes")]
+                + list(r8["b"]["lanes"].values()),
+                "axes": [r9["c-stochastic"]["lanes"]],
+                "curv": [r9["d"]["lanes"]], "f64": [r9["b"]["lanes"]]}
+    for name, launches in k3_launches.items():
+        main = r8d["builds"][name]
         kernels.append({
-            "name": "step_lanes_fused" + name, "route": "cuda",
-            "source": LANES_SRC, "replaces": LANES_REPLACES,
-            "launches": launches,
-            "max_abs_err": max(q[k] for q in [main, *comps]
+            "name": "step_lanes_fused" + ("" if name == "b6"
+                                          else f"[{name}]"),
+            "route": "cuda", "source": LANES_SRC,
+            "replaces": LANES_REPLACES, "launches": launches,
+            "max_abs_err": max(q[k] for q in [main, *k3_comps.get(name, [])]
                                for k in lane_errs),
             "ms": main["kernel_ms"], "plain_ms": main["plain_ms"],
             "bound_ms": main["bound"]["bound_ms"],
-            "bound_by": main["bound"]["bound_by"], "library_ms": None})
+            "bound_by": main["bound"]["bound_by"],
+            "bound_share": main["bound_share"], "library_ms": None})
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

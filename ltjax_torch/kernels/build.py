@@ -47,6 +47,7 @@ def _nvcc() -> str:
 
 
 @functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=None)
 def _macros(name: str):
     """The LTX_ macros that csrc/<name>.cu declares (its #ifndef lines),
     read once: every launch computes its variant's tag."""
@@ -61,6 +62,13 @@ def tag(name: str, variant=None) -> str:
     shares (lower case): ext_step-b3h1m0v2, ext_step-b4h0m0sa1se1v0."""
     if not variant:
         return name
+    return _tag(name, tuple(sorted(variant.items())))
+
+
+@functools.lru_cache(maxsize=None)
+def _tag(name: str, items) -> str:
+    """tag of the sorted (macro, value) pairs, once per variant: every
+    launch names its library."""
     others = _macros(name)
 
     def abbrev(k):
@@ -70,8 +78,7 @@ def tag(name: str, variant=None) -> str:
                 return k[:i].lower()
         return k.lower()
 
-    return name + "-" + "".join(f"{abbrev(k)}{v}"
-                                for k, v in sorted(variant.items()))
+    return name + "-" + "".join(f"{abbrev(k)}{v}" for k, v in items)
 
 
 @functools.lru_cache(maxsize=None)

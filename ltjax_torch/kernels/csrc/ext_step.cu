@@ -395,6 +395,12 @@ struct Staged {
   __device__ __forceinline__ Records rec(int q) const {
     return Records{a, sp, l, q};
   }
+  // behavior 3's surface irradiance of internal step i (after the 9
+  // polintd weights of every internal step)
+  __device__ __forceinline__ pos_t e0(int i) const {
+    const pos_t* pcoef = ppar(a) + P_HEAD + 2 * (a.us + a.ws);
+    return pcoef[9 * a.n_int + i];
+  }
 };
 
 // blocks of 128 threads an SM that __launch_bounds__ asks for: 4 (at most

@@ -26,7 +26,8 @@
 //
 // The vertical fit streams the levels: knots and blended values are
 // computed level by level inside the Thomas forward sweep, so only the
-// sweep's cp/dp columns live in local memory (MAX_LEVELS floats each);
+// sweep's cp/dp columns live in local memory (MAX_LEVELS floats each;
+// step_lanes.cu's float32 fits: shared-memory Columns);
 // the evaluation interval is captured on the fly and the backward sweep
 // stops there.  Arithmetic mirrors the plain PyTorch version operation
 // for operation (IEEE divides, the same small-tension series).
@@ -235,15 +236,25 @@ __device__ __forceinline__ P knot_depth(P hc, int vt, P s, P cs, P zeta,
   return zeta + (zeta + h) * s_;
 }
 
+// a thread's column of fit scratch in shared memory: word i at i * S
+// from its first (the block's threads side by side, S = the block size)
+template <class R, int S>
+struct Column {
+  R* p;
+  __device__ __forceinline__ R& operator[](int i) const { return p[i * S]; }
+};
+
 // Natural tension-spline fit of up to two profiles sharing one knot
 // ladder (lanes lane0 [, lane1]) and clamped evaluation at zq: the
 // value, or (DERIV) the derivative, in the scalar type R (the blended
 // lanes and the knots rounded to it).  Returns the first knot depth
-// through z_first (log layer).
-template <bool DERIV = false, class R, class Src, class St, class L>
+// through z_first (log layer).  The sweep's columns cp, dp0, dp1 are R
+// arrays (local memory) or Columns.
+template <bool DERIV = false, class R, class Src, class St, class L,
+          class C>
 __device__ void fit_eval(const Src& src, const TensionT<R>& T, const St& st,
                          const L* s_lad, const L* cs_lad, int K, int lane0,
-                         int lane1, R zeta, R h, R zq, R* cp, R* dp0, R* dp1,
+                         int lane1, R zeta, R h, R zq, C cp, C dp0, C dp1,
                          R& out0, R& out1, R& z_first) {
   const bool two = lane1 >= 0;
   R zprev = (R)src.knot(s_lad[0], cs_lad[0], zeta, h);

@@ -6,12 +6,12 @@
 // cell rows, the params vector and the Threefry key pairs), the polygon
 // tables (Settle), the curvilinear map (Curv) and the searched axes
 // (Axes).  Here: the cell location off any staged tiles (locate), the
-// raw records' corner path (record_lane), boundary reflection (reflect,
-// in_water), the settlement ray cast (settle_id), the counter-based
-// streams (particle_bits: ltjax.rng bit for bit) and the Visser fit
-// (visser_dz), then step_lanes, the lanes themselves, templated on the
-// corner source of their lane reads.  The including source defines its
-// LTX_* macros first.
+// raw records' corner path (record_lane: ext_step.cu's misses), boundary
+// reflection (reflect, in_water), the settlement ray cast (settle_id), the
+// counter-based streams (particle_bits: ltjax.rng bit for bit) and the
+// Visser fit (visser_dz), then step_lanes, the lanes themselves,
+// templated on the corner source of their lane reads.  The including
+// source defines its LTX_* macros first.
 
 #pragma once
 
@@ -427,10 +427,10 @@ __device__ __forceinline__ pos_t bits_to_uniform(uint32_t b) {
 // column: knots zk, second derivatives z2, values re-read from the lanes;
 // in the positions' type (physics.turb.vturb fits in the particles'
 // dtype)
-template <class Rec>
+template <class Rec, class C>
 __device__ pos_t aks_eval(const Rec& r, const TensionT<pos_t>& T,
-                          const Stencil& st, const pos_t* zk,
-                          const pos_t* z2, int K, pos_t zq, bool deriv) {
+                          const Stencil& st, const C& zk, const C& z2, int K,
+                          pos_t zq, bool deriv) {
   zq = m_min(m_max(zq, zk[0]), zk[K - 1]);
   int j = 0;
   for (int k = 1; k < K; ++k) j += zq >= zk[k] ? 1 : 0;
@@ -452,11 +452,10 @@ __device__ pos_t aks_eval(const Rec& r, const TensionT<pos_t>& T,
 // corner source r (stage 1);
 // physics.turb.vturb: Aks clipped at >= 0 before a natural tension fit
 // on the w ladder, z_mid = clip(z + K' idt / 2) to the knot range.
-template <class Rec>
+template <class Rec, class C>
 __device__ pos_t visser_dz(const Rec& r, const Args& a, pos_t sigma,
                            const Stencil& st, pos_t zeta, pos_t h, pos_t z,
-                           pos_t R, pos_t idt, pos_t* cp, pos_t* z2,
-                           pos_t* zk) {
+                           pos_t R, pos_t idt, C cp, C z2, C zk) {
   TensionT<pos_t> T;         // tension.evaluate: series at sigma = 0
   T.sigma = sigma;
   T.small = POS_SMALL;
@@ -520,20 +519,24 @@ __device__ pos_t visser_dz(const Rec& r, const Args& a, pos_t sigma,
 //       (0: t, 1: t + idt/2, 2: t + idt) blended at s
 //   Rec rec(int q)                        find_currents.cuh's corner
 //       source of stage q (fit_eval, visser_dz)
+//   pos_t e0(int i)                       behavior 3's surface
+//       irradiance at internal step i
 //
 // ext_step.cu's is the block's staged tiles with the raw records behind
-// them, step_lanes.cu's the raw records in device memory.
-template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT, class Src>
+// them, step_lanes.cu's the step's time-collapsed tables in device
+// memory.  cq, dq0, dq1: the scalar fits' scratch columns (C: pos_t
+// arrays, or find_currents.cuh Columns in shared memory).
+template <int HT, int VT, int BEH, int MORT, int SETTLE, int SALT, class Src,
+          class C>
 __device__ __forceinline__ void step_lanes(
     const Src& c, const Args& a, const Settle& sg, const Curv& cv,
-    const Axes& ax, const TensionT<pos_t>& Ts, pos_t* cq, pos_t* dq0,
-    pos_t* dq1, int stride, int i, uint32_t pid, pos_t age_pre, pos_t u1,
+    const Axes& ax, const TensionT<pos_t>& Ts, C cq, C dq0, C dq1,
+    int stride, int i, uint32_t pid, pos_t age_pre, pos_t u1,
     pos_t v1, pos_t dx, pos_t dy, pos_t dz, pos_t& x, pos_t& y, pos_t& z,
     int& st, int& spoly, pos_t& salt, pos_t& temp, int& hitl, int& hitb) {
   constexpr bool SWIM = BEH >= 1 && BEH <= 5;
   const pos_t* par = ppar(a);
   const pos_t idt = par[P_IDT];
-  const pos_t* pcoef = par + P_HEAD + 2 * (a.us + a.ws);
   // --- turbulence ------------------------------------------------------
   if constexpr (HT) {
     uint32_t b0, b1;
@@ -584,7 +587,7 @@ __device__ __forceinline__ void step_lanes(
       } else if constexpr (BEH == 2) {
         bz = z > (-h_b + pos_t(2)) ? biased : rnd;     // BOTTOM_ZONE
       } else if constexpr (BEH == 3) {
-        pos_t e0 = pcoef[9 * a.n_int + i];
+        pos_t e0 = c.e0(i);
         pos_t light = e0 * m_exp(-par[P_KP] * m_max(zeta_b - z, pos_t(0)));
         bz = light > par[P_THRESH] ? -wsw * idt
              : (e0 > pos_t(0) ? wsw * idt : rnd);

@@ -93,22 +93,25 @@ def surface_irradiance(t, p: BehaveParams, dtype):
                        torch.zeros_like(tau))
 
 
-def _salt_gradient(grid, fields, x, y, z, t, sigma):
+def _salt_gradient(grid, fields, x, y, z, t, sigma, profile=None):
     """(dS/dz, S) at particles: the derivative and value of the tension
-    spline fitted to the salt profile of the particle's column at t."""
-    z_r, prof_t = scalar_profile(grid, fields, fields.salt, x, y, t)
+    spline fitted to the salt profile of the particle's column at t (or
+    of ``profile(x, y) -> (z_r, salt)``)."""
+    z_r, prof_t = (profile(x, y) if profile is not None
+                   else scalar_profile(grid, fields, fields.salt, x, y, t))
     z2 = tension.fit(z_r, prof_t, sigma)
     return (tension.evaluate_deriv(z_r, prof_t, z2, sigma, z),
             tension.evaluate(z_r, prof_t, z2, sigma, z))
 
 
 def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
-           currents, p: BehaveParams):
+           currents, p: BehaveParams, salt_profile=None):
     """Behavioral displacement (dx, dy, dz) and death mask for this step.
 
     zeta_p/h_p: free surface and depth at each particle; currents: (u, v)
     at the particle (used by type 7); ``fields`` carries the salt that
-    types 4/5 cue on."""
+    types 4/5 cue on, or ``salt_profile(x, y) -> (z_r, salt)`` the rho
+    depths and salt profile of the particles' columns at t."""
     check_ported(p)
     dtype = x.dtype
     dev = x.device
@@ -143,7 +146,8 @@ def behave(grid, fields, seed, step, pids, x, y, z, t, age, zeta_p, h_p,
                          torch.where(e0 > 0.0, w_swim * idt,
                                      r_mix * w_swim * idt))
     elif b in (4, 5):
-        dsdz, _ = _salt_gradient(grid, fields, x, y, z, t, p.sigma)
+        dsdz, _ = _salt_gradient(grid, fields, x, y, z, t, p.sigma,
+                                 salt_profile)
         cue = dsdz.abs() >= p.Sgradient
         up = biased_dz(True)
         rnd = r_mix * w_swim * idt

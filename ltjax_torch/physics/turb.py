@@ -47,8 +47,11 @@ def hturb(seed, step, pids, idt, constant_hturb, dtype):
 
 
 def vturb(grid: Grid, fields: FieldSet, seed, step, pids, x, y, z, t,
-          params: TurbParams):
-    """dz vertical random displacement (Visser RDM)."""
+          params: TurbParams, profile=None):
+    """dz vertical random displacement (Visser RDM).  ``profile(x, y) ->
+    (z_w, aks)``, if given, takes the place of the FieldSet's Aks
+    column at t: the w-level depths and the Aks profile (N, ws) in the
+    particles' dtype."""
     dtype = x.dtype
     dev = x.device
     idt = torch.full((), params.idt, dtype=dtype, device=dev)
@@ -60,18 +63,22 @@ def vturb(grid: Grid, fields: FieldSet, seed, step, pids, x, y, z, t,
         K = torch.full((), params.ConstantVTurb, dtype=dtype, device=dev)
         return R * torch.sqrt(2.0 * K * idt / r_var)
 
-    ir, jr, fxr, fyr = locate_rho(grid, x, y)
-    fd = fields.aks.dtype
-    aks_prof = interp_columns(fields.aks, ir, jr, fxr.to(fd),
-                              fyr.to(fd)).to(dtype)                # (3,N,ws)
-    zeta_l = interp2d(fields.zeta, ir, jr, fxr.to(fd),
-                      fyr.to(fd)).to(dtype)                        # (3,N)
-    hd = grid.h.dtype
-    h_p = interp2d(grid.h, ir, jr, fxr.to(hd), fyr.to(hd)).to(dtype)
-    prof_t = polintd(aks_prof, fields.times, t)                    # (N,ws)
-    zeta_t = polintd(zeta_l, fields.times, t)
-    z_w = s_depths(zeta_t, h_p, grid.s_w.to(dtype), grid.Cs_w.to(dtype),
-                   grid.hc, grid.vtransform)                       # (N,ws)
+    if profile is not None:
+        z_w, prof_t = profile(x, y)
+    else:
+        ir, jr, fxr, fyr = locate_rho(grid, x, y)
+        fd = fields.aks.dtype
+        aks_prof = interp_columns(fields.aks, ir, jr, fxr.to(fd),
+                                  fyr.to(fd)).to(dtype)            # (3,N,ws)
+        zeta_l = interp2d(fields.zeta, ir, jr, fxr.to(fd),
+                          fyr.to(fd)).to(dtype)                    # (3,N)
+        hd = grid.h.dtype
+        h_p = interp2d(grid.h, ir, jr, fxr.to(hd), fyr.to(hd)).to(dtype)
+        prof_t = polintd(aks_prof, fields.times, t)                # (N,ws)
+        zeta_t = polintd(zeta_l, fields.times, t)
+        z_w = s_depths(zeta_t, h_p, grid.s_w.to(dtype),
+                       grid.Cs_w.to(dtype), grid.hc,
+                       grid.vtransform)                            # (N,ws)
     # Aks is non-negative: clip before the fit and clip the spline too
     # (a tension spline can undershoot)
     prof_t = torch.clamp(prof_t, min=0.0)

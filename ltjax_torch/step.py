@@ -168,8 +168,13 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     version of the CUDA kernels' per-thread step); "kernel" takes both
     from ``kernels.rk4_step.rk4_displacement_fused`` and the lanes after
     them from ``kernels.step_lanes.step_lanes_fused`` (the CUDA kernels K2
-    and K3 on CUDA tensors, the same PyTorch code on CPU tensors); the
-    other modes run the lanes as PyTorch ops (``step_lanes.lanes``);
+    and K3 on CUDA tensors, the same PyTorch code on CPU tensors), each
+    reading the step's time-collapsed tables: K2 the three stage value
+    tables, K3 zeta and h from those at t and t + idt and the Aks, salt
+    and temp lanes from the step's aux tables, ``prec``'s lanes collapsed
+    to t and t + idt once a step (``step_lanes.aux_tables``; without those
+    lanes in ``prec`` the plain version reads ``fields``); the other
+    modes run the lanes as PyTorch ops (``step_lanes.lanes``);
     "native" takes
     advection, the free surface and behavior 7's currents from
     ``physics.advect`` straight off ``fields`` (the reference's order,
@@ -197,8 +202,9 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
         disp = kr.rk4_displacement_fused(
             grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
             stage1=cfg.Behavior == 7)
-        return sl.step_lanes_fused(ctx, cfg, seed, step_idx, p, fields,
-                                   prec, tabs, t, disp)
+        return sl.step_lanes_fused(ctx, cfg, seed, step_idx, p, fields, tabs,
+                                   sl.aux_tables(grid, cfg, prec, t, idt), t,
+                                   disp)
     if native:
         dx, dy, dz = rk4_displacement(grid, fields, p.x, p.y, p.z, t0_h,
                                       adv)

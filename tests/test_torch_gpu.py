@@ -1128,6 +1128,9 @@ K3_CASES = {
                                  readTemp=True)),
     "stretched": ("stretched", torch.float32, LANES["settle"]),
     "tile": ("tile", torch.float32, dict(Behavior=6, sink=5e-4)),
+    "oyster": ("uniform", torch.float32, dict(
+        LANES["behavior4"], **LANES["turb-aks"], **LANES["salt"],
+        settlementon=True, holesExist=True)),
 }
 
 
@@ -1189,11 +1192,12 @@ def test_lanes_kernel_matches_plain(gpu, name):
         disp = kr.rk4_displacement_fused(g, tabs, q.x, q.y, q.z, 0.0,
                                          cfg1.z0, idt,
                                          stage1=cfg1.Behavior == 7)
+        aux = sl.aux_tables(g, cfg1, prec, t, idt)
         sl.step_lanes_fused.variant_launches = {}
-        out = sl.step_lanes_fused(ctx, cfg1, 5, i, q, fs, prec, tabs, t,
+        out = sl.step_lanes_fused(ctx, cfg1, 5, i, q, fs, tabs, aux, t,
                                   disp)
         ref = sl.step_lanes_reference(ctx, cfg1, 5, i, q, fs, tabs, t,
-                                      disp)
+                                      disp, aux)
         torch.cuda.synchronize()
         assert sl.step_lanes_fused.variant_launches == {tag: 1}
         assert torch.equal(out.status, ref.status)
@@ -1219,6 +1223,49 @@ def test_lanes_kernel_matches_plain(gpu, name):
     assert (geometry == "tile") == bool((p.status == -1).any())
     if cfg1.SaltTempOn:
         assert float(q.salt.max() - q.salt.min()) > 1.0
+
+
+@pytest.mark.gpu
+def test_lanes_kernel_copies_nothing_from_the_host(gpu):
+    """30 internal steps of the per-step route (the oyster lanes): the
+    profiler records K2's and K3's 30 launches each, and no host-to-device
+    copy and no pinned allocation after the first step (the static params
+    and tables are made once per context)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from ltjax_torch.kernels import step_lanes as sl
+    from ltjax_torch.step import per_step_external
+    c, ctx, cfg, p = _case(gpu, omega=1e-5)
+    c.parabolic_aks = True
+    c.halocline = True
+    cfg = replace(cfg, **{**BEH, **K3_CASES["oyster"][2], **STOCHASTIC})
+    habitat, holes = _polygons()
+    xe = ctx.bounds.x_edges.cpu().numpy()
+    ye = ctx.bounds.y_edges.cpu().numpy()
+    ctx.polys = stl.build_polygons(habitat, xe, ye, device=gpu)
+    ctx.holes = stl.build_polygons(holes, xe, ye, device=gpu)
+    fs = synth.fieldset_for(c, t_center=900.0, dt=1800.0)
+    prec = pk.build_packed_records(ctx.grid, fs, with_aks=True,
+                                   with_scalars=True)
+    # 30 internal steps of 60 s inside the records' span
+    cfg1 = replace(cfg, idt=60, dt=60)
+    per_step_external(ctx, cfg1, p, prec, 0.0, fs, 0)    # the static part
+    torch.cuda.synchronize()
+    cfg30 = replace(cfg1, dt=30 * 60)
+    n3 = sl.step_lanes_fused.launches
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = per_step_external(ctx, cfg30, p, prec, 0.0, fs, 1)
+        torch.cuda.synchronize()
+    assert sl.step_lanes_fused.launches == n3 + 30
+    ev = prof.events()
+    dev_ev = [e for e in ev if e.device_type == DeviceType.CUDA]
+    assert sum("step_lanes_kernel" in e.name for e in dev_ev) == 30
+    assert sum("rk4_step_kernel" in e.name for e in dev_ev) == 30
+    h2d = [e.name for e in ev if "HtoD" in e.name or "Memcpy HtoD" in e.name
+           or "pin_memory" in e.name or "cudaHostAlloc" in e.name]
+    assert not h2d, h2d[:5]
+    assert torch.isfinite(out.x).all() and torch.isfinite(out.salt).all()
 
 
 @pytest.mark.gpu

@@ -146,8 +146,14 @@ def _cfg(name):
                   **{**BEH, **LANES[name], **STOCHASTIC})
 
 
+@pytest.mark.parametrize("source", ["fields", "tables"])
 @pytest.mark.parametrize("name", list(LANES))
-def test_per_step_lanes_match_ltjax_collapsed(case, name):
+def test_per_step_lanes_match_ltjax_collapsed(case, name, source):
+    """The plain version's two sources of Aks, salt and temp: ``fields``
+    (a record table without those lanes: the FieldSet window, blended then
+    collapsed, the collapsed route's own lanes bit for bit) and
+    ``tables`` (the route's aux tables, collapsed then blended, what the
+    kernel reads): both at ltjax's tolerances."""
     grid, fs, bounds, p = case
     cfg = _cfg(name)
     cfg.validate()
@@ -155,7 +161,11 @@ def test_per_step_lanes_match_ltjax_collapsed(case, name):
     jctx, ctx = _contexts(grid, bounds, cfg)
     jprec = jpk.build_packed_records(grid, fs)
     tfs = interop.fieldset_from_numpy(_np(fs))
-    prec = tpk.build_packed_records(ctx.grid, tfs)
+    tables = source == "tables"
+    prec = tpk.build_packed_records(ctx.grid, tfs, with_aks=tables,
+                                    with_scalars=tables)
+    assert (sl.aux_tables(ctx.grid, cfg, prec, 0.0, 300.0) is None) == (
+        not tables and name == "oyster")
     pj, pt = p, interop.particles_from_numpy(_np(p))
     for i in range(2):
         t = i * 300.0
@@ -167,7 +177,12 @@ def test_per_step_lanes_match_ltjax_collapsed(case, name):
                                 mode="collapsed")
         for k in ("x", "y", "z", "age", "status", "settle_poly", "salt",
                   "temp", "hit_land", "hit_bottom"):
-            assert torch.equal(getattr(q, k), getattr(c, k)), k
+            if tables and name == "oyster" and k in ("z", "salt", "temp"):
+                # the other order of blend and collapse: float64 round-off
+                torch.testing.assert_close(getattr(q, k), getattr(c, k),
+                                           rtol=0, atol=1e-9)
+            else:
+                assert torch.equal(getattr(q, k), getattr(c, k)), k
         out = interop.particles_to_numpy(q)
         for k in ("status", "settle_poly", "hit_land", "hit_bottom"):
             np.testing.assert_array_equal(out[k], np.asarray(getattr(pj, k)))
@@ -201,8 +216,11 @@ def test_reference_equals_wrapper_on_cpu(case):
                                            pt.z, 0.0, cfg.z0, 300.0)
             + tpk.find_currents_collapsed(ctx.grid, tabs[0], pt.x, pt.y,
                                           pt.z, 0.0, cfg.z0)[:2])
-    a = sl.step_lanes_fused(ctx, cfg, 9, 3, pt, tfs, prec, tabs, 0.0, disp)
-    b = sl.step_lanes_reference(ctx, cfg, 9, 3, pt, tfs, tabs, 0.0, disp)
+    aux = sl.aux_tables(ctx.grid, cfg, prec, 0.0, 300.0)
+    assert aux == sl.Aux(None, None)        # behavior 7 reads no aux lane
+    a = sl.step_lanes_fused(ctx, cfg, 9, 3, pt, tfs, tabs, aux, 0.0, disp)
+    b = sl.step_lanes_reference(ctx, cfg, 9, 3, pt, tfs, tabs, 0.0, disp,
+                                aux)
     n0 = sl.step_lanes_fused.launches
     for k in ("x", "y", "z", "age", "status", "hit_land"):
         assert torch.equal(getattr(a, k), getattr(b, k)), k
@@ -210,13 +228,22 @@ def test_reference_equals_wrapper_on_cpu(case):
     assert (b.status == jst.DEAD).sum() > 0
 
 
+@pytest.mark.parametrize("derivation", ["host", "kernel"])
 @pytest.mark.parametrize("seed,step", [(0, 0), (9, 41), (2**40 + 7, 123456),
                                        ((5, 11), 7)])
-def test_key_vector_carries_the_death_pair(seed, step):
-    """step_keys: the (step, substream) key pairs of HTURB, VTURB, BEHAVE,
-    MORTALITY and DEATH in that order (substream s at words 2s, 2s + 1),
-    so the kernel's DEATH words are rng.stream_key(seed, step, DEATH)."""
-    keys = sl.step_keys(seed, step)
+def test_key_vector_carries_the_death_pair(seed, step, derivation):
+    """The (step, substream) key pairs of HTURB, VTURB, BEHAVE, MORTALITY
+    and DEATH in that order (substream s at words 2s, 2s + 1), so the
+    kernel's DEATH words are rng.stream_key(seed, step, DEATH): on the
+    host (step_keys), and as the kernel derives them from its arguments
+    (launch_words: the seed words, the step as a uint32 word; kernel_keys,
+    its plain twin)."""
+    if derivation == "host":
+        keys = sl.step_keys(seed, step)
+    else:
+        k0, k1, word = sl.launch_words(seed, step)
+        assert (k0, k1) == rng.seed_words(seed) and word == step
+        keys = sl.kernel_keys(k0, k1, word).numpy().astype(np.uint32)
     assert keys.dtype == np.uint32 and keys.shape == (10,)
     assert tuple(int(w) for w in keys[2 * rng.DEATH:2 * rng.DEATH + 2]) == \
         rng.stream_key(seed, step, rng.DEATH)
@@ -300,6 +327,84 @@ def test_kernel_targets_name_the_lanes_build(name):
     assert ("LTX_AXES" in v) == (kind == "axes")
     ext = Config(numpar=1, us=6, ws=7, dtype_pos=dtype, **{**BEH, **kw})
     assert [t[0] for t in trun.kernel_targets(ext, ctx.grid)] == ["ext_step"]
+
+
+def _lagrange(times, t):
+    """polintd's weights at t, in float64 from the record times."""
+    return [np.prod([(t - b) / (a - b) for b in times if b != a])
+            for a in times]
+
+
+@pytest.mark.parametrize("kind", ["float32", "float64", "tile"])
+def test_aux_tables_are_the_collapsed_lanes(kind):
+    """aux_tables: the Aks then salt lanes of the raw records collapsed to
+    t and the salt then temp lanes collapsed to t + idt, as numpy's
+    float64 Lagrange sums of the FieldSet's records (1e-6 of the largest
+    value with float32 fields and positions, 1e-12 with float64); only
+    the lanes a variant reads; on a tile's strip, the whole grid's tables
+    at the strip's rows, bit for bit; and the plain version's salt
+    profile from them (collapse, then blend) against the FieldSet's
+    (blend, then collapse) at the particles, to the same tolerance."""
+    from ltjax_torch import shard
+    from ltjax_torch.physics.advect import scalar_profile
+    dtype = torch.float64 if kind == "float64" else torch.float32
+    c = synth.make_solid_body_case(nx=12, ny=10, us=4, lx=12e3, ly=10e3,
+                                   parabolic_aks=True, halocline=True,
+                                   dtype=dtype)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 3, dtype=dtype)
+    cfg = Config(numpar=1, us=4, ws=5, dtype_pos=str(dtype)[6:],
+                 **{**LANES["oyster"], **STOCHASTIC})
+    g = c.grid
+    prec = tpk.build_packed_records(g, fsR, with_aks=True, with_scalars=True)
+    t, idt = 250.0, 120.0
+    aux = sl.aux_tables(g, cfg, prec, t, idt)
+    times = fsR.times.numpy()
+    tol = 1e-12 if kind == "float64" else 1e-6
+
+    def collapse(a, tt):
+        a = a.double().numpy().reshape(3, g.ny * g.nx, -1)
+        return np.tensordot(_lagrange(times, tt), a, axes=1)
+
+    want0 = np.concatenate([collapse(fsR.aks, t), collapse(fsR.salt, t)], -1)
+    want1 = np.concatenate([collapse(fsR.salt, t + idt),
+                            collapse(fsR.temp, t + idt)], -1)
+    for got, want in ((aux.t0, want0), (aux.t1, want1)):
+        assert got.dtype == dtype and got.is_contiguous()
+        np.testing.assert_allclose(got.double().numpy(), want, rtol=0,
+                                   atol=tol * np.abs(want).max())
+    for kw, shapes in ((dict(Behavior=6), (None, None)),
+                       (dict(VTurbOn=True, readAks=True), (5, None)),
+                       (dict(Behavior=5, readSalt=True), (4, None)),
+                       (dict(SaltTempOn=True, readSalt=True, readTemp=True),
+                        (None, 8))):
+        a = sl.aux_tables(g, Config(numpar=1, us=4, ws=5, **kw), prec, t,
+                          idt)
+        assert tuple(None if v is None else v.shape[-1] for v in a) == shapes
+    if kind == "tile":
+        spec = shard.make_spec(cfg, g.ny, 64, 1, 2, halo=2)
+        tctx = shard.tile_context(tstep.StepContext(
+            grid=g, bounds=bd.build_boundaries(
+                g.mask_rho.numpy(), g.x_rho.numpy(), g.y_rho.numpy())),
+            spec, shard.build_tiled_static(g, spec), 1)
+        rows = torch.as_tensor(shard.strip_index(spec, 1, g.ny))
+        strip = tpk.build_packed_records(
+            tctx.grid, shard.strip_fieldset(fsR, spec, 1, g.ny),
+            with_aks=True, with_scalars=True)
+        got = sl.aux_tables(tctx.grid, cfg, strip, t, idt)
+        for a, b in zip(got, aux):
+            whole = b.reshape(g.ny, g.nx, -1)[rows].reshape(-1, b.shape[-1])
+            assert torch.equal(a, whole)
+        return
+    r = np.random.default_rng(3)
+    x = torch.tensor(r.uniform(0.0, 11e3, 64), dtype=dtype)
+    y = torch.tensor(r.uniform(0.0, 9e3, 64), dtype=dtype)
+    vt = tpk.stage_value_tables(g, prec, t, idt)
+    zh = tpk.zeta_h_packed(g, vt[0], x, y)
+    z_a, s_a = sl._aux_profile(g, aux.t0, 5, 4, False, x, y, *zh)
+    z_f, s_f = scalar_profile(g, fsR, fsR.salt, x, y, t)
+    for a, b in ((z_a, z_f), (s_a, s_f)):
+        torch.testing.assert_close(a, b, rtol=0,
+                                   atol=tol * float(b.abs().max()))
 
 
 def test_per_step_records_carry_the_lanes_k3_reads():
