@@ -1,0 +1,8 @@
+"""Kernel K2's share of its roofline in the traced window [%]."""
+
+from ltbench.layers import roofline
+
+
+def read(obs):
+    r = roofline(obs, "k2")
+    return None if r is None else r["pct"]
