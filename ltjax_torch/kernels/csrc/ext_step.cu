@@ -267,18 +267,22 @@ __device__ __forceinline__ void stage_in(Stencil& s, const Box& b, int i,
   }
 }
 
-// the launch's staging counters: staged_block_steps, global_block_steps,
-// staged_misses (one atomic per block and warp at the kernel's end; every
-// thread calls it)
+// the launch's device counters: staged_block_steps, global_block_steps,
+// staged_misses, active_steps (one atomic per block and warp at the
+// kernel's end; every thread calls it).  active is the block's shared
+// total of active particle-steps, which the barrier completes
 __device__ __forceinline__ void count_staging(unsigned long long* cnt,
                                               int staged, int global,
-                                              int miss) {
+                                              int miss,
+                                              const unsigned& active) {
   const int m = __reduce_add_sync(0xffffffffu, miss);
   if ((threadIdx.x & 31) == 0 && m > 0)
     atomicAdd(cnt + 2, (unsigned long long)m);
+  __syncthreads();
   if (threadIdx.x == 0) {
     if (staged > 0) atomicAdd(cnt, (unsigned long long)staged);
     if (global > 0) atomicAdd(cnt + 1, (unsigned long long)global);
+    if (active > 0) atomicAdd(cnt + 3, (unsigned long long)active);
   }
 }
 
@@ -286,7 +290,7 @@ __device__ __forceinline__ void count_staging(unsigned long long* cnt,
 // Settle
 struct Stage {
   unsigned long long* cnt;   // staged_block_steps, global_block_steps,
-                             // staged_misses
+                             // staged_misses, active_steps
   int points;                // rho points a block may stage (tile_points)
   int ls, ts;                // tile_lanes (nl | 1); floats between tiles
 };
@@ -449,6 +453,10 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
   constexpr bool RNG = HT || VT != 0 || SWIM;
   constexpr int STRIDE = SWIM ? 8 : 4;    // key words per internal step
   __shared__ int red[2 * 4 * (LTX_BLOCK / 32)];
+  // the block's particle-steps whose lanes ran (active_steps), kept by
+  // thread 0 in shared memory, off the register file
+  __shared__ unsigned act_n;
+  if (threadIdx.x == 0) act_n = 0u;
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = p < n;   // every thread reaches the staging barriers
   const pos_t* par = ppar(a);
@@ -506,6 +514,13 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     if (act) s1 = locate(a, cv, ax, x, y, ci, cj);
     const Box box = block_box(act, ci, cj, a.nx, a.ny, sp.points, red, i & 1,
                               kind);
+    // counted here, not in block_box: its barrier as __syncthreads_count,
+    // or a per-warp sum beside its lane-0 stores, made the advect build
+    // 4.4-4.7% slower (H100, tools/cells_ab.py at 1M); this, 1.0%
+    {
+      const unsigned w = __ballot_sync(0xffffffffu, act);
+      if ((threadIdx.x & 31) == 0) atomicAdd(&act_n, (unsigned)__popc(w));
+    }
     if (kind == BOX_STAGED) {
       stage_records(a, sp, box, l);
       __syncthreads();
@@ -531,7 +546,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
         STRIDE, i, pid, age_pre, u1, v1, dx, dy, dz, x, y, z, st, spoly,
         salt, temp, hitl, hitb);
   }
-  count_staging(sp.cnt, blocks & 0xffff, blocks >> 16, miss);
+  count_staging(sp.cnt, blocks & 0xffff, blocks >> 16, miss, act_n);
   if (!live) return;
   x_out[p] = x;
   y_out[p] = y;
@@ -591,12 +606,12 @@ extern "C" int ltx_ext_step_blocks_per_sm(int nl, int tile_points) {
 // when the library is an LTX_CURV variant.  tile_points is the rho points
 // a block may stage (the launch takes 3 * tile_points * (nl | 1) floats of
 // dynamic shared memory; 0 runs every block from device memory); counters
-// (3 u64, zeroed by the caller once) accumulate staged_block_steps,
-// global_block_steps and staged_misses.  axis_x/axis_y (nx, ny) are the
-// rho axes, edge_x/edge_y (nx + 1, ny + 1) the boundary cell edges (each
-// pair null where uniform) and settle_ex/settle_ey the edges in f64 for
-// settlement: given only to an LTX_AXES variant.  Returns the launch's
-// cudaError_t.
+// (4 u64, zeroed by the caller once) accumulate staged_block_steps,
+// global_block_steps, staged_misses and active_steps.  axis_x/axis_y
+// (nx, ny) are the rho axes, edge_x/edge_y (nx + 1, ny + 1) the boundary
+// cell edges (each pair null where uniform) and settle_ex/settle_ey the
+// edges in f64 for settlement: given only to an LTX_AXES variant.
+// Returns the launch's cudaError_t.
 extern "C" int ltx_ext_step(
     const float* rtab, const pos_t* brows, const float* params,
     const double* dparams, const uint32_t* rngk, const pos_t* x,

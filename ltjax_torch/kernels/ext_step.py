@@ -9,8 +9,9 @@ whole batch:
   particle, the internal-step loop inside the thread) and counts the
   launch in ``ext_step_fused.launches`` and its staging (the blocks that
   staged their box in shared memory, those that ran from device memory,
-  the lookups that left a staged box) in ``.counters``, read with
-  ``counts``;
+  the lookups that left a staged box) and the particle-steps its lanes
+  ran (``active_steps``) in ``.counters``, read with ``counts``; the
+  call is the span ``ltjax_torch.k1`` (``ltjax_torch.trace``);
 * on CPU tensors it runs ``ext_step_reference``, the plain PyTorch
   version: a loop of ``step.internal_step`` (collapsed scheme).
 
@@ -54,6 +55,7 @@ from .. import state as st
 from ..interp import polintd_coefs
 from ..packed import PackedRecords, n_value_lanes
 from ..physics import behavior as bh
+from ..trace import span, spanned
 from . import build
 
 MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
@@ -439,23 +441,26 @@ _C_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 19
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                + [ctypes.c_double] * 5 + [ctypes.c_int]
                + [ctypes.c_void_p] * 8)
-COUNTERS = ("staged_block_steps", "global_block_steps", "staged_misses")
+# the device counters: the staging counters, then the particle-steps the
+# lanes ran (the threads ACTIVE after each internal step's release)
+COUNTERS = ("staged_block_steps", "global_block_steps", "staged_misses",
+            "active_steps")
 
 
 def _counters(dev) -> torch.Tensor:
-    """The staging counters on device ``dev`` (3 x int64, in COUNTERS
-    order), made zero at first use; every launch adds to them there."""
+    """The device counters on device ``dev`` (int64, in COUNTERS order),
+    made zero at first use; every launch adds to them there."""
     t = ext_step_fused.counters.get(dev)
     if t is None:
-        t = ext_step_fused.counters[dev] = torch.zeros(3, dtype=torch.int64,
-                                                       device=dev)
+        t = ext_step_fused.counters[dev] = torch.zeros(
+            len(COUNTERS), dtype=torch.int64, device=dev)
     return t
 
 
 def counts() -> dict:
-    """The staging counters of the launches since reset_launches, summed
+    """The device counters of the launches since reset_launches, summed
     over devices (a host read: it waits for those launches)."""
-    tot = [0, 0, 0]
+    tot = [0] * len(COUNTERS)
     for t in ext_step_fused.counters.values():
         tot = [a + int(b) for a, b in zip(tot, t.tolist())]
     return dict(zip(COUNTERS, tot))
@@ -487,6 +492,7 @@ def _check_col(name, v, n, dtype, dev):
                          f"({n},) {dtype} tensor on {dev}")
 
 
+@spanned("ltjax_torch.k1")
 def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
                    t0: float, fields=None, seed=None,
                    ext_idx: int = 0) -> st.Particles:
@@ -569,17 +575,17 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
     if cfg.Behavior == 3:
         from ..step import make_params
         dvm = make_params(cfg)[1]
-    par = torch.from_numpy(finish_params(params_static(ctx, cfg), t0,
-                                         prec.times, idt, n_int, dvm)
-                           ).to(dev)
-    dpar = (torch.from_numpy(finish_params(
-        params_static(ctx, cfg, np.float64), t0, prec.times, idt, n_int,
-        dvm)).to(dev) if pdt == torch.float64 else None)
-    rngk = None
-    if uses_rng(cfg):
-        keys = rng_keys_array(seed, ext_idx, n_int,
-                              behave=cfg.Behavior in SWIM_TYPES)
-        rngk = torch.from_numpy(keys.view(np.int32)).to(dev)
+    par = finish_params(params_static(ctx, cfg), t0, prec.times, idt,
+                        n_int, dvm)
+    dpar = (finish_params(params_static(ctx, cfg, np.float64), t0,
+                          prec.times, idt, n_int, dvm)
+            if pdt == torch.float64 else None)
+    rngk = (rng_keys_array(seed, ext_idx, n_int,
+                           behave=cfg.Behavior in SWIM_TYPES).view(np.int32)
+            if uses_rng(cfg) else None)
+    with span("ltjax_torch.k1.upload"):
+        par, dpar, rngk = (None if a is None else torch.from_numpy(a).to(dev)
+                           for a in (par, dpar, rngk))
     x_o = torch.empty_like(p.x)
     y_o = torch.empty_like(p.y)
     z_o = torch.empty_like(p.z)
@@ -635,11 +641,11 @@ def ext_step_fused(ctx, cfg, p: st.Particles, prec: PackedRecords,
 
 ext_step_fused.launches = 0             # every launch
 ext_step_fused.variant_launches = {}    # launches per compiled variant
-ext_step_fused.counters = {}            # device -> staging counters
+ext_step_fused.counters = {}            # device -> device counters
 
 
 def reset_launches() -> None:
-    """Zero the launch counts and the staging counters (on the device, no
+    """Zero the launch counts and the device counters (on the device, no
     wait)."""
     ext_step_fused.launches = 0
     ext_step_fused.variant_launches = {}

@@ -14,7 +14,8 @@ every particle from the three stage tables (t, t + idt/2, t + idt) of
   particle) in the variant of the grid and the positions' dtype
   (``kernel_variant``) and counts the launch in
   ``rk4_displacement_fused.launches`` and, per variant, in
-  ``.variant_launches``; a failed build or launch raises.
+  ``.variant_launches``; a failed build or launch raises.  The call is
+  the span ``ltjax_torch.k2`` (``ltjax_torch.trace``).
 
 The kernel reads the stage tables (Ny*Nx, nv) f32 and a small params
 vector in the positions' dtype (float32 or float64): x0, dx, y0, dy of
@@ -35,6 +36,7 @@ import numpy as np
 import torch
 
 from .. import packed as pk
+from ..trace import span, spanned
 from . import build, ext_step
 
 MAX_LEVELS = 64   # compile-time level bound of the kernel (csrc MAX_LEVELS)
@@ -138,6 +140,7 @@ def _check(grid, vtabs, x, y, z):
                              f"{t.device}")
 
 
+@spanned("ltjax_torch.k2")
 def rk4_displacement_fused(grid, vtabs, x, y, z, sigma: float, z0m: float,
                            idt: float, stage1: bool = False):
     """RK4 displacement (dx, dy, dz) of one internal step from the stage
@@ -169,8 +172,9 @@ def rk4_displacement_fused(grid, vtabs, x, y, z, sigma: float, z0m: float,
     key = (id(grid), float(sigma), float(z0m), x.dtype)
     hit = _params_cache.get(key)
     if hit is None or hit[0]() is not grid:
-        hit = (weakref.ref(grid), _device_tables(grid, float(sigma),
-                                                 float(z0m), npdt, dev))
+        with span("ltjax_torch.k2.upload"):
+            hit = (weakref.ref(grid), _device_tables(grid, float(sigma),
+                                                     float(z0m), npdt, dev))
         _params_cache[key] = hit
     par, cxy, cseed, (c_mx, c_my), c_scal, axes = hit[1]
     n = x.shape[0]

@@ -15,7 +15,8 @@ after it.  ``step_lanes_fused`` applies them to the whole batch:
   kernel's internal-step loop, plus the DEATH draw) in the variant of the
   configuration, grid and positions' dtype (``kernel_variant``) and
   counts the launch in ``step_lanes_fused.launches`` and, per variant, in
-  ``.variant_launches``; a failed build or launch raises.
+  ``.variant_launches``; a failed build or launch raises.  The call is
+  the span ``ltjax_torch.k3`` (``ltjax_torch.trace``).
 
 Both read the step's time-collapsed tables: zeta and h from the route's
 stage value tables at t and t + idt (``vtabs[0]``, ``vtabs[2]``, K2's),
@@ -52,6 +53,7 @@ from ..physics import turb as tb
 from ..interp import polintd
 from ..physics.advect import sample_scalar
 from ..scoord import s_depths
+from ..trace import span, spanned
 from . import build
 from . import ext_step as kx
 
@@ -355,6 +357,7 @@ def _check_table(name, v, shape, dev):
                          f"{shape} float32 tensor on {dev}, got {got}")
 
 
+@spanned("ltjax_torch.k3")
 def step_lanes_fused(ctx, cfg, seed, step_idx: int, p: st.Particles, fields,
                      vtabs, aux: Optional[Aux], t: float,
                      disp) -> st.Particles:
@@ -435,7 +438,8 @@ def step_lanes_fused(ctx, cfg, seed, step_idx: int, p: st.Particles, fields,
             raise ValueError(f"step_lanes_fused: {name} on another device")
     if n == 0:
         return p
-    buf, d_off, f_off = _device_params(ctx, cfg, pdt, dev)
+    with span("ltjax_torch.k3.upload"):
+        buf, d_off, f_off = _device_params(ctx, cfg, pdt, dev)
     base = buf.data_ptr()
     e0 = 0.0
     if cfg.Behavior == 3:             # as behave computes it at t

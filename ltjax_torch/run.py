@@ -62,7 +62,13 @@ Diagnostic switches (environment variables, ltjax's names):
 * ``LTJAX_PROFILE_DIR=/path``: a ``torch.profiler`` trace (CPU and, on
   the GPU, CUDA activity) of the chunks that start at external steps
   [start, stop), ``LTJAX_PROFILE_STEPS=start:stop`` (default ``1:3``),
-  written there as a Chrome trace file;
+  written there as a Chrome trace file.  The trace names the port's
+  layers as host spans (``ltjax_torch.trace``): ``ltjax_torch.read``
+  (a chunk's record window), ``ltjax_torch.chunk`` (its fused external
+  steps) with ``.tables``, ``.sort``, ``.unsort`` and ``.k1`` (or
+  ``.k2``/``.k3``, each with its ``.upload``) inside,
+  ``ltjax_torch.counts`` (the host sync), ``ltjax_torch.output`` and
+  ``ltjax_torch.checkpoint``;
 * ``LTJAX_DEBUG_NANS=1``: after each chunk, check x, y, z (and salt and
   temp under SaltTempOn) of the released particles, and raise
   RuntimeError naming the external step and the count of NaNs.
@@ -95,6 +101,7 @@ from .physics import boundary as bd
 from .physics import settlement as stl
 from .step import (StepContext, check_supported, make_fused_external_steps,
                    mode_flags, summary_counts)
+from .trace import span
 
 
 def _project_polys(polys, cfg: Config):
@@ -402,30 +409,33 @@ def run(cfg: Config, resume: bool = False, device=None,
                         - (ext % cfg.checkpoint_every))
 
             # --- updateHydro: extend the window to record ext+E+1 --------
+            profiler.tick(ext)
             tw = time.perf_counter()
-            while global_rec - 1 < ext + E + 1 and not exhausted:
-                rec = prefetch.next() if prefetch else series.next_record()
-                if rec is None:
-                    exhausted = True
-                    break
-                window.append(rec)
-                global_rec += 1
-            if exhausted:
-                E = min(E, global_rec - 2 - ext)
-                if E < 1:
-                    print(json.dumps({"event": "series_exhausted",
-                                      "ext": ext}))
-                    break
-            while win_start < ext:                  # drop stale records
-                window.pop(0)
-                win_start += 1
-            fsW = stack_records(window[:E + 2], t_base, field_dtype, device,
-                                with_salt_temp=cfg.needs_salt_fields())
+            with span("ltjax_torch.read"):
+                while global_rec - 1 < ext + E + 1 and not exhausted:
+                    rec = (prefetch.next() if prefetch
+                           else series.next_record())
+                    if rec is None:
+                        exhausted = True
+                        break
+                    window.append(rec)
+                    global_rec += 1
+                if exhausted:
+                    E = min(E, global_rec - 2 - ext)
+                    if E < 1:
+                        print(json.dumps({"event": "series_exhausted",
+                                          "ext": ext}))
+                        break
+                while win_start < ext:              # drop stale records
+                    window.pop(0)
+                    win_start += 1
+                fsW = stack_records(window[:E + 2], t_base, field_dtype,
+                                    device,
+                                    with_salt_temp=cfg.needs_salt_fields())
             read_s = time.perf_counter() - tw
             timing.add("hydro_read", read_s)
 
             # --- compute E external steps --------------------------------
-            profiler.tick(ext)
             tc = time.perf_counter()
             t_ext = float(ext * cfg.dt)
             if E not in fused_cache:
@@ -444,13 +454,15 @@ def run(cfg: Config, resume: bool = False, device=None,
                     f"(ErrorFlag=0 halts; set ErrorFlag>0 to continue)")
             if ext % out_every == 0:
                 to = time.perf_counter()
-                writer.snapshot(t_ext + E * cfg.dt, particles)
+                with span("ltjax_torch.output"):
+                    writer.snapshot(t_ext + E * cfg.dt, particles)
                 timing.add("output", time.perf_counter() - to)
             if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
-                ckpt.save(os.path.join(cfg.checkpoint_dir,
-                                       f"ckpt_{ext}.npz"),
-                          particles, ext, global_rec,
-                          extra={"t_base": float(t_base)})
+                with span("ltjax_torch.checkpoint"):
+                    ckpt.save(os.path.join(cfg.checkpoint_dir,
+                                           f"ckpt_{ext}.npz"),
+                              particles, ext, global_rec,
+                              extra={"t_base": float(t_base)})
             log = {"ext": ext - E, "n_fused": E, "sim_t": t_ext + E * cfg.dt,
                    "steps_per_s": particles.n * cfg.internal_steps * E
                    / step_s, "hydro_read_s": read_s, "compute_s": step_s,
@@ -699,30 +711,32 @@ def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
             if cfg.checkpoint_every:
                 E = min(E, cfg.checkpoint_every
                         - (ext % cfg.checkpoint_every))
+            profiler.tick(ext)
             tw = time.perf_counter()
-            while global_rec - 1 < ext + E + 1 and not exhausted:
-                rec = (prefetch.next() if prefetch
-                       else strip(series.next_record()))
-                if rec is None:
-                    exhausted = True
-                    break
-                window.append(rec)
-                global_rec += 1
-            if exhausted:
-                E = min(E, global_rec - 2 - ext)
-                if E < 1:
-                    if rank == 0:
-                        _emit({"event": "series_exhausted", "ext": ext})
-                    break
-            while win_start < ext:
-                window.pop(0)
-                win_start += 1
-            fsW = stack_records(window[:E + 2], t_base, field_dtype, dev,
-                                with_salt_temp=cfg.needs_salt_fields())
+            with span("ltjax_torch.read"):
+                while global_rec - 1 < ext + E + 1 and not exhausted:
+                    rec = (prefetch.next() if prefetch
+                           else strip(series.next_record()))
+                    if rec is None:
+                        exhausted = True
+                        break
+                    window.append(rec)
+                    global_rec += 1
+                if exhausted:
+                    E = min(E, global_rec - 2 - ext)
+                    if E < 1:
+                        if rank == 0:
+                            _emit({"event": "series_exhausted",
+                                   "ext": ext})
+                        break
+                while win_start < ext:
+                    window.pop(0)
+                    win_start += 1
+                fsW = stack_records(window[:E + 2], t_base, field_dtype, dev,
+                                    with_salt_temp=cfg.needs_salt_fields())
             read_s = time.perf_counter() - tw
             timing.add("hydro_read", read_s)
 
-            profiler.tick(ext)
             tc = time.perf_counter()
             t_ext = float(ext * cfg.dt)
             if E not in steppers:
@@ -748,15 +762,17 @@ def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
                     f"ErrorFlag>0 to continue)")
             if ext % out_every == 0:
                 to = time.perf_counter()
-                snapshot(t_ext + E * cfg.dt)
+                with span("ltjax_torch.output"):
+                    snapshot(t_ext + E * cfg.dt)
                 timing.add("output", time.perf_counter() - to)
             if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
-                ckpt.save(os.path.join(cfg.checkpoint_dir,
-                                       f"ckpt_{ext}{ckpt.rank_tag(rank)}"
-                                       ".npz"),
-                          p, ext, global_rec,
-                          extra={"t_base": float(t_base),
-                                 "mesh": [ndp, ntiles]})
+                with span("ltjax_torch.checkpoint"):
+                    ckpt.save(os.path.join(
+                        cfg.checkpoint_dir,
+                        f"ckpt_{ext}{ckpt.rank_tag(rank)}.npz"),
+                        p, ext, global_rec,
+                        extra={"t_base": float(t_base),
+                               "mesh": [ndp, ntiles]})
             log = {"rank": rank, "ext": ext - E, "n_fused": E,
                    "sim_t": t_ext + E * cfg.dt,
                    "steps_per_s": cfg.numpar * cfg.internal_steps * E

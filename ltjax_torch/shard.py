@@ -49,6 +49,7 @@ from .fields import FieldSet
 from .grid import Grid, TileRows
 from .step import (StepContext, _sort, mode_flags, packed_window,
                    route_step)
+from .trace import reset_counters, span
 
 EMPTY = -1  # status code for an unoccupied particle slot
 
@@ -393,21 +394,24 @@ def make_tiled_steps(tctx: StepContext, cfg: Config, spec: TileSpec,
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"tiled step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = packed_window(tctx, cfg, route, fsR)
-        sent_row = pack_rows(sentinel(p.x.dtype, dev, x_mid, y_mid))
-        drops = torch.zeros((), dtype=torch.int64, device=dev)
-        sent = torch.zeros((), dtype=torch.int64, device=dev)
-        for e in range(n_fuse):
-            p, perm = _sort(grid, p, cfg)
-            p = route_step(tctx, cfg, route, p, prec_all, fsR, e, t0,
-                           ext_idx0)
-            p = sp.unsort(p, perm)
-            if spec.ntiles > 1:
-                p, nd, ns = migrate(p, spec, edges, tile, sent_row,
-                                    exchange)
-                drops = drops + nd
-                sent = sent + ns
-        return p, drops, sent
+        with span("ltjax_torch.chunk"):
+            prec_all = packed_window(tctx, cfg, route, fsR)
+            sent_row = pack_rows(sentinel(p.x.dtype, dev, x_mid, y_mid))
+            drops = torch.zeros((), dtype=torch.int64, device=dev)
+            sent = torch.zeros((), dtype=torch.int64, device=dev)
+            for e in range(n_fuse):
+                with span("ltjax_torch.sort"):
+                    p, perm = _sort(grid, p, cfg)
+                p = route_step(tctx, cfg, route, p, prec_all, fsR, e, t0,
+                               ext_idx0)
+                with span("ltjax_torch.unsort"):
+                    p = sp.unsort(p, perm)
+                if spec.ntiles > 1:
+                    p, nd, ns = migrate(p, spec, edges, tile, sent_row,
+                                        exchange)
+                    drops = drops + nd
+                    sent = sent + ns
+            return p, drops, sent
 
     return fused
 
@@ -532,11 +536,7 @@ def _tiled_case(me, case: TiledCase, dev):
     fs = to_device(fs, dev)
     p = scatter_block(case.p0, spec, edges, me.dp, me.tile).to(dev)
     steppers = {}
-    kx.reset_launches()
-    kr.rk4_displacement_fused.launches = 0
-    kr.rk4_displacement_fused.variant_launches = {}
-    sl.step_lanes_fused.launches = 0
-    sl.step_lanes_fused.variant_launches = {}
+    reset_counters()
     drops = sent = 0
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

@@ -73,6 +73,7 @@ from .physics import settlement as stl
 from .physics import turb as tb
 from .physics.advect import (AdvectParams, find_currents, host_time,
                              rk4_displacement, zeta_h_at)
+from .trace import span, spanned
 
 
 @dataclass
@@ -88,6 +89,7 @@ class StepContext:
     cache: dict = field(default_factory=dict)
 
 
+@spanned("ltjax_torch.counts")
 def summary_counts(p: st.Particles) -> dict:
     """Per-status particle counts (one host sync for all six), each status
     counted by equality as ltjax counts it: the EMPTY slots of a sharded
@@ -193,18 +195,21 @@ def internal_step(ctx: StepContext, cfg, seed, p: st.Particles,
     if native:
         adv = AdvectParams(sigma=cfg.tension_sigma, z0=cfg.z0, idt=idt)
     elif mode == "packed":
-        tabs = pk.stage_tables(grid, prec, t, idt, cfg.tension_sigma)
+        with span("ltjax_torch.tables"):
+            tabs = pk.stage_tables(grid, prec, t, idt, cfg.tension_sigma)
     else:
-        tabs = pk.stage_value_tables(grid, prec, t, idt)
+        with span("ltjax_torch.tables"):
+            tabs = pk.stage_value_tables(grid, prec, t, idt)
 
     # --- advection, then the lanes ---------------------------------------
     if mode == "kernel":
         disp = kr.rk4_displacement_fused(
             grid, tabs, p.x, p.y, p.z, cfg.tension_sigma, cfg.z0, idt,
             stage1=cfg.Behavior == 7)
+        with span("ltjax_torch.tables"):
+            aux = sl.aux_tables(grid, cfg, prec, t, idt)
         return sl.step_lanes_fused(ctx, cfg, seed, step_idx, p, fields, tabs,
-                                   sl.aux_tables(grid, cfg, prec, t, idt), t,
-                                   disp)
+                                   aux, t, disp)
     if native:
         dx, dy, dz = rk4_displacement(grid, fields, p.x, p.y, p.z, t0_h,
                                       adv)
@@ -312,9 +317,11 @@ def packed_window(ctx: StepContext, cfg, route: str, fsR: FieldSet):
     if route == "native":
         return None
     ext = route in ("ext_step", "per_step")
-    return pk.build_packed_records(
-        ctx.grid, fsR, with_aks=bool(cfg.VTurbOn and cfg.readAks) and ext,
-        with_scalars=cfg.needs_salt_fields() and ext)
+    with span("ltjax_torch.tables"):
+        return pk.build_packed_records(
+            ctx.grid, fsR,
+            with_aks=bool(cfg.VTurbOn and cfg.readAks) and ext,
+            with_scalars=cfg.needs_salt_fields() and ext)
 
 
 def route_step(ctx: StepContext, cfg, route: str, p: st.Particles,
@@ -361,15 +368,18 @@ def make_fused_external_steps(ctx: StepContext, cfg, n_fuse: int):
         if fsR.times.shape[0] != n_fuse + 2:
             raise ValueError(f"fused step needs {n_fuse + 2} records, got "
                              f"{fsR.times.shape[0]}")
-        prec_all = packed_window(ctx, cfg, route, fsR)
-        cum = torch.arange(p.n, device=p.x.device)
-        for e in range(n_fuse):
-            if e % se == 0:
-                p, perm = _sort(grid, p, cfg)
-                cum = cum[perm]
-            p = route_step(ctx, cfg, route, p, prec_all, fsR, e, t0,
-                           ext_idx0)
-        return sp.unsort(p, cum)
+        with span("ltjax_torch.chunk"):
+            prec_all = packed_window(ctx, cfg, route, fsR)
+            cum = torch.arange(p.n, device=p.x.device)
+            for e in range(n_fuse):
+                if e % se == 0:
+                    with span("ltjax_torch.sort"):
+                        p, perm = _sort(grid, p, cfg)
+                        cum = cum[perm]
+                p = route_step(ctx, cfg, route, p, prec_all, fsR, e, t0,
+                               ext_idx0)
+            with span("ltjax_torch.unsort"):
+                return sp.unsort(p, cum)
 
     return fused
 

@@ -29,6 +29,11 @@ a habitat square, a square hole and a slanted hexagon: statuses and
 settle_poly equal, salt and temp within 1e-3; behavior 4 without
 SaltTempOn leaves salt and temp at 0.
 
+K1's device counter ``active_steps`` equals the plain version's count of
+the particles active after each internal step's release, in float32 and
+float64, with releases inside the run and exits through the open
+boundary; its staging counters follow ``ext_step.block_boxes``.
+
 The curvilinear variant (LTX_CURV) is held the same way on
 synth.make_curv_case with a land block: one external step against its
 plain version (tolerances as above, land hits and rim exits on curved
@@ -600,6 +605,67 @@ def test_staged_kernel_paths_match_plain(gpu, path):
     _path_counter(kx.counts(), path)
     assert float((q.x - p.x).abs().max()) > 100.0
     assert float((q.status == st.ACTIVE).float().mean()) > 0.9
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_active_steps_count_the_particle_steps_that_ran(gpu, dtype):
+    """K1's fourth device counter, ``active_steps``, equals the plain
+    version's count of the particles ACTIVE after each internal step's
+    release, launch by launch from the plain trajectory's state (one
+    internal step a launch): half the particles released at dates of
+    birth inside the run, a flow that carries corner particles out
+    through the open boundary.  Its staging counters equal block_boxes'
+    rule on the same state: the blocks that fit staged, the others from
+    device memory."""
+    c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
+                                   h0=50.0, omega=2e-4, shear_a=0.004,
+                                   dtype=dtype, device=gpu)
+    g = c.grid
+    ctx = StepContext(grid=g, bounds=bd.build_boundaries(
+        g.mask_rho.cpu().numpy(), g.x_rho.cpu().numpy(),
+        g.y_rho.cpu().numpy(), device=gpu))
+    n, idt, n_int = 4096, 150, 12
+    cfg = Config(numpar=n, dt=idt, idt=idt, us=6, ws=7,
+                 OpenOceanBoundary=True, reflect_iters=2,
+                 dtype_pos=str(dtype).split(".")[-1])
+    rng = np.random.default_rng(29)
+    p = st.init_particles(rng.uniform(1e3, 99e3, n), rng.uniform(1e3, 99e3, n),
+                          rng.uniform(-49.0, -1.0, n), dtype=dtype,
+                          device=gpu)
+    late = torch.as_tensor(rng.random(n) < 0.5, device=gpu)
+    dob = torch.as_tensor(rng.uniform(-idt, n_int * idt, n), dtype=dtype,
+                          device=gpu)
+    p = p.replace(status=torch.where(late, st.NOT_RELEASED, st.ACTIVE).to(
+        torch.int32), dob=torch.where(late, dob, torch.zeros_like(dob)))
+    p, _ = _sort(g, p)
+    rec = pk.build_packed_records(
+        g, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    nl = rec.tab.shape[-1]
+    kx.reset_launches()
+    want = {"active_steps": 0, "staged_block_steps": 0,
+            "global_block_steps": 0}
+    q = p
+    for i in range(n_int):
+        t = i * idt
+        released = ((q.status == st.NOT_RELEASED)
+                    & (torch.tensor(t, dtype=dtype, device=gpu) >= q.dob))
+        status = torch.where(released, st.ACTIVE, q.status)
+        boxes = kx.block_boxes(g, q.x, q.y, status, nl)
+        want["active_steps"] += int((status == st.ACTIVE).sum())
+        want["staged_block_steps"] += int(boxes["fits"].sum())
+        want["global_block_steps"] += int(
+            (boxes["live"] & ~boxes["fits"]).sum())
+        kx.ext_step_fused(ctx, cfg, q, rec, t)
+        q = kx.ext_step_reference(ctx, cfg, q, rec, t)
+    got = kx.counts()
+    assert {k: got[k] for k in want} == want
+    assert got["staged_misses"] >= 0
+    # the case holds what the count has to get right
+    assert 0 < int((q.status == st.OUT_OF_DOMAIN).sum()) < n // 4
+    assert int(late.sum()) > int((q.status == st.NOT_RELEASED).sum()) > 0
+    assert want["active_steps"] < n * n_int
 
 
 # ---- the builds for LTRANS v2b run files: float64 positions (LTX_POS64),

@@ -7,8 +7,8 @@ comes as None, an error in the reader is raised in the consumer, and
 CLI (``run.run(cfg, device="cpu")``) gives identical particles with
 ``prefetch`` on and off, and each chunk's log line carries ``stall_s``
 (with the chunk's ``hydro_read_s`` and ``compute_s``).
-``LTJAX_PROFILE_DIR`` writes a trace file of the chunks it covers, and
-``LTJAX_DEBUG_NANS`` raises on a record with a NaN in it.
+``LTJAX_PROFILE_DIR`` writes a trace file of the chunks it covers, with
+the CLI's and the stepper's spans in it, and ``LTJAX_DEBUG_NANS`` raises on a record with a NaN in it.
 """
 
 import contextlib
@@ -138,15 +138,25 @@ def test_cli_prefetch_on_and_off_identical(run_files):
 
 
 def test_profile_dir_writes_trace(run_files, tmp_path, monkeypatch):
+    """The trace of external steps 1 and 2 holds the CLI's spans (a
+    snapshot and a checkpoint after every chunk) and the stepper's."""
     _, nml = run_files
     monkeypatch.setenv("LTJAX_PROFILE_DIR", str(tmp_path / "trace"))
     monkeypatch.setenv("LTJAX_PROFILE_STEPS", "1:3")
-    _run(config_from_namelist(nml))
+    cfg = dataclasses.replace(config_from_namelist(nml), iprint=1800,
+                              checkpoint_every=1,
+                              checkpoint_dir=str(tmp_path / "ckpt"))
+    _run(cfg)
     files = glob.glob(str(tmp_path / "trace" / "*.json"))
     assert [f.rsplit("/", 1)[1] for f in files] == ["trace_ext1-3.json"]
     with open(files[0]) as f:
         trace = json.load(f)
     assert len(trace["traceEvents"]) > 0
+    names = [e.get("name", "") for e in trace["traceEvents"]]
+    for layer, n in (("read", 2), ("chunk", 2), ("sort", 2), ("unsort", 2),
+                     ("k1", 2), ("counts", 2), ("output", 2),
+                     ("checkpoint", 2)):
+        assert names.count("ltjax_torch." + layer) == n, layer
 
 
 def test_debug_nans_raises_on_nan_record(run_files, monkeypatch):
