@@ -166,8 +166,8 @@ Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
 memory and blocks per SM at the bench shape), each phase's numbers (the
 main paths' staging counters: staged_block_steps, global_block_steps,
-staged_misses, and the staged share) and its wall time, then the
-per-kernel JSON summary
+staged_misses, split_block_steps, and the staged share) and its wall
+time, then the per-kernel JSON summary
 (each kernel's time, its plain version's, and its bound: the least time
 the card could take for the same work, from the bytes and operations
 counted in kernel_bound and rk4_bound), the card's name and power limit
@@ -739,7 +739,8 @@ def phase1_staging(torch, device, case, ctx, cfg, pu, prec, n=65536):
     * overflow: phase 1's inputs unsorted (one external step, whole-step
       tolerances): every block's box exceeds the budget and runs from
       device memory; global_block_steps of a one-internal-step launch
-      equals block_boxes' count of the blocks that do not fit;
+      equals block_boxes' count of the blocks that fit neither three
+      tiles nor a split tile;
     * staged: 65,536 sorted particles on a 24 x 24 km patch west of the
       centre (~110 a cell; the main path has ~70): the blocks stage, as
       block_boxes predicts for the first internal step;
@@ -763,7 +764,7 @@ def phase1_staging(torch, device, case, ctx, cfg, pu, prec, n=65536):
         kx.ext_step_fused(ctx, cfg1, q, prec, 0.0)
         got = kx.counts()["global_block_steps"]
         b = kx.block_boxes(ctx.grid, q.x, q.y, q.status, nl)
-        return got, int((b["live"] & ~b["fits"]).sum())
+        return got, int((b["live"] & ~b["fits"] & ~b["split"]).sum())
 
     out = {}
     r = kernel_vs_plain(torch, "1-overflow", ctx, cfg, pu, prec, 1, 1)
@@ -902,7 +903,8 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     b = kx.block_boxes(case.grid, ps.x, ps.y, ps.status, prec3.tab.shape[-1])
     res["global_first_step"] = kx.counts()[
         "global_block_steps"]
-    res["global_first_step_predicted"] = int((b["live"] & ~b["fits"]).sum())
+    res["global_first_step_predicted"] = int(
+        (b["live"] & ~b["fits"] & ~b["split"]).sum())
     log({"phase": 2, "bound": res["bound"],
          "global_first_step": res["global_first_step"],
          "predicted": res["global_first_step_predicted"]})

@@ -63,6 +63,11 @@
 // tiles (t, t + idt/2, t + idt) of every lane of the table, once per
 // point (stage_records: each box row is bw * nl consecutive floats of a
 // record, so the loads are coalesced; 4-byte loads, no 16-byte ones).
+// A box of up to 3 x tile_points points (blocks whose particles drift
+// apart between two sorts, under vertical shear) is split: the same
+// shared memory holds one tile of it at a time (stage_tile), restaged
+// between RK4 stages 1 and 2 (t + idt/2) and 3 and 4 (t + idt), each
+// restage between two barriers that every thread of the block reaches.
 // The fit scratch stays in local memory: its frame size measured no
 // cost.  __launch_bounds__(128, 4): every float32 variant at <= 128
 // registers with no spills, where ptxas alone chose 96 with spills in 6
@@ -72,11 +77,14 @@
 // The four RK4 stages, the Visser Aks fit, the behavior column and the
 // 4/5 salt cue (stage 1), the vertical reflection's column and SaltTempOn
 // (t + idt) then blend 4 shared words per lane where the global path
-// loads 12 scattered ones.  A lookup outside the box and every lookup of
-// a block whose box is too large read the raw records with the same
-// arithmetic (collapse, blend), and are counted (staged_misses,
-// global_block_steps, beside staged_block_steps): the result does not
-// depend on which path a lookup took.  The inverse curvilinear map, the
+// loads 12 scattered ones.  A lookup outside the box, a lookup of a
+// split box at a stage time whose tile is not resident (Visser's Aks
+// column, the behaviors' zeta/h and the 4/5 cue at t, read in step_lanes
+// after the t + idt restage) and every lookup of a block whose box is
+// too large read the raw records with the same arithmetic (collapse,
+// blend), and are counted (staged_misses, global_block_steps, beside
+// staged_block_steps and split_block_steps): the result does not depend
+// on which path a lookup took.  The inverse curvilinear map, the
 // boundary rows and the polygons stay direct reads.  The TPU kernel's
 // VMEM windows, one-hot MXU blends and out-of-window patch are not
 // ported: a miss is served in the kernel.  The vertical fit streams the
@@ -117,6 +125,10 @@
 // advection at 36 points, 48 KB for the oyster lanes at 32), beside 128
 // bytes of static reduction scratch; at 4 blocks of 128 threads an SM
 // (the register limit) the tiles leave the rest of the SM's 256 KB to L1.
+// A split box takes the same bytes as one tile of 3 x tile_points points
+// (108 for advection, 96 for the oyster lanes), so it holds three times
+// the points at the same occupancy; it pays two more collapse passes of
+// its box (from L2) and four barriers a block-step.
 // The record table is 3*Ny*Nx*nl*4 bytes: 30 MB for the 200x200x20 bench
 // grid (40 MB with Aks, 49 MB with salt and temp), which fits the 50 MB
 // L2; a production 800x600x25 grid (~420 MB) does not, and then the
@@ -183,34 +195,54 @@
 // box of its active particles' stage-1 positions (block_box), grows it by
 // one cell on each side (a stage moves a particle by less than a cell at
 // the speeds of the bench cases: 4.2 m/s x 120 s = 0.5 km on 1 km cells)
-// and, if its points fit the launch's budget (Stage::points), writes
-// three tiles into dynamic shared memory, one per stage time (t,
-// t + idt/2, t + idt), each point and lane the three raw records
-// collapsed once (collapse(), the arithmetic of the global path).  A tile
-// is [row][column][lane], ls = nl | 1 floats per point (odd, so the
-// distinct points that a warp reads fall in distinct banks; threads of
-// one point read one word, a broadcast), rows bw points wide; the three
-// tiles are Stage::ts floats apart.
+// and sizes it against the launch's budget (Stage::points):
+//
+//   three tiles (points <= budget): one staging pass writes three tiles
+//     into dynamic shared memory, one per stage time (t, t + idt/2,
+//     t + idt), Stage::ts floats apart;
+//   split (budget < points <= 3 x budget): the same shared memory holds
+//     one tile of up to 3 x budget points at a time.  The block stages
+//     the t tile before stage 1, restages the t + idt/2 tile after it
+//     (stages 2 and 3 read it) and the t + idt tile after stage 3 (stage
+//     4 and step_lanes' reads at q = 2: the vertical reflection's column,
+//     SaltTempOn).  Each restage sits between two barriers (no thread
+//     still reads the old tile; every thread sees the new one) that every
+//     thread of the block reaches, those without an active particle and
+//     those past the batch too; the kind is uniform across the block.  A
+//     lookup at a stage time that is not resident (Visser's and the
+//     behaviors' reads at q = 0 inside step_lanes) is a counted miss;
+//   global (more points, or no budget): every lookup from device memory.
+//
+// Every point and lane of a tile is the three raw records collapsed once
+// (collapse(), the arithmetic of the global path), so a lookup returns
+// the same value whichever path served it.  A tile is [row][column][lane],
+// ls = nl | 1 floats per point (odd, so the distinct points that a warp
+// reads fall in distinct banks; threads of one point read one word, a
+// broadcast), rows bw points wide.
 
 // threads a block (the launch's); not an #ifndef option: build.tag reads
 // those as the variant's macros
 #define LTX_BLOCK 128
 
 // the staged rho points [i0, i0 + bw) x [j0, j0 + bh) of a block's tiles;
-// bw = 0: nothing staged
+// bw = 0: nothing staged.  q: the stage time of a split box's one
+// resident tile, -1 where the three tiles are (or nothing is) staged
 struct Box {
-  int i0, j0, bw, bh;
+  int i0, j0, bw, bh, q;
 };
 
-enum { BOX_EMPTY = 0, BOX_STAGED = 1, BOX_GLOBAL = 2 };
+// block-step kinds (also the index of the block's shared tally)
+enum { BOX_EMPTY = 0, BOX_STAGED = 1, BOX_SPLIT = 2, BOX_GLOBAL = 3 };
 
 // the box of the cells (i, j) of the block's active threads (act), grown
 // by one cell on each side and clipped to the nx x ny points; staged
-// (bw > 0) if it holds at most max_points points.  kind: BOX_EMPTY (no
-// active thread), BOX_STAGED or BOX_GLOBAL.  Every thread of the block
-// calls it (it holds a barrier); red is 2 x 4 x LTX_BLOCK/32 ints of
-// shared memory, used by half per call (parity), so that the next call
-// may write the other half while a slow warp still reads this one.
+// (bw > 0) if it holds at most 3 x max_points points.  kind: BOX_EMPTY
+// (no active thread), BOX_STAGED (three tiles: at most max_points),
+// BOX_SPLIT (one tile at a time, q = 0 first) or BOX_GLOBAL.  Every
+// thread of the block calls it (it holds a barrier); red is 2 x 4 x
+// LTX_BLOCK/32 ints of shared memory, used by half per call (parity), so
+// that the next call may write the other half while a slow warp still
+// reads this one.
 __device__ __forceinline__ Box block_box(bool act, int i, int j, int nx,
                                          int ny, int max_points, int* red,
                                          int parity, int& kind) {
@@ -237,7 +269,7 @@ __device__ __forceinline__ Box block_box(bool act, int i, int j, int nx,
     v2 = min(v2, r[2 * NW + k]);
     v3 = min(v3, r[3 * NW + k]);
   }
-  Box b = {0, 0, 0, 0};
+  Box b = {0, 0, 0, 0, -1};
   if (v0 == big) {
     kind = BOX_EMPTY;
     return b;
@@ -246,33 +278,53 @@ __device__ __forceinline__ Box block_box(bool act, int i, int j, int nx,
   b.j0 = max(v2 - 1, 0);
   const int bw = min(2 - v1, nx - 1) - b.i0 + 1;
   const int bh = min(2 - v3, ny - 1) - b.j0 + 1;
-  kind = bw * bh <= max_points ? BOX_STAGED : BOX_GLOBAL;
-  if (kind == BOX_STAGED) {
+  kind = bw * bh <= max_points       ? BOX_STAGED
+         : bw * bh <= 3 * max_points ? BOX_SPLIT
+                                     : BOX_GLOBAL;
+  if (kind != BOX_GLOBAL) {
     b.bw = bw;
     b.bh = bh;
+    if (kind == BOX_SPLIT) b.q = 0;
   }
   return b;
 }
 
-// stencil s of cell (i, j) into the tiles of box b (tile_lanes ls), or
-// a miss: counted when the block staged
-__device__ __forceinline__ void stage_in(Stencil& s, const Box& b, int i,
-                                         int j, int ls, int& miss) {
+// the launch's staged corner source: a kernel argument of its own, like
+// Settle
+struct Stage {
+  unsigned long long* cnt;   // staged_block_steps, global_block_steps,
+                             // staged_misses, split_block_steps,
+                             // active_steps
+  int points;                // rho points a block may stage in three
+                             // tiles (tile_points); 3x that split
+  int ls, ts;                // tile_lanes (nl | 1); floats between tiles
+};
+
+// stencil s of cell (i, j), read at stage time q, into the tiles of box
+// b (s.t: the offset of its point in the tile of q), or a miss, counted
+// when the block staged: the cell outside the box, or q not resident in
+// a split box
+__device__ __forceinline__ void stage_in(Stencil& s, const Box& b,
+                                         const Stage& sp, int i, int j,
+                                         int q, int& miss) {
   const int di = i - b.i0, dj = j - b.j0;
-  if (di >= 0 && di + 1 < b.bw && dj >= 0 && dj + 1 < b.bh) {
-    s.t = (dj * b.bw + di) * ls;
-    s.rs = b.bw * ls;
+  if (di >= 0 && di + 1 < b.bw && dj >= 0 && dj + 1 < b.bh
+      && (b.q < 0 || b.q == q)) {
+    s.t = (b.q < 0 ? q * sp.ts : 0) + (dj * b.bw + di) * sp.ls;
+    s.rs = b.bw * sp.ls;
   } else if (b.bw > 0) {
     ++miss;
   }
 }
 
-// the launch's device counters: staged_block_steps, global_block_steps,
-// staged_misses, active_steps (one atomic per block and warp at the
-// kernel's end; every thread calls it).  active is the block's shared
-// total of active particle-steps, which the barrier completes
+// the launch's device counters: staged_block_steps (three tiles and
+// split), global_block_steps, staged_misses, split_block_steps,
+// active_steps (one atomic per block and warp at the kernel's end; every
+// thread calls it).  kinds is the block's shared tally of block-steps by
+// kind (thread 0's), active its shared total of active particle-steps,
+// which the barrier completes
 __device__ __forceinline__ void count_staging(unsigned long long* cnt,
-                                              int staged, int global,
+                                              const unsigned* kinds,
                                               int miss,
                                               const unsigned& active) {
   const int m = __reduce_add_sync(0xffffffffu, miss);
@@ -280,42 +332,40 @@ __device__ __forceinline__ void count_staging(unsigned long long* cnt,
     atomicAdd(cnt + 2, (unsigned long long)m);
   __syncthreads();
   if (threadIdx.x == 0) {
+    const unsigned staged = kinds[BOX_STAGED] + kinds[BOX_SPLIT];
     if (staged > 0) atomicAdd(cnt, (unsigned long long)staged);
-    if (global > 0) atomicAdd(cnt + 1, (unsigned long long)global);
-    if (active > 0) atomicAdd(cnt + 3, (unsigned long long)active);
+    if (kinds[BOX_GLOBAL] > 0)
+      atomicAdd(cnt + 1, (unsigned long long)kinds[BOX_GLOBAL]);
+    if (kinds[BOX_SPLIT] > 0)
+      atomicAdd(cnt + 3, (unsigned long long)kinds[BOX_SPLIT]);
+    if (active > 0) atomicAdd(cnt + 4, (unsigned long long)active);
   }
 }
 
-// the launch's staged corner source: a kernel argument of its own, like
-// Settle
-struct Stage {
-  unsigned long long* cnt;   // staged_block_steps, global_block_steps,
-                             // staged_misses, active_steps
-  int points;                // rho points a block may stage (tile_points)
-  int ls, ts;                // tile_lanes (nl | 1); floats between tiles
-};
+// three tiles of Stage::ts floats, or one split tile of up to 3 x ts
+extern __shared__ float ltx_tiles[];
 
-extern __shared__ float ltx_tiles[];   // three tiles of Stage::ts floats
-
-// the stencil of (x, y) in the tiles of box b, or a (counted) miss
+// the stencil of (x, y), read at stage time q, in the tiles of box b, or
+// a (counted) miss
 __device__ __forceinline__ Stencil locate(const Args& a, const Stage& sp,
                                           const Curv& cv, const Axes& ax,
                                           const Box& b, pos_t x, pos_t y,
-                                          int& miss) {
+                                          int q, int& miss) {
   int i, j;
   Stencil s = locate(a, cv, ax, x, y, i, j);
-  stage_in(s, b, i, j, sp.ls, miss);
+  stage_in(s, b, sp, i, j, q, miss);
   return s;
 }
 
 // lane k of the table collapsed to stage time q (weights l + 3q: t,
-// t + idt/2, t + idt), blended at stencil s: from the tiles where s is
-// staged, else from the raw records
+// t + idt/2, t + idt), blended at stencil s: from the tile that
+// stage_in put in s.t, which is q's only where s was located at this
+// same q (lanes.cuh's Src contract), else from the raw records
 __device__ __forceinline__ float lane(const Args& a, const Stage& sp,
                                       const Stencil& s, const float* l,
                                       int q, int k) {
   if (s.t >= 0) {
-    const float* t = ltx_tiles + q * sp.ts + s.t + k;
+    const float* t = ltx_tiles + s.t + k;
     return blend(s, t[0], t[sp.ls], t[s.rs], t[s.rs + sp.ls]);
   }
   return record_lane(a, s, l + 3 * q, k);
@@ -339,6 +389,53 @@ __device__ void stage_records(const Args& a, const Stage& sp, const Box& b,
       d[2 * sp.ts] = collapse(v0, v1, v2, l + 6);
     }
   }
+}
+
+// the one tile of split box b: at every point and lane the raw records
+// collapsed with the weights w of one stage time.  Element e of the box is
+// lane k of point p (row r, column c); each thread steps e by LTX_BLOCK
+// and carries k, p, c and r along, with no integer divide in the loop
+// (with a divide an element, as stage_records has, K1 took 25% longer on
+// the advect-sheared-1m cell: H100, its float64 build).  Consecutive
+// threads read consecutive floats of a box row: coalesced loads.
+__device__ void stage_tile(const Args& a, const Stage& sp, const Box& b,
+                           const float* w) {
+  const long long R = a.C * a.nl;
+  const int nl = a.nl, total = b.bw * b.bh * nl;
+  const int dp = LTX_BLOCK / nl, dk = LTX_BLOCK - dp * nl;
+  int e = threadIdx.x;
+  int p = e / nl, k = e - p * nl;
+  int r = p / b.bw, c = p - r * b.bw;
+  for (; e < total; e += LTX_BLOCK) {
+    const float* s =
+        a.rtab + ((long long)(b.j0 + r) * a.nx + b.i0 + c) * nl + k;
+    ltx_tiles[p * sp.ls + k] = collapse(s[0], s[R], s[2 * R], w);
+    k += dk;
+    c += dp;
+    p += dp;
+    if (k >= nl) {
+      k -= nl;
+      ++c;
+      ++p;
+    }
+    while (c >= b.bw) {
+      c -= b.bw;
+      ++r;
+    }
+  }
+}
+
+// a split box's one tile moves on to stage time q (weights l + 3q);
+// nothing for any other box.  Every thread of the block calls it: the
+// barriers before (no thread still reads the old tile) and after (every
+// thread sees the new one)
+__device__ __forceinline__ void restage(const Args& a, const Stage& sp,
+                                        Box& b, const float* l, int q) {
+  if (b.q < 0) return;
+  __syncthreads();
+  stage_tile(a, sp, b, l + 3 * q);
+  b.q = q;
+  __syncthreads();
 }
 
 // the corner source of find_currents_at: stage q of the internal step
@@ -374,8 +471,8 @@ __device__ void find_currents(const Args& a, const Stage& sp, const Curv& cv,
                               pos_t z, float* cp, float* dp0, float* dp1,
                               int& miss, pos_t& u, pos_t& v, pos_t& w) {
   find_currents_at(Records{a, sp, l, q}, T,
-                   locate(a, sp, cv, ax, b, x, y, miss), z, cp, dp0, dp1, u,
-                   v, w);
+                   locate(a, sp, cv, ax, b, x, y, q, miss), z, cp, dp0, dp1,
+                   u, v, w);
 }
 
 // the corner source of step_lanes (lanes.cuh): the stages of internal
@@ -389,8 +486,8 @@ struct Staged {
   const Box& b;
   const float* l;
   int& miss;
-  __device__ __forceinline__ Stencil at(pos_t x, pos_t y) const {
-    return locate(a, sp, cv, ax, b, x, y, miss);
+  __device__ __forceinline__ Stencil at(pos_t x, pos_t y, int q) const {
+    return locate(a, sp, cv, ax, b, x, y, q, miss);
   }
   __device__ __forceinline__ float lane(const Stencil& s, int q,
                                         int k) const {
@@ -453,10 +550,14 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
   constexpr bool RNG = HT || VT != 0 || SWIM;
   constexpr int STRIDE = SWIM ? 8 : 4;    // key words per internal step
   __shared__ int red[2 * 4 * (LTX_BLOCK / 32)];
-  // the block's particle-steps whose lanes ran (active_steps), kept by
-  // thread 0 in shared memory, off the register file
-  __shared__ unsigned act_n;
-  if (threadIdx.x == 0) act_n = 0u;
+  // the block's particle-steps whose lanes ran (active_steps) and its
+  // block-steps by kind (BOX_*), kept in shared memory, off the register
+  // file (kinds by thread 0 alone)
+  __shared__ unsigned act_n, kinds[4];
+  if (threadIdx.x == 0) {
+    act_n = 0u;
+    for (int k = 0; k < 4; ++k) kinds[k] = 0u;
+  }
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   const bool live = p < n;   // every thread reaches the staging barriers
   const pos_t* par = ppar(a);
@@ -492,8 +593,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
   pos_t salt = pos_t(0), temp = pos_t(0);
   if constexpr (SALT) { salt = salt_in[q]; temp = temp_in[q]; }
   int hitl = 0, hitb = 0;
-  int miss = 0, blocks = 0;   // staged misses; block-steps staged + 2^16 x
-                              // global (thread 0's count)
+  int miss = 0;               // staged misses
   const pos_t idt = par[P_IDT];
   const pos_t half = pos_t(0.5) * idt;
   const pos_t sixth = idt / pos_t(6);
@@ -507,13 +607,14 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
       if (st >= ACTIVE) age = (t_i + idt) - dob;
     }
     const float* l = coef + 9 * i;        // stage weights: t, t+idt/2, t+idt
-    // the block's box of stage-1 cells; its three tiles when it fits
+    // the block's box of stage-1 cells; its three tiles when it fits, its
+    // t tile when it fits split
     const bool act = st == ACTIVE;
     int ci = 0, cj = 0, kind;
     Stencil s1;
     if (act) s1 = locate(a, cv, ax, x, y, ci, cj);
-    const Box box = block_box(act, ci, cj, a.nx, a.ny, sp.points, red, i & 1,
-                              kind);
+    Box box = block_box(act, ci, cj, a.nx, a.ny, sp.points, red, i & 1,
+                        kind);
     // counted here, not in block_box: its barrier as __syncthreads_count,
     // or a per-warp sum beside its lane-0 stores, made the advect build
     // 4.4-4.7% slower (H100, tools/cells_ab.py at 1M); this, 1.0%
@@ -524,17 +625,30 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
     if (kind == BOX_STAGED) {
       stage_records(a, sp, box, l);
       __syncthreads();
+    } else if (kind == BOX_SPLIT) {
+      stage_tile(a, sp, box, l);
+      __syncthreads();
     }
-    blocks += kind == BOX_STAGED ? 1 : kind == BOX_GLOBAL ? 1 << 16 : 0;
-    if (!act) continue;
-    stage_in(s1, box, ci, cj, sp.ls, miss);
+    if (threadIdx.x == 0) ++kinds[kind];
+    // a thread without an active particle still reaches a split box's
+    // restage barriers
     pos_t u1, v1, w1, u2, v2, w2, u3, v3, w3, u4, v4, w4;
-    find_currents_at(Records{a, sp, l, 0}, T, s1, z, cp, dp0, dp1, u1, v1,
-                     w1);
-    find_currents(a, sp, cv, ax, T, box, l, 1, x + u1 * half, y + v1 * half,
-                  z + w1 * half, cp, dp0, dp1, miss, u2, v2, w2);
-    find_currents(a, sp, cv, ax, T, box, l, 1, x + u2 * half, y + v2 * half,
-                  z + w2 * half, cp, dp0, dp1, miss, u3, v3, w3);
+    if (act) {
+      stage_in(s1, box, sp, ci, cj, 0, miss);
+      find_currents_at(Records{a, sp, l, 0}, T, s1, z, cp, dp0, dp1, u1, v1,
+                       w1);
+    }
+    restage(a, sp, box, l, 1);
+    if (act) {
+      find_currents(a, sp, cv, ax, T, box, l, 1, x + u1 * half,
+                    y + v1 * half, z + w1 * half, cp, dp0, dp1, miss, u2, v2,
+                    w2);
+      find_currents(a, sp, cv, ax, T, box, l, 1, x + u2 * half,
+                    y + v2 * half, z + w2 * half, cp, dp0, dp1, miss, u3, v3,
+                    w3);
+    }
+    restage(a, sp, box, l, 2);
+    if (!act) continue;
     find_currents(a, sp, cv, ax, T, box, l, 2, x + u3 * idt, y + v3 * idt,
                   z + w3 * idt, cp, dp0, dp1, miss, u4, v4, w4);
     pos_t dx = sixth * (u1 + pos_t(2) * u2 + pos_t(2) * u3 + u4);
@@ -546,7 +660,7 @@ ext_step_kernel(Args a, Settle sg, Curv cv, Stage sp, int n,
         STRIDE, i, pid, age_pre, u1, v1, dx, dy, dz, x, y, z, st, spoly,
         salt, temp, hitl, hitb);
   }
-  count_staging(sp.cnt, blocks & 0xffff, blocks >> 16, miss, act_n);
+  count_staging(sp.cnt, kinds, miss, act_n);
   if (!live) return;
   x_out[p] = x;
   y_out[p] = y;
@@ -604,10 +718,11 @@ extern "C" int ltx_ext_step_blocks_per_sm(int nl, int tile_points) {
 // each curv_my x curv_mx) with the raster origin, inverse spacings and
 // the squared residual tolerance are the curvilinear map, given exactly
 // when the library is an LTX_CURV variant.  tile_points is the rho points
-// a block may stage (the launch takes 3 * tile_points * (nl | 1) floats of
-// dynamic shared memory; 0 runs every block from device memory); counters
-// (4 u64, zeroed by the caller once) accumulate staged_block_steps,
-// global_block_steps, staged_misses and active_steps.  axis_x/axis_y
+// a block may stage in three tiles, 3 * tile_points split (the launch
+// takes 3 * tile_points * (nl | 1) floats of dynamic shared memory; 0
+// runs every block from device memory); counters (5 u64, zeroed by the
+// caller once) accumulate staged_block_steps, global_block_steps,
+// staged_misses, split_block_steps and active_steps.  axis_x/axis_y
 // (nx, ny) are the rho axes, edge_x/edge_y (nx + 1, ny + 1) the boundary
 // cell edges (each pair null where uniform) and settle_ex/settle_ey the
 // edges in f64 for settlement: given only to an LTX_AXES variant.

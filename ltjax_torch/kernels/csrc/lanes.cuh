@@ -514,7 +514,11 @@ __device__ pos_t visser_dz(const Rec& r, const Args& a, pos_t sigma,
 // step i of the key vector (stride words a step); age_pre is the age at
 // the step's start.  ``Src`` is the corner source of every lane read:
 //
-//   Stencil at(pos_t x, pos_t y)          the stencil of (x, y)
+//   Stencil at(pos_t x, pos_t y, int q)   the stencil of (x, y), read at
+//       stage time q (below), and only at that q: ext_step.cu's holds
+//       the offset of q's tile (or a miss where q's tile is not
+//       resident), so a lane read at another q would blend the wrong
+//       tile
 //   float lane(const Stencil& s, int q, int k)  lane k at stage time q
 //       (0: t, 1: t + idt/2, 2: t + idt) blended at s
 //   Rec rec(int q)                        find_currents.cuh's corner
@@ -554,7 +558,7 @@ __device__ __forceinline__ void step_lanes(
       dz = dz + R * par[P_VCONST];
     } else {
       // Aks blended at the stage-1 position and time
-      Stencil sv = c.at(x, y);
+      Stencil sv = c.at(x, y, 0);
       pos_t zeta1 = (pos_t)c.lane(sv, 0, a.nv - 2);
       pos_t h1 = (pos_t)c.lane(sv, 0, a.nv - 1);
       dz = dz + visser_dz(c.rec(0), a, Ts.sigma, sv, zeta1, h1, z, R, idt, cq,
@@ -565,7 +569,7 @@ __device__ __forceinline__ void step_lanes(
   // --- behavior (free surface and depth at stage 1) -----------------------
   if constexpr (BEH != 0) {
     pos_t bx = pos_t(0), by = pos_t(0), bz = pos_t(0);
-    Stencil sb = c.at(x, y);
+    Stencil sb = c.at(x, y, 0);
     pos_t zeta_b = (pos_t)c.lane(sb, 0, a.nv - 2);
     pos_t h_b = (pos_t)c.lane(sb, 0, a.nv - 1);
     // ontogenetic swim speed at the pre-step age
@@ -634,7 +638,7 @@ __device__ __forceinline__ void step_lanes(
   reflect(a, cv, ax, x, y, x1, y1, exited, stuck, hits);
 
   // vertical reflection about zeta/h of the new column at t + idt
-  Stencil s4 = c.at(x1, y1);
+  Stencil s4 = c.at(x1, y1, 2);
   pos_t zeta = (pos_t)c.lane(s4, 2, a.nv - 2);
   pos_t h = (pos_t)c.lane(s4, 2, a.nv - 1);
   bool above = z1 > zeta;

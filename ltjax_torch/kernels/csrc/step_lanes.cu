@@ -171,7 +171,7 @@ struct Tables {
   const Tabs& tb;
   int w0, lo0, w2, lo2;
   pos_t irr;
-  __device__ __forceinline__ Stencil at(pos_t x, pos_t y) const {
+  __device__ __forceinline__ Stencil at(pos_t x, pos_t y, int) const {
     int i, j;
     return locate(a, cv, ax, x, y, i, j);
   }

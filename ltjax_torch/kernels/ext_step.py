@@ -9,8 +9,9 @@ whole batch:
   particle, the internal-step loop inside the thread) and counts the
   launch in ``ext_step_fused.launches`` and its staging (the blocks that
   staged their box in shared memory, those that ran from device memory,
-  the lookups that left a staged box) and the particle-steps its lanes
-  ran (``active_steps``) in ``.counters``, read with ``counts``; the
+  the lookups that left a staged box, the staged blocks that held one
+  tile at a time) and the particle-steps its lanes ran
+  (``active_steps``) in ``.counters``, read with ``counts``; the
   call is the span ``ltjax_torch.k1`` (``ltjax_torch.trace``);
 * on CPU tensors it runs ``ext_step_reference``, the plain PyTorch
   version: a loop of ``step.internal_step`` (collapsed scheme).
@@ -347,9 +348,11 @@ def settle_tables(ctx):
     return out
 
 
-# The staged corner source (csrc find_currents.cuh): a block of BLOCK
-# threads stages at most STAGE_POINTS rho points, and at most STAGE_BYTES
-# of shared memory, per internal step.
+# The staged corner source (csrc ext_step.cu): a block of BLOCK threads
+# stages at most STAGE_POINTS rho points in three tiles, and at most
+# STAGE_BYTES of shared memory, per internal step; a box of up to three
+# times those points is staged split, one tile at a time in the same
+# bytes.
 BLOCK = 128
 STAGE_POINTS = 36        # a 6 x 6 box: 2 x 2 cells and the margin
 STAGE_BYTES = 48 * 1024
@@ -371,7 +374,7 @@ def tile_points(nl: int) -> int:
 
 def stage_bytes(nl: int) -> int:
     """The dynamic shared memory of a launch: three tiles of
-    tile_points(nl) points."""
+    tile_points(nl) points, or one split tile of three times that."""
     return 3 * 4 * tile_lanes(nl) * tile_points(nl)
 
 
@@ -384,9 +387,11 @@ def block_boxes(grid, x, y, status=None, nl: int = 0,
     (``status`` None: all), grown by one cell on each side and clipped to
     the grid: points i0..i1 x j0..j1 (inclusive; -1 for a block with no
     active particle).  ``points`` is the box's size, ``nbytes`` the shared
-    memory of its three tiles (3 x points x tile_lanes(nl) x 4 bytes), and
-    ``fits`` whether it is within the launch's tile_points(nl): a block
-    that does not fit runs from global memory."""
+    memory of its three tiles (3 x points x tile_lanes(nl) x 4 bytes),
+    ``fits`` whether it is within the launch's tile_points(nl) (three
+    tiles), and ``split`` whether it does not fit but is within three
+    times that (one tile at a time, in the launch's stage_bytes(nl)): a
+    live block in neither runs from global memory."""
     from ..grid import locate_rho_ij
     n = x.shape[0]
     nb = -(-n // block)
@@ -411,7 +416,9 @@ def block_boxes(grid, x, y, status=None, nl: int = 0,
             "j0": torch.where(live, j0, neg), "j1": torch.where(live, j1, neg),
             "live": live, "points": points,
             "nbytes": 3 * 4 * tile_lanes(nl) * points,
-            "fits": live & (points <= tile_points(nl))}
+            "fits": live & (points <= tile_points(nl)),
+            "split": live & (points > tile_points(nl))
+            & (points <= 3 * tile_points(nl))}
 
 
 def ext_step_reference(ctx, cfg, p: st.Particles, prec: PackedRecords,
@@ -441,10 +448,11 @@ _C_ARGTYPES = ([ctypes.c_void_p] * 27 + [ctypes.c_int] * 19
                + [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2
                + [ctypes.c_double] * 5 + [ctypes.c_int]
                + [ctypes.c_void_p] * 8)
-# the device counters: the staging counters, then the particle-steps the
-# lanes ran (the threads ACTIVE after each internal step's release)
+# the device counters: the staging counters (staged_block_steps counts
+# the split ones too), then the particle-steps the lanes ran (the threads
+# ACTIVE after each internal step's release)
 COUNTERS = ("staged_block_steps", "global_block_steps", "staged_misses",
-            "active_steps")
+            "split_block_steps", "active_steps")
 
 
 def _counters(dev) -> torch.Tensor:

@@ -29,10 +29,16 @@ a habitat square, a square hole and a slanted hexagon: statuses and
 settle_poly equal, salt and temp within 1e-3; behavior 4 without
 SaltTempOn leaves salt and temp at 0.
 
-K1's device counter ``active_steps`` equals the plain version's count of
-the particles active after each internal step's release, in float32 and
-float64, with releases inside the run and exits through the open
-boundary; its staging counters follow ``ext_step.block_boxes``.
+K1's staged corner source is held on each of its paths (three tiles,
+split, device memory, misses) against the plain version, and on the
+staged paths against the same launch with every block in device memory,
+bit for bit; the three-tile and split paths also with the turbulence and
+behavior 4 lanes, whose reads at t after a split box's t + idt restage
+are counted misses.  K1's device counter ``active_steps`` equals the plain
+version's count of the particles active after each internal step's
+release, in float32 and float64, with releases inside the run and exits
+through the open boundary; its staging counters follow
+``ext_step.block_boxes``.
 
 The curvilinear variant (LTX_CURV) is held the same way on
 synth.make_curv_case with a land block: one external step against its
@@ -534,16 +540,26 @@ def test_per_step_route_launches_rk4_per_internal_step(gpu, monkeypatch):
 
 
 def _staging_case(device, path):
-    """The staged corner source's paths (csrc find_currents.cuh) on the
-    100 km case without land: 4096 particles on a 10 x 10 km patch west
-    of the centre (~250 a 2.5 km cell), Hilbert-sorted ("sorted": every
-    block stages), unsorted over the whole domain ("unsorted": every
-    block overflows and runs from device memory), or sorted in a flow 2.5
+    """The staged corner source's paths (csrc ext_step.cu) on the 100 km
+    case without land: 4096 particles on a 10 x 10 km patch west of the
+    centre (~250 a 2.5 km cell), Hilbert-sorted ("sorted": every block
+    stages three tiles), unsorted over the whole domain ("unsorted": every
+    block overflows and runs from device memory), sorted in a flow 2.5
     times faster ("fast": 5-7.5 m/s, 0.9-1.4 cells an internal step, so
-    stencils leave the box; within the displacement guard's 1.5 cells)."""
-    omega = 2.5e-4 if path == "fast" else 1e-4
+    stencils leave the box; within the displacement guard's 1.5 cells),
+    or sorted and then carried two hours by a rotation sheared in depth,
+    its rate times 1 + 0.01 z ("split": the blocks' particles drift apart
+    at different depths, so their boxes hold 42-64 points, more than the
+    36 of three tiles and within the 108 of a split tile).  A suffix
+    names lanes beyond advection (STAGING_LANES): "-turb" on the parabolic
+    Aks profile, "-behavior" on the halocline with ages 0-3 days."""
+    base, _, lanes = path.partition("-")
+    omega = 2.5e-4 if base == "fast" else 1e-4
     c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
-                                   h0=50.0, omega=omega, shear_a=0.004,
+                                   h0=50.0, omega=omega,
+                                   shear_a=0.01 if base == "split" else 0.004,
+                                   parabolic_aks=lanes == "turb",
+                                   halocline=lanes == "behavior",
                                    dtype=torch.float32, device=device)
     g = c.grid
     ctx = StepContext(grid=g, bounds=bd.build_boundaries(
@@ -552,24 +568,45 @@ def _staging_case(device, path):
     n = 4096
     cfg = Config(numpar=n, dt=1800, idt=450, us=6, ws=7,
                  OpenOceanBoundary=True, dtype_pos="float32",
-                 reflect_iters=2, TrackCollisions=True)
+                 reflect_iters=2, TrackCollisions=True,
+                 **STAGING_LANES.get(lanes, {}))
     rng = np.random.default_rng(13)
-    lo, hi = ((2e3, 98e3), (2e3, 98e3)) if path == "unsorted" else \
+    lo, hi = ((2e3, 98e3), (2e3, 98e3)) if base == "unsorted" else \
         ((20e3, 30e3), (45e3, 55e3))
     p = st.init_particles(rng.uniform(*lo, n), rng.uniform(*hi, n),
                           rng.uniform(-49.0, -1.0, n), dtype=torch.float32,
                           device=device)
     p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
-    if path != "unsorted":
+    if lanes == "behavior":
+        age = torch.tensor(rng.uniform(0.0, 3 * 86400.0, n),
+                           dtype=torch.float32, device=device)
+        p = p.replace(age=age, dob=-age)
+    if base != "unsorted":
         p, _ = _sort(g, p)
+    if base == "split":
+        x, y, _ = c.analytic(*(v.double().cpu().numpy()
+                               for v in (p.x, p.y, p.z)), 7200.0)
+        p = p.replace(x=torch.tensor(x, dtype=torch.float32, device=device),
+                      y=torch.tensor(y, dtype=torch.float32, device=device))
     return c, ctx, cfg, p
 
 
 def _path_counter(staging, path):
+    path, _, lanes = path.partition("-")
+    if lanes and path == "split":
+        # Visser's Aks column, the behavior's zeta/h and its salt cue at
+        # t, read after the split box's t + idt restage: counted misses
+        assert staging["staged_misses"] > 0
     if path == "sorted":
         # all but a block at a jump of the Hilbert curve
         assert staging["staged_block_steps"] > 9 * staging[
             "global_block_steps"]
+        assert staging["split_block_steps"] < staging["staged_block_steps"]
+    elif path == "split":
+        assert staging["split_block_steps"] > 0
+        assert staging["split_block_steps"] > 9 * (
+            staging["global_block_steps"]
+            + staging["staged_block_steps"] - staging["split_block_steps"])
     elif path == "unsorted":
         assert staging["global_block_steps"] > 0
         assert staging["staged_block_steps"] == 0
@@ -577,32 +614,59 @@ def _path_counter(staging, path):
         assert staging["staged_misses"] > 0
 
 
-STAGING = pytest.mark.parametrize("path", ["sorted", "unsorted", "fast"])
+# the lanes beyond advection that read the corner source at a stage time
+# other than the RK4 stage's (step_lanes: the stage-1 column at t)
+STAGING_LANES = {
+    "turb": dict(HTurbOn=True, ConstantHTurb=1.0, VTurbOn=True,
+                 readAks=True),
+    "behavior": dict(Behavior=4, readSalt=True, Sgradient=0.5, **BEH),
+}
+STAGING = pytest.mark.parametrize("path", [
+    "sorted", "unsorted", "fast", "split", "sorted-turb", "split-turb",
+    "sorted-behavior", "split-behavior"])
 
 
 @pytest.mark.gpu
 @STAGING
-def test_staged_kernel_paths_match_plain(gpu, path):
-    """K1 advection: one internal step at a time from the same state
-    (horizontal 0.05 m, vertical 1e-3 m, equal statuses) for 4 steps."""
+def test_staged_kernel_paths_match_plain(gpu, path, monkeypatch):
+    """K1 (advection, or with the turbulence or behavior 4 lanes): one
+    internal step at a time from the same state (horizontal 0.05 m,
+    vertical 1e-3 m, equal statuses) for 4 steps; on the staged paths the
+    launch equals the same launch with no staging bit for bit."""
     c, ctx, cfg, p = _staging_case(gpu, path)
-    rec = pk.build_packed_records(
-        c.grid, synth.fieldset_for(c, t_center=900.0, dt=1800.0))
+    fs = synth.fieldset_for(c, t_center=900.0, dt=1800.0)
+    rec = pk.build_packed_records(c.grid, fs, with_aks=cfg.VTurbOn,
+                                  with_scalars=cfg.needs_salt_fields())
+    fields = fs if "-" in path else None
     cfg1 = replace(cfg, dt=cfg.idt)
-    kx.reset_launches()
+    staging = dict.fromkeys(kx.COUNTERS, 0)
     q = p
     for i in range(4):
         t = i * float(cfg.idt)
-        out = kx.ext_step_fused(ctx, cfg1, q, rec, t)
-        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t)
+        kx.reset_launches()
+        out = kx.ext_step_fused(ctx, cfg1, q, rec, t, fields=fields, seed=5,
+                                ext_idx=i)
+        staging = {k: v + staging[k] for k, v in kx.counts().items()}
+        ref = kx.ext_step_reference(ctx, cfg1, q, rec, t, fields=fields,
+                                    seed=5, ext_idx=i)
         torch.cuda.synchronize()
         assert (out.status != ref.status).sum() == 0
         for k, tol in (("x", 0.05), ("y", 0.05), ("z", 1e-3)):
             np.testing.assert_allclose(getattr(out, k).cpu().numpy(),
                                        getattr(ref, k).cpu().numpy(),
                                        rtol=0, atol=tol)
+        if path != "unsorted":
+            # a staged launch equals the launch with every block in device
+            # memory (STAGE_POINTS 0) bit for bit: a lookup returns the
+            # same value whichever path served it
+            with monkeypatch.context() as m:
+                m.setattr(kx, "STAGE_POINTS", 0)
+                glob = kx.ext_step_fused(ctx, cfg1, q, rec, t, fields=fields,
+                                         seed=5, ext_idx=i)
+            for k in ("x", "y", "z", "status"):
+                assert torch.equal(getattr(out, k), getattr(glob, k)), k
         q = ref
-    _path_counter(kx.counts(), path)
+    _path_counter(staging, path)
     assert float((q.x - p.x).abs().max()) > 100.0
     assert float((q.status == st.ACTIVE).float().mean()) > 0.9
 
@@ -617,7 +681,8 @@ def test_active_steps_count_the_particle_steps_that_ran(gpu, dtype):
     internal step a launch): half the particles released at dates of
     birth inside the run, a flow that carries corner particles out
     through the open boundary.  Its staging counters equal block_boxes'
-    rule on the same state: the blocks that fit staged, the others from
+    rule on the same state: the blocks that fit staged in three tiles,
+    those that fit split staged one tile at a time, the others from
     device memory."""
     c = synth.make_solid_body_case(nx=41, ny=41, us=6, lx=100e3, ly=100e3,
                                    h0=50.0, omega=2e-4, shear_a=0.004,
@@ -645,7 +710,7 @@ def test_active_steps_count_the_particle_steps_that_ran(gpu, dtype):
     nl = rec.tab.shape[-1]
     kx.reset_launches()
     want = {"active_steps": 0, "staged_block_steps": 0,
-            "global_block_steps": 0}
+            "global_block_steps": 0, "split_block_steps": 0}
     q = p
     for i in range(n_int):
         t = i * idt
@@ -654,9 +719,11 @@ def test_active_steps_count_the_particle_steps_that_ran(gpu, dtype):
         status = torch.where(released, st.ACTIVE, q.status)
         boxes = kx.block_boxes(g, q.x, q.y, status, nl)
         want["active_steps"] += int((status == st.ACTIVE).sum())
-        want["staged_block_steps"] += int(boxes["fits"].sum())
+        want["staged_block_steps"] += int(
+            (boxes["fits"] | boxes["split"]).sum())
+        want["split_block_steps"] += int(boxes["split"].sum())
         want["global_block_steps"] += int(
-            (boxes["live"] & ~boxes["fits"]).sum())
+            (boxes["live"] & ~boxes["fits"] & ~boxes["split"]).sum())
         kx.ext_step_fused(ctx, cfg, q, rec, t)
         q = kx.ext_step_reference(ctx, cfg, q, rec, t)
     got = kx.counts()

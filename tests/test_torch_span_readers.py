@@ -56,7 +56,8 @@ def _obs(t=None, staging=None):
             "launches": {"k1": 1, "k2": 0, "k3": 0},
             "staging": staging if staging is not None else {
                 "staged_block_steps": 10, "global_block_steps": 0,
-                "staged_misses": 0, "active_steps": 1000},
+                "staged_misses": 0, "split_block_steps": 4,
+                "active_steps": 1000},
             "peaks": cl.load_json(os.path.join(ROOT, "ltbench",
                                                "peaks.json")),
             "work": {"k1": {"f32": 1e3, "f64": 1e3, "bytes": 1e3,
@@ -65,7 +66,7 @@ def _obs(t=None, staging=None):
 
 NEW = ("sort_device_ms_per_ext", "tables_device_ms_per_ext",
        "k1_host_ms_per_launch", "program_idle_ms_per_chunk",
-       "k1_ns_per_active_step")
+       "k1_ns_per_active_step", "k1_split_pct")
 HAND = {
     # sort: the memset and the radix kernel, merged [10, 14] = 4 us, and
     # the unsort's kernel 2 us; over 2 external steps
@@ -79,6 +80,8 @@ HAND = {
     "program_idle_ms_per_chunk": 76e-3,
     # K1's 34 us over 1000 active particle-steps
     "k1_ns_per_active_step": 34.0,
+    # 4 of the 10 staged block-steps split, none global
+    "k1_split_pct": 40.0,
 }
 
 

@@ -4,12 +4,17 @@ and the stretched ladder with hc < h0 that the kernels are checked on.
 
 block_boxes gives each block of BLOCK particles the rho points of its
 active particles' cells grown by one cell on each side; the kernel stages
-three tiles of those points (csrc find_currents.cuh) when they number at
-most tile_points(nl), and runs the block from device memory otherwise:
+three tiles of those points (csrc ext_step.cu) when they number at most
+tile_points(nl), one tile at a time in the same bytes ("split") when they
+number at most three times that, and runs the block from device memory
+otherwise:
 
 * a Hilbert-sorted batch as dense as the main path's (chip_smoke.py
-  phase 2: ~70 particles a 1 km cell) fits, the same batch unsorted does
-  not;
+  phase 2: ~70 particles a 1 km cell) fits, the same batch unsorted
+  overflows both tiers;
+* the same sorted batch spread over -49..-1 m and carried an hour by a
+  rotation sheared in depth (rate x (1 + 0.01 z), the sheared cell's)
+  drifts apart at different depths: most of its blocks stage split;
 * the one-cell margin holds every RK4 stage of one internal step at the
   main path's speeds (solid-body rotation, omega 5e-5 on the 200 km
   bench grid: up to 4.2 m/s, 0.5 km in 120 s on 1 km cells);
@@ -53,10 +58,10 @@ def _bench(nx=200):
                                       dtype=torch.float32)
 
 
-def _batch(case, n, lo, hi, seed, sort=True):
+def _batch(case, n, lo, hi, seed, sort=True, z=(-40.0, -5.0)):
     rng = np.random.default_rng(seed)
     p = st.init_particles(rng.uniform(lo, hi, n), rng.uniform(lo, hi, n),
-                          rng.uniform(-40.0, -5.0, n), dtype=torch.float32)
+                          rng.uniform(*z, n), dtype=torch.float32)
     p = p.replace(status=torch.full_like(p.status, st.ACTIVE))
     return _sort(case.grid, p)[0] if sort else p
 
@@ -70,10 +75,38 @@ def test_sorted_batch_fits_and_unsorted_overflows(nl):
     b = kx.block_boxes(case.grid, ps.x, ps.y, ps.status, nl)
     assert bool(b["live"].all())
     assert float(b["fits"].double().mean()) > 0.97
+    assert not bool((b["fits"] & b["split"]).any())
     assert int(b["points"].median()) <= 25
     u = kx.block_boxes(case.grid, p.x, p.y, p.status, nl)
-    assert not bool(u["fits"].any())
+    assert not bool(u["fits"].any()) and not bool(u["split"].any())
     assert int(u["points"].min()) > 30 * 30
+
+
+@pytest.mark.parametrize("nl", [63, 124])
+def test_sheared_sorted_batch_stages_split(nl):
+    """Phase 2's density on a 40 x 40 km patch 20-60 km east and north of
+    the centre, sorted, then an hour of the sheared rotation: the boxes
+    grow past three tiles' budget and stay within a split tile's, whose
+    one tile takes no more than the launch's shared memory."""
+    case = synth.make_solid_body_case(nx=200, ny=200, us=4, lx=200e3,
+                                      ly=200e3, h0=50.0, omega=5e-5,
+                                      shear_a=0.01, dtype=torch.float32)
+    p = _batch(case, 112_000, 120e3, 160e3, seed=3, z=(-49.0, -1.0))
+    b0 = kx.block_boxes(case.grid, p.x, p.y, p.status, nl)
+    assert float(b0["fits"].double().mean()) > 0.97
+    x, y, _ = case.analytic(*(v.double().numpy() for v in (p.x, p.y, p.z)),
+                            3600.0)
+    b = kx.block_boxes(case.grid, torch.tensor(x, dtype=torch.float32),
+                       torch.tensor(y, dtype=torch.float32), p.status, nl)
+    pts, ls = kx.tile_points(nl), kx.tile_lanes(nl)
+    split = b["split"]
+    assert float(split.double().mean()) > 0.9
+    assert not bool((b["fits"] & split).any())
+    assert bool((b["points"][split] > pts).all())
+    assert bool((b["points"][split] <= 3 * pts).all())
+    assert bool((4 * ls * b["points"][split] <= kx.stage_bytes(nl)).all())
+    # nbytes stays the bytes of three tiles of the box
+    assert torch.equal(b["nbytes"], 3 * 4 * ls * b["points"])
 
 
 def test_margin_holds_one_internal_step_at_main_path_speeds():
@@ -122,6 +155,7 @@ def test_box_bounds_padding_and_bytes():
     assert ls == 85 and kx.tile_lanes(63) == 63 and kx.tile_lanes(124) == 125
     assert b["nbytes"].tolist() == [3 * 4 * ls * 30, 3 * 4 * ls * 9, 0]
     assert b["fits"].tolist() == [True, True, False]
+    assert b["split"].tolist() == [False, False, False]
     for nl in (63, 84, 103, 124):
         pts = kx.tile_points(nl)
         assert pts == min(kx.STAGE_POINTS,
