@@ -145,28 +145,40 @@ class Program:
                              for c in self.records.columns()))
 
 
+def program_config(cell: Cell, seed: int, dtype_pos: Optional[str] = None):
+    """The program's Config of ``cell`` (``dtype_pos`` overrides the
+    configuration's: the control's lower precision)."""
+    from ltjax_torch.config import Config
+    lt = dict(cell.ltrans)
+    if dtype_pos:
+        lt["dtype_pos"] = dtype_pos
+    cfg = Config(**lt, numpar=cell.numpar, seed=int(seed))
+    cfg.validate()
+    return cfg
+
+
+def program_grid(ga: inputs.GridArrays, dtype, device):
+    """The program's Grid of the grid arrays, in the positions' dtype."""
+    from ltjax_torch.grid import make_grid
+    return make_grid(ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho,
+                     ga.s_w, ga.s_w, ga.hc, ga.vtransform, dtype=dtype,
+                     device=device)
+
+
 def build_program(cell: Cell, inp: Inputs, device,
                   dtype_pos: Optional[str] = None) -> Program:
     """The program's context, configuration and initial particles from
     the raw inputs (``dtype_pos`` overrides the configuration's: the
     control's lower precision)."""
     from ltjax_torch import state as st
-    from ltjax_torch.config import Config
     from ltjax_torch.fields import FieldSet
-    from ltjax_torch.grid import make_grid
     from ltjax_torch.physics import boundary as bd
     from ltjax_torch.physics import settlement as stl
     from ltjax_torch.step import StepContext
-    lt = dict(cell.ltrans)
-    if dtype_pos:
-        lt["dtype_pos"] = dtype_pos
-    cfg = Config(**lt, numpar=cell.numpar, seed=inp.seed)
-    cfg.validate()
+    cfg = program_config(cell, inp.seed, dtype_pos)
     pos = getattr(torch, cfg.dtype_pos)
     ga = inp.grid
-    grid = make_grid(ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho,
-                     ga.s_w, ga.s_w, ga.hc, ga.vtransform, dtype=pos,
-                     device=device)
+    grid = program_grid(ga, pos, device)
     bounds = bd.build_boundaries(ga.mask, grid.x_rho.cpu().numpy(),
                                  grid.y_rho.cpu().numpy(), closed_edges=False,
                                  device=device)

@@ -12,9 +12,14 @@ i-th device record.  Where the window lost records and the two counts
 differ, the kernels' own launches (the first launch of a kernel span
 after its ``.upload`` child) and their records, found by name, pin the
 two sequences together, and each stretch between two of them is matched
-only where its counts agree (the rest is left out).  A device record
-belongs to the innermost program span open at its launch, ``outside``
-where none is.
+only where its counts agree (the rest is left out).  A cell on several
+cards adds NCCL's kernels, on NCCL's own stream: each collective's
+stream waits for the program's and the program's for it, so they too run
+in launch order; where the counts differ all the same (a launch that the
+profiler did not record on the host), NCCL's kernels and the launches
+inside the collectives' host ranges (``nccl:*``) are left out of the
+matching first.  A device record belongs to the innermost program span
+open at its launch, ``outside`` where none is.
 
 The metrics read from these (``ltbench/metrics/``) give None where the
 window holds no program span: a program without them.
@@ -33,6 +38,8 @@ PREFIX = "ltjax_torch."
 OUTSIDE = "outside"
 LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset",
             "cuMemcpy", "cuMemset")
+COLLECTIVE = "nccl:"         # a collective's host range (ProcessGroupNCCL)
+NCCL = "nccl"                # NCCL's kernels on the device
 
 
 def program_spans(host) -> List[tuple]:
@@ -86,6 +93,27 @@ def _pairs(launch: List[tuple], dev: List[tuple], spans: List[tuple]):
     return out
 
 
+def _match(t: dict, spans: List[tuple]) -> tuple:
+    """(launch calls, device records, their pairs) of the window ``t``;
+    see the module's docstring."""
+    launch = sorted((h for h in t["host"] if h[0].startswith(LAUNCHES)),
+                    key=lambda h: h[1])
+    dev = sorted((d for d in t["device"] if not d[0].startswith(PREFIX)),
+                 key=lambda d: d[1])
+    if len(launch) != len(dev):
+        coll = trace._merge([(s, e) for n, s, e in t["host"]
+                             if n.startswith(COLLECTIVE)])
+        starts = [a for a, _ in coll]
+
+        def inside(x):
+            k = bisect.bisect_right(starts, x) - 1
+            return k >= 0 and x <= coll[k][1]
+
+        launch = [h for h in launch if not inside(h[1])]
+        dev = [d for d in dev if not d[0].startswith(NCCL)]
+    return launch, dev, _pairs(launch, dev, spans)
+
+
 def device_by_span(t: dict) -> Dict[str, list]:
     """The device records of the traced window ``t`` (``trace.profile``'s
     record) by the innermost program span that launched them; {} where
@@ -93,15 +121,25 @@ def device_by_span(t: dict) -> Dict[str, list]:
     spans = program_spans(t["host"])
     if not spans:
         return {}
-    launch = sorted((h for h in t["host"] if h[0].startswith(LAUNCHES)),
-                    key=lambda h: h[1])
-    dev = sorted((d for d in t["device"] if not d[0].startswith(PREFIX)),
-                 key=lambda d: d[1])
+    launch, dev, pairs = _match(t, spans)
     names = innermost(spans, [h[1] for h in launch])
     out: Dict[str, list] = defaultdict(list)
-    for j, i in _pairs(launch, dev, spans):
+    for j, i in pairs:
         out[names[j]].append(dev[i])
     return dict(out)
+
+
+def match_counts(t: dict) -> Optional[dict]:
+    """How far the matching of ``device_by_span`` reached in the window
+    ``t``: the launch calls and device records it matched over, and the
+    pairs it made (every record matched where all three agree); None
+    without program spans."""
+    spans = program_spans(t["host"])
+    if not spans:
+        return None
+    launch, dev, pairs = _match(t, spans)
+    return {"launches": len(launch), "records": len(dev),
+            "matched": len(pairs)}
 
 
 def layer_device_ms(t: dict, layers: Tuple[str, ...]) -> Optional[float]:

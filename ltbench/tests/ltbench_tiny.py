@@ -1,7 +1,7 @@
 """A copy of the benchmark's files at a size the CPU holds: the same
 configurations, traffic mixes and limits, on a coarser grid (``nx``
-points a side over the same domain), fewer particles, shorter episodes
-and a smaller sample.  It adds the cell ``oyster`` (``perstep/``): larvae
+points a side over the same domain, a sharded configuration's halo cut
+in proportion), fewer particles, shorter episodes and a smaller sample.  It adds the cell ``oyster`` (``perstep/``): larvae
 on the per-step route (K2 then K3, every larval lane), which no cell of
 the benchmark takes yet, so that the harness's handling of that route
 stays tested."""
@@ -51,7 +51,16 @@ def make(root, n=1024, nx=40, episode=4, sample=512, edit=None):
         edit(bench)
     with open(os.path.join(root, "BENCHMARK.json"), "w") as f:
         json.dump(bench, f)
-    for sub, change in (("configs", lambda c: c["grid"].update(nx=nx, ny=nx)),
+    def grid(c):
+        # a strip's halo, in rows, covers the same distance on the coarser
+        # grid (at least the stencil row and one row of movement)
+        lt = c["ltrans"]
+        if "halo_rows" in lt:
+            lt["halo_rows"] = max(2, round(lt["halo_rows"] * nx
+                                           / c["grid"]["ny"]))
+        c["grid"].update(nx=nx, ny=nx)
+
+    for sub, change in (("configs", grid),
                         ("traffic", lambda c: c.update(
                             numpar=n, episode_ext_steps=episode,
                             sample=min(n, sample)))):

@@ -15,7 +15,8 @@ CPU = torch.device("cpu")
 
 
 @pytest.mark.parametrize("workload", ["advect-1m", "oyster",
-                                      "advect-sheared-1m"])
+                                      "advect-sheared-1m",
+                                      "tiles-10m-4chip"])
 def test_inputs_repeat_from_the_seed(tmp_path, workload):
     root = ltbench_tiny.make(tmp_path)
     c = cl.find_cell(workload, root)

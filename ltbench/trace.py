@@ -29,16 +29,43 @@ def _merge(iv: List[Tuple[float, float]]) -> List[Tuple[float, float]]:
     return out
 
 
+def split(events) -> tuple:
+    """(device, host, span, annotations) of a profiler's events, each an
+    interval (name, start us, end us): the window's span (``SPAN``'s
+    host record); every other host record; the device records less the
+    device-side copies of user annotations (``record_function`` ranges,
+    NCCL's ``nccl:*`` among them: drawn on the device's timeline from
+    their first kernel to their last, they are no device work); and
+    those copies' microseconds by name."""
+    from torch.autograd import DeviceType
+    dev, host, span = [], [], None
+    notes: Dict[str, float] = defaultdict(float)
+    for e in events:
+        iv = (e.name, float(e.time_range.start), float(e.time_range.end))
+        if e.device_type == DeviceType.CUDA:
+            if getattr(e, "is_user_annotation", False) or e.name == SPAN:
+                notes[e.name[:NAME_CHARS]] += iv[2] - iv[1]
+            else:
+                dev.append(iv)
+        elif e.name == SPAN:
+            span = iv[1:]
+        else:
+            host.append(iv)
+    return dev, host, span, dict(notes)
+
+
 def profile(run: Callable[[], dict], expect: Callable[[dict], Dict[str, int]],
-            sync: Callable[[], None], tries: int = 3) -> dict:
+            sync: Callable[[], None], tries: int = 3,
+            agree: Callable[[bool], bool] = None) -> dict:
     """Trace ``run()`` (which returns its own counts, among them the
     wrappers' launches) up to ``tries`` times; ``expect(info)`` maps a
     kernel name to the launches the profiler must have recorded;
-    ``sync()`` waits for the device.  Returns
-    the fullest window: device events and host events as (name, start
-    us, end us), the window's span, ``info``, ``windows`` and
-    ``complete``."""
-    from torch.autograd import DeviceType
+    ``sync()`` waits for the device; ``agree(complete)`` (several ranks
+    tracing together) turns this window's completeness into every
+    rank's, so that all ranks trace the same number of windows.
+    Returns the fullest window: device events and host events as (name,
+    start us, end us), the window's span, ``info``, ``windows``,
+    ``complete`` and ``annotations`` (``split``)."""
     from torch.profiler import ProfilerActivity, profile as tprofile
     from torch.profiler import record_function
     best = None
@@ -50,26 +77,17 @@ def profile(run: Callable[[], dict], expect: Callable[[dict], Dict[str, int]],
                 info = run()
                 sync()
             wall = time.perf_counter() - t0
-        dev, host, span = [], [], None
-        for e in prof.events():
-            iv = (e.name, float(e.time_range.start), float(e.time_range.end))
-            if e.name == SPAN:
-                # the span's own record sits on both timelines
-                if e.device_type != DeviceType.CUDA:
-                    span = iv[1:]
-            elif e.device_type == DeviceType.CUDA:
-                dev.append(iv)
-            else:
-                host.append(iv)
+        dev, host, span, notes = split(prof.events())
         want = expect(info)
         got = {k: sum(k in name for name, _, _ in dev) for k in want}
         complete = all(got[k] >= n for k, n in want.items())
         rec = {"device": dev, "host": host, "span": span, "wall_s": wall,
                "info": info, "recorded": got, "expected": want,
-               "windows": window, "complete": complete}
+               "windows": window, "complete": complete,
+               "annotations": notes}
         if best is None or sum(got.values()) > sum(best["recorded"].values()):
             best = rec
-        if complete:
+        if agree(complete) if agree else complete:
             break
     best["windows"] = window
     return best
