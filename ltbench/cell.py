@@ -7,12 +7,17 @@ and to the plain reference alike.
 
 A configuration file holds LTRANS.data keys (``ltrans``), the grid and
 the case (the flow and the fields the records carry), the habitat
-polygons and the route its external steps must take.  A traffic file
-holds the release (``numpar`` particles uniform in x, y and z ranges,
-their age), the episode length in external steps, overrides of the case
-(``case``) and the size of the sample of particles the reference
-follows.  A later cell is a new entry in ``BENCHMARK.json`` and new
-files here: no code changes.
+polygons and the route its external steps must take.  The grid is the
+open box of ``ltbench/inputs.py`` (uniform axes, all water, one depth,
+solid-body rotation), or with ``"kind": "estuary"`` the land-masked
+estuary of ``ltbench/estuary.py`` (curvilinear or straight, bathymetry,
+an open mouth, a tidal channel flow).  A traffic file holds the release
+(``numpar`` particles uniform in x, y and z ranges, or with ``"kind":
+"water"`` uniform over an estuary's water cells at fractions of the
+local water column; their age), the episode length in external steps,
+overrides of the case (``case``) and the size of the sample of
+particles the reference follows.  A later cell is a new entry in
+``BENCHMARK.json`` and new files here: no code changes.
 """
 
 from __future__ import annotations
@@ -25,7 +30,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from . import inputs
+from . import estuary, inputs
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -101,18 +106,47 @@ class Inputs:
     seed: int
 
 
+def estuary_of(cell: Cell) -> Optional[estuary.Estuary]:
+    """The cell's estuary where its grid is of the kind ``estuary``, else
+    None (the uniform open box of ``inputs.grid_arrays``)."""
+    g = cell.config["grid"]
+    return (estuary.make(g, cell.ltrans) if g.get("kind") == "estuary"
+            else None)
+
+
+def grid_arrays(cell: Cell) -> inputs.GridArrays:
+    """The raw arrays of the cell's grid, of either kind."""
+    est = estuary_of(cell)
+    return (est.arrays if est is not None
+            else inputs.grid_arrays(cell.config["grid"], cell.ltrans))
+
+
 def make_inputs(cell: Cell, seed: int, device) -> Inputs:
     """The grid, the ring of ``episode + 2`` records, the release and the
-    polygons of one run of ``cell`` with ``seed``."""
+    polygons of one run of ``cell`` with ``seed``: of the configuration's
+    grid kind (``estuary``, or the open box without a ``kind``) and the
+    traffic's release kind (``water`` on an estuary, or the box without
+    a ``kind``)."""
     lt = cell.ltrans
-    ga = inputs.grid_arrays(cell.config["grid"], lt)
-    rec = inputs.make_records(
-        ga, cell.case, cell.episode + 2, float(lt["dt"]),
-        getattr(torch, lt.get("dtype_field", "float32")), device)
+    args = (cell.case, cell.episode + 2, float(lt["dt"]),
+            getattr(torch, lt.get("dtype_field", "float32")), device)
+    est = estuary_of(cell)
+    if est is None:
+        ga = inputs.grid_arrays(cell.config["grid"], lt)
+        rec = inputs.make_records(ga, *args)
+    else:
+        ga = est.arrays
+        rec = estuary.make_records(est, *args)
+    if cell.traffic["release"].get("kind") == "water":
+        if est is None:
+            raise ValueError(f"{cell.name}: a water release needs an "
+                             "estuary grid")
+        rel = estuary.release(cell.traffic, est, cell.case, seed, device)
+    else:
+        rel = inputs.release(cell.traffic, seed, device)
     habitat, holes = inputs.polygons(cell.config.get("polygons"))
-    return Inputs(grid=ga, records=rec,
-                  release=inputs.release(cell.traffic, seed, device),
-                  habitat=habitat, holes=holes, seed=int(seed))
+    return Inputs(grid=ga, records=rec, release=rel, habitat=habitat,
+                  holes=holes, seed=int(seed))
 
 
 def candidate_edges(inp: Inputs) -> float:
@@ -158,11 +192,29 @@ def program_config(cell: Cell, seed: int, dtype_pos: Optional[str] = None):
 
 
 def program_grid(ga: inputs.GridArrays, dtype, device):
-    """The program's Grid of the grid arrays, in the positions' dtype."""
-    from ltjax_torch.grid import make_grid
-    return make_grid(ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho,
-                     ga.s_w, ga.s_w, ga.hc, ga.vtransform, dtype=dtype,
-                     device=device)
+    """The program's Grid of the grid arrays, in the positions' dtype:
+    curvilinear (the inverse map) where the rho coordinates are 2-D."""
+    from ltjax_torch import grid as pg
+    make = pg.make_curv_grid if ga.x_rho.ndim == 2 else pg.make_grid
+    return make(ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho,
+                ga.s_w, ga.s_w, ga.hc, ga.vtransform, dtype=dtype,
+                device=device)
+
+
+def program_bounds(ga: inputs.GridArrays, grid, device):
+    """The program's boundaries of its grid, built as its CLI builds them
+    (``run.build_context``): the rim OPEN, the segments from the grid's
+    coordinates in the positions' dtype; on a curvilinear grid the psi
+    mesh's quad edges and the grid's inverse map."""
+    from ltjax_torch.physics import boundary as bd
+    if grid.curv is not None:
+        xy = grid.curv.xy_flat.cpu().numpy().reshape(grid.ny, grid.nx, 2)
+        return bd.build_boundaries_curv(ga.mask, xy[..., 0], xy[..., 1],
+                                        grid.curv, closed_edges=False,
+                                        device=device)
+    return bd.build_boundaries(ga.mask, grid.x_rho.cpu().numpy(),
+                               grid.y_rho.cpu().numpy(), closed_edges=False,
+                               device=device)
 
 
 def build_program(cell: Cell, inp: Inputs, device,
@@ -172,16 +224,12 @@ def build_program(cell: Cell, inp: Inputs, device,
     control's lower precision)."""
     from ltjax_torch import state as st
     from ltjax_torch.fields import FieldSet
-    from ltjax_torch.physics import boundary as bd
     from ltjax_torch.physics import settlement as stl
     from ltjax_torch.step import StepContext
     cfg = program_config(cell, inp.seed, dtype_pos)
     pos = getattr(torch, cfg.dtype_pos)
-    ga = inp.grid
-    grid = program_grid(ga, pos, device)
-    bounds = bd.build_boundaries(ga.mask, grid.x_rho.cpu().numpy(),
-                                 grid.y_rho.cpu().numpy(), closed_edges=False,
-                                 device=device)
+    grid = program_grid(inp.grid, pos, device)
+    bounds = program_bounds(inp.grid, grid, device)
     polys = holes = None
     if cfg.settlementon and inp.habitat:
         xe, ye = bounds.x_edges.cpu().numpy(), bounds.y_edges.cpu().numpy()

@@ -23,6 +23,12 @@ where it names one):
   send one larva up and the other down: the widest depth difference
   swings from seed to seed by the size of a swim, its 99th percentile
   does not;
+* ``h_gap_clear_p99_m``: the 99th percentile of the horizontal distances
+  over those particles.  On a curved coast a particle that comes to rest
+  against the land is stuck (status ERROR, frozen where it stands) at a
+  step that round-off decides, so on a coastline the widest distance
+  swings from seed to seed by metres to hundreds of metres, its 99th
+  percentile does not;
 * ``salt_gap_max``, ``temp_gap_max`` (and their ``_clear`` forms): the
   same of the sampled salinity [psu] and temperature [degC], where the
   configuration samples them;
@@ -61,9 +67,10 @@ def numbers(prog: dict, ref, clear: torch.Tensor, sampled: bool):
         per_row[f"{k}_gap_max{unit}"] = g
         per_row[f"{k}_gap_clear_max{unit}"] = torch.where(clear, g, 0.0)
     out = {"status_mismatch": int((~same).sum()),
-           "clear_rows": int(clear.sum()),
-           "z_gap_clear_p99_m": (float(torch.quantile(z[clear], 0.99))
-                                 if clear.any() else 0.0)}
+           "clear_rows": int(clear.sum())}
+    for k, g in (("z", z), ("h", h)):
+        out[f"{k}_gap_clear_p99_m"] = (float(torch.quantile(g[clear], 0.99))
+                                       if clear.any() else 0.0)
     for k, g in per_row.items():
         per_row[k] = torch.where(same, g, 0.0)
         out[k] = float(per_row[k].max()) if len(g) else 0.0

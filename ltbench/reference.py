@@ -1,7 +1,9 @@
 """The plain reference of a cell: ``ltbench.ref`` (a frozen plain PyTorch
 copy of the LTRANS step, importing nothing of the program) built from the
 same raw inputs as the program, following a sample of the particles
-through one episode."""
+through one episode.  Where the rho coordinates are 2-D it builds its own
+curvilinear grid (the inverse map) and boundaries (the psi mesh's quad
+edges) from them."""
 
 from __future__ import annotations
 
@@ -11,7 +13,7 @@ from . import cell as cl
 from .ref import state as rst
 from .ref.config import Config
 from .ref.fields import FieldSet
-from .ref.grid import make_grid
+from .ref.grid import make_curv_grid, make_grid
 from .ref.physics import boundary as bd
 from .ref.physics import settlement as stl
 from .ref.step import external_steps
@@ -35,11 +37,15 @@ def run_episode(cell: cl.Cell, inp: cl.Inputs, rows: torch.Tensor,
     cfg.validate()
     pos = getattr(torch, cfg.dtype_pos)
     ga = inp.grid
-    grid = make_grid(ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho,
-                     ga.s_w, ga.s_w, ga.hc, ga.vtransform, dtype=pos,
-                     device=device)
-    bounds = bd.build_boundaries(ga.mask, ga.x_rho, ga.y_rho,
-                                 closed_edges=False, device=device)
+    curv = ga.x_rho.ndim == 2
+    grid = (make_curv_grid if curv else make_grid)(
+        ga.x_rho, ga.y_rho, ga.h, ga.mask, ga.s_rho, ga.s_rho, ga.s_w,
+        ga.s_w, ga.hc, ga.vtransform, dtype=pos, device=device)
+    bounds = (bd.build_boundaries_curv(ga.mask, ga.x_rho, ga.y_rho, grid.curv,
+                                       closed_edges=False, device=device)
+              if curv else bd.build_boundaries(ga.mask, ga.x_rho, ga.y_rho,
+                                               closed_edges=False,
+                                               device=device))
     polys = holes = None
     if cfg.settlementon and inp.habitat:
         xe, ye = bounds.x_edges.cpu().numpy(), bounds.y_edges.cpu().numpy()

@@ -182,6 +182,7 @@ def work(cell, inp, cfg_opts: dict, pos_bytes: int, chunks: list,
     from . import cell as cl, workcount as wc
     g, lt = cell.config["grid"], cell.ltrans
     us, ws = int(lt["us"]), int(lt["ws"])
+    curv, passes = wc.grid_terms(cell.config)
     if act is None:
         act = sum(n * n_int * 0.5 * (a0 + a1)
                   for (_, a0), (n, a1) in zip(chunks[:-1], chunks[1:]))
@@ -191,14 +192,15 @@ def work(cell, inp, cfg_opts: dict, pos_bytes: int, chunks: list,
     for k, n in launched.items():
         if not n:
             continue
-        f32, f64 = wc.ops_per_step(k, cfg_opts, us, ws, pos_bytes == 8)
+        f32, f64 = wc.ops_per_step(k, cfg_opts, us, ws, pos_bytes == 8,
+                                   curv, passes)
         f64 = act * f64
         if k != "k2" and cfg_opts.get("settlementon"):
             f64 += act * wc.settle_ops(edges)
         out[k] = {"f32": act * f32, "f64": f64, "active_steps": act,
                   "bytes": n * wc.launch_bytes(
                       k, cfg_opts, int(g["nx"]), int(ny or g["ny"]), us,
-                      ws, numpar or cell.numpar, pos_bytes, 4, nv)}
+                      ws, numpar or cell.numpar, pos_bytes, 4, nv, curv)}
     return out
 
 

@@ -76,8 +76,8 @@ def prebuild(cell: cl.Cell, control: str = None) -> None:
     from ltjax_torch.kernels import build
     from ltjax_torch.run import kernel_targets
     cfg = cl.program_config(cell, 0, control)
-    ga = inputs.grid_arrays(cell.config["grid"], cell.ltrans)
-    grid = cl.program_grid(ga, getattr(torch, cfg.dtype_pos), "cpu")
+    grid = cl.program_grid(cl.grid_arrays(cell), getattr(torch, cfg.dtype_pos),
+                           "cpu")
     build.prebuild(kernel_targets(cfg, grid, tile=True))
 
 
@@ -92,6 +92,10 @@ def measure(cell: cl.Cell, seed: int, seconds: float, with_trace: bool,
     importable by name, runs first in every rank (the tests plant faults
     with it).  Raises RuntimeError when a rank fails."""
     from ltjax_torch import dist
+    if cl.grid_arrays(cell).x_rho.ndim == 2:
+        raise RuntimeError(
+            f"{cell.name}: a curvilinear grid runs on one card only (the "
+            "program cuts no eta strips of a curvilinear grid)")
     ndp, ntiles = mesh(cell)
     if ndp * ntiles != cell.chips:
         raise ValueError(f"{cell.name}: a mesh of {ndp} x {ntiles} ranks "

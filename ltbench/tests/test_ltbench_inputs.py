@@ -1,13 +1,16 @@
 """The benchmark's inputs repeat from the seed, and the configurations
 and traffic mixes are found by name from data alone."""
 
+import dataclasses
 import json
 import os
 
+import numpy as np
 import pytest
 import torch
 
 import ltbench_tiny
+import parent_inputs
 from ltbench import cell as cl, inputs
 from ltbench.run import load_reader
 
@@ -36,6 +39,31 @@ def test_inputs_repeat_from_the_seed(tmp_path, workload):
     assert torch.equal(inputs.sample_rows(1000, 64, 5),
                        inputs.sample_rows(1000, 64, 5))
     assert len(set(inputs.sample_rows(1000, 64, 5).tolist())) == 64
+
+
+@pytest.mark.parametrize("workload", ["advect-1m", "advect-sheared-1m",
+                                      "tiles-10m-4chip"])
+def test_the_box_cells_inputs_are_the_parents(tmp_path, workload):
+    """The accepted cells' grid arrays, records and release, made through
+    the harness's dispatch on the grid and release kinds, equal the
+    parent's code path (``parent_inputs``) bit for bit at the test
+    size."""
+    root = ltbench_tiny.make(tmp_path)
+    c = cl.find_cell(workload, root)
+    new = cl.make_inputs(c, 2 ** 31 + 77, CPU)
+    ga, rec, rel = parent_inputs.make_inputs(c, 2 ** 31 + 77, CPU)
+    for f in dataclasses.fields(ga):
+        a, b = getattr(new.grid, f.name), getattr(ga, f.name)
+        assert type(a) is type(b), f.name
+        if isinstance(b, np.ndarray):
+            assert a.dtype == b.dtype and np.array_equal(a, b), f.name
+        else:
+            assert a == b, f.name
+    for a, b in zip(new.records.columns(), rec.columns()):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    for k in ("x", "y", "z"):
+        assert torch.equal(getattr(new.release, k), getattr(rel, k))
+    assert new.release.age == rel.age
 
 
 def test_records_are_the_solid_body_case():

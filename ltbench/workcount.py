@@ -24,6 +24,18 @@ blends and ``find_currents``' fits stay float32.
 Bytes count each record field the launch needs (three records, in the
 fields' dtype), the bathymetry and land mask, each particle column it
 reads and each it writes once, and the polygon vertices.
+
+On a grid of the kind ``estuary`` (``grid_terms``) two more terms count:
+on a curvilinear one every cell location is an inverse-map solve (the
+raster seed 16, three Newton steps of 65, the clamp 4; an inside test's
+residual 40 more), 5 + ``reflect_iters`` plain solves an internal step
+in K1 (four RK4 stages, the vertical reflection's column, one a
+reflection pass; Visser's and a behavior's stage-1 column where they
+run) and 2 with residual (the two inside tests), as the smoke runs count
+them, and each launch reads the map (the rho points in the positions'
+dtype, the seed raster's two int32 tables); and a coastline is reflected
+``reflect_iters`` passes (60 each) where the counts above hold one.  The
+open box's counts are as they were.
 """
 
 from __future__ import annotations
@@ -82,17 +94,50 @@ def lane_extras(o: dict, us: int, ws: int) -> tuple:
     return ops, pos
 
 
-BOUNDS = 60 + 82 + 5     # reflection 60, the vertical bounds 82 + 5
+REFLECT = 60             # one reflection pass
+BOUNDS = REFLECT + 82 + 5     # reflection, the vertical bounds 82 + 5
+CURV_SOLVE = 16 + 3 * 65 + 4  # an inverse-map solve
+CURV_RESID = 40               # an inside test's residual
 
 
-def ops_per_step(kernel: str, o: dict, us: int, ws: int,
-                 pos64: bool) -> tuple:
+def grid_terms(config: dict) -> tuple:
+    """(curvilinear, reflection passes) of a configuration file's grid:
+    an ``estuary`` counts its inverse map where it is curvilinear and
+    ``reflect_iters`` passes; the open box neither, and one pass."""
+    g = config["grid"]
+    if g.get("kind") != "estuary":
+        return False, 1
+    return (bool(g.get("curvilinear", True)),
+            int(config["ltrans"].get("reflect_iters", 4)))
+
+
+def curv_solves(o: dict) -> tuple:
+    """(plain, with residual) inverse-map solves of one internal step of
+    K1 on a curvilinear grid."""
+    return (5 + int(o.get("reflect_iters", 4))
+            + int(bool(o.get("VTurbOn")) and o.get("readAks", True))
+            + int(int(o.get("Behavior", 0)) != 0)), 2
+
+
+def ops_per_step(kernel: str, o: dict, us: int, ws: int, pos64: bool,
+                 curv: bool = False, passes: int = 1) -> tuple:
     """(f32, f64) operations of one active particle-step of ``kernel``
     ("k1", "k2", "k3") under the LTRANS options ``o``: K1 the four stages,
     the RK4 sums 40, the bounds and the lanes; K2 the four stages and the
-    RK4 combination 24; K3 the bounds, the lanes and the DEATH draw."""
+    RK4 combination 24; K3 the bounds, the lanes and the DEATH draw.  On
+    a curvilinear grid (``curv``) plus the inverse-map solves (K2 the
+    four stages', K3 all but those), and ``passes`` reflection passes in
+    place of one; both float64 with float64 positions."""
     extra, extra_pos = lane_extras(o, us, ws)
     stage, stage_pos = stage_ops(us, ws), stage_ops_pos(us, ws)
+    more = (passes - 1) * REFLECT if kernel != "k2" else 0
+    if curv:
+        plain, resid = curv_solves(o)
+        if kernel == "k2":
+            plain, resid = 4, 0
+        elif kernel == "k3":
+            plain -= 4
+        more += (plain + resid) * CURV_SOLVE + resid * CURV_RESID
     if kernel == "k1":
         ops = 4 * stage + 40 + BOUNDS + extra
         pos = 4 * stage_pos + 40 + BOUNDS + extra_pos
@@ -103,6 +148,7 @@ def ops_per_step(kernel: str, o: dict, us: int, ws: int,
         pos = BOUNDS + 2 + extra_pos
     else:
         raise ValueError(f"unknown kernel {kernel!r}")
+    ops, pos = ops + more, pos + more
     return (ops - pos, pos) if pos64 else (ops, 0)
 
 
@@ -112,12 +158,20 @@ def settle_ops(edges: float) -> float:
     return 8 + 9 * edges
 
 
+def curv_map_bytes(nx: int, ny: int, pos_bytes: int) -> int:
+    """Bytes of a curvilinear grid's inverse map: the rho points in the
+    positions' dtype and the seed raster's cells (two int32 tables of
+    twice the cells along each axis)."""
+    return ny * nx * 2 * pos_bytes + 2 * (2 * (ny - 1)) * (2 * (nx - 1)) * 4
+
+
 def launch_bytes(kernel: str, o: dict, nx: int, ny: int, us: int, ws: int,
                  numpar: int, pos_bytes: int, field_bytes: int = 4,
-                 n_vertices: int = 0) -> int:
+                 n_vertices: int = 0, curv: bool = False) -> int:
     """Bytes one launch of ``kernel`` must move: the record fields it
     needs (three records), the bathymetry and land mask, each particle
-    column read and each written once, the polygon vertices."""
+    column read and each written once, the polygon vertices, and on a
+    curvilinear grid (``curv``) its inverse map."""
     salt = o.get("SaltTempOn") or int(o.get("Behavior", 0)) in (4, 5)
     aks = o.get("VTurbOn") and o.get("readAks", True)
     settle = bool(o.get("settlementon"))
@@ -141,6 +195,8 @@ def launch_bytes(kernel: str, o: dict, nx: int, ny: int, us: int, ws: int,
         ints_in = 2 + int(settle)
         cols_out, ints_out = 4 + sampled, 1 + int(settle)
         nbytes += 16 * n_vertices if settle else 0
+    if curv:
+        nbytes += curv_map_bytes(nx, ny, pos_bytes)
     return nbytes + numpar * ((cols_in + cols_out) * pos_bytes
                               + (ints_in + ints_out) * 4)
 
