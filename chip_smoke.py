@@ -6,10 +6,10 @@
     python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
 Builds the variants of the external-step CUDA kernel (K1), the per-step
-RK4 kernel (K2) and the per-step lanes kernel (K3) from
-ltjax_torch/kernels/csrc (one nvcc each, all started together), then
-runs thirteen phases and fails (non-zero exit, no final
-line) if any of them fails:
+RK4 kernel (K2), the per-step lanes kernel (K3) and the Hilbert sort's
+key kernel (SK) from ltjax_torch/kernels/csrc (one nvcc each, all
+started together), then runs fourteen phases and fails (non-zero exit,
+no final line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
    external step (30 internal steps) of 65,536 particles on the
@@ -24,7 +24,10 @@ line) if any of them fails:
    times faster (misses);
 2. the advection main path at real size: 1,000,000 particles, 16 fused
    external steps x 30 internal steps through ltjax_torch.step
-   .make_fused_external_steps, held against the closed-form trajectory;
+   .make_fused_external_steps, held against the closed-form trajectory,
+   K1 and SK launched once an external step and once a sort (every
+   count zeroed by trace.reset_counters just before the call, as before
+   8b's per-step main path and in 11b's ranks);
    timed with the Hilbert sort on and off; then the kernel against its
    plain version on the inputs of the main path's first launch;
 3. the normal entry point: ltjax_torch.run.main on written planar ROMS
@@ -160,7 +163,14 @@ line) if any of them fails:
    K1's collapsed scheme on the same particles, per internal step the
    wall and device ms, idle share and top kernels; (c) the entry point
    on the card against the CPU (CSV), --resume (bit-equal) and 2 gloo
-   tiles on the card (the single rank's CSV).
+   tiles on the card (the single rank's CSV);
+14. the Hilbert sort's key kernel SK (kernels/sort_key.py) on phase 2's
+   1M particles and on a tile's 7.5M slots of the four-card cell (4.2M
+   live, the rest EMPTY): its keys against the plain version's bit for
+   bit (unbanded, 3 depth bands, every status), step._sort's permutation
+   and columns against the int64 argsort of the plain key, one launch a
+   sort, and the key and the whole sort timed against the plain ones and
+   the key's byte bound (16 bytes a slot at 3.35 TB/s).
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -199,6 +209,7 @@ RK4_REPLACES = "ltjax/kernels/gather_interp.py:827"
 # (ltjax/kernels/ext_step.py:993-1359) run as XLA ops on that route
 LANES_SRC = "ltjax_torch/kernels/csrc/step_lanes.cu"
 LANES_REPLACES = "ltjax/kernels/ext_step.py:993"
+SORT_KEY_SRC = "ltjax_torch/kernels/csrc/sort_key.cu"
 TOL_H = 0.5        # m, horizontal: f32 kernel vs plain (tests/test_kernel.py)
 TOL_V = 1e-3       # m, vertical
 MAX_MISMATCH = 1e-4   # status mismatches: at most 0.01% of particles
@@ -824,9 +835,10 @@ def near_surface_and_bottom(n, h0, seed):
 
 def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """The bench advect configuration through make_fused_external_steps,
-    Hilbert sort on (the main path, counted) and off (kernel only)."""
-    from ltjax_torch import packed as pk, state as st, synth
-    from ltjax_torch.kernels import ext_step as kx
+    Hilbert sort on (the main path, counted: K1 and the sort key) and off
+    (kernel only)."""
+    from ltjax_torch import packed as pk, state as st, synth, trace
+    from ltjax_torch.kernels import ext_step as kx, sort_key as sk
     from ltjax_torch.step import (_sort, make_fused_external_steps,
                                   summary_counts)
     case = bench_case(torch, device, nx=nx, ny=nx, us=us, land=False)
@@ -847,12 +859,13 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
             torch.cuda.synchronize()
 
     sync()
-    kx.reset_launches()
+    trace.reset_counters()
     t0 = time.perf_counter()
     p = fused(p0, fsR, 0.0, 0)
     sync()
     sec_on = time.perf_counter() - t0
     launches = kx.ext_step_fused.launches
+    sort_launches = sk.sort_key.launches
     staging = kx.counts()
 
     # sort off: the same kernel calls on the unsorted batch
@@ -874,6 +887,7 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     err_off = np.hypot(q.x.cpu().numpy() - xa, q.y.cpu().numpy() - ya)
     res = {"phase": 2, "n": n, "ext_steps": n_fuse,
            "internal_steps": cfg.internal_steps, "launches": launches,
+           "sort_key_launches": sort_launches,
            "seconds_sort_on": sec_on, "seconds_sort_off": sec_off,
            "particle_steps_per_s_sort_on": steps / sec_on,
            "particle_steps_per_s_sort_off": steps / sec_off,
@@ -883,7 +897,9 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
            "staged_share": staged_share(staging)}
     log(res)
     # the CPU rehearsal of this function runs the plain version
-    assert launches == (n_fuse if device.type == "cuda" else 0), res
+    cuda = device.type == "cuda"
+    assert launches == (n_fuse if cuda else 0), res
+    assert sort_launches == (n_sorts(cfg, n_fuse) if cuda else 0), res
     assert counts["error"] == 0 and counts["active"] == n, res
     assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, res
     assert err_off.max() < TOL_ANALYTIC, res
@@ -913,6 +929,13 @@ def phase2(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
         assert (res["global_first_step"]
                 == res["global_first_step_predicted"]), res
     return res
+
+
+def n_sorts(cfg, n_fuse):
+    """The Hilbert sorts of one fused call: every ``ext_sort_every``-th
+    external step from the first."""
+    se = max(1, cfg.ext_sort_every)
+    return (n_fuse + se - 1) // se
 
 
 def staged_share(c):
@@ -2053,9 +2076,9 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     circles), per internal step against the plain route, K2 and K3 timed,
     the internal step split by the profiler; (c) the oyster CLI run with
     stochastic mortality, and its lanes per step at 65,536."""
-    from ltjax_torch import packed as pk, state as st, synth
+    from ltjax_torch import packed as pk, state as st, synth, trace
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
-    from ltjax_torch.kernels import step_lanes as sl
+    from ltjax_torch.kernels import sort_key as sk, step_lanes as sl
     from ltjax_torch.step import (_sort, fieldset_slice,
                                   make_fused_external_steps, summary_counts)
     out = {}
@@ -2134,9 +2157,7 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     fused = make_fused_external_steps(ctx, cfg, n_fuse)
     fused(p0.take(torch.arange(128, device=device)), fsR, 0.0, 0)
     torch.cuda.synchronize()
-    kx.reset_launches()
-    kr.rk4_displacement_fused.launches = 0
-    sl.step_lanes_fused.launches = 0
+    trace.reset_counters()
     t0 = time.perf_counter()
     pb = fused(p0, fsR, 0.0, 0)
     torch.cuda.synchronize()
@@ -2144,6 +2165,7 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     launches = {"rk4_displacement_fused": kr.rk4_displacement_fused.launches,
                 "step_lanes": sl.step_lanes_fused.launches,
                 "ext_step_fused": kx.ext_step_fused.launches}
+    sort_launches = sk.sort_key.launches
     steps = n * n_int * n_fuse
     rates = []
     for _ in range(3):
@@ -2158,7 +2180,8 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     xa, ya, _ = case.analytic(x0, y0, z0, n_fuse * dt)
     err = np.hypot(pb.x.cpu().numpy() - xa, pb.y.cpu().numpy() - ya)[act]
     rb = {"phase": "8b", "n": n, "ext_steps": n_fuse, "internal_steps": n_int,
-          "launches": launches, "seconds": sec,
+          "launches": launches, "sort_key_launches": sort_launches,
+          "seconds": sec,
           "particle_steps_per_s": steps / sec, "warm_rates": rates,
           "dead_share": counts["dead"] / n, "dead_share_expected": p_dead,
           "dead_share_sd": sd,
@@ -2168,6 +2191,8 @@ def phase8(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16,
     assert launches == {"rk4_displacement_fused": n_fuse * n_int,
                         "step_lanes": n_fuse * n_int,
                         "ext_step_fused": 0}, rb
+    assert sort_launches == (n_sorts(cfg, n_fuse)
+                             if device.type == "cuda" else 0), rb
     assert counts["error"] == 0 and counts["out_of_domain"] == 0, rb
     assert abs(rb["dead_share"] - p_dead) <= 5 * sd, rb
     assert np.isfinite(err).all() and err.max() < TOL_ANALYTIC, rb
@@ -2521,8 +2546,10 @@ def phase9a(torch, device, n=65536, nx=200, us=20):
 def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True, t0=0.0):
     """One call of make_fused_external_steps (the main path) on p0 from t0,
     after a warm call on 128 particles, with every launch count and the
-    staging counters set to 0 just before it: (particles, seconds, {tag:
-    launches} of the three kernels, staging counters)."""
+    staging counters set to 0 just before it (``trace.reset_counters``,
+    the sort key's count too): (particles, seconds, {tag: launches} of the
+    three kernels, staging counters)."""
+    from ltjax_torch import trace
     from ltjax_torch.kernels import ext_step as kx, rk4_step as kr
     from ltjax_torch.kernels import step_lanes as sl
     from ltjax_torch.step import make_fused_external_steps
@@ -2530,11 +2557,7 @@ def fused_cell(torch, ctx, cfg, p0, fsR, n_fuse, warm=True, t0=0.0):
     if warm:
         fused(p0.take(torch.arange(128, device=p0.x.device)), fsR, t0, 0)
     sync(torch, p0.x.device)
-    kx.reset_launches()
-    kr.rk4_displacement_fused.launches = 0
-    kr.rk4_displacement_fused.variant_launches = {}
-    sl.step_lanes_fused.launches = 0
-    sl.step_lanes_fused.variant_launches = {}
+    trace.reset_counters()
     start = time.perf_counter()
     p = fused(p0, fsR, t0, 0)
     sync(torch, p0.x.device)
@@ -3477,6 +3500,8 @@ def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
                   "migrated": sum(q["sent"] for q in ranks),
                   "drops": sum(q["drops"] for q in ranks),
                   "k1_launches": [q["launches"] for q in ranks],
+                  "sort_key_launches": [q["sort_key_launches"]
+                                        for q in ranks],
                   "rank_seconds": [q["seconds"] for q in ranks],
                   "peak_memory_bytes": [q["peak_memory_bytes"]
                                         for q in ranks],
@@ -3486,6 +3511,8 @@ def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
         assert r["drops"] == 0 and r["migrated"] > 0, r
         if device.type == "cuda":
             assert all(k == n_ext for k in r["k1_launches"]), r
+            # a tile sorts every external step
+            assert all(k == n_ext for k in r["sort_key_launches"]), r
         out[key] = r
         if len(res) > 1:
             got_s, ranks_s = res[1]
@@ -4415,6 +4442,112 @@ def phase13c(torch, device, n=10_000, nx=60, us=10, n_ext=4):
     assert res["mesh_ranks"] == 2 and res["mesh_csv_equal"], res
     return res
 
+# phase 14's batches: phase 2's (1M live particles on its 200 x 200 grid
+# of 1 km) and a tile's slots in the four-card cell (7.5M slots on an
+# 800 x 600 grid of 500 m, 4.2M of them live, the rest EMPTY)
+SORT_SHAPES = {
+    "1M": dict(n=1_000_000, live=1_000_000, nx=200, ny=200, cell=1e3,
+               lo=0.2, hi=0.8, dtype="float32"),
+    "7.5M": dict(n=7_500_000, live=4_200_000, nx=800, ny=600, cell=500.0,
+                 lo=0.2, hi=0.8, dtype="float64")}
+# every status a slot can hold, a sharded run's EMPTY (-1) among them
+SORT_STATUSES = (0, 1, 2, 3, 4, 5, -1)
+# the key's bytes a slot: the cells and the status read, the key written
+# (int32 each); banded, the band read too
+SORT_KEY_BYTES = 16
+SORT_KEY_BYTES_BANDED = 20
+
+
+def plain_sort(torch, grid, p):
+    """The sort before the key's kernel: the plain key widened to int64,
+    a stable int64 argsort, every column gathered."""
+    from ltjax_torch.kernels import sort_key as sk
+    from ltjax_torch.step import _sort_cells
+    ci, cj = _sort_cells(grid, p)
+    key = sk.plain_key(ci, cj, p.status).to(torch.int64)
+    perm = torch.argsort(key, stable=True)
+    return p.take(perm), perm
+
+
+def phase14(torch, device, shapes=None, reps=20):
+    """The Hilbert sort's key kernel (kernels/sort_key.py) on each batch
+    of SORT_SHAPES: its keys against the plain version's bit for bit,
+    unbanded and with 3 depth bands (drawn over [-1, 4], clamped), on the
+    batch's statuses and on every status mixed; ``step._sort``'s
+    permutation and columns against the int64 argsort of the plain key;
+    one launch a sort; the kernel, its plain version and the whole sort
+    both ways timed (CUDA events), against the key's byte bound."""
+    from ltjax_torch import state as st, synth
+    from ltjax_torch.kernels import sort_key as sk
+    from ltjax_torch.step import _sort, _sort_cells
+    cuda = device.type == "cuda"
+    out = {}
+    for name, s in (shapes or SORT_SHAPES).items():
+        n, live = s["n"], s["live"]
+        lx, ly = s["nx"] * s["cell"], s["ny"] * s["cell"]
+        grid = synth.make_solid_body_case(nx=s["nx"], ny=s["ny"], us=4,
+                                          lx=lx, ly=ly, device=device).grid
+        rng = np.random.default_rng(14)
+        p = st.init_particles(rng.uniform(s["lo"] * lx, s["hi"] * lx, n),
+                              rng.uniform(s["lo"] * ly, s["hi"] * ly, n),
+                              rng.uniform(-40.0, -5.0, n),
+                              dtype=getattr(torch, s["dtype"]),
+                              device=device)
+        status = np.full(n, -1, np.int32)
+        status[rng.permutation(n)[:live]] = st.ACTIVE
+        p = p.replace(status=torch.tensor(status, device=device))
+        mixed = torch.tensor(rng.choice(SORT_STATUSES, n), dtype=torch.int32,
+                             device=device)
+        band = torch.tensor(rng.integers(-1, 5, n), dtype=torch.int32,
+                            device=device)
+        ci, cj = _sort_cells(grid, p)
+        res = {"phase": 14, "shape": name, "slots": n, "live": live,
+               "key_equal": {}, "max_abs_err": 0}
+        for sname, stat in (("status", p.status), ("mixed", mixed)):
+            for bname, b, nb in (("", None, 1), ("_banded", band, 3)):
+                got = sk.sort_key(ci, cj, stat, b, nb)
+                want = sk.plain_key(ci, cj, stat, b, nb)
+                res["key_equal"][sname + bname] = bool(torch.equal(got,
+                                                                   want))
+                res["max_abs_err"] = max(res["max_abs_err"], int(
+                    (got.long() - want.long()).abs().max()))
+        res.update(perm_equal={}, columns_equal={}, launches_a_sort=[])
+        for sname, q in (("status", p), ("mixed", p.replace(status=mixed))):
+            before = sk.sort_key.launches
+            qs, perm = _sort(grid, q)
+            res["launches_a_sort"].append(sk.sort_key.launches - before)
+            qw, want = plain_sort(torch, grid, q)
+            res["perm_equal"][sname] = bool(torch.equal(perm, want))
+            res["columns_equal"][sname] = all(
+                torch.equal(getattr(qs, k), getattr(qw, k))
+                for k in st.FIELDS)
+        if cuda:
+            res["key_ms"] = {
+                "kernel": cuda_time(
+                    torch, lambda: sk.sort_key(ci, cj, p.status), reps),
+                "plain": cuda_time(
+                    torch, lambda: sk.plain_key(ci, cj, p.status), reps),
+                "kernel_banded": cuda_time(
+                    torch, lambda: sk.sort_key(ci, cj, p.status, band, 3),
+                    reps),
+                "plain_banded": cuda_time(
+                    torch, lambda: sk.plain_key(ci, cj, p.status, band, 3),
+                    reps),
+                "bound": 1e3 * SORT_KEY_BYTES * n / HBM_BYTES_PER_S,
+                "bound_banded":
+                    1e3 * SORT_KEY_BYTES_BANDED * n / HBM_BYTES_PER_S}
+            res["sort_ms"] = {
+                "kernel": cuda_time(torch, lambda: _sort(grid, p), reps),
+                "plain": cuda_time(
+                    torch, lambda: plain_sort(torch, grid, p), reps)}
+        log(res)
+        assert all(res["key_equal"].values()), res
+        assert all(res["perm_equal"].values()), res
+        assert all(res["columns_equal"].values()), res
+        assert res["launches_a_sort"] == [1 if cuda else 0] * 2, res
+        out[name] = res
+    return out
+
 
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
@@ -4518,7 +4651,7 @@ def lanes_variant(kw=None, **geometry):
 def kernel_targets():
     """Every kernel library the phases run, as (source, variant) pairs
     for build.prebuild: the whole-step kernel in each variant, the
-    per-step RK4 kernel and the per-step lanes kernel."""
+    per-step RK4 kernel, the per-step lanes kernel and the sort key."""
     from ltjax_torch.kernels import ext_step as kx
     cfgs = [make_cfg(1, **kw) for kw in [
         {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
@@ -4543,7 +4676,8 @@ def kernel_targets():
             (None, {}), (None, {"pos64": True}), (None, {"axes": True}),
             (None, {"curv": True}), (None, {"tile": True}),
             (None, {"pos64": True, "tile": True}),
-            *((kw, {}) for kw in list(LANES8.values())[1:]))]
+            *((kw, {}) for kw in list(LANES8.values())[1:]))] + [
+        ("sort_key", None)]
 
 
 def staging_report(targets, us=20, ws=21):
@@ -4576,7 +4710,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,13 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,14 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -4615,7 +4749,8 @@ def main(argv=None):
               10: lambda: phase10(torch, device),
               11: lambda: phase11(torch, device),
               12: lambda: phase12(torch, device),
-              13: lambda: phase13(torch, device)}
+              13: lambda: phase13(torch, device),
+              14: lambda: phase14(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:
@@ -4744,6 +4879,21 @@ def main(argv=None):
             "bound_ms": main["bound"]["bound_ms"],
             "bound_by": main["bound"]["bound_by"],
             "bound_share": main["bound_share"], "library_ms": None})
+    # the sort key: its launches on the one-card main path (phase 2) and
+    # on the tiles (11b's ranks), its keys' largest difference from the
+    # plain version's, times per launch on phase 14's batches; it
+    # replaces no TPU kernel (ltjax's key is XLA ops)
+    for name, r, launches in (
+            ("sort_key", res[14]["1M"], r2["sort_key_launches"]),
+            ("sort_key[tile]", res[14]["7.5M"],
+             sum(res[11]["b"]["11b-1x4"]["sort_key_launches"]))):
+        kernels.append({
+            "name": name, "route": "cuda", "source": SORT_KEY_SRC,
+            "replaces": None, "launches": launches,
+            "max_abs_err": r["max_abs_err"], "ms": r["key_ms"]["kernel"],
+            "plain_ms": r["key_ms"]["plain"],
+            "bound_ms": r["key_ms"]["bound"], "bound_by": "bytes",
+            "library_ms": None})
     log({"kernels": kernels})
     log(card)
     log({"ok": True, "device": {"platform": "gpu",

@@ -493,13 +493,14 @@ def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
     """The (source, variant) pairs of the kernels that ``cfg`` runs on
     ``grid`` (for ``kernels.build.prebuild``; ``tile``: on the tiles of a
     sharded run): K1 on the ext_step route, K2 and the lanes kernel K3 on
-    the per-step route, none on the native and packed routes."""
+    the per-step route, and the Hilbert sort's key on every route."""
     from .kernels import ext_step as kx, rk4_step as kr
     from .physics.boundary import _cell_edges
     from .grid import _is_uniform
     route = mode_flags(None, cfg)
+    key = [("sort_key", None)]
     if route in ("native", "packed"):
-        return []
+        return key
     dtype = getattr(torch, cfg.dtype_pos)
     curv = grid.curv is not None
     edges_uniform = all(_is_uniform(_cell_edges(a.cpu().numpy()), 1e-4)
@@ -508,12 +509,12 @@ def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
         cfg, curv=curv, pos64=dtype == torch.float64,
         axes=not curv and not (grid.uniform and edges_uniform), tile=tile)
     if route == "ext_step":
-        return [("ext_step", lanes)]
+        return [("ext_step", lanes)] + key
     v = kr.kernel_variant(grid, dtype)
     if tile:
         v["LTX_TILE"] = 1
     del lanes["LTX_MORTALITY"]        # K3 always draws DEATH
-    return [("rk4_step", v or None), ("step_lanes", lanes)]
+    return [("rk4_step", v or None), ("step_lanes", lanes)] + key
 
 
 def run_sharded(cfg: Config, resume: bool = False, device=None,

@@ -523,7 +523,8 @@ class TiledCase(NamedTuple):
 
 
 def _tiled_case(me, case: TiledCase, dev):
-    from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
+    from .kernels import (ext_step as kx, rk4_step as kr, sort_key as sk,
+                          step_lanes as sl)
     ctx, cfg, spec = to_device(case.ctx, dev), case.cfg, case.spec
     ny = ctx.grid.ny
     if ctx.grid.curv is not None:
@@ -561,6 +562,7 @@ def _tiled_case(me, case: TiledCase, dev):
             "seconds": sec, "launches": kx.ext_step_fused.launches,
             "rk4_launches": kr.rk4_displacement_fused.launches,
             "lanes_launches": sl.step_lanes_fused.launches,
+            "sort_key_launches": sk.sort_key.launches,
             "variant_launches": {**kx.ext_step_fused.variant_launches,
                                  **kr.rk4_displacement_fused.variant_launches,
                                  **sl.step_lanes_fused.variant_launches},
@@ -589,7 +591,7 @@ def run_tiled_steps(cases, device="cpu", backend: str = "gloo"):
     Returns, per case, (the particles in pid order on the CPU, a list per
     rank of {"drops", "sent", "seconds" (its stepping wall time, after a
     barrier), "launches" (K1), "rk4_launches" (K2), "lanes_launches" (K3),
-    "variant_launches",
+    "sort_key_launches" (the sort key's kernel), "variant_launches",
     "peak_memory_bytes"})."""
     spec = cases[0].spec
     if any((c.spec.ndp, c.spec.ntiles) != (spec.ndp, spec.ntiles)

@@ -5,7 +5,9 @@ of the kernels' threads a small box of cells, which the block stages in
 shared memory (``kernels.ext_step.block_boxes``); a block whose
 particles are spread reads device memory instead.  The permutation
 indexes each column directly: the TPU's packed-row gather workaround has
-no purpose here.
+no purpose here.  The sort key (``kernels.sort_key``: ``hilbert_key``
+and the parked and band terms) is one kernel launch on the card, its
+plain version on the CPU.
 """
 
 from __future__ import annotations
@@ -13,28 +15,7 @@ from __future__ import annotations
 import torch
 
 from . import state as st
-
-
-def hilbert_key(i, j, bits: int = 15):
-    """Hilbert-curve index of non-negative int coords (i=x, j=y); the
-    same int32 keys as ``ltjax.spatial.hilbert_key``."""
-    mask = (1 << bits) - 1
-    x = i.to(torch.int64).clamp(0, mask)
-    y = j.to(torch.int64).clamp(0, mask)
-    d = torch.zeros_like(x)
-    s = 1 << (bits - 1)
-    for _ in range(bits):
-        rx = ((x & s) > 0).to(torch.int64)
-        ry = ((y & s) > 0).to(torch.int64)
-        d = d + s * s * ((3 * rx) ^ ry)
-        # rotate the quadrant
-        flip = (ry == 0) & (rx == 1)
-        xf = torch.where(flip, s - 1 - x, x)
-        yf = torch.where(flip, s - 1 - y, y)
-        swap = ry == 0
-        x, y = torch.where(swap, yf, xf), torch.where(swap, xf, yf)
-        s >>= 1
-    return d.to(torch.int32)
+from .kernels import sort_key as sk
 
 
 def sort_by_cell(p: st.Particles, i, j, depth_band=None, n_bands: int = 1):
@@ -48,18 +29,9 @@ def sort_by_cell(p: st.Particles, i, j, depth_band=None, n_bands: int = 1):
     ``n_bands`` in 1..6): the band is the major key, Hilbert order (14
     bits) within each band, parked particles band 7, as
     ``ltjax.spatial.sort_by_cell``; ``step._sort_band`` makes the bands
-    (``cfg.sort_depth_bands``)."""
-    parked = (p.status >= st.SETTLED) | (p.status < 0)
-    if depth_band is None:
-        key = hilbert_key(i, j).to(torch.int64)          # < 2^30
-        key = key + parked.to(torch.int64) * (1 << 30)
-    else:
-        nb = int(n_bands)
-        if not 1 <= nb <= 6:
-            raise ValueError("n_bands must be in [1, 6] (int32 key room)")
-        band = depth_band.to(torch.int64).clamp(0, nb - 1)
-        band = torch.where(parked, 7, band)
-        key = hilbert_key(i, j, bits=14).to(torch.int64) + (band << 28)
+    (``cfg.sort_depth_bands``).  Every key lies below 2^31: the stable
+    sort runs on int32 keys."""
+    key = sk.sort_key(i, j, p.status, depth_band, n_bands)
     perm = torch.argsort(key, stable=True)
     return p.take(perm), perm
 

@@ -65,9 +65,12 @@ def spanned(name: str):
 
 def reset_counters() -> None:
     """Zero the launch counts (``.launches``, ``.variant_launches``) of
-    the wrappers of K1, K2 and K3 and K1's device counters (no wait)."""
-    from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
+    the wrappers of K1, K2 and K3 and of the sort key's, and K1's device
+    counters (no wait)."""
+    from .kernels import (ext_step as kx, rk4_step as kr, sort_key as sk,
+                          step_lanes as sl)
     kx.reset_launches()
+    sk.sort_key.launches = 0
     for fn in (kr.rk4_displacement_fused, sl.step_lanes_fused):
         fn.launches = 0
         fn.variant_launches = {}

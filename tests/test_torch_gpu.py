@@ -67,6 +67,13 @@ held against the same routes on the CPU.
 The depth-banded Hilbert sort (``sort_depth_bands``) reorders the batch
 and nothing else: banded runs on the ext_step and per-step routes, and
 on two gloo tiles, equal the unbanded runs bit for bit.
+
+The Hilbert sort key's kernel (csrc/sort_key.cu) gives the plain
+version's keys bit for bit on 1M random cells and the edge cases
+(corners, cells clamped at the mask, parked and EMPTY slots, bands out
+of range), unbanded and banded; ``sort_by_cell`` on the card gives the
+CPU's permutation from the same cells; make_fused_external_steps launches it once
+a sort.
 """
 from dataclasses import replace
 
@@ -76,11 +83,13 @@ import pytest
 import torch
 
 from ltjax_torch import packed as pk
+from ltjax_torch import spatial as sp
 from ltjax_torch import state as st
 from ltjax_torch import synth
 from ltjax_torch.config import Config
 from ltjax_torch.kernels import ext_step as kx
 from ltjax_torch.kernels import rk4_step as kr
+from ltjax_torch.kernels import sort_key as sk
 from ltjax_torch.physics import boundary as bd
 from ltjax_torch.physics import settlement as stl
 from ltjax_torch.step import StepContext, _sort, make_fused_external_steps
@@ -1422,3 +1431,76 @@ def test_per_step_route_launches_lanes_kernel_per_internal_step(
     assert sl.step_lanes_fused.launches == n3 + 3 * cfg.internal_steps
     assert not calls
     assert torch.isfinite(out.x).all() and (out.status == st.DEAD).any()
+
+
+def _key_inputs(n, bits, seed):
+    """Cells over [-8, 2^bits + 8) with the corners and clamped cells
+    first, statuses of every kind (EMPTY -1 included), bands -2..8."""
+    rng = np.random.default_rng(seed)
+    hi = 1 << bits
+    i = rng.integers(-8, hi + 8, n)
+    j = rng.integers(-8, hi + 8, n)
+    i[:8] = [0, hi - 1, 0, hi - 1, hi + 40000, -3, -(1 << 30), 1 << 30]
+    j[:8] = [0, hi - 1, hi - 1, 0, -3, hi + 7, 1 << 30, -(1 << 30)]
+    status = rng.choice([-1, 0, 1, 2, 3, 4, 5], n)
+    band = rng.integers(-2, 9, n)
+    return [torch.tensor(a, dtype=torch.int32) for a in (i, j, status, band)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("bits,n_bands", [(15, None), (14, 1), (14, 3),
+                                          (14, 6)])
+def test_sort_key_kernel_matches_plain(gpu, bits, n_bands):
+    """1M slots: the kernel's int32 keys equal the plain version's bit
+    for bit, one launch a call."""
+    i, j, status, band = _key_inputs(1_000_000, bits, bits + (n_bands or 0))
+    depth_band = None if n_bands is None else band
+    want = sk.sort_key(i, j, status, depth_band, n_bands or 1)
+    n0 = sk.sort_key.launches
+    got = sk.sort_key(i.to(gpu), j.to(gpu), status.to(gpu),
+                      None if depth_band is None else depth_band.to(gpu),
+                      n_bands or 1)
+    torch.cuda.synchronize()
+    assert sk.sort_key.launches == n0 + 1
+    assert got.dtype == torch.int32 and got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+    empty = torch.empty(0, dtype=torch.int32, device=gpu)
+    assert sk.sort_key(empty, empty, empty).shape == (0,)
+    assert sk.sort_key.launches == n0 + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n_bands", [None, 4], ids=["unbanded", "banded"])
+def test_sort_by_cell_on_gpu_matches_cpu(gpu, n_bands):
+    """sort_by_cell on the card (the kernel's key, an int32 argsort)
+    gives the CPU's permutation and columns from the same cells: 1M
+    slots, many ties (cells of a 200 x 200 grid), every status."""
+    i, j, status, band = _key_inputs(1_000_000, 8, 11)
+    i, j = i.clamp(0, 199), j.clamp(0, 199)
+    rng = np.random.default_rng(12)
+    n = i.shape[0]
+    p = st.init_particles(rng.uniform(0, 2e5, n), rng.uniform(0, 2e5, n),
+                          rng.uniform(-40, -5, n)).replace(status=status)
+    depth_band = None if n_bands is None else band
+    ps, want = sp.sort_by_cell(p, i, j, depth_band, n_bands or 1)
+    n0 = sk.sort_key.launches
+    psg, got = sp.sort_by_cell(
+        p.to(gpu), i.to(gpu), j.to(gpu),
+        None if depth_band is None else depth_band.to(gpu), n_bands or 1)
+    assert sk.sort_key.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    for k in st.FIELDS:
+        assert torch.equal(getattr(psg, k).cpu(), getattr(ps, k)), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("every,sorts", [(2, 2), (1, 4)])
+def test_fused_steps_launch_the_sort_key_once_a_sort(gpu, every, sorts):
+    """make_fused_external_steps over 4 external steps sorts every
+    ``ext_sort_every`` of them: one launch of the key's kernel a sort."""
+    c, ctx, cfg, p = _case(gpu)
+    fsR = synth.fieldset_window(c, -900.0, 1800.0, 6, device=gpu)
+    n0 = sk.sort_key.launches
+    make_fused_external_steps(ctx, replace(cfg, ext_sort_every=every), 4)(
+        p, fsR, 0.0, 0)
+    assert sk.sort_key.launches == n0 + sorts

@@ -14,6 +14,7 @@ from ltjax import state as jst
 from ltjax_torch import interop
 from ltjax_torch import spatial as sp
 from ltjax_torch import state as st
+from ltjax_torch.kernels import sort_key as sk
 
 torch.set_num_threads(1)
 
@@ -25,12 +26,12 @@ def test_hilbert_key_bit_equal():
     i[:4] = [0, (1 << 15) - 1, 0, 40000]      # corners + a clamped value
     j[:4] = [0, (1 << 15) - 1, (1 << 15) - 1, -3]
     kj = np.asarray(jsp.hilbert_key(jnp.asarray(i), jnp.asarray(j)))
-    kt = sp.hilbert_key(torch.tensor(i), torch.tensor(j)).numpy()
+    kt = sk.hilbert_key(torch.tensor(i), torch.tensor(j)).numpy()
     np.testing.assert_array_equal(kt, kj)
     # small grids: every key distinct (a bijection on the 2^b square)
     g = np.arange(64)
     gi, gj = np.meshgrid(g, g)
-    k = sp.hilbert_key(torch.tensor(gi.ravel()), torch.tensor(gj.ravel()))
+    k = sk.hilbert_key(torch.tensor(gi.ravel()), torch.tensor(gj.ravel()))
     assert len(np.unique(k.numpy())) == 64 * 64
 
 

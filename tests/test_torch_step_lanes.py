@@ -303,10 +303,10 @@ K3_BUILDS = {
 
 @pytest.mark.parametrize("name", list(K3_BUILDS))
 def test_kernel_targets_name_the_lanes_build(name):
-    """For a per-step configuration run.kernel_targets names K2's build
-    and K3's: the variant step_lanes_fused launches on that grid and
-    dtype (sl.kernel_variant), a build of csrc/step_lanes.cu (its macros
-    only), with LTX_TILE on a sharded run's tiles."""
+    """For a per-step configuration run.kernel_targets names K2's build,
+    K3's (the variant step_lanes_fused launches on that grid and dtype,
+    sl.kernel_variant: a build of csrc/step_lanes.cu, its macros only,
+    with LTX_TILE on a sharded run's tiles) and the sort key's."""
     kind, dtype, kw = K3_BUILDS[name]
     ctx = _grid(kind)
     cfg = Config(numpar=1, us=6, ws=7, dtype_pos=dtype,
@@ -314,7 +314,7 @@ def test_kernel_targets_name_the_lanes_build(name):
     tile = name == "tile"
     targets = trun.kernel_targets(cfg, ctx.grid, tile=tile)
     names = [t[0] for t in targets]
-    assert names == ["rk4_step", "step_lanes"]
+    assert names == ["rk4_step", "step_lanes", "sort_key"]
     v = dict(targets[1][1])
     want = sl.kernel_variant(ctx, cfg, getattr(torch, dtype))
     if tile:
@@ -326,7 +326,8 @@ def test_kernel_targets_name_the_lanes_build(name):
     assert ("LTX_CURV" in v) == (kind == "curv")
     assert ("LTX_AXES" in v) == (kind == "axes")
     ext = Config(numpar=1, us=6, ws=7, dtype_pos=dtype, **{**BEH, **kw})
-    assert [t[0] for t in trun.kernel_targets(ext, ctx.grid)] == ["ext_step"]
+    assert [t[0] for t in trun.kernel_targets(ext, ctx.grid)] == [
+        "ext_step", "sort_key"]
 
 
 def _lagrange(times, t):
