@@ -1,4 +1,4 @@
-"""Run driver: init -> external-step loop -> output (single device).
+"""Run driver: init -> external-step loop -> output.
 
 Counterpart of ``ltjax.run.run`` for the ported slice.  CLI:
 
@@ -12,66 +12,57 @@ float64 unless the namelist says otherwise), and refuses to start
 without one unless asked for the CPU (``--device cpu``), where it takes
 the plain PyTorch path.  The grid may be rectilinear (uniform or
 stretched axes) or curvilinear (a ROMS file whose lon/lat vary along
-both axes).  ``checkpoint_every`` saves the particles every that many
-external steps (``ltjax_torch.checkpoint``, ltjax's npz format, in
-``checkpoint_dir``); ``--resume`` restarts from the newest one (or from
-the parfile when there is none), with the field series re-primed where
-it stood.  ``BoundaryBLNs`` writes the boundary segments
-(``xyBounds.csv``, ``llBounds.csv``) to ``outpath``.  With ``prefetch``
-(the default) a worker thread reads the next records, and on the GPU
-copies them to the device, while a chunk runs (``io.prefetch``).
+both axes).
 
-The first stdout line is a JSON object naming the path taken
+One chunk loop (``_drive``) runs every run, on one of two placements:
+``_Whole``, the whole grid and batch on one device (``run``), or
+``_Tile``, one rank's tile of a sharded run (``mesh_particles *
+mesh_tiles > 1``, ``run_sharded``, the counterpart of ltjax's: one
+process a rank of the (dp, tile) mesh, started by ``torchrun`` or by the
+run itself, ``ltjax_torch.dist``; NCCL, a card a rank, on CUDA, gloo on
+the CPU).
+The loop primes a 3-record window and steps chunks of up to
+``ext_fuse`` external steps that never straddle an output or a
+checkpoint.  With ``prefetch`` (the default) a worker thread reads the
+next records, and on the GPU copies them to the device, while a chunk
+runs (``io.prefetch``).  ``checkpoint_every`` saves the particles every
+that many external steps (``ltjax_torch.checkpoint``, ltjax's npz
+format, in ``checkpoint_dir``); ``--resume`` restarts from the newest
+one (or from the parfile when there is none), with the series re-primed
+where it stood.  ``BoundaryBLNs`` writes the boundary segments
+(``xyBounds.csv``, ``llBounds.csv``) to ``outpath``.
+
+The first stdout line (rank 0's) is a JSON object naming the path taken
 ("cuda_ext_step": the whole-external-step kernel; "cuda_rk4_step": the
 per-internal-step kernels of the "per_step" route, RK4 (K2) and the
-lanes (K3), which stochastic mortality takes; "cuda_native": the native route's PyTorch ops on the
-card, which ``fast_interp = False`` and adaptive tension take;
-"cuda_packed": the packed route's PyTorch ops on the card, which
-``kernel_interp = False`` takes; "plain" on the CPU), the route, the grid kind and the enabled lanes, then one
-JSON line per chunk of external steps with status counts,
+lanes (K3), which stochastic mortality takes; "cuda_native": the native
+route's PyTorch ops on the card, which ``fast_interp = False`` and
+adaptive tension take; "cuda_packed": the packed route's PyTorch ops on
+the card, which ``kernel_interp = False`` takes; "plain" on the CPU),
+the route, the grid kind and the enabled lanes, then one JSON line per
+chunk of external steps (every rank's) with status counts,
 particle-steps/s, the chunk's record-read and compute seconds and the
-prefetcher's cumulative wait (``stall_s``).  Random streams are keyed
-by ``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``,
-see ``ltjax_torch.rng``), and vertical turbulence with ``readAks`` reads
-the series' AKs.  Settlement reads the habitat (and hole) polygon CSVs;
+prefetcher's cumulative wait (``stall_s``).  Random streams are keyed by
+``cfg.seed`` as ``ltjax.run`` keys them (``jax.random.key(seed)``, see
+``ltjax_torch.rng``), and vertical turbulence with ``readAks`` reads the
+series' AKs.  Settlement reads the habitat (and hole) polygon CSVs;
 SaltTempOn and behaviors 4/5 read the series' salt and temp.  History
 files must be NetCDF3 unless ``h5py`` is installed
 (``ltjax_torch.io.nc``).
 
-Sharded runs (``mesh_particles * mesh_tiles > 1``, ``run_sharded``, the
-counterpart of ltjax's): one process per rank of the (dp, tile) mesh
-(``ltjax_torch.dist``: under ``torchrun`` each process is a rank, else
-the run spawns its ranks), NCCL with one rank per card on CUDA, gloo on
-the CPU; the function-level ``run(cfg, device="cuda", backend="gloo")``
-may place several ranks on one card.  Each rank reads its eta strip
-with the halo (``RomsSeries(eta_slice=)``), steps its tile on the
-route of one device and migrates particles after each external step
-(``ltjax_torch.shard``); the ranks decide the ErrorFlag halt together.
-Rank 0 prints the startup line (with ``backend``, ``ranks``, ``cards``);
-every rank prints its chunk lines (``rank``, its own read, compute and
-stall seconds and migrated particles, the counts and migration drops
-summed over the ranks) and a last line with its kernel launches and
-peak device memory.  CSV output is gathered to rank 0 in pid order;
-NetCDF-only runs write one shard file per rank, merged by rank 0 at the
-end (``out.writer.merge_shards``).  Checkpoints are per rank
-(``ckpt_<ext>_h<rank>.npz``); ``--resume`` restores each rank's slots on
-the same mesh and re-scatters the particles onto another.
-
 Diagnostic switches (environment variables, ltjax's names):
 
-* ``LTJAX_PROFILE_DIR=/path``: a ``torch.profiler`` trace (CPU and, on
-  the GPU, CUDA activity) of the chunks that start at external steps
-  [start, stop), ``LTJAX_PROFILE_STEPS=start:stop`` (default ``1:3``),
-  written there as a Chrome trace file.  The trace names the port's
-  layers as host spans (``ltjax_torch.trace``): ``ltjax_torch.read``
-  (a chunk's record window), ``ltjax_torch.chunk`` (its fused external
-  steps) with ``.tables``, ``.sort``, ``.unsort`` and ``.k1`` (or
-  ``.k2``/``.k3``, each with its ``.upload``) inside,
+* ``LTJAX_PROFILE_DIR=/path``: a ``torch.profiler`` trace (``Profiler``;
+  rank 0's) of the chunks that start at external steps
+  ``LTJAX_PROFILE_STEPS=start:stop`` (default ``1:3``).  It names the
+  port's layers as host spans (``ltjax_torch.trace``):
+  ``ltjax_torch.read`` (a chunk's record window), ``ltjax_torch.chunk``
+  (its fused external steps) with ``.tables``, ``.sort``, ``.unsort``
+  and ``.k1`` (or ``.k2``/``.k3``, each with its ``.upload``) inside,
   ``ltjax_torch.counts`` (the host sync), ``ltjax_torch.output`` and
   ``ltjax_torch.checkpoint``;
-* ``LTJAX_DEBUG_NANS=1``: after each chunk, check x, y, z (and salt and
-  temp under SaltTempOn) of the released particles, and raise
-  RuntimeError naming the external step and the count of NaNs.
+* ``LTJAX_DEBUG_NANS=1``: after each chunk, raise if a released
+  particle's state is NaN (``check_nans``).
 """
 
 from __future__ import annotations
@@ -82,13 +73,14 @@ import os
 import shutil
 import sys
 import time
+from collections import Counter
 from typing import List, Optional
 
 import numpy as np
 import torch
 
 from . import checkpoint as ckpt
-from . import convert
+from . import convert, dist, shard
 from . import state as st
 from .config import Config, config_from_namelist
 from .fields import stack_records
@@ -218,35 +210,12 @@ def enabled_lanes(cfg: Config) -> List[str]:
     """The physics a run takes, as named in the startup line: advection,
     adaptive_tension, hturb, vturb_aks / vturb_const, behavior<type>,
     mortality, settlement, salt_temp."""
-    lanes = ["advection"]
-    if cfg.tension_sigma < 0:
-        lanes.append("adaptive_tension")
-    if cfg.HTurbOn:
-        lanes.append("hturb")
-    if cfg.VTurbOn:
-        lanes.append("vturb_aks" if cfg.readAks else "vturb_const")
-    if cfg.Behavior:
-        lanes.append(f"behavior{cfg.Behavior}")
-    if cfg.mortality:
-        lanes.append("mortality")
-    if cfg.settlementon:
-        lanes.append("settlement")
-    if cfg.SaltTempOn:
-        lanes.append("salt_temp")
-    return lanes
-
-
-class Timing:
-    """WriteModelTiming analog: cumulative per-phase wall clock."""
-
-    def __init__(self):
-        self.acc = {}
-
-    def add(self, phase: str, dt: float):
-        self.acc[phase] = self.acc.get(phase, 0.0) + dt
-
-    def summary(self):
-        return dict(sorted(self.acc.items()))
+    vturb = "vturb_aks" if cfg.readAks else "vturb_const"
+    return ["advection"] + [lane for on, lane in (
+        (cfg.tension_sigma < 0, "adaptive_tension"), (cfg.HTurbOn, "hturb"),
+        (cfg.VTurbOn, vturb), (cfg.Behavior, f"behavior{cfg.Behavior}"),
+        (cfg.mortality, "mortality"), (cfg.settlementon, "settlement"),
+        (cfg.SaltTempOn, "salt_temp")) if on]
 
 
 class Profiler:
@@ -312,28 +281,212 @@ def _device_or_cuda(device, call: str):
     return "cuda"
 
 
-def run(cfg: Config, resume: bool = False, device=None,
-        series_paths: Optional[List[str]] = None,
-        backend: Optional[str] = None) -> st.Particles:
-    """Run the configured simulation; returns the final particles (a
-    sharded run: see ``run_sharded``).  The run takes the CUDA device
-    unless ``device`` names another; without one it raises rather than
-    fall back to the CPU.  ``backend`` ("nccl" or "gloo") is the process
-    group of a sharded run (default: NCCL on CUDA, gloo on the CPU)."""
-    cfg.validate()
-    device = torch.device(_device_or_cuda(device, "run(cfg, device='cpu')"))
-    if cfg.mesh_particles * cfg.mesh_tiles > 1:
-        return run_sharded(cfg, resume=resume, device=device,
-                           series_paths=series_paths, backend=backend)
-    if backend is not None:
-        raise ValueError("run: backend applies to sharded runs "
-                         "(mesh_particles * mesh_tiles > 1)")
-    timing = Timing()
+def _emit(obj) -> None:
+    """One JSON line in one write (the ranks share stdout)."""
+    sys.stdout.write(json.dumps(obj) + "\n")
+    sys.stdout.flush()
+
+
+class _Whole:
+    """A single run's placement: the whole grid and batch on one device,
+    ``make_fused_external_steps``, its own counts, one writer,
+    ``ckpt_<ext>.npz``, a ``timing`` line at the end.  A placement gives
+    ``_drive`` what differs: the eta rows read (``lay_out``), the
+    starting particles ((p, ext, global record, checkpoint extra or
+    None)), E steps ((p, what moved)), a chunk's counts and log fields
+    (raising the ErrorFlag halt), snapshots and the end."""
+
+    rank, tag, log_tag, ckpt_extra, startup = 0, "", {}, {}, {}
+
+    def __init__(self, cfg: Config, device: torch.device):
+        self.cfg, self.device, self.steppers = cfg, device, {}
+
+    def lay_out(self, grid: Grid, ctx: StepContext):
+        self.ctx = ctx
+
+    def strip(self, rec):
+        return rec
+
+    def start(self, resume: bool):
+        path = ckpt.latest(self.cfg.checkpoint_dir) if resume else None
+        if path:
+            p, ext, grec, extra = ckpt.load(path, self.device)
+        else:
+            p, ext, grec, extra = init_particles_from_parfile(
+                self.cfg, self.device), 0, 0, None
+        self.n = p.n
+        return p, ext, grec, extra
+
+    def open_output(self):
+        self.writer = TrajectoryWriter(self.cfg)
+
+    def snapshot(self, t: float, p: st.Particles):
+        self.writer.snapshot(t, p)
+
+    def step(self, p, fsW, t_ext: float, ext: int, E: int):
+        if E not in self.steppers:
+            self.steppers[E] = make_fused_external_steps(self.ctx, self.cfg, E)
+        return self.steppers[E](p, fsW, t_ext, ext), None
+
+    def total(self, counts: dict, moved, ext: int):
+        if self.cfg.ErrorFlag == 0 and counts["error"] > 0:
+            raise RuntimeError(
+                f"{counts['error']} particles hit location/"
+                f"interpolation errors at ext step {ext} "
+                f"(ErrorFlag=0 halts; set ErrorFlag>0 to continue)")
+        return counts, {}
+
+    def close(self):
+        if self.writer:
+            self.writer.close()
+
+    def finish(self, p: st.Particles, timing: Counter):
+        if self.cfg.WriteModelTiming:
+            _emit({"timing": dict(sorted(timing.items()))})
+        return p
+
+
+class _Tile(_Whole):
+    """One rank's placement in a sharded run: its tile's eta strip (with
+    the halo) and slot block, ``shard.make_tiled_steps`` with migration,
+    counts and migration drops summed over the ranks (so that all ranks
+    halt together), snapshots gathered to rank 0 (NetCDF only: one shard
+    file a rank, merged at the end), rank-tagged checkpoints with the
+    mesh.  Its startup fields are the backend, ranks, cards, mesh and
+    capacities; its chunk lines add ``rank`` and its own ``migrated``; its
+    last line, ``rank_done``, has its kernel launches and peak memory."""
+
+    def __init__(self, cfg: Config, me, device: torch.device, backend: str):
+        super().__init__(cfg, device)
+        self.me, self.rank, self.n = me, me.rank, cfg.numpar
+        self.tag, self.log_tag = ckpt.rank_tag(me.rank), {"rank": me.rank}
+        self.mesh, self.backend = [cfg.mesh_particles, cfg.mesh_tiles], backend
+        self.ckpt_extra = {"mesh": self.mesh}
+
+    def lay_out(self, grid: Grid, ctx: StepContext):
+        cfg, me, curv = self.cfg, self.me, grid.curv is not None
+        self.spec = spec = shard.make_spec(
+            cfg, grid.ny, cfg.numpar, *self.mesh,
+            halo=0 if curv else cfg.halo_rows, slack=cfg.migrate_capacity)
+        self.ny, self.ctx, self.eta = grid.ny, ctx, None
+        self.edges = np.array([-np.inf, np.inf])   # curvilinear: whole grid
+        if not curv:
+            tiled = shard.build_tiled_static(grid, spec)
+            self.ctx = shard.tile_context(ctx, spec, tiled, me.tile)
+            self.edges = tiled.tile_edges
+            self.eta = shard.strip_rows(spec, me.tile, grid.ny)
+        self.startup = {
+            "backend": self.backend, "ranks": me.world,
+            "cards": (min(me.world, torch.cuda.device_count())
+                      if self.device.type == "cuda" else 0),
+            "mesh": self.mesh, "halo": spec.halo, "cap": spec.cap,
+            "mig_cap": spec.mig_cap}
+        return self.eta
+
+    def strip(self, rec):
+        if rec is None or self.eta is None:
+            return rec
+        return shard.strip_record(rec, self.spec, self.me.tile, self.ny,
+                                  self.eta[0])
+
+    def start(self, resume: bool):
+        """The parfile's particles scattered onto this tile, or the newest
+        checkpoint's (``checkpoint.latest_sharded``): its own file on the
+        same mesh, else every saved particle re-scattered onto this one."""
+        cfg, me, spec = self.cfg, self.me, self.spec
+        found = ckpt.latest_sharded(cfg.checkpoint_dir) if resume else None
+        if not found:
+            return shard.scatter_block(init_particles_from_parfile(
+                cfg, "cpu"), spec, self.edges, me.dp, me.tile), 0, 0, None
+        _, paths, mesh = found
+        if mesh == (spec.ndp, spec.ntiles):
+            p, ext, grec, extra = ckpt.load(paths[me.rank])
+        else:
+            loaded = [ckpt.load(path) for path in paths]
+            p = shard.scatter_block(shard.gather_particles(
+                [q[0] for q in loaded]), spec, self.edges, me.dp, me.tile)
+            ext, grec, extra = loaded[0][1:]
+        return p, ext, grec, extra
+
+    def open_output(self):
+        cfg = self.cfg
+        self.stream = cfg.writeNC and not cfg.writeCSV
+        self.writer = (TrajectoryWriter(cfg, shard_tag=self.tag)
+                       if self.stream else TrajectoryWriter(cfg)
+                       if self.rank == 0 else None)
+
+    def snapshot(self, t: float, p: st.Particles):
+        # NetCDF only: this rank's slots into its shard file; else the
+        # whole batch, gathered to rank 0 in pid order
+        if self.stream:
+            self.writer.snapshot(t, p)
+        elif self.cfg.writeCSV or self.cfg.writeNC:
+            parts = self.me.gather_rows(shard.pack_rows(p))
+            if self.rank == 0:
+                self.writer.snapshot(t, shard.gather_particles(
+                    [shard.unpack_rows(r, p.x.dtype) for r in parts]))
+
+    def step(self, p, fsW, t_ext: float, ext: int, E: int):
+        if E not in self.steppers:
+            self.steppers[E] = shard.make_tiled_steps(
+                self.ctx, self.cfg, self.spec, self.me.tile, self.edges, E,
+                self.me.exchange)
+        p, drops, sent = self.steppers[E](p, fsW, t_ext, ext)
+        return p, (drops, sent)
+
+    def total(self, local: dict, moved, ext: int):
+        drops, sent = moved
+        tot = self.me.sum(list(local.values()) + [int(drops), int(sent)])
+        counts = dict(zip(local, tot))
+        if self.cfg.ErrorFlag == 0 and (counts["error"] > 0 or tot[-2] > 0):
+            raise RuntimeError(
+                f"{counts['error']} errored particles / {tot[-2]} "
+                f"migration overflows at ext step {ext} "
+                f"(ErrorFlag=0 halts; raise migrate_capacity or set "
+                f"ErrorFlag>0 to continue)")
+        return counts, {"migrated": int(sent), "migration_drops": tot[-2]}
+
+    def finish(self, p: st.Particles, timing: Counter) -> dict:
+        from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
+        from .out.writer import merge_shards
+        cfg, me = self.cfg, self.me
+        if self.stream:
+            # fold the ranks' shard files into the single-run layout
+            me.barrier()
+            if self.rank == 0:
+                paths = [os.path.join(cfg.outpath, cfg.NCOutFile
+                                      + ckpt.rank_tag(r) + ".nc")
+                         for r in range(me.world)]
+                merge_shards(paths, os.path.join(cfg.outpath,
+                                                 cfg.NCOutFile + ".nc"))
+                for path in paths:
+                    os.remove(path)
+            me.barrier()
+        done = {"rank": self.rank, "event": "rank_done", "cap": self.spec.cap,
+                "kernel_launches": {**kx.ext_step_fused.variant_launches,
+                                    **kr.rk4_displacement_fused.variant_launches,
+                                    **sl.step_lanes_fused.variant_launches}}
+        if self.device.type == "cuda":
+            done["peak_memory_bytes"] = torch.cuda.max_memory_allocated(
+                self.device)
+        if cfg.WriteModelTiming:
+            done["timing"] = dict(sorted(timing.items()))
+        _emit(done)
+        return {"particles": p.to("cpu")}
+
+
+def _drive(cfg: Config, place, resume: bool, series_paths):
+    """The chunk loop of every run, on a placement (``_Whole`` or
+    ``_Tile``).  Rank 0 (a single run's only one) alone writes the
+    boundaries, the parfile echo, the startup line, the trace and the
+    ``series_exhausted`` line.  Returns ``place.finish``'s result."""
+    timing = Counter()      # WriteModelTiming: seconds a phase
     t0 = time.perf_counter()
+    device, lead = place.device, place.rank == 0
     grid = load_grid(cfg, device)
     ctx = build_context(cfg, grid)
     check_supported(cfg, ctx)
-    if cfg.BoundaryBLNs:
+    if lead and cfg.BoundaryBLNs:
         bd.dump_boundaries(
             ctx.bounds, cfg.outpath,
             to_lonlat=lambda x, y: (
@@ -341,28 +494,24 @@ def run(cfg: Config, resume: bool = False, device=None,
                               cfg.Earth_Radius, cfg.SphericalProjection),
                 convert.y2lat(y, cfg.latmin, cfg.Earth_Radius,
                               cfg.SphericalProjection)))
-    series = RomsSeries(cfg, paths=series_paths)
-    if cfg.WriteParfile and cfg.parfile:
+    series = RomsSeries(cfg, paths=series_paths,
+                        eta_slice=place.lay_out(grid, ctx))
+    if lead and cfg.WriteParfile and cfg.parfile:
         os.makedirs(cfg.outpath, exist_ok=True)
         shutil.copyfile(cfg.parfile,
                         os.path.join(cfg.outpath, "parfile_echo.csv"))
-    start_ext = 0
-    global_rec = 0
-    resumed_extra = None
-    path = ckpt.latest(cfg.checkpoint_dir) if resume else None
-    if path:
-        particles, start_ext, global_rec, resumed_extra = ckpt.load(
-            path, device)
+    p, start_ext, global_rec, resumed_extra = place.start(resume)
+    if resumed_extra is not None:
         pos = getattr(torch, cfg.dtype_pos)
-        particles = particles.replace(**{
-            k: getattr(particles, k).to(pos)
-            for k in ("x", "y", "z", "dob", "age", "salt", "temp")})
+        p = p.replace(**{k: getattr(p, k).to(pos) for k in shard.FLOATS})
         series.seek(global_rec - 3)       # re-prime the 3-record window
-    else:
-        particles = init_particles_from_parfile(cfg, device)
+    p = p.to(device)                      # a tile's block comes on the CPU
+
+    def read():
+        return place.strip(series.next_record())
 
     # --- prime the record window (initHydro) -----------------------------
-    window: List[dict] = [series.next_record() for _ in range(3)]
+    window: List[dict] = [read() for _ in range(3)]
     if resumed_extra is None:
         global_rec += 3
         t_base = window[0]["time"]
@@ -372,31 +521,30 @@ def run(cfg: Config, resume: bool = False, device=None,
         t_base = resumed_extra.get(
             "t_base", window[0]["time"] - (global_rec - 3) * cfg.dt)
     win_start = global_rec - 3
-    timing.add("hydro_init", time.perf_counter() - t0)
+    timing["hydro_init"] += time.perf_counter() - t0
 
     n_fuse = max(1, cfg.ext_fuse)
     route = mode_flags(ctx, cfg)
-    print(json.dumps({
-        "path": route_path(route, device),
-        "route": route,
-        "device": (torch.cuda.get_device_name(device)
-                   if device.type == "cuda" else "cpu"),
-        "uniform": bool(grid.uniform),
-        "curvilinear": grid.curv is not None, "numpar": particles.n,
-        "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse,
-        "lanes": enabled_lanes(cfg), "seed": cfg.seed,
-        "reader": series.reader}), flush=True)
+    if lead:
+        _emit({"path": route_path(route, device), "route": route,
+               "device": (torch.cuda.get_device_name(device)
+                          if device.type == "cuda" else "cpu"),
+               "uniform": bool(grid.uniform),
+               "curvilinear": grid.curv is not None, "numpar": place.n,
+               "dtype_pos": cfg.dtype_pos, "n_fuse": n_fuse,
+               "lanes": enabled_lanes(cfg), "seed": cfg.seed,
+               "reader": series.reader, **place.startup})
 
-    writer = TrajectoryWriter(cfg)
-    fused_cache = {}
+    place.open_output()
     field_dtype = getattr(torch, cfg.dtype_field)
-    n_ext = cfg.external_steps
-    out_every = cfg.output_every_ext
+    n_ext, out_every = cfg.external_steps, cfg.output_every_ext
     if not resume:
-        writer.snapshot(0.0, particles)
-    prefetch = (Prefetcher(series.next_record, depth=max(2, n_fuse + 1),
-                           device=device) if cfg.prefetch else None)
+        place.snapshot(0.0, p)
+    prefetch = (Prefetcher(read, depth=max(2, n_fuse + 1), device=device)
+                if cfg.prefetch else None)
     profiler = Profiler(device)
+    if not lead:
+        profiler.dir = None             # one trace, rank 0's
     debug_nans = bool(os.environ.get("LTJAX_DEBUG_NANS"))
     exhausted = False
     try:
@@ -413,8 +561,7 @@ def run(cfg: Config, resume: bool = False, device=None,
             tw = time.perf_counter()
             with span("ltjax_torch.read"):
                 while global_rec - 1 < ext + E + 1 and not exhausted:
-                    rec = (prefetch.next() if prefetch
-                           else series.next_record())
+                    rec = prefetch.next() if prefetch else read()
                     if rec is None:
                         exhausted = True
                         break
@@ -423,8 +570,8 @@ def run(cfg: Config, resume: bool = False, device=None,
                 if exhausted:
                     E = min(E, global_rec - 2 - ext)
                     if E < 1:
-                        print(json.dumps({"event": "series_exhausted",
-                                          "ext": ext}))
+                        if lead:
+                            _emit({"event": "series_exhausted", "ext": ext})
                         break
                 while win_start < ext:              # drop stale records
                     window.pop(0)
@@ -433,60 +580,63 @@ def run(cfg: Config, resume: bool = False, device=None,
                                     device,
                                     with_salt_temp=cfg.needs_salt_fields())
             read_s = time.perf_counter() - tw
-            timing.add("hydro_read", read_s)
+            timing["hydro_read"] += read_s
 
             # --- compute E external steps --------------------------------
             tc = time.perf_counter()
             t_ext = float(ext * cfg.dt)
-            if E not in fused_cache:
-                fused_cache[E] = make_fused_external_steps(ctx, cfg, E)
-            particles = fused_cache[E](particles, fsW, t_ext, ext)
-            counts = summary_counts(particles)      # waits for the device
+            p, moved = place.step(p, fsW, t_ext, ext, E)
+            local = summary_counts(p)               # waits for the device
             step_s = time.perf_counter() - tc
-            timing.add("compute", step_s)
+            timing["compute"] += step_s
             ext += E
             if debug_nans:
-                check_nans(cfg, particles, ext - 1)
-            if cfg.ErrorFlag == 0 and counts["error"] > 0:
-                raise RuntimeError(
-                    f"{counts['error']} particles hit location/"
-                    f"interpolation errors at ext step {ext - 1} "
-                    f"(ErrorFlag=0 halts; set ErrorFlag>0 to continue)")
+                check_nans(cfg, p, ext - 1)
+            counts, own = place.total(local, moved, ext - 1)
             if ext % out_every == 0:
                 to = time.perf_counter()
                 with span("ltjax_torch.output"):
-                    writer.snapshot(t_ext + E * cfg.dt, particles)
-                timing.add("output", time.perf_counter() - to)
+                    place.snapshot(t_ext + E * cfg.dt, p)
+                timing["output"] += time.perf_counter() - to
             if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
                 with span("ltjax_torch.checkpoint"):
                     ckpt.save(os.path.join(cfg.checkpoint_dir,
-                                           f"ckpt_{ext}.npz"),
-                              particles, ext, global_rec,
-                              extra={"t_base": float(t_base)})
-            log = {"ext": ext - E, "n_fused": E, "sim_t": t_ext + E * cfg.dt,
-                   "steps_per_s": particles.n * cfg.internal_steps * E
-                   / step_s, "hydro_read_s": read_s, "compute_s": step_s,
-                   "stall_s": prefetch.stall_s if prefetch else 0.0}
-            log.update(counts)
-            print(json.dumps(log), flush=True)
+                                           f"ckpt_{ext}{place.tag}.npz"),
+                              p, ext, global_rec,
+                              extra={"t_base": float(t_base),
+                                     **place.ckpt_extra})
+            _emit({**place.log_tag, "ext": ext - E, "n_fused": E,
+                   "sim_t": t_ext + E * cfg.dt,
+                   "steps_per_s": place.n * cfg.internal_steps * E / step_s,
+                   "hydro_read_s": read_s, "compute_s": step_s,
+                   "stall_s": prefetch.stall_s if prefetch else 0.0,
+                   **own, **counts})
     finally:
         profiler.close()
         if prefetch:
             prefetch.close()
-        writer.close()
+        place.close()
         series.close()
-    if cfg.WriteModelTiming:
-        print(json.dumps({"timing": timing.summary()}))
-    return particles
-
-def _emit(obj) -> None:
-    """One JSON line in one write (the ranks share stdout)."""
-    sys.stdout.write(json.dumps(obj) + "\n")
-    sys.stdout.flush()
+    return place.finish(p, timing)
 
 
-COUNT_KEYS = ("not_released", "active", "settled", "dead", "out_of_domain",
-              "error")
+def run(cfg: Config, resume: bool = False, device=None,
+        series_paths: Optional[List[str]] = None,
+        backend: Optional[str] = None) -> st.Particles:
+    """Run the configured simulation; returns the final particles (a
+    sharded run: see ``run_sharded``).  The run takes the CUDA device
+    unless ``device`` names another; without one it raises rather than
+    fall back to the CPU.  ``backend`` ("nccl" or "gloo") is the process
+    group of a sharded run (default: NCCL on CUDA, gloo on the CPU)."""
+    cfg.validate()
+    device = torch.device(_device_or_cuda(device, "run(cfg, device='cpu')"))
+    if cfg.mesh_particles * cfg.mesh_tiles > 1:
+        return run_sharded(cfg, resume=resume, device=device,
+                           series_paths=series_paths, backend=backend)
+    if backend is not None:
+        raise ValueError("run: backend applies to sharded runs "
+                         "(mesh_particles * mesh_tiles > 1)")
+    return _drive(cfg, _Whole(cfg, device), resume, series_paths)
 
 
 def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
@@ -532,7 +682,7 @@ def run_sharded(cfg: Config, resume: bool = False, device=None,
     (without one it raises rather than fall back to the CPU, as ``run``).
     ``backend``: "nccl" (CUDA, one card per rank; the default there) or
     "gloo" (the CPU's; on CUDA several ranks may share a card)."""
-    from . import dist, native, shard
+    from . import native
     from .kernels import build
     device = torch.device(_device_or_cuda(device, "run_sharded(cfg, "
                                           "device='cpu')"))
@@ -570,247 +720,17 @@ def run_sharded(cfg: Config, resume: bool = False, device=None,
         [r["particles"] for r in results]).to(device)
 
 
-def _resume_block(found, spec, edges, me, cfg: Config, device):
-    """(block, ext, global_record, extra) of this rank from the newest
-    checkpoint (``checkpoint.latest_sharded``): its own file on the same
-    mesh, else the saved particles (every rank's, or a single run's)
-    re-scattered onto this mesh."""
-    from . import shard
-    _, paths, mesh = found
-    if mesh == (spec.ndp, spec.ntiles):
-        p, ext, grec, extra = ckpt.load(paths[me.rank])
-    else:
-        loaded = [ckpt.load(path) for path in paths]
-        p = shard.scatter_block(shard.gather_particles(
-            [q[0] for q in loaded]), spec, edges, me.dp, me.tile)
-        ext, grec, extra = loaded[0][1:]
-    pos = getattr(torch, cfg.dtype_pos)
-    p = p.replace(**{k: getattr(p, k).to(pos) for k in shard.FLOATS})
-    return p.to(device), ext, grec, extra
-
-
 def _rank_run(rank: int, world: int, init_method: str, cfg: Config,
               resume: bool, device: str, series_paths, backend: str,
               local_rank: Optional[int] = None) -> dict:
-    """One rank of a sharded run: join the process group, read this
-    tile's strip, step and migrate chunk by chunk (run()'s loop), write
-    its output and checkpoints.  Returns {"particles": its final slot
-    block on the CPU}."""
-    from . import dist, shard
-    from .kernels import ext_step as kx, rk4_step as kr, step_lanes as sl
-    from .out.writer import merge_shards
-    ndp, ntiles = cfg.mesh_particles, cfg.mesh_tiles
+    """One rank of a sharded run: join the process group and run the
+    chunk loop on this rank's tile (``_Tile``).  Returns {"particles":
+    its final slot block on the CPU}."""
     dev = dist.rank_device(device, backend,
                            rank if local_rank is None else local_rank, world)
-    me = dist.init(rank, world, ndp, ntiles, backend, dev, init_method)
-    timing = Timing()
-    t0 = time.perf_counter()
-    grid = load_grid(cfg, dev)
-    ctx = build_context(cfg, grid)
-    check_supported(cfg, ctx)
-    if rank == 0 and cfg.BoundaryBLNs:
-        bd.dump_boundaries(
-            ctx.bounds, cfg.outpath,
-            to_lonlat=lambda x, y: (
-                convert.x2lon(x, y, cfg.lonmin, cfg.latmin,
-                              cfg.Earth_Radius, cfg.SphericalProjection),
-                convert.y2lat(y, cfg.latmin, cfg.Earth_Radius,
-                              cfg.SphericalProjection)))
-    curv = grid.curv is not None
-    spec = shard.make_spec(cfg, grid.ny, cfg.numpar, ndp, ntiles,
-                           halo=0 if curv else cfg.halo_rows,
-                           slack=cfg.migrate_capacity)
-    if curv:                  # every rank holds the whole grid
-        tctx, edges, eta = ctx, np.array([-np.inf, np.inf]), None
-
-        def strip(rec):
-            return rec
-    else:
-        tiled = shard.build_tiled_static(grid, spec)
-        tctx, edges = (shard.tile_context(ctx, spec, tiled, me.tile),
-                       tiled.tile_edges)
-        eta = shard.strip_rows(spec, me.tile, grid.ny)
-
-        def strip(rec):
-            return shard.strip_record(rec, spec, me.tile, grid.ny, eta[0])
-    series = RomsSeries(cfg, paths=series_paths, eta_slice=eta)
-    if rank == 0 and cfg.WriteParfile and cfg.parfile:
-        os.makedirs(cfg.outpath, exist_ok=True)
-        shutil.copyfile(cfg.parfile,
-                        os.path.join(cfg.outpath, "parfile_echo.csv"))
-    start_ext = global_rec = 0
-    resumed_extra = None
-    found = ckpt.latest_sharded(cfg.checkpoint_dir) if resume else None
-    if found:
-        p, start_ext, global_rec, resumed_extra = _resume_block(
-            found, spec, edges, me, cfg, dev)
-        series.seek(global_rec - 3)
-    else:
-        p = shard.scatter_block(init_particles_from_parfile(cfg, "cpu"),
-                                spec, edges, me.dp, me.tile).to(dev)
-
-    window: List[dict] = [strip(series.next_record()) for _ in range(3)]
-    if resumed_extra is None:
-        global_rec += 3
-        t_base = window[0]["time"]
-    else:
-        t_base = resumed_extra.get(
-            "t_base", window[0]["time"] - (global_rec - 3) * cfg.dt)
-    win_start = global_rec - 3
-    timing.add("hydro_init", time.perf_counter() - t0)
-
-    n_fuse = max(1, cfg.ext_fuse)
-    route = mode_flags(ctx, cfg)
-    if rank == 0:
-        _emit({
-            "path": route_path(route, dev),
-            "route": route,
-            "device": (torch.cuda.get_device_name(dev)
-                       if dev.type == "cuda" else "cpu"),
-            "uniform": bool(grid.uniform), "curvilinear": curv,
-            "numpar": cfg.numpar, "dtype_pos": cfg.dtype_pos,
-            "n_fuse": n_fuse, "lanes": enabled_lanes(cfg), "seed": cfg.seed,
-            "reader": series.reader, "backend": backend, "ranks": world,
-            "cards": (min(world, torch.cuda.device_count())
-                      if dev.type == "cuda" else 0),
-            "mesh": [ndp, ntiles], "halo": spec.halo, "cap": spec.cap,
-            "mig_cap": spec.mig_cap})
-
-    stream_shard = cfg.writeNC and not cfg.writeCSV
-    writer = (TrajectoryWriter(cfg, shard_tag=ckpt.rank_tag(rank))
-              if stream_shard else TrajectoryWriter(cfg) if rank == 0
-              else None)
-
-    def snapshot(t):
-        # NetCDF only: this rank's slots into its shard file; else the
-        # whole batch, gathered to rank 0 in pid order
-        if stream_shard:
-            writer.snapshot(t, p)
-        elif cfg.writeCSV or cfg.writeNC:
-            parts = me.gather_rows(shard.pack_rows(p))
-            if rank == 0:
-                writer.snapshot(t, shard.gather_particles(
-                    [shard.unpack_rows(r, p.x.dtype) for r in parts]))
-
-    steppers = {}
-    field_dtype = getattr(torch, cfg.dtype_field)
-    n_ext, out_every = cfg.external_steps, cfg.output_every_ext
-    if not resume:
-        snapshot(0.0)
-    prefetch = (Prefetcher(lambda: strip(series.next_record()),
-                           depth=max(2, n_fuse + 1), device=dev)
-                if cfg.prefetch else None)
-    profiler = Profiler(dev)
-    if rank:
-        profiler.dir = None             # one trace, rank 0's
-    debug_nans = bool(os.environ.get("LTJAX_DEBUG_NANS"))
-    exhausted = False
-    try:
-        ext = start_ext
-        while ext < n_ext:
-            E = min(n_fuse, n_ext - ext, out_every - (ext % out_every))
-            if cfg.checkpoint_every:
-                E = min(E, cfg.checkpoint_every
-                        - (ext % cfg.checkpoint_every))
-            profiler.tick(ext)
-            tw = time.perf_counter()
-            with span("ltjax_torch.read"):
-                while global_rec - 1 < ext + E + 1 and not exhausted:
-                    rec = (prefetch.next() if prefetch
-                           else strip(series.next_record()))
-                    if rec is None:
-                        exhausted = True
-                        break
-                    window.append(rec)
-                    global_rec += 1
-                if exhausted:
-                    E = min(E, global_rec - 2 - ext)
-                    if E < 1:
-                        if rank == 0:
-                            _emit({"event": "series_exhausted",
-                                   "ext": ext})
-                        break
-                while win_start < ext:
-                    window.pop(0)
-                    win_start += 1
-                fsW = stack_records(window[:E + 2], t_base, field_dtype, dev,
-                                    with_salt_temp=cfg.needs_salt_fields())
-            read_s = time.perf_counter() - tw
-            timing.add("hydro_read", read_s)
-
-            tc = time.perf_counter()
-            t_ext = float(ext * cfg.dt)
-            if E not in steppers:
-                steppers[E] = shard.make_tiled_steps(
-                    tctx, cfg, spec, me.tile, edges, E, me.exchange)
-            p, drops, sent = steppers[E](p, fsW, t_ext, ext)
-            local = summary_counts(p)               # waits for the device
-            step_s = time.perf_counter() - tc
-            timing.add("compute", step_s)
-            ext += E
-            if debug_nans:
-                check_nans(cfg, p, ext - 1)
-            # the halt is decided on the counts of every rank, so that
-            # all ranks raise together
-            tot = me.sum([local[k] for k in COUNT_KEYS]
-                         + [int(drops), int(sent)])
-            counts = dict(zip(COUNT_KEYS, tot))
-            if cfg.ErrorFlag == 0 and (counts["error"] > 0 or tot[-2] > 0):
-                raise RuntimeError(
-                    f"{counts['error']} errored particles / {tot[-2]} "
-                    f"migration overflows at ext step {ext - 1} "
-                    f"(ErrorFlag=0 halts; raise migrate_capacity or set "
-                    f"ErrorFlag>0 to continue)")
-            if ext % out_every == 0:
-                to = time.perf_counter()
-                with span("ltjax_torch.output"):
-                    snapshot(t_ext + E * cfg.dt)
-                timing.add("output", time.perf_counter() - to)
-            if cfg.checkpoint_every and ext % cfg.checkpoint_every == 0:
-                with span("ltjax_torch.checkpoint"):
-                    ckpt.save(os.path.join(
-                        cfg.checkpoint_dir,
-                        f"ckpt_{ext}{ckpt.rank_tag(rank)}.npz"),
-                        p, ext, global_rec,
-                        extra={"t_base": float(t_base),
-                               "mesh": [ndp, ntiles]})
-            log = {"rank": rank, "ext": ext - E, "n_fused": E,
-                   "sim_t": t_ext + E * cfg.dt,
-                   "steps_per_s": cfg.numpar * cfg.internal_steps * E
-                   / step_s, "hydro_read_s": read_s, "compute_s": step_s,
-                   "stall_s": prefetch.stall_s if prefetch else 0.0,
-                   "migrated": int(sent), "migration_drops": tot[-2]}
-            log.update(counts)
-            _emit(log)
-    finally:
-        profiler.close()
-        if prefetch:
-            prefetch.close()
-        if writer:
-            writer.close()
-        series.close()
-    if stream_shard:
-        # fold the ranks' shard files into the single-run layout
-        me.barrier()
-        if rank == 0:
-            paths = [os.path.join(cfg.outpath, cfg.NCOutFile
-                                  + ckpt.rank_tag(r) + ".nc")
-                     for r in range(world)]
-            merge_shards(paths, os.path.join(cfg.outpath,
-                                             cfg.NCOutFile + ".nc"))
-            for path in paths:
-                os.remove(path)
-        me.barrier()
-    done = {"rank": rank, "event": "rank_done", "cap": spec.cap,
-            "kernel_launches": {**kx.ext_step_fused.variant_launches,
-                                **kr.rk4_displacement_fused.variant_launches,
-                                **sl.step_lanes_fused.variant_launches}}
-    if dev.type == "cuda":
-        done["peak_memory_bytes"] = torch.cuda.max_memory_allocated(dev)
-    if cfg.WriteModelTiming:
-        done["timing"] = timing.summary()
-    _emit(done)
-    return {"particles": p.to("cpu")}
+    me = dist.init(rank, world, cfg.mesh_particles, cfg.mesh_tiles, backend,
+                   dev, init_method)
+    return _drive(cfg, _Tile(cfg, me, dev, backend), resume, series_paths)
 
 
 def main(argv=None):

@@ -17,6 +17,13 @@ every external step.
   ``merge_shards`` gives ltjax's file on the same shard files.
 * ``ErrorFlag = 0`` with a particle released on land: every rank stops
   with the halt's error (exit code 1 each, decided together), no hang.
+* The chunk loop's edges on both placements, the single run and the 2 x 2
+  mesh: a reader that ends (returns None) before ``external_steps`` gives
+  one ``series_exhausted`` line at the same external step and the same
+  particles; history files that end early stop both with the reader's
+  IndexError after the same snapshots; ``WriteModelTiming`` reports the
+  same phases (the single run's ``timing`` line, each ``rank_done``);
+  the ErrorFlag halt stops the single run too.
 * Refused before any rank starts: RANK without WORLD_SIZE, a WORLD_SIZE
   that is not the mesh, tiles on a curvilinear grid, NCCL on the CPU.
 """
@@ -46,6 +53,13 @@ MESH = dict(mesh_particles=2, mesh_tiles=2)
 def _run(cfg, **kw):
     """run.run with fd 1 captured (the ranks write their lines to it):
     (particles, JSON lines)."""
+    return _captured(lambda: run.run(cfg, device="cpu", **kw))
+
+
+def _captured(fn):
+    """fn() with fd 1 and sys.stdout captured (spawned ranks write to
+    the one, this process to the other): (its result, JSON lines)."""
+    import contextlib
     import sys
     import tempfile
     sys.stdout.flush()
@@ -53,9 +67,10 @@ def _run(cfg, **kw):
     with tempfile.TemporaryFile("w+") as f:
         os.dup2(f.fileno(), 1)
         try:
-            p = run.run(cfg, device="cpu", **kw)
+            with contextlib.redirect_stdout(f):
+                p = fn()
         finally:
-            sys.stdout.flush()
+            f.flush()
             os.dup2(saved, 1)
             os.close(saved)
         f.seek(0)
@@ -234,3 +249,101 @@ def test_refused_before_ranks_start(runs, monkeypatch, tmp_path):
                                 mesh_particles=1, mesh_tiles=2)
     with pytest.raises(NotImplementedError, match="PARTICLE axis only"):
         run.run(config_from_namelist(nml), device="cpu")
+
+
+def _end_reader_after(n_records: int):
+    """RomsSeries.next_record, returning None (the end of the series, as
+    the prefetcher passes it on) after ``n_records`` records of a
+    series."""
+    from ltjax_torch.io.roms import RomsSeries
+    read = RomsSeries.next_record
+
+    def next_record(self):
+        self._n_read = getattr(self, "_n_read", 0) + 1
+        return read(self) if self._n_read <= n_records else None
+    return next_record
+
+
+def _rank_with_short_reader(rank, world, init_method, n_records, *args):
+    """``run._rank_run`` with a reader that ends after ``n_records``
+    (a spawned rank: the patch lives in its own process)."""
+    from ltjax_torch.io.roms import RomsSeries
+    RomsSeries.next_record = _end_reader_after(n_records)
+    return run._rank_run(rank, world, init_method, *args)
+
+
+@pytest.mark.parametrize("case, placement", [
+    ("reader_ends", "single"), ("reader_ends", "mesh"),
+    ("files_end", "single"), ("files_end", "mesh"),
+    ("timing", "single"), ("timing", "mesh"),
+    ("halt", "single")])
+def test_chunk_loop_edges_on_both_placements(runs, monkeypatch, case,
+                                             placement):
+    from ltjax_torch import dist
+    from ltjax_torch.io.roms import RomsSeries
+    d, base, p1, _, _ = runs
+    name = f"{d}/edge_{case}_{placement}"
+    cfg = dataclasses.replace(base, outpath=name, checkpoint_dir=name,
+                              checkpoint_every=0,
+                              WriteModelTiming=case == "timing",
+                              **(MESH if placement == "mesh" else {}))
+
+    def first_three_snapshots():
+        # the uninterrupted run's snapshots at ext 0, 1, 2 of 0..4
+        with open(f"{d}/o1/run1.csv") as f:
+            full = f.read().splitlines()
+        with open(f"{name}/run1.csv") as f:
+            rows = f.read().splitlines()
+        assert len(rows) == len(full) - 2 * p1.n
+        assert rows == full[:len(rows)]
+
+    if case == "reader_ends":
+        # 4 records: the chunk at external step 2 needs a fifth
+        if placement == "single":
+            monkeypatch.setattr(RomsSeries, "next_record",
+                                _end_reader_after(4))
+            p, lines = _run(cfg)
+        else:
+            res, lines = _captured(lambda: dist.launch(
+                _rank_with_short_reader, 4,
+                (4, cfg, False, "cpu", None, "gloo")))
+            p = shard.gather_particles([r["particles"] for r in res])
+        assert [ln for ln in lines if ln.get("event") == "series_exhausted"
+                ] == [{"event": "series_exhausted", "ext": 2}]
+        assert max(ln["ext"] for ln in lines if "n_fused" in ln) == 1
+        monkeypatch.undo()
+        two, _ = _run(dataclasses.replace(
+            base, outpath=f"{name}_2", checkpoint_every=0,
+            days=2 * base.dt / 86400.0))
+        a, b = torch.argsort(p.pid), torch.argsort(two.pid)
+        for k in ("pid", "status", "hit_land"):
+            assert torch.equal(getattr(p, k)[a], getattr(two, k)[b]), k
+        for k in ("x", "y", "z"):
+            np.testing.assert_allclose(getattr(p, k)[a].numpy(),
+                                       getattr(two, k)[b].numpy(),
+                                       rtol=0, atol=TOL, err_msg=k)
+        first_three_snapshots()
+    elif case == "files_end":
+        # one file of 4 records: its reader raises at the fifth
+        with pytest.raises((IndexError, RuntimeError)) as e:
+            _run(cfg, series_paths=[f"{d}/ocean_his_0001.nc"])
+        assert "IndexError" in f"{type(e.value).__name__}: {e.value}"
+        first_three_snapshots()
+    elif case == "timing":
+        _, lines = _run(cfg)
+        phases = ["compute", "hydro_init", "hydro_read", "output"]
+        timing = [ln["timing"] for ln in lines if "timing" in ln]
+        assert [sorted(t) for t in timing] == [phases] * (
+            1 if placement == "single" else 4)
+        if placement == "mesh":
+            assert all(ln.get("event") == "rank_done"
+                       for ln in lines if "timing" in ln)
+    else:
+        with open(base.parfile) as f:
+            rows = f.read().splitlines()
+        rows[0] = "11500.0,9500.0,10.0,0.0"  # released in the land block
+        parfile = f"{d}/parfile_land_single.csv"
+        with open(parfile, "w") as f:
+            f.write("\n".join(rows) + "\n")
+        with pytest.raises(RuntimeError, match="ErrorFlag=0 halts"):
+            _run(dataclasses.replace(cfg, parfile=parfile, ErrorFlag=0))
