@@ -6,9 +6,10 @@
     python3 chip_smoke.py --profile  # where the time goes, per bench cell
 
 Builds the variants of the external-step CUDA kernel (K1), the per-step
-RK4 kernel (K2), the per-step lanes kernel (K3) and the Hilbert sort's
-key kernel (SK) from ltjax_torch/kernels/csrc (one nvcc each, all
-started together), then runs fourteen phases and fails (non-zero exit,
+RK4 kernel (K2), the per-step lanes kernel (K3), the Hilbert sort's
+key kernel (SK) and the migration's kernels (MG) from
+ltjax_torch/kernels/csrc (one nvcc each, all started together), then
+runs fifteen phases and fails (non-zero exit,
 no final line) if any of them fails:
 
 1. the kernel against its plain PyTorch version on the card: one
@@ -170,7 +171,16 @@ no final line) if any of them fails:
    bit (unbanded, 3 depth bands, every status), step._sort's permutation
    and columns against the int64 argsort of the plain key, one launch a
    sort, and the key and the whole sort timed against the plain ones and
-   the key's byte bound (16 bytes a slot at 3.35 TB/s).
+   the key's byte bound (16 bytes a slot at 3.35 TB/s);
+15. the migration's kernels MG (kernels/migrate.py) on a tile's block of
+   the four-card cell (7.5M slots, 4.2M live, 2.8% of them leaving,
+   float64) and on 1M slots (600,000 live, float32), with a loopback
+   exchange that returns as many rows as left: the new block, the rows
+   sent, their counts, drops and sent count against the plain version's
+   byte for byte, one launch count and one synchronizing call a
+   migrate, and both timed (CUDA events) against the byte bound (each
+   live slot's row read and the status of an EMPTY one, the arrivals
+   read, the new block and the rows sent written once, at 3.35 TB/s).
 
 Stdout carries the card's name and power limit, the build report (per
 library ptxas's registers, stack and spills, and its dynamic shared
@@ -210,6 +220,7 @@ RK4_REPLACES = "ltjax/kernels/gather_interp.py:827"
 LANES_SRC = "ltjax_torch/kernels/csrc/step_lanes.cu"
 LANES_REPLACES = "ltjax/kernels/ext_step.py:993"
 SORT_KEY_SRC = "ltjax_torch/kernels/csrc/sort_key.cu"
+MIGRATE_SRC = "ltjax_torch/kernels/csrc/migrate.cu"
 TOL_H = 0.5        # m, horizontal: f32 kernel vs plain (tests/test_kernel.py)
 TOL_V = 1e-3       # m, vertical
 MAX_MISMATCH = 1e-4   # status mismatches: at most 0.01% of particles
@@ -3502,6 +3513,7 @@ def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
                   "k1_launches": [q["launches"] for q in ranks],
                   "sort_key_launches": [q["sort_key_launches"]
                                         for q in ranks],
+                  "migrate_launches": [q["migrate_launches"] for q in ranks],
                   "rank_seconds": [q["seconds"] for q in ranks],
                   "peak_memory_bytes": [q["peak_memory_bytes"]
                                         for q in ranks],
@@ -3511,8 +3523,9 @@ def phase11b(torch, device, n=1_000_000, nx=200, us=20, n_ext=4, n_fuse=2):
         assert r["drops"] == 0 and r["migrated"] > 0, r
         if device.type == "cuda":
             assert all(k == n_ext for k in r["k1_launches"]), r
-            # a tile sorts every external step
+            # a tile sorts and migrates every external step
             assert all(k == n_ext for k in r["sort_key_launches"]), r
+            assert all(k == n_ext for k in r["migrate_launches"]), r
         out[key] = r
         if len(res) > 1:
             got_s, ranks_s = res[1]
@@ -4549,6 +4562,114 @@ def phase14(torch, device, shapes=None, reps=20):
     return out
 
 
+# phase 15's blocks: a middle rank of the four-card cell (7.5M slots,
+# 4.2M live, 2.8% of them leaving, float64) and a smaller float32 one
+MIGRATE_SHAPES = {
+    "7.5M": dict(n=7_500_000, live=4_200_000, share=0.028, dtype="float64"),
+    "1M": dict(n=1_000_000, live=600_000, share=0.028, dtype="float32")}
+
+
+def loopback(arrivals, log=None):
+    """An exchange on one card that returns ``arrivals``: the counts come
+    to the host once (as over NCCL); ``log`` keeps the rows sent."""
+    def exchange(send, counts):
+        if not isinstance(counts, list):
+            counts = counts.tolist()
+        if log is not None:
+            log.append((send[:sum(counts)].clone(), counts))
+        return arrivals
+    return exchange
+
+
+def migrate_bytes(n, live, leave, arrive, row):
+    """The least bytes of a migrate: each live slot's row and an EMPTY
+    slot's status read, the arrivals read, the new block and the rows
+    sent written, once each."""
+    return (live * row + (n - live) * 4 + arrive * row
+            + n * row + leave * row)
+
+
+def phase15(torch, device, shapes=None, reps=20):
+    """The migration's kernels (kernels/migrate.py) on each block of
+    MIGRATE_SHAPES (see the module's docstring, 15)."""
+    import warnings
+    from ltjax_torch import shard, state as st, synth
+    from ltjax_torch.kernels import migrate as km
+    cuda = device.type == "cuda"
+    out = {}
+    for name, s in (shapes or MIGRATE_SHAPES).items():
+        n, live = s["n"], s["live"]
+        leave = int(s["share"] * live)
+        dtype = getattr(torch, s["dtype"])
+        p, edges = synth.migration_block(n, live, leave, dtype=dtype,
+                                         device=device, seed=15)
+        a, _ = synth.migration_block(leave, leave, 0, dtype=dtype,
+                                     device=device, seed=16)
+        arrivals = shard.pack_rows(a)
+        spec = shard.TileSpec(ndp=1, ntiles=4, halo=1, ny_loc=1, cap=n,
+                              mig_cap=n // 4)
+        edges = torch.as_tensor(edges, device=device)
+        sent_row = shard.pack_rows(shard.sentinel(dtype, device, 5e4, 1.5e3))
+        log_k, log_p = [], []
+        before = km.migrate.launches
+        sync(torch, device)
+        if cuda:
+            torch.cuda.set_sync_debug_mode("warn")
+        try:
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                got = shard.migrate(p, spec, edges, 1, sent_row,
+                                    loopback(arrivals, log_k))
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum("synchroniz" in str(w.message) for w in caught)
+        want = shard.plain_migrate(p, spec, edges, 1, sent_row,
+                                   loopback(arrivals, log_p))
+        (gp, gd, gs), (wp, wd, ws) = got, want
+        row = km.row_bytes(dtype)
+        res = {"phase": 15, "shape": name, "slots": n, "live": live,
+               "leavers": leave, "dtype": s["dtype"],
+               "launches": km.migrate.launches - before,
+               "synchronizing_calls": syncs,
+               "columns_equal": all(
+                   torch.equal(getattr(gp, k).view(torch.uint8),
+                               getattr(wp, k).view(torch.uint8))
+                   for k in st.FIELDS),
+               "rows_sent_equal": torch.equal(log_k[0][0], log_p[0][0]),
+               "counts": [log_k[0][1], log_p[0][1]],
+               "drops_sent": [int(gd), int(gs), int(wd), int(ws)]}
+        if cuda:
+            nbytes = migrate_bytes(n, live, leave, leave, row)
+            res["ms"] = {
+                "kernel": cuda_time(torch, lambda: shard.migrate(
+                    p, spec, edges, 1, sent_row, loopback(arrivals)), reps),
+                "plain": cuda_time(torch, lambda: shard.plain_migrate(
+                    p, spec, edges, 1, sent_row, loopback(arrivals)), reps),
+                "bound": 1e3 * nbytes / HBM_BYTES_PER_S,
+                "bytes": nbytes}
+            res["bound_share"] = res["ms"]["bound"] / res["ms"]["kernel"]
+            res["peak_bytes"] = {}
+            for side, fn in (("kernel", shard.migrate),
+                             ("plain", shard.plain_migrate)):
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                fn(p, spec, edges, 1, sent_row, loopback(arrivals))
+                torch.cuda.synchronize()
+                res["peak_bytes"][side] = (torch.cuda.max_memory_allocated()
+                                           - base)
+        log(res)
+        assert res["columns_equal"] and res["rows_sent_equal"], res
+        assert res["counts"][0] == res["counts"][1], res
+        dk = res["drops_sent"]
+        assert dk[:2] == dk[2:] and dk[1] > 0, res
+        assert res["launches"] == (1 if cuda else 0), res
+        assert res["synchronizing_calls"] == (1 if cuda else 0), res
+        out[name] = res
+    return out
+
+
 def profile_cells(torch, device, n=1_000_000, nx=200, us=20, n_fuse=16):
     """Where the time goes (``--profile``): each bench.py variant at 1M
     particles, 16 x 30 steps through make_fused_external_steps on phase
@@ -4651,7 +4772,8 @@ def lanes_variant(kw=None, **geometry):
 def kernel_targets():
     """Every kernel library the phases run, as (source, variant) pairs
     for build.prebuild: the whole-step kernel in each variant, the
-    per-step RK4 kernel, the per-step lanes kernel and the sort key."""
+    per-step RK4 kernel, the per-step lanes kernel, the sort key and the
+    migration's kernels."""
     from ltjax_torch.kernels import ext_step as kx
     cfgs = [make_cfg(1, **kw) for kw in [
         {}, *LARVAL.values(), *LANE_CHECKS.values(), *SETTLE_SALT.values(),
@@ -4677,7 +4799,7 @@ def kernel_targets():
             (None, {"curv": True}), (None, {"tile": True}),
             (None, {"pos64": True, "tile": True}),
             *((kw, {}) for kw in list(LANES8.values())[1:]))] + [
-        ("sort_key", None)]
+        ("sort_key", None), ("migrate", None)]
 
 
 def staging_report(targets, us=20, ws=21):
@@ -4710,7 +4832,7 @@ def main(argv=None):
     elif argv == ["--profile"]:
         only = set()
     elif argv:
-        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,14 | "
+        raise SystemExit("usage: chip_smoke.py [--only 1,2,...,15 | "
                          "--profile]")
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device; this script measures "
@@ -4750,7 +4872,8 @@ def main(argv=None):
               11: lambda: phase11(torch, device),
               12: lambda: phase12(torch, device),
               13: lambda: phase13(torch, device),
-              14: lambda: phase14(torch, device)}
+              14: lambda: phase14(torch, device),
+              15: lambda: phase15(torch, device)}
     res, wall = {}, {}
     for k, fn in phases.items():
         if only is None or k in only:
@@ -4893,6 +5016,21 @@ def main(argv=None):
             "max_abs_err": r["max_abs_err"], "ms": r["key_ms"]["kernel"],
             "plain_ms": r["key_ms"]["plain"],
             "bound_ms": r["key_ms"]["bound"], "bound_by": "bytes",
+            "library_ms": None})
+    # the migration's kernels: their launches on 11b's four tiles (one a
+    # migrate, every external step), the largest byte that differed from
+    # the plain version's (0: compared bit for bit), ms a migrate on
+    # phase 15's blocks; they replace no TPU kernel (ltjax's _migrate is
+    # XLA ops)
+    for name, r in (("migrate[tile]", res[15]["7.5M"]),
+                    ("migrate", res[15]["1M"])):
+        kernels.append({
+            "name": name, "route": "cuda", "source": MIGRATE_SRC,
+            "replaces": None,
+            "launches": sum(res[11]["b"]["11b-1x4"]["migrate_launches"]),
+            "max_abs_err": 0, "ms": r["ms"]["kernel"],
+            "plain_ms": r["ms"]["plain"], "bound_ms": r["ms"]["bound"],
+            "bound_by": "bytes", "bound_share": r["bound_share"],
             "library_ms": None})
     log({"kernels": kernels})
     log(card)

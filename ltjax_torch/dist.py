@@ -31,6 +31,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
+from .trace import span
+
 # collectives wait this long for a late rank before failing
 TIMEOUT_S = 1800
 
@@ -60,19 +62,26 @@ class Rank:
 
     def exchange(self, send: torch.Tensor, counts) -> torch.Tensor:
         """all_to_all over the dp row: ``send`` holds counts[t] rows for
-        tile t, in tile order; returns the rows from every tile, in tile
-        order, on this rank's device (the counts travel first)."""
-        c = self._out(torch.tensor(counts, dtype=torch.int64,
-                                   device=self.device))
-        rc = torch.empty_like(c)
-        dist.all_to_all_single(rc, c, group=self.row_group)
-        rc = rc.tolist()
-        buf = self._out(send.contiguous())
-        recv = buf.new_empty((sum(rc),) + tuple(buf.shape[1:]))
-        dist.all_to_all_single(recv, buf, output_split_sizes=rc,
-                               input_split_sizes=list(counts),
-                               group=self.row_group)
-        return recv.to(self.device)
+        tile t, in tile order (rows beyond their sum are not sent);
+        ``counts`` a list of ints or an int64 tensor on this rank's
+        device.  Returns the rows from every tile, in tile order, on this
+        rank's device.  The counts travel first, on the device under
+        NCCL; the send and receive counts then come to the host in one
+        copy, the one wait (under gloo the rows pass through the host
+        besides)."""
+        with span("ltjax_torch.exchange"):
+            c = self._out(torch.as_tensor(counts, dtype=torch.int64,
+                                          device=self.device))
+            got = torch.empty_like(c)
+            dist.all_to_all_single(got, c, group=self.row_group)
+            sizes = torch.cat([c, got]).tolist()
+            sc, rc = sizes[:c.numel()], sizes[c.numel():]
+            buf = self._out(send[:sum(sc)].contiguous())
+            recv = buf.new_empty((sum(rc),) + tuple(buf.shape[1:]))
+            dist.all_to_all_single(recv, buf, output_split_sizes=rc,
+                                   input_split_sizes=sc,
+                                   group=self.row_group)
+            return recv.to(self.device)
 
     def sum(self, values) -> list:
         """Element-wise sum over every rank of a list of ints."""

@@ -643,12 +643,15 @@ def kernel_targets(cfg: Config, grid: Grid, tile: bool = False) -> list:
     """The (source, variant) pairs of the kernels that ``cfg`` runs on
     ``grid`` (for ``kernels.build.prebuild``; ``tile``: on the tiles of a
     sharded run): K1 on the ext_step route, K2 and the lanes kernel K3 on
-    the per-step route, and the Hilbert sort's key on every route."""
+    the per-step route, the Hilbert sort's key on every route, and the
+    migration's kernels on the tiles of more than one strip."""
     from .kernels import ext_step as kx, rk4_step as kr
     from .physics.boundary import _cell_edges
     from .grid import _is_uniform
     route = mode_flags(None, cfg)
     key = [("sort_key", None)]
+    if tile and cfg.mesh_tiles > 1:
+        key.append(("migrate", None))
     if route in ("native", "packed"):
         return key
     dtype = getattr(torch, cfg.dtype_pos)

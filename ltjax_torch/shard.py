@@ -17,7 +17,8 @@ data-parallel row r // ntiles.
   releases or moves.  After each external step, particles whose y left
   the strip are sent to their owner tile in one ``all_to_all`` over the
   ranks of the data-parallel row, at most ``mig_cap`` to each (``migrate``,
-  ltjax's ``_migrate``): leavers beyond ``mig_cap`` stay home flagged
+  ltjax's ``_migrate``; on the card the hand-written kernels of
+  ``kernels/migrate.py``): leavers beyond ``mig_cap`` stay home flagged
   ERROR, arrivals beyond ``cap`` are dropped, both counted.
 * A tile steps on the route that the configuration takes on one device
   (``step.mode_flags``: the whole-step kernel K1, the per-step route with
@@ -329,13 +330,29 @@ def migrate(p: st.Particles, spec: TileSpec, tile_edges: torch.Tensor,
     ``tile_edges`` (ntiles + 1,) float64 on the particles' device;
     ``sent`` the packed sentinel row (``pack_rows(sentinel(...))``);
     ``exchange(rows, counts)`` the all_to_all over the data-parallel
-    row: ``counts[t]`` rows (at most mig_cap) for tile t, in tile order;
-    returns the rows from every tile in tile order (only the leavers
-    move: ltjax's fixed mig_cap blocks, without their EMPTY padding).
-    Leavers beyond mig_cap stay local flagged ERROR; merge overflow
-    beyond cap is dropped.  Returns (p', drops, sent_count): drops
-    counts both (as ltjax's overflow count), sent_count the particles
-    that left (int64 device scalars)."""
+    row (``dist.Rank.exchange``): ``counts[t]`` rows (at most mig_cap)
+    for tile t, in tile order; returns the rows from every tile in tile
+    order (only the leavers move: ltjax's fixed mig_cap blocks, without
+    their EMPTY padding).  Leavers beyond mig_cap stay local flagged
+    ERROR; merge overflow beyond cap is dropped.  Returns (p', drops,
+    sent_count): drops counts both (as ltjax's overflow count),
+    sent_count the particles that left (int64 device scalars).
+
+    CPU tensors take the plain version, ``plain_migrate`` (counts a list
+    of ints); CUDA tensors the hand-written kernels of
+    ``kernels/migrate.py``, bit for bit the same (counts an int64 tensor
+    on the card, the one host read left in the exchange)."""
+    with span("ltjax_torch.migrate"):
+        if p.x.device.type == "cpu":
+            return plain_migrate(p, spec, tile_edges, my_t, sent, exchange)
+        from .kernels import migrate as km
+        return km.migrate(p, spec, tile_edges, my_t, sent, exchange)
+
+
+def plain_migrate(p: st.Particles, spec: TileSpec, tile_edges: torch.Tensor,
+                  my_t: int, sent: torch.Tensor, exchange):
+    """``migrate`` as PyTorch ops: the CPU path, and the kernels' plain
+    version."""
     ntiles, mc, n = spec.ntiles, spec.mig_cap, p.n
     dev, dtype = p.x.device, p.x.dtype
     valid = p.status != EMPTY
@@ -523,8 +540,8 @@ class TiledCase(NamedTuple):
 
 
 def _tiled_case(me, case: TiledCase, dev):
-    from .kernels import (ext_step as kx, rk4_step as kr, sort_key as sk,
-                          step_lanes as sl)
+    from .kernels import (ext_step as kx, migrate as km, rk4_step as kr,
+                          sort_key as sk, step_lanes as sl)
     ctx, cfg, spec = to_device(case.ctx, dev), case.cfg, case.spec
     ny = ctx.grid.ny
     if ctx.grid.curv is not None:
@@ -563,6 +580,7 @@ def _tiled_case(me, case: TiledCase, dev):
             "rk4_launches": kr.rk4_displacement_fused.launches,
             "lanes_launches": sl.step_lanes_fused.launches,
             "sort_key_launches": sk.sort_key.launches,
+            "migrate_launches": km.migrate.launches,
             "variant_launches": {**kx.ext_step_fused.variant_launches,
                                  **kr.rk4_displacement_fused.variant_launches,
                                  **sl.step_lanes_fused.variant_launches},
@@ -591,7 +609,8 @@ def run_tiled_steps(cases, device="cpu", backend: str = "gloo"):
     Returns, per case, (the particles in pid order on the CPU, a list per
     rank of {"drops", "sent", "seconds" (its stepping wall time, after a
     barrier), "launches" (K1), "rk4_launches" (K2), "lanes_launches" (K3),
-    "sort_key_launches" (the sort key's kernel), "variant_launches",
+    "sort_key_launches" (the sort key's kernel), "migrate_launches" (the
+    migration's kernels, one a call), "variant_launches",
     "peak_memory_bytes"})."""
     spec = cases[0].spec
     if any((c.spec.ndp, c.spec.ntiles) != (spec.ndp, spec.ntiles)

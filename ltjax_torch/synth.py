@@ -24,6 +24,11 @@ written by ``write_run_files(habitat=, holes=)``.
 a gently curvilinear mesh (``CurvSolidBodyCase``); its u/v nodes sit at
 the logical midpoints of the rho nodes, O(h^2 curvature) off the rho
 mesh, so trajectories follow the circles to metres over hours.
+
+``migration_block`` makes one rank's slot block for ``shard.migrate``:
+EMPTY slots, particles that stay and particles that leave for the other
+strips, with every status and, on request, y on the strips' edges and
+off the real line.
 """
 
 from __future__ import annotations
@@ -515,3 +520,51 @@ def write_run_files(case: SolidBodyCase, out_dir: str, x, y, z,
             f.write(f"  {k} = {_nml_value(v)}\n")
         f.write("/\n")
     return path
+
+
+def migration_block(n: int, live: int, leave: int, ntiles: int = 4,
+                    my_t: int = 1, dtype=torch.float64, device="cpu",
+                    seed: int = 0, strip: float = 1e3, edge_cases=False):
+    """One rank's block of ``n`` slots on ``ntiles`` eta strips of
+    ``strip`` metres (ownership edges -inf, strip, 2 strip, ..., inf):
+    ``live`` particles in random slots (the rest EMPTY), ``leave`` of them
+    in the other strips (each a random one), the others in strip
+    ``my_t``; every status but EMPTY, random columns.  ``edge_cases``
+    puts the first live particles' y on the edges, one ulp either side,
+    and at NaN and +-inf.  Returns (Particles, edges) with the edges as a
+    float64 numpy array."""
+    from .shard import EMPTY
+    from .state import Particles
+    rng = np.random.default_rng(seed)
+    edges = np.concatenate([[-np.inf], strip * np.arange(1, ntiles),
+                            [np.inf]])
+    slots = rng.permutation(n)[:live]
+    dest = np.full(live, my_t)
+    if ntiles > 1 and leave:
+        other = rng.integers(0, ntiles - 1, leave)
+        dest[:leave] = other + (other >= my_t)
+    dest = rng.permutation(dest)
+    y = rng.uniform(-strip, (ntiles + 1) * strip, n)
+    y[slots] = (dest + rng.uniform(0.0, 1.0, live)) * strip
+    if edge_cases:
+        special = np.concatenate([
+            edges[1:-1], np.nextafter(edges[1:-1], -np.inf),
+            np.nextafter(edges[1:-1], np.inf), [np.nan, np.inf, -np.inf]])
+        k = min(live, special.size)
+        y[slots[:k]] = special[:k]
+    status = np.full(n, EMPTY, np.int32)
+    status[slots] = rng.integers(0, 6, live)
+
+    def f(a):
+        return torch.as_tensor(a, dtype=dtype, device=device)
+
+    def i(a):
+        return torch.as_tensor(a, dtype=torch.int32, device=device)
+
+    return Particles(
+        x=f(rng.uniform(0.0, 1e5, n)), y=f(y), z=f(rng.uniform(-50, 0, n)),
+        dob=f(rng.uniform(0, 1e5, n)), age=f(rng.uniform(0, 1e5, n)),
+        status=i(status), pid=i(rng.permutation(n)),
+        settle_poly=i(rng.integers(-1, 5, n)),
+        hit_land=i(rng.integers(0, 9, n)), hit_bottom=i(rng.integers(0, 9, n)),
+        salt=f(rng.uniform(0, 35, n)), temp=f(rng.uniform(0, 30, n))), edges

@@ -26,6 +26,10 @@ The spans, each named ``ltjax_torch.<layer>``:
   (``step_lanes_fused``), each with a child ``<span>.upload`` around
   its host-to-device copies (the part that may wait on the stream);
 * ``counts``: ``step.summary_counts``, a chunk's host sync;
+* ``migrate``: one ``shard.migrate`` of a tile's slots after an external
+  step, with the child ``exchange`` around ``dist.Rank.exchange`` (the
+  all_to_all of the counts, the one host read, the all_to_all of the
+  rows);
 * ``read``, ``output``, ``checkpoint``: the CLI's record window, its
   trajectory snapshot and its checkpoint of a chunk.
 
@@ -65,12 +69,13 @@ def spanned(name: str):
 
 def reset_counters() -> None:
     """Zero the launch counts (``.launches``, ``.variant_launches``) of
-    the wrappers of K1, K2 and K3 and of the sort key's, and K1's device
-    counters (no wait)."""
-    from .kernels import (ext_step as kx, rk4_step as kr, sort_key as sk,
-                          step_lanes as sl)
+    the wrappers of K1, K2 and K3, of the sort key's and of the
+    migration's, and K1's device counters (no wait)."""
+    from .kernels import (ext_step as kx, migrate as km, rk4_step as kr,
+                          sort_key as sk, step_lanes as sl)
     kx.reset_launches()
     sk.sort_key.launches = 0
+    km.migrate.launches = 0
     for fn in (kr.rk4_displacement_fused, sl.step_lanes_fused):
         fn.launches = 0
         fn.variant_launches = {}

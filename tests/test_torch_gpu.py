@@ -74,7 +74,18 @@ version's keys bit for bit on 1M random cells and the edge cases
 of range), unbanded and banded; ``sort_by_cell`` on the card gives the
 CPU's permutation from the same cells; make_fused_external_steps launches it once
 a sort.
+
+The migration's kernels (csrc/migrate.cu) give the plain version's new
+block, send rows and counts, drops and sent count byte for byte (the
+plain version on the same block on the CPU), in float32 and float64: a
+mixed block with y on the strips' edges and at NaN and +-inf, no
+leavers, every slot a leaver, every slot EMPTY, mig_cap 2 (leavers stay
+as ERROR), arrivals past cap (dropped; some arrivals EMPTY), and a
+rank's block of the four-card cell (7.5M slots, 4.2M live, 2.8%
+leaving); one launch count a call, and one synchronizing call (the
+exchange's read of the counts).
 """
+import warnings
 from dataclasses import replace
 
 
@@ -83,11 +94,13 @@ import pytest
 import torch
 
 from ltjax_torch import packed as pk
+from ltjax_torch import shard
 from ltjax_torch import spatial as sp
 from ltjax_torch import state as st
 from ltjax_torch import synth
 from ltjax_torch.config import Config
 from ltjax_torch.kernels import ext_step as kx
+from ltjax_torch.kernels import migrate as km
 from ltjax_torch.kernels import rk4_step as kr
 from ltjax_torch.kernels import sort_key as sk
 from ltjax_torch.physics import boundary as bd
@@ -1504,3 +1517,108 @@ def test_fused_steps_launch_the_sort_key_once_a_sort(gpu, every, sorts):
     make_fused_external_steps(ctx, replace(cfg, ext_sort_every=every), 4)(
         p, fsR, 0.0, 0)
     assert sk.sort_key.launches == n0 + sorts
+
+
+# (slots, live, leavers, arrivals, EMPTY arrivals, mig_cap, edge cases)
+MIGRATIONS = {
+    "mixed": (50_000, 30_000, 3_000, 2_500, 100, None, True),
+    "no_leavers": (50_000, 30_000, 0, 1_000, 0, None, False),
+    "all_leave": (20_000, 20_000, 20_000, 500, 0, 20_000, False),
+    "all_empty": (20_000, 0, 0, 700, 50, None, False),
+    "mig_cap_2": (20_000, 12_000, 600, 300, 0, 2, False),
+    "past_cap": (5_000, 4_500, 100, 2_000, 30, None, False),
+}
+
+
+def _migration_case(dtype, device, n, live, leave, arrive, empty, mc,
+                    edges_cases, seed=5):
+    p, edges = synth.migration_block(n, live, leave, ntiles=4, my_t=1,
+                                     dtype=dtype, device=device, seed=seed,
+                                     edge_cases=edges_cases)
+    a, _ = synth.migration_block(arrive, arrive, 0, ntiles=4, my_t=1,
+                                 dtype=dtype, device=device, seed=seed + 1)
+    status = a.status.clone()
+    status[torch.randperm(arrive, generator=torch.Generator().manual_seed(
+        seed))[:empty].to(device)] = shard.EMPTY
+    arrivals = shard.pack_rows(a.replace(status=status))
+    spec = shard.TileSpec(ndp=1, ntiles=4, halo=1, ny_loc=1, cap=n,
+                          mig_cap=mc if mc is not None else n // 4)
+    sent_row = shard.pack_rows(shard.sentinel(dtype, device, 5e4, 1.5e3))
+    return p, spec, torch.as_tensor(edges, device=device), sent_row, arrivals
+
+
+def _loopback(arrivals, log):
+    """An exchange that keeps what was sent and returns ``arrivals``: the
+    counts come to the host once, as over NCCL."""
+    def exchange(send, counts):
+        if isinstance(counts, torch.Tensor):
+            counts = counts.tolist()
+        log.append((send[:sum(counts)].clone(), list(counts)))
+        return arrivals
+    return exchange
+
+
+def _bits(v):
+    return v.view({8: torch.int64, 4: torch.int32}[v.element_size()]).cpu()
+
+
+def _migrate_both(gpu, dtype, case):
+    p, spec, edges, sent_row, arrivals = case
+    want_log, got_log = [], []
+    want = shard.migrate(p.to("cpu"), spec, edges.cpu(), 1, sent_row.cpu(),
+                         _loopback(arrivals.cpu(), want_log))
+    n0 = km.migrate.launches
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            got = shard.migrate(p, spec, edges, 1, sent_row,
+                                _loopback(arrivals, got_log))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    torch.cuda.synchronize()
+    assert km.migrate.launches == n0 + 1
+    assert len(syncs) == 1, [str(w.message) for w in syncs]
+    (gp, gd, gs), (wp, wd, ws) = got, want
+    for k in st.FIELDS:
+        assert torch.equal(_bits(getattr(gp, k)), _bits(getattr(wp, k))), k
+    assert gd.device.type == "cuda" and gd.dtype == torch.int64
+    assert (int(gd), int(gs)) == (int(wd), int(ws))
+    assert got_log[0][1] == want_log[0][1]
+    assert torch.equal(got_log[0][0].cpu(), want_log[0][0])
+    return gp, int(gd), int(gs)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, F64], ids=["f32", "f64"])
+@pytest.mark.parametrize("name", list(MIGRATIONS))
+def test_migrate_kernel_matches_plain(gpu, dtype, name):
+    n, live, leave, arrive, empty, mc, edge = MIGRATIONS[name]
+    case = _migration_case(dtype, gpu, n, live, leave, arrive, empty, mc,
+                           edge)
+    p, drops, sent = _migrate_both(gpu, dtype, case)
+    held = int((p.status != shard.EMPTY).sum())
+    if name == "mig_cap_2":
+        assert sent == 6 and drops == leave - 6
+        assert int((p.status == st.ERROR).sum()) >= leave - 6
+    if name == "past_cap":
+        assert held == n and drops == live - sent + arrive - empty - n
+    if name == "all_leave":
+        assert sent == n and held == arrive
+    if name == "no_leavers":
+        assert sent == 0 and drops == 0 and held == live + arrive
+
+
+@pytest.mark.gpu
+def test_migrate_kernel_matches_plain_on_a_rank_of_the_four_card_cell(gpu):
+    """7.5M slots, 4.2M live, 2.8% of them leaving, float64: the block of
+    a middle rank of tiles-10m-4chip."""
+    n, live = 7_500_000, 4_200_000
+    leave = int(0.028 * live)
+    case = _migration_case(F64, gpu, n, live, leave, leave, 0, n // 4,
+                           False)
+    p, drops, sent = _migrate_both(gpu, F64, case)
+    assert sent == leave and drops == 0
+    assert int((p.status != shard.EMPTY).sum()) == live

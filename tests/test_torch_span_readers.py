@@ -140,3 +140,55 @@ def test_the_accepted_readers_do_not_see_the_spans():
     # the unsort, cat and radix kernels, the memset and both copies: 9 us
     assert lr.load_reader(ROOT, "stepper_device_ms_per_ext")(
         with_spans) == pytest.approx(9e-3 / 2)
+
+
+def _migration_window():
+    """One migrate: its split kernels, the exchange (NCCL's kernels
+    launched inside the collectives' host ranges, the counts' cat and
+    their copy to the host), its merge kernels; then K1 outside it."""
+    host = [
+        ("ltjax_torch.chunk", 0.0, 100.0),
+        ("ltjax_torch.migrate", 10.0, 60.0),
+        ("cudaLaunchKernel", 11.0, 11.5),
+        ("cudaLaunchKernel", 12.0, 12.5),
+        ("ltjax_torch.exchange", 20.0, 50.0),
+        ("nccl:all_to_all", 21.0, 25.0),
+        ("cudaLaunchKernel", 22.0, 22.5),
+        ("cudaLaunchKernel", 30.0, 30.5),
+        ("cudaMemcpyAsync", 31.0, 40.0),
+        ("nccl:all_to_all", 41.0, 45.0),
+        ("cudaLaunchKernel", 42.0, 42.5),
+        ("cudaLaunchKernel", 52.0, 52.5),
+        ("cudaLaunchKernel", 53.0, 53.5),
+        ("ltjax_torch.k1", 70.0, 80.0),
+        ("cudaLaunchKernel", 71.0, 71.5),
+    ]
+    device = [
+        ("void migrate_count_kernel<double>(Cols, int)", 13.0, 15.0),
+        ("void migrate_scatter_kernel<double>(Cols, Cols)", 15.0, 20.0),
+        ("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
+         23.0, 26.0),
+        ("void at::native::cat_kernel", 31.0, 32.0),
+        ("Memcpy DtoH (Device -> Pageable)", 38.0, 39.0),
+        ("ncclDevKernel_SendRecv(ncclDevKernelArgsStorage<4096ul>)",
+         43.0, 47.0),
+        ("void migrate_arrivals_kernel(unsigned int const*)", 54.0, 55.0),
+        ("void migrate_fill_kernel<double>(Cols, int)", 55.0, 58.0),
+        (K1, 72.0, 98.0),
+    ]
+    return {"host": host, "device": device, "span": [0.0, 130.0]}
+
+
+def test_the_migration_reader_leaves_nccl_out():
+    """migrate_device_ms_per_ext: the records under the migrate span and
+    its exchange child, NCCL's kernels left out: [13, 20] + [31, 32] +
+    [38, 39] + [54, 58] = 13 us over 2 external steps; None without the
+    span (a program without it)."""
+    read = lr.load_reader(ROOT, "migrate_device_ms_per_ext")
+    t = _migration_window()
+    assert read({"trace": t, "ext_steps": 2}) == pytest.approx(13e-3 / 2)
+    t["host"] = [h for h in t["host"]
+                 if h[0] not in ("ltjax_torch.migrate",
+                                 "ltjax_torch.exchange")]
+    assert read({"trace": t, "ext_steps": 2}) is None
+    assert read({"trace": _window(), "ext_steps": 2}) is None

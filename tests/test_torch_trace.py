@@ -15,8 +15,8 @@
   device-function name.
 * Without a profiler no span is entered; the particles are bit-identical
   with and without one.
-* ``reset_counters`` zeroes the wrappers' launch counts (K1, K2, K3 and
-  the sort key).
+* ``reset_counters`` zeroes the wrappers' launch counts (K1, K2, K3, the
+  sort key and the migration).
 """
 
 import numpy as np
@@ -29,6 +29,7 @@ from ltjax_torch import step as tstep
 from ltjax_torch import synth, trace
 from ltjax_torch.config import Config
 from ltjax_torch.kernels import ext_step as kx
+from ltjax_torch.kernels import migrate as km
 from ltjax_torch.kernels import rk4_step as kr
 from ltjax_torch.kernels import sort_key as sk
 from ltjax_torch.kernels import step_lanes as sl
@@ -157,11 +158,12 @@ def test_reset_counters_zeroes_every_wrapper():
         fn.launches = 7
         fn.variant_launches = {"x": 7}
     sk.sort_key.launches = 7
+    km.migrate.launches = 7
     trace.reset_counters()
     for fn in (kx.ext_step_fused, kr.rk4_displacement_fused,
                sl.step_lanes_fused):
         assert fn.launches == 0 and fn.variant_launches == {}
-    assert sk.sort_key.launches == 0
+    assert sk.sort_key.launches == 0 and km.migrate.launches == 0
     assert kx.counts() == dict.fromkeys(kx.COUNTERS, 0)
     assert kx.COUNTERS[-1] == "active_steps"
 
